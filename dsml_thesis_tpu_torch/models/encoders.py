@@ -1,0 +1,72 @@
+"""Conditioning-stage encoders of the talking-face model.
+
+Counterpart of ``dsml_thesis_tpu/models/encoders.py`` for the two streams
+the serving path uses: the class label (with its trainable null row for
+classifier-free guidance) and the audio window pooled to one token. Both
+compute in the promotion of input and parameter types, like the JAX modules
+(an fp32 input through bf16-cast weights stays fp32). The training-time
+label drop is not ported (no training yet).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .unet import Linear
+
+
+class ClassEmbedder(nn.Module):
+    """Class label -> one cross-attention token. Row ``n_classes`` of the
+    (n_classes + 1)-row table is the trainable null embedding that
+    classifier-free guidance uses as the unconditional token."""
+
+    def __init__(self, embed_dim: int, n_classes: int, p_uncond: float = 0.0,
+                 key: str = "class_label"):
+        super().__init__()
+        self.n_classes, self.key = n_classes, key
+        self.p_uncond = p_uncond  # training-time label drop: not ported
+        self.embedding = nn.Embedding(n_classes + 1, embed_dim)
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        """labels: int [B] -> tokens [B, 1, embed_dim]."""
+        return self.embedding(labels.long())[:, None, :]
+
+    def null_token(self, batch_size: int) -> torch.Tensor:
+        """Unconditional token for classifier-free guidance, [B, 1, D]."""
+        row = self.embedding.weight[self.n_classes]
+        return row[None, None, :].expand(batch_size, 1, -1)
+
+
+class Conv1DTemporalAttention(nn.Module):
+    """Attention-pool a (2w+1)-frame audio-feature window into one token.
+
+    A 5-layer Conv1d pyramid 768->192->64->16->4->1 (LeakyReLU 0.02) scores
+    the frames, a Linear + softmax over the window gives the weights, the
+    token is the weighted sum. x [B, seq_len, D] -> [B, 1, D].
+    """
+
+    def __init__(self, seq_len: int, subspace_dim: int = 768,
+                 subspace2hidden: bool = False):
+        super().__init__()
+        if subspace2hidden:
+            raise NotImplementedError("subspace2hidden is not ported: no "
+                                      "talking-face config sets it")
+        self.seq_len = seq_len
+        cin = subspace_dim
+        for i, ch in enumerate((192, 64, 16, 4, 1)):
+            self.add_module(f"att_conv_{i}", nn.Conv1d(cin, ch, 3, padding=1))
+            cin = ch
+        self.att_dense = Linear(seq_len, seq_len)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        h = x.transpose(1, 2)  # [B, D, L] for Conv1d
+        for i in range(5):
+            conv = getattr(self, f"att_conv_{i}")
+            dt = torch.promote_types(h.dtype, conv.weight.dtype)
+            h = F.conv1d(h.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                         padding=1)
+            h = F.leaky_relu(h, negative_slope=0.02)
+        attn = torch.softmax(self.att_dense(h.reshape(b, self.seq_len)), dim=1)
+        return (x * attn[:, :, None]).sum(dim=1)[:, None, :]

@@ -1,0 +1,466 @@
+"""Denoising UNet of the port (PyTorch modules, channel-last at the boundary).
+
+Counterpart of ``dsml_thesis_tpu/models/unet.py``: same architecture, same
+sub-module names (so a JAX parameter tree maps onto ``state_dict`` keys by
+path, see ``convert.py``), same numerics contract:
+  - parameters are fp32 (or cast once for sampling); every Conv / Linear
+    computes in the module's ``dtype`` (bf16 in the shipped configs);
+  - GroupNorm and LayerNorm take their statistics in fp32;
+  - the GEGLU gate is the tanh GELU (PyTorch's ``F.gelu`` default is erf).
+
+``UNetModel.forward(x[B,H,W,C], t[B], context[B,L,D]) -> eps[B,H,W,out]``.
+Inside, tensors are NCHW in ``channels_last`` memory, which is the same
+bytes as the NHWC boundary, so the permutes are views.
+
+Eval-mode self-attention goes through the projection-fused attention op
+(``ops.attention.flash_attention_fproj``); single-token cross-attention is
+the exact broadcast of the JAX package. Ported is what the talking-face
+configs use: the spatial-transformer UNet with conv resampling. Dropout,
+``use_scale_shift_norm``, ``resblock_updown``, class labels and the
+transformer-less attention block raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..flags import env_flag
+from ..ops.attention import (flash_attention, flash_attention_fproj,
+                             fproj_kernel_takes)
+from ..ops.groupnorm import group_norm_silu
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           None: torch.float32}
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else _DTYPES[dtype]
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal embeddings, [cos | sin] ordering like guided-diffusion."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+# --------------------------------------------------------------------------
+# layers that compute in a stated type whatever type their parameters have
+# --------------------------------------------------------------------------
+
+def _compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor,
+                   w: torch.Tensor) -> torch.dtype:
+    """``dtype`` when the layer states one, else the promotion of input and
+    parameter types (an fp32 input through bf16-cast weights stays fp32)."""
+    return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+
+
+class Linear(nn.Linear):
+    def __init__(self, in_features, out_features, bias=True, dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _compute_dtype(self.compute_dtype, x, self.weight)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Conv2d(nn.Conv2d):
+    """NCHW conv computing in ``dtype``."""
+
+    def __init__(self, cin, cout, kernel_size, stride=1, padding=0, dtype=None):
+        super().__init__(cin, cout, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = _compute_dtype(self.compute_dtype, x, self.weight)
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        self.stride, self.padding)
+
+
+class GroupNormSiLU(nn.Module):
+    """GroupNorm (fp32 statistics) optionally followed by SiLU, on NCHW."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 silu: bool = True):
+        super().__init__()
+        self.num_groups, self.eps, self.silu = num_groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        y = group_norm_silu(x.permute(0, 2, 3, 1), self.weight, self.bias,
+                            num_groups=self.num_groups, eps=self.eps,
+                            silu=self.silu)
+        return y.permute(0, 3, 1, 2)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed, and returned, in fp32 (eps 1e-5)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-5)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
+def upsample_nearest(x):
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def _no_dropout(dropout: float):
+    if dropout:
+        raise NotImplementedError(
+            "dropout is not ported (sampling only): set dropout to 0")
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+class ResBlock(nn.Module):
+    """Residual block with the timestep embedding added after the first
+    conv."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int,
+                 dropout: float = 0.0, dtype=None):
+        super().__init__()
+        _no_dropout(dropout)
+        self.in_norm = GroupNormSiLU(channels)
+        self.in_conv = Conv2d(channels, out_channels, 3, padding=1, dtype=dtype)
+        self.emb_proj = Linear(emb_channels, out_channels, dtype=dtype)
+        self.out_norm = GroupNormSiLU(out_channels)
+        self.out_conv = Conv2d(out_channels, out_channels, 3, padding=1,
+                               dtype=dtype)
+        if channels != out_channels:
+            self.skip = Conv2d(channels, out_channels, 1, dtype=dtype)
+
+    def forward(self, x, emb):
+        emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
+        h = self.out_norm(self.in_conv(self.in_norm(x)) + emb_out)
+        h = self.out_conv(h)
+        if hasattr(self, "skip"):
+            x = self.skip(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention on [B, N, C] tokens; self-attention when
+    ``context`` is None. Three branches, chosen by what is computed:
+
+    * one context token: the softmax over one key is 1, so the block is
+      ``to_out(to_v(context))`` broadcast over the queries (exact);
+    * eval-mode self-attention at a shape the fused op takes: one call of
+      ``flash_attention_fproj`` (projections, attention and ``to_out``);
+    * anything else: projections, ``flash_attention`` on split heads, and
+      ``to_out`` composed.
+
+    The JAX package gates the fused branch further on TPU facts (backend,
+    VMEM fit, N >= 256, mesh size, batch >= 8); none is a property of the
+    function, so none is kept here.
+    """
+
+    def __init__(self, query_dim: int, context_dim: Optional[int], heads: int,
+                 dim_head: int, dropout: float = 0.0, dtype=None):
+        super().__init__()
+        _no_dropout(dropout)
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.dtype = dtype
+        kv_dim = query_dim if context_dim is None else context_dim
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Linear(kv_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Linear(kv_dim, inner, bias=False, dtype=dtype)
+        self.to_out = Linear(inner, query_dim, dtype=dtype)
+
+    def forward(self, x, context=None):
+        dt = self.dtype or x.dtype
+        scale = self.dim_head ** -0.5
+        if context is not None and context.shape[1] == 1:
+            out = self.to_out(self.to_v(context))
+            return out.expand(x.shape[0], x.shape[1], out.shape[-1])
+        if (context is None and not self.training
+                and (x.device.type == "cpu"
+                     or fproj_kernel_takes(x.shape[-1], self.dim_head, dt))):
+            cast = lambda p: p.to(dt)
+            return flash_attention_fproj(
+                x.to(dt).contiguous(), cast(self.to_q.weight),
+                cast(self.to_k.weight), cast(self.to_v.weight),
+                cast(self.to_out.weight), cast(self.to_out.bias), self.heads,
+                scale=scale)
+        context = x if context is None else context
+        b, n, _ = x.shape
+        split = lambda t: t.reshape(b, t.shape[1], self.heads,
+                                    self.dim_head).permute(0, 2, 1, 3
+                                                           ).contiguous()
+        out = flash_attention(split(self.to_q(x)), split(self.to_k(context)),
+                              split(self.to_v(context)), scale=scale)
+        out = out.permute(0, 2, 1, 3).reshape(b, n, -1)
+        return self.to_out(out)
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU MLP, mult 4. The gate is the tanh GELU, the JAX package's
+    default; DSML_GELU_EXACT=1 selects the erf form there and here."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 dtype=None):
+        super().__init__()
+        _no_dropout(dropout)
+        self.proj_in = Linear(dim, dim * mult * 2, dtype=dtype)
+        self.proj_out = Linear(dim * mult, dim, dtype=dtype)
+
+    def forward(self, x):
+        a, gate = self.proj_in(x).chunk(2, dim=-1)
+        form = "none" if env_flag("DSML_GELU_EXACT", False) else "tanh"
+        return self.proj_out(a * F.gelu(gate, approximate=form))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, context_dim: Optional[int], heads: int,
+                 dim_head: int, dropout: float = 0.0, dtype=None):
+        super().__init__()
+        self.norm1, self.norm2, self.norm3 = (LayerNorm32(dim) for _ in range(3))
+        self.attn1 = CrossAttention(dim, None, heads, dim_head, dropout, dtype)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dropout,
+                                    dtype)
+        self.ff = GEGLUFeedForward(dim, dropout=dropout, dtype=dtype)
+
+    def forward(self, x, context=None, tile_pairs: bool = False):
+        x = self.attn1(self.norm1(x)) + x
+        if tile_pairs:
+            # guidance-pair dedup through the first self-attention: both
+            # halves are identical until attn2 first reads the context
+            x = torch.cat([x, x], dim=0)
+        x = self.attn2(self.norm2(x), context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SpatialTransformer(nn.Module):
+    """Feature map -> tokens -> transformer blocks -> feature map, residual."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None, dropout: float = 0.0,
+                 dtype=None):
+        super().__init__()
+        inner = heads * dim_head
+        self.depth = depth
+        self.norm = GroupNormSiLU(channels, eps=1e-6, silu=False)
+        self.proj_in = Conv2d(channels, inner, 1, dtype=dtype)
+        for d in range(depth):
+            self.add_module(f"block_{d}", BasicTransformerBlock(
+                inner, context_dim, heads, dim_head, dropout, dtype))
+        self.proj_out = Conv2d(inner, channels, 1, dtype=dtype)
+
+    def forward(self, x, context=None, tile_pairs: bool = False):
+        b, c, h, w = x.shape
+        x_in = x
+        x = self.proj_in(self.norm(x))
+        x = x.permute(0, 2, 3, 1).reshape(b, h * w, -1)
+        for d in range(self.depth):
+            x = getattr(self, f"block_{d}")(x, context, tile_pairs and d == 0)
+        if tile_pairs:
+            b = 2 * b
+            x_in = torch.cat([x_in, x_in], dim=0)
+        x = x.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+        return self.proj_out(x) + x_in
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int, out_channels: Optional[int] = None,
+                 use_conv: bool = True, dtype=None):
+        super().__init__()
+        if use_conv:
+            self.conv = Conv2d(channels, out_channels or channels, 3,
+                               padding=1, dtype=dtype)
+
+    def forward(self, x):
+        x = upsample_nearest(x)
+        return self.conv(x) if hasattr(self, "conv") else x
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int, out_channels: Optional[int] = None,
+                 use_conv: bool = True, dtype=None):
+        super().__init__()
+        if use_conv:
+            self.conv = Conv2d(channels, out_channels or channels, 3, stride=2,
+                               padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x) if hasattr(self, "conv") else F.avg_pool2d(x, 2)
+
+
+class UNetModel(nn.Module):
+    """The denoiser. forward(x[B,H,W,C], t[B], context[B,L,D]) -> [B,H,W,out]."""
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Sequence[int],
+                 dropout: float = 0.0,
+                 channel_mult: Sequence[int] = (1, 2, 4, 8),
+                 conv_resample: bool = True, num_heads: int = -1,
+                 num_head_channels: int = -1,
+                 use_scale_shift_norm: bool = False,
+                 resblock_updown: bool = False,
+                 use_spatial_transformer: bool = True,
+                 transformer_depth: int = 1, context_dim: Optional[int] = None,
+                 num_classes: Optional[int] = None,
+                 use_checkpoint: bool = False, dtype=None,
+                 image_size: Optional[int] = None, legacy: bool = True):
+        super().__init__()
+        for name, on in (("use_scale_shift_norm", use_scale_shift_norm),
+                         ("resblock_updown", resblock_updown),
+                         ("use_spatial_transformer=False",
+                          not use_spatial_transformer)):
+            if on:
+                raise NotImplementedError(
+                    f"{name} is not ported: no talking-face config sets it")
+        if context_dim is None:
+            raise ValueError("the spatial transformer needs context_dim")
+        if num_heads == -1 and num_head_channels == -1:
+            raise ValueError("set one of num_heads / num_head_channels")
+        if num_classes is not None:
+            raise NotImplementedError("class-conditional UNet is not ported")
+        del use_checkpoint, image_size  # training-only / ignored config keys
+        dtype = resolve_dtype(dtype)
+        self.dtype = dtype
+        self.model_channels = model_channels
+        self.channel_mult = tuple(channel_mult)
+        self.num_res_blocks = num_res_blocks
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.context_dim = context_dim
+        self.num_heads, self.num_head_channels = num_heads, num_head_channels
+        self.legacy = legacy
+        emb_dim = model_channels * 4
+
+        def res(cin, cout):
+            return ResBlock(cin, emb_dim, cout, dropout, dtype)
+
+        def attn(ch):
+            heads, dim_head = self._heads(ch)
+            return SpatialTransformer(ch, heads, dim_head, transformer_depth,
+                                      context_dim, dropout, dtype)
+
+        self.time_embed_0 = Linear(model_channels, emb_dim, dtype=dtype)
+        self.time_embed_2 = Linear(emb_dim, emb_dim, dtype=dtype)
+        self.conv_in = Conv2d(in_channels, model_channels, 3, padding=1,
+                              dtype=dtype)
+        ch, ds = model_channels, 1
+        skip_chs: List[int] = [ch]
+        for level, mult in enumerate(self.channel_mult):
+            for i in range(num_res_blocks):
+                self.add_module(f"down_{level}_{i}_res",
+                                res(ch, mult * model_channels))
+                ch = mult * model_channels
+                if ds in self.attention_resolutions:
+                    self.add_module(f"down_{level}_{i}_attn", attn(ch))
+                skip_chs.append(ch)
+            if level != len(self.channel_mult) - 1:
+                self.add_module(f"down_{level}_ds",
+                                Downsample(ch, ch, conv_resample, dtype))
+                skip_chs.append(ch)
+                ds *= 2
+        self.mid_res1 = res(ch, ch)
+        self.mid_attn = attn(ch)
+        self.mid_res2 = res(ch, ch)
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
+            for i in range(num_res_blocks + 1):
+                self.add_module(f"up_{level}_{i}_res",
+                                res(ch + skip_chs.pop(), model_channels * mult))
+                ch = model_channels * mult
+                if ds in self.attention_resolutions:
+                    self.add_module(f"up_{level}_{i}_attn", attn(ch))
+                if level and i == num_res_blocks:
+                    self.add_module(f"up_{level}_us",
+                                    Upsample(ch, ch, conv_resample, dtype))
+                    ds //= 2
+        self.out_norm = GroupNormSiLU(ch)
+        self.conv_out = Conv2d(ch, out_channels, 3, padding=1, dtype=dtype)
+
+    def _heads(self, ch: int) -> Tuple[int, int]:
+        """(num_heads, dim_head) for a channel width (the upstream legacy
+        head-width rule)."""
+        heads = (self.num_heads if self.num_head_channels == -1
+                 else ch // self.num_head_channels)
+        if self.legacy or self.num_head_channels == -1:
+            return heads, ch // heads
+        return heads, self.num_head_channels
+
+    def forward(self, x, timesteps, context=None, cfg_pairs: bool = False):
+        """With ``cfg_pairs`` x / timesteps arrive at B while context is the
+        [uncond; cond] pair at 2B: everything before the first
+        cross-attention is computed once and tiled to 2B there (exact, since
+        both halves share x_t, t and the concat channels); the result is 2B."""
+        if context is None or context.shape[-1] != self.context_dim:
+            raise ValueError(
+                f"context must be [B, L, {self.context_dim}], got "
+                f"{None if context is None else tuple(context.shape)}")
+        if context.shape[0] != (2 if cfg_pairs else 1) * x.shape[0]:
+            raise ValueError(
+                "context batch must equal x's batch, or twice it (the "
+                "[uncond; cond] pair) with cfg_pairs")
+        in_dtype = x.dtype
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        context = context.to(self.dtype)
+
+        t_emb = timestep_embedding(timesteps, self.model_channels)
+        emb = self.time_embed_2(F.silu(self.time_embed_0(t_emb.to(self.dtype))))
+
+        def attn(name, h, tile_pairs=False):
+            return getattr(self, name)(h, context, tile_pairs)
+
+        tile = lambda a: torch.cat([a, a], dim=0)
+        diverged = not cfg_pairs
+        h = self.conv_in(x)
+        hs = [h]
+        ds = 1
+        for level in range(len(self.channel_mult)):
+            for i in range(self.num_res_blocks):
+                h = getattr(self, f"down_{level}_{i}_res")(h, emb)
+                if ds in self.attention_resolutions:
+                    first_pair = not diverged
+                    h = attn(f"down_{level}_{i}_attn", h, first_pair)
+                    if first_pair:
+                        emb, hs = tile(emb), [tile(e) for e in hs]
+                        diverged = True
+                hs.append(h)
+            if level != len(self.channel_mult) - 1:
+                h = getattr(self, f"down_{level}_ds")(h)
+                hs.append(h)
+                ds *= 2
+
+        h = self.mid_res1(h, emb)
+        first_pair = not diverged  # no attention in the input blocks
+        h = attn("mid_attn", h, first_pair)
+        if first_pair:
+            emb, hs = tile(emb), [tile(e) for e in hs]
+            diverged = True
+        h = self.mid_res2(h, emb)
+
+        for level in reversed(range(len(self.channel_mult))):
+            for i in range(self.num_res_blocks + 1):
+                h = torch.cat([h, hs.pop()], dim=1)
+                h = getattr(self, f"up_{level}_{i}_res")(h, emb)
+                if ds in self.attention_resolutions:
+                    h = attn(f"up_{level}_{i}_attn", h)
+                if level and i == self.num_res_blocks:
+                    h = getattr(self, f"up_{level}_us")(h)
+                    ds //= 2
+
+        h = self.conv_out(self.out_norm(h))
+        return h.permute(0, 2, 3, 1).to(in_dtype)

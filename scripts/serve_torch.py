@@ -1,0 +1,109 @@
+#!/usr/bin/env python
+"""Online talking-face synthesis server of the PyTorch port (micro-batching
+HTTP front end over ``dsml_thesis_tpu_torch``).
+
+Concurrent single-clip requests are collected into the batch tier and run as
+one batched pipeline call on the GPU (dsml_thesis_tpu_torch/server.py).
+
+Usage:
+  python scripts/serve_torch.py \
+      --config configs/latent-diffusion/mead-256-ldm-f4.yaml \
+      [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0] \
+      [--size 256] [--port 8000 --max-wait-ms 50] [--device cuda]
+
+``--ckpt`` is a ``torch.save``d state_dict of the port's LatentDiffusion
+(``dsml_thesis_tpu_torch.convert.from_jax_params`` makes one from a JAX
+parameter tree); without it the weights are random, from ``--seed``.
+The device is the GPU; ``--device cpu`` runs the kernels' plain PyTorch
+versions and is for debugging only.
+
+Client contract (npz in, npz out):
+  POST /synthesize  npz{masked_frames[F,H,W,3], audio[T,D], identity[H,W,3],
+                        class_label ()}  ->  npz{frames[F,H,W,3]}
+  GET /healthz, GET /stats
+"""
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import numpy as np
+import torch
+
+from dsml_thesis_tpu_torch.config import build_model, load_config
+from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
+                                             make_video_pipeline)
+from dsml_thesis_tpu_torch.server import (MicroBatcher, PipelineServer,
+                                          make_pipeline_runner)
+from dsml_thesis_tpu_torch.utils_io import cast_sampling_params
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--scale", type=float, default=2.0)
+    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--audio-window", type=int, default=8)
+    ap.add_argument("--audio-seq", type=int, default=None)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--max-wait-ms", type=float, default=50.0,
+                    help="batching window after the first pending request")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="server seed; batch i samples with "
+                         "batch_seed(seed, i): fully reproducible")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the warm-up batch (it also builds the CUDA "
+                         "kernels) before binding")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission cap on queued requests; beyond it new "
+                         "requests get 503 at once")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args()
+
+    device = torch.device(args.device)
+    cfg = load_config([args.config])
+    torch.manual_seed(args.seed)
+    ldm = build_model(cfg["model"])
+    if args.ckpt:
+        ldm.load_state_dict(torch.load(args.ckpt, map_location="cpu"))
+    ldm = cast_sampling_params(ldm).to(device).eval()
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    audio_seq = args.audio_seq or (args.frames + args.audio_window)
+
+    ddim = make_ddim_schedule(ldm.schedule, args.steps, eta=0.0)
+    pipeline = make_video_pipeline(ldm, ddim, args.audio_window,
+                                   guidance_scale=args.scale)
+    runner = make_pipeline_runner(pipeline, seed=args.seed, device=device)
+    print(f"# serving {args.config} on {device} ({args.steps} DDIM steps, "
+          f"cfg {args.scale})")
+    clip_shapes = {
+        "masked_frames": (args.frames, args.size, args.size, 3),
+        "audio": (audio_seq, c2["subspace_dim"]),
+        "identity": (args.size, args.size, 3),
+        "class_label": (),
+    }
+    if not args.no_warmup:
+        t0 = time.monotonic()
+        dummy = {k: np.zeros((args.batch,) + tuple(s), np.float32)
+                 for k, s in clip_shapes.items()}
+        dummy["class_label"] = dummy["class_label"].astype(np.int32)
+        runner(dummy, 0)
+        print(f"# warm-up batch {time.monotonic() - t0:.1f}s")
+
+    batcher = MicroBatcher(runner, args.batch, max_wait_ms=args.max_wait_ms,
+                           max_queue=args.max_queue)
+    server = PipelineServer(batcher, clip_shapes)
+    print(f"# listening on {args.host}:{args.port} "
+          f"(batch tier {args.batch}, window {args.max_wait_ms}ms)")
+    server.serve_forever(args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()
