@@ -12,11 +12,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (timed as a yardstick only; the port never calls it) and the
            least time the card could take (bytes over 3.35 TB/s against
            operations over 989 TFLOP/s bf16, the larger)
-  serve    mead-256-ldm-f4.yaml at full width and depth, random weights from
-           a seed: a MicroBatcher of batch 8 answers 16 single-clip requests
-           (two batches) of F frames, DDIM-50, guidance 2.0; checks shapes,
-           finiteness, range, launch counts, that the batches differ and that
-           (seed, batch index) reproduces a batch bit for bit
+  model    mead-256-ldm-f4.yaml at full width and depth, random weights from
+           a seed: one UNet call and one first-stage decode through the
+           kernels against the same calls through the plain versions
+  serve    the same model: a MicroBatcher of batch 8 answers 16 single-clip
+           requests (two batches) of F frames, DDIM-50, guidance 2.0; checks
+           shapes, finiteness, range, launch counts, that the batches differ
+           and that (seed, batch index) reproduces a batch bit for bit
 then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -209,24 +211,75 @@ def phase_kernels():
     return cases
 
 
-def phase_serve(frames, smi, seed=0):
+def build_ldm(seed=0):
+    """mead-256-ldm-f4 at full width and depth on the card, weights from
+    PyTorch's default inits under a seed, cast for sampling."""
     from dsml_thesis_tpu_torch.config import build_model, load_config
-    from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
-                                                 make_video_pipeline)
-    from dsml_thesis_tpu_torch.ops import attention as A
-    from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
     from dsml_thesis_tpu_torch.utils_io import cast_sampling_params
 
-    batch, n_requests, steps, guidance, size, window = 8, 16, 50, 2.0, 256, 8
-    device = torch.device("cuda")
     cfg = load_config([CONFIG])
-    torch.manual_seed(seed)  # the weights: PyTorch's default inits, seeded
+    torch.manual_seed(seed)
     ldm = build_model(cfg["model"])
     # The codebook's own init, U(-1/K, 1/K), is where training starts: every
     # code sits at the origin, so any latent decodes to the same image. A
     # trained codebook spans the latents' range; unit normal stands in for it.
     torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
-    ldm = cast_sampling_params(ldm).to(device).eval()
+    return cfg, cast_sampling_params(ldm).to("cuda").eval()
+
+
+def phase_model(ldm):
+    """The two models that hold the kernels, each run once on the card
+    through its kernel and once with the kernel's plain version put in its
+    place (patched in here, for this comparison only), on the same inputs:
+    one guidance-pair UNet call at batch 8 and one first-stage decode. A
+    whole bf16 model compounds the kernels' rounding differences through its
+    layers: tolerance 5e-2 of the output's maximum."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.models import autoencoder, unet
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x, cc, ctx = r(8, 64, 64, 3), r(8, 64, 64, 6), r(16, 1, 1024)
+    t = torch.full((8,), 500, device="cuda")
+    z = r(2, 64, 64, 3)
+
+    def run():
+        with torch.no_grad():
+            eps = ldm.apply_model(x, t, {"crossattn": ctx, "concat": cc},
+                                  cfg_pairs=True)
+            img = ldm.decode_first_stage(z, force_not_quantize=True)
+        torch.cuda.synchronize()
+        return eps.float(), img.float()
+
+    A.reset_launches()
+    eps_k, img_k = run()
+    launched = dict(A.LAUNCHES)
+    with mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
+            mock.patch.object(autoencoder, "flash_attention",
+                              A.attention_reference):
+        eps_p, img_p = run()
+    out = {"phase": "model", "rel_tol": 5e-2, "launches": launched}
+    for name, k, p in (("unet", eps_k, eps_p), ("decode", img_k, img_p)):
+        err, rel = _compare(k, p)
+        out[name] = {"shape": list(k.shape), "max_abs_err": err,
+                     "rel_err": rel}
+    emit(out)
+    ok = (launched == {"flash_attention": 4, "flash_attention_fproj": 11}
+          and all(out[n]["rel_err"] <= 5e-2 for n in ("unet", "decode")))
+    if not ok:
+        fail(f"model: kernel path and plain path disagree: {out}")
+
+
+def phase_serve(cfg, ldm, frames, smi, seed=0):
+    from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
+                                                 make_video_pipeline)
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
+
+    batch, n_requests, steps, guidance, size, window = 8, 16, 50, 2.0, 256, 8
+    device = torch.device("cuda")
     ddim = make_ddim_schedule(ldm.schedule, steps, eta=0.0)
     pipeline = make_video_pipeline(ldm, ddim, window, guidance_scale=guidance)
     runner = make_pipeline_runner(pipeline, seed=seed, device=device)
@@ -340,7 +393,7 @@ def kernels_line(cases, launches):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,serve")
+    ap.add_argument("--phases", default="device,build,kernels,model,serve")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -366,8 +419,13 @@ def main():
     if "build" in phases:
         phase_build()
     cases = phase_kernels() if "kernels" in phases else None
-    launches = (phase_serve(args.frames, smi)
-                if "serve" in phases else None)
+    launches = None
+    if "model" in phases or "serve" in phases:
+        cfg, ldm = build_ldm()
+        if "model" in phases:
+            phase_model(ldm)
+        if "serve" in phases:
+            launches = phase_serve(cfg, ldm, args.frames, smi)
     if cases is None or launches is None:
         return
     emit(kernels_line(cases, launches))
