@@ -7,18 +7,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
   device   the card's name and power limit as nvidia-smi gives them
   build    compiles the CUDA kernels from dsml_thesis_tpu_torch/csrc/
   kernels  every kernel against its plain PyTorch version on the card, at the
-           shapes the serving path gives it, with times: the kernel, the
+           shapes the serving paths give it, with times: the kernel, the
            plain version, one library call computing the same function
            (timed as a yardstick only; the port never calls it) and the
            least time the card could take (bytes over 3.35 TB/s against
-           operations over 989 TFLOP/s bf16, the larger)
-  model    mead-256-ldm-f4.yaml at full width and depth, random weights from
-           a seed: one UNet call and one first-stage decode through the
-           kernels against the same calls through the plain versions
-  serve    the same model: a MicroBatcher of batch 8 answers 16 single-clip
-           requests (two batches) of F frames, DDIM-50, guidance 2.0; checks
-           shapes, finiteness, range, launch counts, that the batches differ
-           and that (seed, batch index) reproduces a batch bit for bit
+           operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 outside the
+           tensor cores, the larger)
+  model    mead-256-ldm-f4.yaml and its -fullattn twin at full width and
+           depth, random weights from a seed: one UNet call and one
+           first-stage decode through the kernels against the same calls
+           through the plain versions, under each flag set of the serve runs
+  serve    a MicroBatcher of batch 8 answers single-clip requests of F
+           frames, DDIM-50, guidance 2.0, in four runs:
+             fullattn        -fullattn, no flag, 16 requests (two batches)
+             fullattn-flags  -fullattn, DSML_ATTN_FPROJ_PARTIAL=1 and
+                             DSML_PALLAS_GN=1, one batch
+             headline-stats  headline config, DSML_PALLAS_GN=stats, one batch
+             headline        headline config, no flag, one batch
+           each checks shapes, finiteness, range, launch counts, and that
+           (seed, batch index) reproduces a batch bit for bit
 then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -26,6 +33,7 @@ then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import signal
@@ -40,16 +48,39 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-CONFIG = os.path.join(HERE, "configs", "latent-diffusion", "mead-256-ldm-f4.yaml")
+CONFIG_DIR = os.path.join(HERE, "configs", "latent-diffusion")
+CONFIG = os.path.join(CONFIG_DIR, "mead-256-ldm-f4.yaml")
+CONFIG_FULLATTN = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 # bf16 keeps 8 significant bits (2^-8 = 3.9e-3 relative per rounding). The
 # kernels round P, q / k / v, the attention output and the result once each,
 # in another order than the plain version; a few such roundings on values up
 # to the output's maximum stay under 2e-2 of that maximum, while a wrong
 # tile, index or mask shows as an error of the order of the maximum itself.
 REL_TOL = 2e-2
+# The statistics kernel returns fp32 sums of up to 65,536 bf16 values a
+# channel, taken in another order than torch.sum takes them: 1e-4 of the
+# largest sum is some tens of fp32 roundings, a dropped row is 1 / N of it.
+STATS_REL_TOL = 1e-4
 TIME_LIMIT_S = 1150
+
+
+@contextlib.contextmanager
+def flags(**values):
+    """The port's kernel flags set to ``values`` (every other one unset)
+    inside the block, and restored after it."""
+    from dsml_thesis_tpu_torch.flags import KERNEL_FLAGS
+
+    saved = {k: os.environ.pop(k, None) for k in KERNEL_FLAGS}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k in KERNEL_FLAGS:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
 def emit(obj):
@@ -116,31 +147,38 @@ def _compare(out, ref):
     return err, err / max(ref.abs().max().item(), 1e-12)
 
 
+def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
+          iters=10, **extra):
+    """One kernel call against its plain version on the same inputs and,
+    if ``timed``, the times of the kernel, the plain version and the library
+    yardstick beside the bound: bytes moved once over the memory rate against
+    operations over the peak rate of their type, the larger."""
+    out = kernel()
+    torch.cuda.synchronize()
+    err, rel = _compare(out, plain())
+    case = {"shape": list(shape), **extra, "max_abs_err": err, "rel_err": rel}
+    if timed:
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+        case.update(ms=time_ms(kernel, iters), plain_ms=time_ms(plain, 3, 1),
+                    library_ms=time_ms(library, max(iters // 2, 3)),
+                    bound_ms=1e3 * max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes > t_ops else "operations")
+    return case
+
+
 def _flash_case(gen, b, h, nq, nk, d, timed):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
     q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
     scale = d ** -0.5
-    out = A.flash_attention(q, k, v, scale=scale)
-    torch.cuda.synchronize()
-    ref = A.attention_reference(q, k, v, scale=scale)
-    err, rel = _compare(out, ref)
-    case = {"shape": [b, h, nq, nk, d], "max_abs_err": err, "rel_err": rel}
-    if timed:
-        nbytes = 2 * b * h * (2 * nq + 2 * nk) * d
-        flops = 4 * b * h * nq * nk * d
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        case.update(
-            ms=time_ms(lambda: A.flash_attention(q, k, v, scale=scale), 10),
-            plain_ms=time_ms(
-                lambda: A.attention_reference(q, k, v, scale=scale), 3, 1),
-            library_ms=time_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                5),
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes > t_ops else "operations")
-    return case
+    return _case(
+        (b, h, nq, nk, d), timed,
+        lambda: A.flash_attention(q, k, v, scale=scale),
+        lambda: A.attention_reference(q, k, v, scale=scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        2 * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
+        PEAK_BF16_FLOPS)
 
 
 def _fproj_case(gen, b, n, c, heads, timed):
@@ -155,28 +193,119 @@ def _fproj_case(gen, b, n, c, heads, timed):
     bo = _rand(gen, c, scale=0.1)
     scale = d ** -0.5
     args = (h, wq, wk, wv, wo, bo, heads)
-    out = A.flash_attention_fproj(*args, scale=scale)
-    torch.cuda.synchronize()
-    ref = A.fproj_reference(*args, scale=scale)
-    err, rel = _compare(out, ref)
-    case = {"shape": [b, n, c, heads], "max_abs_err": err, "rel_err": rel}
-    if timed:
-        def library():
-            sp = lambda t: t.view(b, n, heads, d).transpose(1, 2)
-            o = F.scaled_dot_product_attention(
-                sp(F.linear(h, wq)), sp(F.linear(h, wk)), sp(F.linear(h, wv)),
-                scale=scale)
-            return F.linear(o.transpose(1, 2).reshape(b, n, hd), wo, bo)
 
-        nbytes = 2 * (2 * b * n * c + 4 * c * hd + c)
-        flops = 2 * b * n * c * hd * 4 + 4 * b * n * n * hd
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        case.update(
-            ms=time_ms(lambda: A.flash_attention_fproj(*args, scale=scale), 20),
-            plain_ms=time_ms(lambda: A.fproj_reference(*args, scale=scale), 3, 1),
-            library_ms=time_ms(library, 10),
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes > t_ops else "operations")
+    def library():
+        sp = lambda t: t.view(b, n, heads, d).transpose(1, 2)
+        o = F.scaled_dot_product_attention(
+            sp(F.linear(h, wq)), sp(F.linear(h, wk)), sp(F.linear(h, wv)),
+            scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(b, n, hd), wo, bo)
+
+    return _case(
+        (b, n, c, heads), timed,
+        lambda: A.flash_attention_fproj(*args, scale=scale),
+        lambda: A.fproj_reference(*args, scale=scale), library,
+        2 * (2 * b * n * c + 4 * c * hd + c),
+        2 * b * n * c * hd * 4 + 4 * b * n * n * hd, PEAK_BF16_FLOPS, iters=20)
+
+
+def _packed_case(gen, b, nq, nk, heads, d, timed):
+    import torch.nn.functional as F
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    hd = heads * d
+    q, k, v = (_rand(gen, b, n, hd) for n in (nq, nk, nk))
+    scale = d ** -0.5
+    sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+    return _case(
+        (b, nq, nk, heads, d), timed,
+        lambda: A.flash_attention_packed(q, k, v, heads, scale=scale),
+        lambda: A.packed_reference(q, k, v, heads, scale=scale),
+        lambda: F.scaled_dot_product_attention(sp(q), sp(k), sp(v),
+                                               scale=scale),
+        2 * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, PEAK_BF16_FLOPS)
+
+
+def _qout_case(gen, b, n, nk, c, heads, timed):
+    import torch.nn.functional as F
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    hd = c  # the UNet's self-attention keeps heads * head_dim == channels
+    d = hd // heads
+    h = _rand(gen, b, n, c)
+    k, v = _rand(gen, b, nk, hd), _rand(gen, b, nk, hd)
+    wq = _rand(gen, hd, c, scale=c ** -0.5)
+    wo = _rand(gen, c, hd, scale=hd ** -0.5)
+    bo = _rand(gen, c, scale=0.1)
+    scale = d ** -0.5
+    args = (h, k, v, wq, wo, bo, heads)
+
+    def library():
+        sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+        o = F.scaled_dot_product_attention(sp(F.linear(h, wq)), sp(k), sp(v),
+                                           scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(b, n, hd), wo, bo)
+
+    return _case(
+        (b, n, nk, c, heads), timed,
+        lambda: A.flash_attention_qout(*args, scale=scale),
+        lambda: A.qout_reference(*args, scale=scale), library,
+        2 * (2 * b * n * c + 2 * b * nk * hd + 2 * c * hd + c),
+        2 * b * n * c * hd * 2 + 4 * b * n * nk * hd, PEAK_BF16_FLOPS)
+
+
+def _gn_input(gen, b, n, c, mean=0.5, std=2.0):
+    x = torch.randn(b, n, c, generator=gen, device="cuda") * std + mean
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x.to(torch.bfloat16), gamma, beta
+
+
+def _gn_case(gen, b, n, c, eps, silu, timed, mean=0.5, std=2.0,
+             bf16_params=False):
+    """Whole-row GroupNorm(+SiLU). A large-mean row (|mean| >> std) is held
+    to finiteness only: there E[x^2] - E[x]^2 cancels in fp32 and the two
+    summation orders legitimately disagree."""
+    import torch.nn.functional as F
+    from dsml_thesis_tpu_torch.ops import groupnorm as G
+
+    x, gamma, beta = _gn_input(gen, b, n, c, mean, std)
+    g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    if bf16_params:
+        gamma, beta = g16, b16
+    kw = dict(num_groups=32, eps=eps, silu=silu)
+
+    def library():
+        y = F.group_norm(x.transpose(1, 2), 32, g16, b16, eps)
+        return F.silu(y) if silu else y
+
+    case = _case(
+        (b, n, c), timed, lambda: G.group_norm_silu_kernel(x, gamma, beta, **kw),
+        lambda: G.group_norm_silu_reference(x, gamma, beta, **kw), library,
+        2 * 2 * b * n * c + 2 * 4 * c, 10 * b * n * c, PEAK_FP32_FLOPS,
+        eps=eps, silu=silu)
+    if abs(mean) > 10 * std and case["rel_err"] != float("inf"):
+        case["large_mean_rel_err"], case["rel_err"] = case["rel_err"], 0.0
+    return case
+
+
+def _stats_case(gen, b, n, c, timed):
+    """Channel statistics: sum and sum of squares differ in size, so each is
+    held against its own maximum; a second call must give the same bits."""
+    from dsml_thesis_tpu_torch.ops import groupnorm as G
+
+    x, _, _ = _gn_input(gen, b, n, c)
+    f32 = torch.float32
+    case = _case(
+        (b, n, c), timed, lambda: torch.stack(G.gn_channel_stats(x)),
+        lambda: torch.stack(G.gn_channel_stats_reference(x)),
+        lambda: (x.sum(1, dtype=f32), x.square().sum(1, dtype=f32)),
+        2 * b * n * c + 2 * 4 * b * c, 3 * b * n * c, PEAK_FP32_FLOPS,
+        tol=STATS_REL_TOL)
+    out, again = (torch.stack(G.gn_channel_stats(x)) for _ in range(2))
+    ref = torch.stack(G.gn_channel_stats_reference(x))
+    case["rel_err"] = (max(_compare(o, r)[1] for o, r in zip(out, ref))
+                       if torch.equal(out, again) else float("inf"))
     return case
 
 
@@ -201,23 +330,66 @@ def phase_kernels():
         _fproj_case(gen, 2, 100, 128, 2, False),     # 64-wide heads
         _fproj_case(gen, 2, 300, 160, 5, False),     # H*D not a multiple of 64
     ]
-    cases = {"flash_attention": flash, "flash_attention_fproj": fproj}
-    worst = max(c["rel_err"] for cs in cases.values() for c in cs)
-    emit({"phase": "kernels", "rel_tol": REL_TOL, "dtype": "bfloat16",
-          "worst_rel_err": worst, "cases": cases})
-    if not worst <= REL_TOL:
-        fail(f"a kernel disagrees with its plain version: rel err {worst} "
-             f"> {REL_TOL}")
+    packed = [
+        _packed_case(gen, 16, 4096, 4096, 5, 32, True),   # -fullattn, 64x64
+        _packed_case(gen, 8, 4096, 4096, 5, 32, True),    # its first block
+        _packed_case(gen, 2, 1000, 1000, 5, 32, False),   # ragged N
+        _packed_case(gen, 2, 333, 77, 10, 32, False),     # cross: Nk != Nq
+        _packed_case(gen, 2, 200, 200, 3, 64, False),     # 64-wide heads
+    ]
+    qout = [
+        _qout_case(gen, 16, 4096, 4096, 160, 5, True),
+        _qout_case(gen, 8, 4096, 4096, 160, 5, True),
+        _qout_case(gen, 3, 200, 200, 320, 10, False),     # ragged N
+        _qout_case(gen, 2, 300, 77, 160, 5, False),       # Nk != N
+        _qout_case(gen, 2, 100, 100, 128, 2, False),      # 64-wide heads
+        _qout_case(gen, 2, 256, 256, 640, 20, False),     # widest tiles
+    ]
+    gn = [
+        _gn_case(gen, 16, 4096, 160, 1e-5, True, True),   # UNet, 64x64
+        _gn_case(gen, 16, 4096, 480, 1e-5, True, True),   # ... after a concat
+        _gn_case(gen, 16, 1024, 640, 1e-5, True, True),
+        _gn_case(gen, 16, 256, 1280, 1e-5, True, True),
+        _gn_case(gen, 8, 65536, 128, 1e-6, True, True),   # first stage, 256 px
+        _gn_case(gen, 16, 4096, 160, 1e-6, False, True),  # transformer's norm
+        _gn_case(gen, 8, 4096, 512, 1e-6, False, False),  # first-stage attn
+        _gn_case(gen, 16, 1024, 320, 1e-5, True, False, bf16_params=True),
+        _gn_case(gen, 3, 1000, 160, 1e-5, False, False),  # ragged N, C/G = 5
+        _gn_case(gen, 2, 77, 2080, 1e-5, True, False),    # two column slabs
+        _gn_case(gen, 2, 4096, 64, 1e-5, True, False, mean=100.0, std=0.5),
+    ]
+    stats = [
+        _stats_case(gen, 16, 4096, 160, True),
+        _stats_case(gen, 16, 1024, 640, True),
+        _stats_case(gen, 16, 256, 1280, True),
+        _stats_case(gen, 8, 65536, 128, True),
+        _stats_case(gen, 3, 1000, 160, False),
+        _stats_case(gen, 2, 77, 2080, False),
+    ]
+    cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
+             "flash_attention_packed": packed, "flash_attention_qout": qout,
+             "group_norm_silu": gn, "gn_channel_stats": stats}
+    bad = [(name, c["shape"], c["rel_err"], c.get("tol", REL_TOL))
+           for name, cs in cases.items() for c in cs
+           if not c["rel_err"] <= c.get("tol", REL_TOL)]
+    emit({"phase": "kernels", "rel_tol": REL_TOL,
+          "stats_rel_tol": STATS_REL_TOL, "dtype": "bfloat16",
+          "worst_rel_err": {name: max(c["rel_err"] for c in cs)
+                            for name, cs in cases.items()},
+          "cases": cases})
+    if bad:
+        fail(f"a kernel disagrees with its plain version (kernel, shape, "
+             f"rel err, tolerance): {bad}")
     return cases
 
 
-def build_ldm(seed=0):
-    """mead-256-ldm-f4 at full width and depth on the card, weights from
+def build_ldm(config, seed=0):
+    """A model config at full width and depth on the card, weights from
     PyTorch's default inits under a seed, cast for sampling."""
     from dsml_thesis_tpu_torch.config import build_model, load_config
     from dsml_thesis_tpu_torch.utils_io import cast_sampling_params
 
-    cfg = load_config([CONFIG])
+    cfg = load_config([config])
     torch.manual_seed(seed)
     ldm = build_model(cfg["model"])
     # The codebook's own init, U(-1/K, 1/K), is where training starts: every
@@ -227,12 +399,60 @@ def build_ldm(seed=0):
     return cfg, cast_sampling_params(ldm).to("cuda").eval()
 
 
-def phase_model(ldm):
+def count_norms(module):
+    """GroupNorms of a module; a forward runs each once."""
+    from dsml_thesis_tpu_torch.models.unet import GroupNormSiLU
+
+    return sum(isinstance(m, GroupNormSiLU) for m in module.modules())
+
+
+def count_attentions(unet):
+    """(self-attentions the fused-projection op takes, longer ones) of a UNet
+    call at 64 x 64 latents: the code's own routing rule on its own blocks."""
+    from dsml_thesis_tpu_torch.models.unet import SpatialTransformer
+    from dsml_thesis_tpu_torch.ops.attention import fproj_one_q_block
+
+    short = long = 0
+    ds = {unet.model_channels * m: 2 ** i
+          for i, m in enumerate(unet.channel_mult)}
+    for m in unet.modules():
+        if isinstance(m, SpatialTransformer):
+            n = (64 // ds[m.proj_in.in_channels]) ** 2
+            if fproj_one_q_block(n):
+                short += m.depth
+            else:
+                long += m.depth
+    return short, long
+
+
+def expected_launches(ldm, env, unet_calls, encodes, decodes):
+    """Launches of every kernel for a number of UNet calls, first-stage
+    encodes and decodes under a flag set, from the model's own blocks."""
+    short, long = count_attentions(ldm.unet)
+    fs = ldm.first_stage
+    gn_mode = env.get("DSML_PALLAS_GN", "0")
+    partial = env.get("DSML_ATTN_FPROJ_PARTIAL", "0") == "1"
+    norms = (unet_calls * count_norms(ldm.unet)
+             + encodes * count_norms(fs.encoder)
+             + decodes * count_norms(fs.decoder))
+    return {
+        # first stage: 3 attention blocks an encode, 4 a decode
+        "flash_attention": 3 * encodes + 4 * decodes,
+        "flash_attention_fproj": unet_calls * short,
+        "flash_attention_packed": 0 if partial else unet_calls * long,
+        "flash_attention_qout": unet_calls * long if partial else 0,
+        "group_norm_silu": norms if gn_mode == "1" else 0,
+        "gn_channel_stats": norms if gn_mode == "stats" else 0,
+    }
+
+
+def phase_model(name, ldm, env):
     """The two models that hold the kernels, each run once on the card
-    through its kernel and once with the kernel's plain version put in its
-    place (patched in here, for this comparison only), on the same inputs:
-    one guidance-pair UNet call at batch 8 and one first-stage decode. A
-    whole bf16 model compounds the kernels' rounding differences through its
+    through its kernels under a flag set and once with every kernel's plain
+    version put in its place (patched in here, for this comparison only; the
+    GroupNorm flag unset selects its plain ops), on the same inputs: one
+    guidance-pair UNet call at batch 8 and one first-stage decode. A whole
+    bf16 model compounds the kernels' rounding differences through its
     layers: tolerance 5e-2 of the output's maximum."""
     from unittest import mock
 
@@ -253,32 +473,48 @@ def phase_model(ldm):
         torch.cuda.synchronize()
         return eps.float(), img.float()
 
-    A.reset_launches()
-    eps_k, img_k = run()
-    launched = dict(A.LAUNCHES)
-    with mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
+    def plain_qout(h, k, v, wq, wo, bo, heads, scale=None):
+        wq, wo, bo = (w.to(h.dtype) for w in (wq, wo, bo))
+        return A.qout_reference(h, k, v, wq, wo, bo, heads, scale=scale)
+
+    with flags(**env):
+        A.reset_launches()
+        eps_k, img_k = run()
+        launched = dict(A.LAUNCHES)
+    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
+            mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
+            mock.patch.object(unet, "packed_multi_head_attention",
+                              A.packed_reference), \
+            mock.patch.object(unet, "fused_qout_self_attention", plain_qout), \
             mock.patch.object(autoencoder, "flash_attention",
                               A.attention_reference):
+        A.reset_launches()
         eps_p, img_p = run()
-    out = {"phase": "model", "rel_tol": 5e-2, "launches": launched}
-    for name, k, p in (("unet", eps_k, eps_p), ("decode", img_k, img_p)):
+        launched_plain = dict(A.LAUNCHES)
+    expect = expected_launches(ldm, env, unet_calls=1, encodes=0, decodes=1)
+    out = {"phase": "model", "config": name, "flags": env, "rel_tol": 5e-2,
+           "launches": launched, "launches_expected": expect}
+    for part, k, p in (("unet", eps_k, eps_p), ("decode", img_k, img_p)):
         err, rel = _compare(k, p)
-        out[name] = {"shape": list(k.shape), "max_abs_err": err,
+        out[part] = {"shape": list(k.shape), "max_abs_err": err,
                      "rel_err": rel}
     emit(out)
-    ok = (launched == {"flash_attention": 4, "flash_attention_fproj": 11}
+    ok = (launched == expect and not any(launched_plain.values())
           and all(out[n]["rel_err"] <= 5e-2 for n in ("unet", "decode")))
     if not ok:
         fail(f"model: kernel path and plain path disagree: {out}")
 
 
-def phase_serve(cfg, ldm, frames, smi, seed=0):
+def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
+    """One serve run: ``n_requests`` single-clip requests through a
+    MicroBatcher of batch 8 under a flag set. Returns the launch counts of
+    the served requests alone."""
     from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
                                                  make_video_pipeline)
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
 
-    batch, n_requests, steps, guidance, size, window = 8, 16, 50, 2.0, 256, 8
+    batch, steps, guidance, size, window = 8, 50, 2.0, 256, 8
     device = torch.device("cuda")
     ddim = make_ddim_schedule(ldm.schedule, steps, eta=0.0)
     pipeline = make_video_pipeline(ldm, ddim, window, guidance_scale=guidance)
@@ -304,39 +540,39 @@ def phase_serve(cfg, ldm, frames, smi, seed=0):
         "class_label": np.int32(i % 8),
     } for i in range(n_requests)]
 
-    A.reset_launches()   # counts below are of the served requests alone
-    batcher = MicroBatcher(run_batch, batch, max_wait_ms=5000.0)
     results = [None] * n_requests
     errors = []
+    with flags(**env):
+        A.reset_launches()   # counts below are of the served requests alone
+        batcher = MicroBatcher(run_batch, batch, max_wait_ms=5000.0)
 
-    def client(i):
-        try:
-            results[i] = batcher.submit(requests[i], timeout=TIME_LIMIT_S)
-        except Exception as e:  # noqa: BLE001 - reported below, run fails
-            errors.append(repr(e))
+        def client(i):
+            try:
+                results[i] = batcher.submit(requests[i], timeout=TIME_LIMIT_S)
+            except Exception as e:  # noqa: BLE001 - reported below, run fails
+                errors.append(repr(e))
 
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(n_requests)]
-    t0 = time.monotonic()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    wall = time.monotonic() - t0
-    launches = dict(A.LAUNCHES)
-    batcher.shutdown()
-    if errors:
-        fail(f"serve: requests failed: {errors[:3]}")
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_requests)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        launches = dict(A.LAUNCHES)
+        batcher.shutdown()
+        if errors:
+            fail(f"serve {name}: requests failed: {errors[:3]}")
+        again = runner(log[0][1], log[0][0]) if log else None
 
     n_batches = n_requests // batch
-    # first stage: 3 attention blocks an encode (one encode of the B*F masked
-    # frames, one of the B identity frames), 4 a decode (one decode a frame);
-    # UNet: 11 self-attentions a call (4 down, 1 mid, 6 up), one call a DDIM
-    # step with the guidance pair deduplicated
-    expect = {
-        "flash_attention": n_batches * (3 + 3 + 4 * frames),
-        "flash_attention_fproj": n_batches * frames * steps * 11,
-    }
+    # a batch: one encode of the B*F masked frames and one of the B identity
+    # frames, one UNet call a DDIM step and frame (the guidance pair is
+    # deduplicated inside the call), one decode a frame
+    expect = expected_launches(ldm, env, unet_calls=n_batches * frames * steps,
+                               encodes=2 * n_batches,
+                               decodes=n_batches * frames)
     checks = {
         "batches": len(log) == n_batches,
         "shape": all(r is not None and r.shape == (frames, size, size, 3)
@@ -345,43 +581,56 @@ def phase_serve(cfg, ldm, frames, smi, seed=0):
         "range": all(float(np.abs(r).max()) <= 1.0 for r in results),
         "varied": all(float(r.std()) > 1e-3 for r in results),
         "launches": launches == expect,
+        "reproducible": again is not None
+        and bool(np.array_equal(again, log[0][2])),
     }
-    if checks["batches"]:
-        (_, in0, out0, _), (_, _, out1, _) = log[0], log[1]
-        checks["batches_differ"] = not np.array_equal(out0, out1)
-        again = runner(in0, log[0][0])
-        checks["reproducible"] = bool(np.array_equal(again, out0))
+    if len(log) > 1:
+        checks["batches_differ"] = not np.array_equal(log[0][2], log[1][2])
     secs = [round(s, 3) for *_, s in log]
-    emit({"phase": "serve", "config": os.path.relpath(CONFIG, HERE),
+    emit({"phase": "serve", "run": name,
+          "config": os.path.relpath(cfg["path"], HERE), "flags": env,
           "card": smi, "batch": batch, "frames": frames, "ddim_steps": steps,
           "guidance": guidance, "requests": n_requests, "checks": checks,
           "launches": launches, "launches_expected": expect,
-          "launch_arithmetic": "flash: batches*(3+3+4*F); fproj: "
-                               "batches*F*steps*11",
           "seconds_per_batch": secs, "wall_seconds": round(wall, 3),
           "frames_per_s": round(n_requests * frames / wall, 4),
           "stats": batcher.stats()})
     if not all(checks.values()):
-        fail(f"serve: checks failed: {checks}")
+        fail(f"serve {name}: checks failed: {checks}")
     return launches
 
 
-def kernels_line(cases, launches):
-    meta = {
-        "flash_attention": (
-            "dsml_thesis_tpu_torch/csrc/flash_attention.cu",
-            "dsml_thesis_tpu/ops/attention.py:328"),
-        "flash_attention_fproj": (
-            "dsml_thesis_tpu_torch/csrc/flash_attention_fproj.cu",
-            "dsml_thesis_tpu/ops/attention.py:950"),
-    }
+# kernel -> (source, the TPU kernel it replaces, the serve run that is its path)
+KERNELS = {
+    "flash_attention_fproj": (
+        "flash_attention_fproj.cu", "attention.py:950", "fullattn"),
+    "flash_attention": (
+        "flash_attention.cu", "attention.py:328", "fullattn"),
+    "flash_attention_packed": (
+        "flash_attention_packed.cu", "attention.py:339", "fullattn"),
+    "flash_attention_qout": (
+        "flash_attention_qout.cu", "attention.py:1069", "fullattn-flags"),
+    "group_norm_silu": (
+        "group_norm.cu", "groupnorm.py:103", "fullattn-flags"),
+    "gn_channel_stats": (
+        "group_norm.cu", "groupnorm.py:162", "headline-stats"),
+}
+
+
+def kernels_line(cases, launches_by_run):
     rows = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, run) in KERNELS.items():
         timed = [c for c in cases[name] if "ms" in c]
         first = timed[0]
+        launches = launches_by_run[run][name]
+        if launches < 1:
+            fail(f"kernel {name} was launched no time in serve run {run}")
         rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": f"dsml_thesis_tpu_torch/csrc/{source}",
+            "replaces": f"dsml_thesis_tpu/ops/{replaces}",
+            "launches": launches, "launches_in_run": run,
+            "launches_by_run": {r: l[name] for r, l in launches_by_run.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "shape": first["shape"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -389,6 +638,16 @@ def kernels_line(cases, launches):
             "other_shapes": timed[1:],
         })
     return {"kernels": rows}
+
+
+# serve runs and model checks: (name, config, flags, requests)
+RUNS = (
+    ("fullattn", CONFIG_FULLATTN, {}, 16),
+    ("fullattn-flags", CONFIG_FULLATTN,
+     {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"}, 8),
+    ("headline-stats", CONFIG, {"DSML_PALLAS_GN": "stats"}, 8),
+    ("headline", CONFIG, {}, 8),
+)
 
 
 def main():
@@ -404,10 +663,11 @@ def main():
               "card and has no CPU mode", file=sys.stderr)
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
-    if not os.path.exists(CONFIG):
-        print(f"chip_smoke: {CONFIG} is missing: run from a checkout",
-              file=sys.stderr)
-        sys.exit(3)
+    for config in (CONFIG, CONFIG_FULLATTN):
+        if not os.path.exists(config):
+            print(f"chip_smoke: {config} is missing: run from a checkout",
+                  file=sys.stderr)
+            sys.exit(3)
     import dsml_thesis_tpu_torch.ops.attention  # noqa: F401
     signal.signal(signal.SIGALRM,
                   lambda *_: fail(f"time limit of {TIME_LIMIT_S} s reached"))
@@ -419,14 +679,20 @@ def main():
     if "build" in phases:
         phase_build()
     cases = phase_kernels() if "kernels" in phases else None
-    launches = None
+    launches = {}
     if "model" in phases or "serve" in phases:
-        cfg, ldm = build_ldm()
-        if "model" in phases:
-            phase_model(ldm)
-        if "serve" in phases:
-            launches = phase_serve(cfg, ldm, args.frames, smi)
-    if cases is None or launches is None:
+        models = {}
+        for name, config, env, n_requests in RUNS:
+            if config not in models:
+                cfg, ldm = build_ldm(config)
+                models[config] = (dict(cfg, path=config), ldm)
+            cfg, ldm = models[config]
+            if "model" in phases:
+                phase_model(name, ldm, env)
+            if "serve" in phases:
+                launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
+                                             args.frames, smi)
+    if cases is None or not launches:
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

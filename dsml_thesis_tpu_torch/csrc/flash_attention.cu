@@ -42,8 +42,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float acc[DO / 8][4];
   float l0, l1;
-  attend_rows<D, DSPLIT, BN, NTHREADS>(sQ, k, v, D, nk, scale_log2, sK, sV,
-                                       acc, l0, l1);
+  attend_rows<D, DSPLIT, BN, NTHREADS>(sQ, D + PAD, k, v, D, nk, scale_log2,
+                                       sK, sV, acc, l0, l1);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;

@@ -108,10 +108,6 @@ qkv_proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ wq,
 }
 
 // ---------------------------------------------------------------- (2) ---
-constexpr int ABN = 128;  // key / value rows per tile
-constexpr int EN = 64;   // epilogue: output columns per step
-constexpr int EK = 64;   // epilogue: depth per step
-
 template <int D>
 __global__ void __launch_bounds__(128)
 fproj_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -133,77 +129,25 @@ fproj_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * BM;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int64_t batch_off = static_cast<int64_t>(b) * n * ld_qkv;
   q += batch_off + static_cast<int64_t>(q0) * ld_qkv;
   k += batch_off;
   v += batch_off;
   out += (static_cast<int64_t>(b) * n + q0) * c;
 
-  const int r0 = warp * 16 + (lane >> 2);
-  const int r1 = r0 + 8;
-
   for (int h = 0; h < heads; ++h) {
     __syncthreads();  // every warp is done with the previous head's sQ
     load_tile<D, NTHREADS>(sQ, q + h * D, ld_qkv, BM, n - q0, tid);
     float acc[D / 8][4];
     float l0, l1;
-    attend_rows<D, 1, ABN, NTHREADS>(sQ, k + h * D, v + h * D, ld_qkv, n,
-                                     scale_log2, sK, sV, acc, l0, l1);
-    const float inv0 = 1.f / l0;
-    const float inv1 = 1.f / l1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = h * D + dt * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(sAtt + r0 * lda + col) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-      *reinterpret_cast<uint32_t*>(sAtt + r1 * lda + col) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
+    attend_rows<D, 1, ABN, NTHREADS>(sQ, D + PAD, k + h * D, v + h * D, ld_qkv,
+                                     n, scale_log2, sK, sV, acc, l0, l1);
+    park_rows<D>(sAtt, lda, h * D, acc, l0, l1);
   }
 
-  // out[64, c] = sAtt[64, hd] @ wo[c, hd]^T + bo, EN columns at a time
-  const LaneOffsets lo(lane);
-  constexpr int LDW = EK + PAD;
-  for (int c0 = 0; c0 < c; c0 += EN) {
-    float acc[EN / 8][4];
-#pragma unroll
-    for (int j = 0; j < EN / 8; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < hd; k0 += EK) {
-      __syncthreads();  // sAtt complete (first pass); sW readers done
-      load_tile<EK, NTHREADS>(sW, wo + static_cast<int64_t>(c0) * hd + k0, hd,
-                              EN, c - c0, tid, hd - k0);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < EK; kk += 16) {
-        if (k0 + kk >= hd) break;  // hd is a multiple of 32, not always of EK
-        uint32_t a[4];
-        ldmatrix_x4(a, sAtt + (warp * 16 + lo.a_row) * lda + k0 + kk + lo.a_col);
-#pragma unroll
-        for (int j = 0; j < EN / 8; j += 2) {
-          uint32_t bfrag[4];
-          ldmatrix_x4(bfrag, sW + (j * 8 + lo.b_row) * LDW + kk + lo.b_col);
-          mma_bf16(acc[j], a, bfrag[0], bfrag[1]);
-          mma_bf16(acc[j + 1], a, bfrag[2], bfrag[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < EN / 8; ++j) {
-      const int col = c0 + j * 8 + 2 * (lane & 3);
-      if (col >= c) continue;
-      const float b0 = __bfloat162float(bo[col]);
-      const float b1 = __bfloat162float(bo[col + 1]);
-      if (q0 + r0 < n)
-        *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(r0) * c + col) =
-            pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
-      if (q0 + r1 < n)
-        *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(r1) * c + col) =
-            pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
-    }
-  }
+  // out[64, c] = sAtt[64, hd] @ wo[c, hd]^T + bo
+  rows_times_weight<NTHREADS>(sAtt, lda, wo, c, hd, sW,
+                              StoreRowsWithBias{out, c, bo, n - q0});
 }
 
 template <int D>

@@ -1,0 +1,254 @@
+// GroupNorm(+SiLU) on channel-last tensors, and its channel statistics:
+//   dsml_group_norm_silu   x [B, N, C] bf16 -> y [B, N, C] bf16,
+//       fp32 mean / rstd per (batch, group) over N x C/G elements, variance
+//       max(E[x^2] - E[x]^2, 0) with eps inside the root, fp32 affine,
+//       optional SiLU, one cast to bf16;
+//   dsml_gn_channel_stats  x [B, N, C] bf16 -> per (batch, channel) sum and
+//       sum of squares, fp32, as sums [2, B, C].
+//
+// Replace the TPU kernels dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel
+// (group_norm_silu_pallas) and :_gn_stats_kernel (_gn_channel_stats_pallas).
+// The first keeps a whole batch row in fast memory (and so refuses rows over
+// 8 MB) and folds channels into groups with an indicator matrix product; the
+// second carries its sums from one grid step to the next. Neither carries
+// over: a Hopper block holds 227 KB, blocks run in no order, and a batch row
+// (up to 16 MB in the first stage) is one reduction across many blocks.
+//
+// Both are bound by bytes: x read once, y written once (or 2 * B * C floats).
+// The design reduces per channel, never per group: C/G is 5 at C = 160, so a
+// group is 10 bytes of each 320-byte row, while channels-last rows read as
+// 16 bytes (8 channels) a thread coalesce whatever C/G is. A block is
+// cvb x rl threads: cvb = min(C / 8, 256) column vectors, rl = 256 / cvb row
+// lanes; a thread keeps its 8 channels for all its rows.
+//   partial  grid (chunks, B, slabs): sums of a chunk of rows, reduced over
+//            the row lanes in shared memory, to partial [B, chunks, 2, C];
+//   finish   one thread per (batch, channel): adds the chunks' partial sums
+//            in index order into sums [2, B, C];
+//   apply    same grid as partial: folds the channel sums into the groups'
+//            mean and rstd (C floats, cheap to repeat in every block),
+//            normalises, scales, shifts, applies SiLU and writes y.
+// No floating-point atomics anywhere: every sum has a fixed order, so equal
+// inputs give equal bits. The statistics pass and the apply pass both read x
+// from device memory; at the UNet's shapes (up to 63 MB a tensor) the second
+// read mostly finds x in the 50 MB L2 cache.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int GN_THREADS = 256;
+
+struct GnBlock {
+  int cvb;  // column vectors (8 channels each) of a block
+  int rl;   // row lanes
+  int cv;   // this thread's column vector of the row, or -1 if it has none
+  int lane; // this thread's row lane
+  __device__ __forceinline__ GnBlock(int c) {
+    const int cvs = c / 8;
+    cvb = cvs < GN_THREADS ? cvs : GN_THREADS;
+    rl = GN_THREADS / cvb;
+    lane = threadIdx.x / cvb;
+    cv = blockIdx.z * cvb + threadIdx.x % cvb;
+    if (lane >= rl || cv >= cvs) cv = -1;
+  }
+};
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__global__ void __launch_bounds__(GN_THREADS)
+gn_partial_kernel(const bf16* __restrict__ x, float* __restrict__ partial,
+                  int n, int c, int rows_per_chunk) {
+  // [2][rl][cvb * 8] floats: at most 2 * 256 * 8
+  __shared__ float red[2 * GN_THREADS * 8];
+  const GnBlock blk(c);
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int width = blk.cvb * 8;  // channels of this block's slab
+  float s[8], sq[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j] = sq[j] = 0.f;
+  if (blk.cv >= 0) {
+    const int r_end = min(n, (chunk + 1) * rows_per_chunk);
+    const bf16* xb = x + static_cast<int64_t>(b) * n * c + blk.cv * 8;
+    for (int r = chunk * rows_per_chunk + blk.lane; r < r_end; r += blk.rl) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(xb + static_cast<int64_t>(r) * c),
+              f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j] += f[j];
+        sq[j] += f[j] * f[j];
+      }
+    }
+  }
+  if (blk.lane < blk.rl) {
+    float* rs = red + blk.lane * width + (threadIdx.x % blk.cvb) * 8;
+    float* rq = rs + blk.rl * width;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      rs[j] = s[j];
+      rq[j] = sq[j];
+    }
+  }
+  __syncthreads();
+  // the row lanes' sums of one channel, added in lane order
+  const int c0 = blockIdx.z * width;
+  float* dst = partial + (static_cast<int64_t>(b) * gridDim.x + chunk) * 2 * c;
+  for (int i = threadIdx.x; i < 2 * width; i += GN_THREADS) {
+    const int which = i / width;
+    const int ch = i % width;
+    if (c0 + ch >= c) continue;
+    const float* src = red + which * blk.rl * width + ch;
+    float t = 0.f;
+    for (int l = 0; l < blk.rl; ++l) t += src[l * width];
+    dst[which * c + c0 + ch] = t;
+  }
+}
+
+__global__ void __launch_bounds__(GN_THREADS)
+gn_finish_kernel(const float* __restrict__ partial, float* __restrict__ sums,
+                 int batch, int c, int chunks) {
+  const int i = blockIdx.x * GN_THREADS + threadIdx.x;
+  const int b = blockIdx.y;
+  if (i >= 2 * c) return;
+  const float* src = partial + static_cast<int64_t>(b) * chunks * 2 * c + i;
+  float t = 0.f;
+  for (int k = 0; k < chunks; ++k) t += src[static_cast<int64_t>(k) * 2 * c];
+  const int which = i / c;
+  sums[(static_cast<int64_t>(which) * batch + b) * c + i % c] = t;
+}
+
+template <bool PARAMS_BF16>
+__device__ __forceinline__ float param(const void* p, int i) {
+  if (PARAMS_BF16) return __bfloat162float(static_cast<const bf16*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+template <bool PARAMS_BF16, bool SILU>
+__global__ void __launch_bounds__(GN_THREADS)
+gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ sums,
+                const void* __restrict__ gamma, const void* __restrict__ beta,
+                bf16* __restrict__ y, int batch, int n, int c, int groups,
+                int rows_per_chunk, float inv_count, float eps) {
+  extern __shared__ float g_stats[];  // [groups] mean, [groups] rstd
+  const GnBlock blk(c);
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int cg = c / groups;
+  const float* ch_sum = sums + static_cast<int64_t>(b) * c;
+  const float* ch_sq = ch_sum + static_cast<int64_t>(batch) * c;
+  for (int g = threadIdx.x; g < groups; g += GN_THREADS) {
+    float s = 0.f, q = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      s += ch_sum[g * cg + j];
+      q += ch_sq[g * cg + j];
+    }
+    const float mean = s * inv_count;
+    const float var = fmaxf(q * inv_count - mean * mean, 0.f);
+    g_stats[g] = mean;
+    g_stats[groups + g] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  if (blk.cv < 0) return;
+
+  float mean[8], rstd[8], ga[8], be[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int ch = blk.cv * 8 + j;
+    mean[j] = g_stats[ch / cg];
+    rstd[j] = g_stats[groups + ch / cg];
+    ga[j] = param<PARAMS_BF16>(gamma, ch);
+    be[j] = param<PARAMS_BF16>(beta, ch);
+  }
+  const int r_end = min(n, (chunk + 1) * rows_per_chunk);
+  const int64_t base = static_cast<int64_t>(b) * n * c + blk.cv * 8;
+  for (int r = chunk * rows_per_chunk + blk.lane; r < r_end; r += blk.rl) {
+    const int64_t off = base + static_cast<int64_t>(r) * c;
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(x + off), f);
+    uint4 packed;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float t = (f[j] - mean[j]) * rstd[j] * ga[j] + be[j];
+      if (SILU) t = t / (1.f + expf(-t));
+      f[j] = t;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(y + off) = packed;
+  }
+}
+
+// The statistics pass: partial sums, then the fixed-order finish.
+static int launch_stats(const bf16* x, float* partial, float* sums, int b,
+                        int n, int c, int chunks, dim3* grid,
+                        int* rows_per_chunk, cudaStream_t stream) {
+  if (b < 1 || n < 1 || c < 8 || c % 8 != 0 || chunks < 1 || chunks > n ||
+      b > 65535)
+    return -1;
+  *rows_per_chunk = (n + chunks - 1) / chunks;
+  const int cvs = c / 8;
+  const int cvb = cvs < GN_THREADS ? cvs : GN_THREADS;
+  *grid = dim3(chunks, b, (cvs + cvb - 1) / cvb);
+  gn_partial_kernel<<<*grid, GN_THREADS, 0, stream>>>(x, partial, n, c,
+                                                      *rows_per_chunk);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  gn_finish_kernel<<<dim3((2 * c + GN_THREADS - 1) / GN_THREADS, b), GN_THREADS,
+                     0, stream>>>(partial, sums, b, c, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [B, N, C] bf16; partial is scratch of B * chunks * 2 * C floats; sums
+// [2, B, C] floats (sum, then sum of squares). Needs C % 8 == 0 and
+// 1 <= chunks <= N. Returns cudaGetLastError() of the launches (0 =
+// launched), -1 for a shape this file does not take.
+extern "C" int dsml_gn_channel_stats(const void* x, void* partial, void* sums,
+                                     int b, int n, int c, int chunks,
+                                     void* stream) {
+  dim3 grid;
+  int rows_per_chunk;
+  return launch_stats(static_cast<const bf16*>(x), static_cast<float*>(partial),
+                      static_cast<float*>(sums), b, n, c, chunks, &grid,
+                      &rows_per_chunk, static_cast<cudaStream_t>(stream));
+}
+
+// x, y [B, N, C] bf16; gamma, beta [C], bf16 if params_bf16 else fp32;
+// partial and sums as above (scratch). Also needs C % groups == 0.
+extern "C" int dsml_group_norm_silu(const void* x, const void* gamma,
+                                    const void* beta, void* partial, void* sums,
+                                    void* y, int b, int n, int c, int groups,
+                                    int chunks, float eps, int silu,
+                                    int params_bf16, void* stream) {
+  if (groups < 1 || c % groups != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  int rows_per_chunk;
+  int err = launch_stats(static_cast<const bf16*>(x),
+                         static_cast<float*>(partial),
+                         static_cast<float*>(sums), b, n, c, chunks, &grid,
+                         &rows_per_chunk, s);
+  if (err != 0) return err;
+  auto kernel = params_bf16
+                    ? (silu ? gn_apply_kernel<true, true>
+                            : gn_apply_kernel<true, false>)
+                    : (silu ? gn_apply_kernel<false, true>
+                            : gn_apply_kernel<false, false>);
+  const float inv_count =
+      1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
+  kernel<<<grid, GN_THREADS, 2 * groups * sizeof(float), s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(sums), gamma, beta,
+      static_cast<bf16*>(y), b, n, c, groups, rows_per_chunk, inv_count, eps);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,10 +4,35 @@ Boolean flags accept 1/true/on/yes and 0/false/off/no (case-insensitive);
 mode flags accept their documented vocabulary with the boolean spellings
 normalized first. Anything else raises: a typo must not silently select a
 default.
+
+Flags the port reads, each one of the JAX package's own, with the same
+default (a flag chooses between kernels of the port, never a plain version
+on the card):
+
+  DSML_ATTN_PACKED         (bool, 1)  attention on the packed [B, N, H*D]
+                           layout (``flash_attention_packed``); 0: a head
+                           split, ``flash_attention`` and a merge, and no
+                           fused self-attention (``models/unet.py``)
+  DSML_ATTN_FUSED_PROJ     (bool, 1)  eval-mode self-attention over up to
+                           1024 tokens through ``flash_attention_fproj``
+  DSML_ATTN_FPROJ_PARTIAL  (bool, 0)  eval-mode self-attention the fused op
+                           does not get (N = 4096) through
+                           ``flash_attention_qout`` instead of linears +
+                           the packed kernel
+  DSML_PALLAS_GN           (0 | 1 | stats, 0)  GroupNorm as plain ops, through
+                           the whole-row kernel, or through the statistics
+                           kernel and a plain apply (``ops/groupnorm.py``)
+  DSML_GELU_EXACT          (bool, 0)  erf GELU in the GEGLU gate
+  DSML_CFG_DEDUP           (bool, 1)  the guidance pair shares the UNet's
+                           prefix (``diffusion/video.py``)
 """
 from __future__ import annotations
 
 import os
+
+# the flags that choose between kernels (what a measurement records)
+KERNEL_FLAGS = ("DSML_ATTN_PACKED", "DSML_ATTN_FUSED_PROJ",
+                "DSML_ATTN_FPROJ_PARTIAL", "DSML_PALLAS_GN")
 
 _TRUE = ("1", "true", "on", "yes")
 _FALSE = ("0", "false", "off", "no")

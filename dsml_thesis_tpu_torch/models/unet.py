@@ -12,9 +12,11 @@ path, see ``convert.py``), same numerics contract:
 Inside, tensors are NCHW in ``channels_last`` memory, which is the same
 bytes as the NHWC boundary, so the permutes are views.
 
-Eval-mode self-attention goes through the projection-fused attention op
-(``ops.attention.flash_attention_fproj``); single-token cross-attention is
-the exact broadcast of the JAX package. Ported is what the talking-face
+Eval-mode self-attention over up to 1024 tokens goes through the
+projection-fused attention op (``ops.attention.flash_attention_fproj``),
+longer sequences through the packed kernel (or the q/out-fused one under
+``DSML_ATTN_FPROJ_PARTIAL=1``); single-token cross-attention is the exact
+broadcast of the JAX package. Ported is what the talking-face
 configs use: the spatial-transformer UNet with conv resampling. Dropout,
 ``use_scale_shift_norm``, ``resblock_updown``, class labels and the
 transformer-less attention block raise ``NotImplementedError``.
@@ -30,7 +32,9 @@ import torch.nn.functional as F
 
 from ..flags import env_flag
 from ..ops.attention import (flash_attention, flash_attention_fproj,
-                             fproj_kernel_takes)
+                             fproj_kernel_takes, fproj_one_q_block,
+                             fused_qout_self_attention,
+                             packed_multi_head_attention)
 from ..ops.groupnorm import group_norm_silu
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -102,9 +106,11 @@ class GroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        y = group_norm_silu(x.permute(0, 2, 3, 1), self.weight, self.bias,
-                            num_groups=self.num_groups, eps=self.eps,
-                            silu=self.silu)
+        # channels_last NCHW is NHWC in memory: the permute is a view and
+        # contiguous() copies nothing
+        y = group_norm_silu(x.permute(0, 2, 3, 1).contiguous(), self.weight,
+                            self.bias, num_groups=self.num_groups,
+                            eps=self.eps, silu=self.silu)
         return y.permute(0, 3, 1, 2)
 
 
@@ -161,16 +167,24 @@ class ResBlock(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention on [B, N, C] tokens; self-attention when
-    ``context`` is None. Three branches, chosen by what is computed:
+    ``context`` is None. The branches, in the JAX module's order:
 
     * one context token: the softmax over one key is 1, so the block is
       ``to_out(to_v(context))`` broadcast over the queries (exact);
-    * eval-mode self-attention at a shape the fused op takes: one call of
-      ``flash_attention_fproj`` (projections, attention and ``to_out``);
-    * anything else: projections, ``flash_attention`` on split heads, and
-      ``to_out`` composed.
+    * eval-mode self-attention over a sequence one q-block covers
+      (``fproj_one_q_block``: N up to 1024), at widths the fused op takes:
+      one call of ``flash_attention_fproj`` (projections, attention and
+      ``to_out``). ``DSML_ATTN_FUSED_PROJ=0`` turns it off;
+    * else eval-mode self-attention with ``DSML_ATTN_FPROJ_PARTIAL=1``:
+      ``to_k`` / ``to_v`` as linears, then ``fused_qout_self_attention`` (q
+      projection, attention and ``to_out`` in one kernel);
+    * else the three projections, ``packed_multi_head_attention`` on the
+      packed [B, N, H*D] layout and ``to_out``: longer self-attention,
+      cross-attention over several tokens, training mode;
+    * ``DSML_ATTN_PACKED=0`` (it also turns the two fused branches off):
+      the projections, a head split, ``flash_attention`` and a merge.
 
-    The JAX package gates the fused branch further on TPU facts (backend,
+    The JAX package gates the fused branches further on TPU facts (backend,
     VMEM fit, N >= 256, mesh size, batch >= 8); none is a property of the
     function, so none is kept here.
     """
@@ -194,24 +208,35 @@ class CrossAttention(nn.Module):
         if context is not None and context.shape[1] == 1:
             out = self.to_out(self.to_v(context))
             return out.expand(x.shape[0], x.shape[1], out.shape[-1])
-        if (context is None and not self.training
-                and (x.device.type == "cpu"
-                     or fproj_kernel_takes(x.shape[-1], self.dim_head, dt))):
+        x = x.to(dt)  # once: the LayerNorm before hands over fp32
+        packed = env_flag("DSML_ATTN_PACKED", True)
+        if context is None and not self.training and packed:
             cast = lambda p: p.to(dt)
-            return flash_attention_fproj(
-                x.to(dt).contiguous(), cast(self.to_q.weight),
-                cast(self.to_k.weight), cast(self.to_v.weight),
-                cast(self.to_out.weight), cast(self.to_out.bias), self.heads,
-                scale=scale)
+            h = x.contiguous()
+            if (env_flag("DSML_ATTN_FUSED_PROJ", True)
+                    and fproj_one_q_block(x.shape[1])
+                    and (not x.is_cuda or fproj_kernel_takes(
+                        x.shape[-1], self.dim_head, dt))):
+                return flash_attention_fproj(
+                    h, cast(self.to_q.weight), cast(self.to_k.weight),
+                    cast(self.to_v.weight), cast(self.to_out.weight),
+                    cast(self.to_out.bias), self.heads, scale=scale)
+            if env_flag("DSML_ATTN_FPROJ_PARTIAL", False):
+                return fused_qout_self_attention(
+                    h, self.to_k(h), self.to_v(h), self.to_q.weight,
+                    self.to_out.weight, self.to_out.bias, self.heads,
+                    scale=scale)
         context = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        if packed:
+            return self.to_out(packed_multi_head_attention(
+                q, k, v, self.heads, scale=scale))
         b, n, _ = x.shape
         split = lambda t: t.reshape(b, t.shape[1], self.heads,
                                     self.dim_head).permute(0, 2, 1, 3
                                                            ).contiguous()
-        out = flash_attention(split(self.to_q(x)), split(self.to_k(context)),
-                              split(self.to_v(context)), scale=scale)
-        out = out.permute(0, 2, 1, 3).reshape(b, n, -1)
-        return self.to_out(out)
+        out = flash_attention(split(q), split(k), split(v), scale=scale)
+        return self.to_out(out.permute(0, 2, 1, 3).reshape(b, n, -1))
 
 
 class GEGLUFeedForward(nn.Module):

@@ -23,7 +23,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # every translation unit of the library, and the headers they include
-SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
+           "flash_attention_packed.cu", "flash_attention_qout.cu",
+           "group_norm.cu")
 HEADERS = ("mma_tiles.cuh",)
 
 NVCC_FLAGS = (
@@ -44,7 +46,7 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (set NVCC or put the CUDA toolkit on PATH): the "
-        "attention kernels are compiled from dsml_thesis_tpu_torch/csrc/ at "
+        "kernels are compiled from dsml_thesis_tpu_torch/csrc/ at "
         "first use")
 
 
@@ -109,5 +111,16 @@ def load() -> ctypes.CDLL:
             lib.dsml_flash_attention_fproj.argtypes = (
                 [p] * 8 + [i, i, i, i, i, f, p])
             lib.dsml_flash_attention_fproj.restype = i
+            lib.dsml_flash_attention_packed.argtypes = (
+                [p] * 4 + [i, i, i, i, i, f, p])
+            lib.dsml_flash_attention_packed.restype = i
+            lib.dsml_flash_attention_qout.argtypes = (
+                [p] * 7 + [i, i, i, i, i, i, f, p])
+            lib.dsml_flash_attention_qout.restype = i
+            lib.dsml_gn_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
+            lib.dsml_gn_channel_stats.restype = i
+            lib.dsml_group_norm_silu.argtypes = (
+                [p] * 6 + [i, i, i, i, i, f, i, i, p])
+            lib.dsml_group_norm_silu.restype = i
             _lib = lib
         return _lib

@@ -1,31 +1,70 @@
-"""GroupNorm(+SiLU) on channel-last tensors, as plain PyTorch ops.
+"""GroupNorm(+SiLU) on channel-last tensors: plain PyTorch ops by default,
+two CUDA kernels behind ``DSML_PALLAS_GN`` (the JAX package's flag and its
+default: ``0`` plain ops, ``1`` the whole-row kernel, ``stats`` the statistics
+kernel followed by a plain apply).
 
-The JAX package runs GroupNorm as plain ops by default too (its Pallas
-GroupNorm kernels are off by default and are not ported yet). Statistics are
-taken in fp32 per (batch, group), channel sums first and groups combined on
-the small [B, C] result, like ``group_norm_silu_reference`` there. ``eps``
-follows the nets: 1e-5 in the UNet, 1e-6 in the first stage.
+``group_norm_silu_kernel``  x [B, ..., C] -> same shape
+    kernel ``csrc/group_norm.cu`` (``dsml_group_norm_silu``); replaces the TPU
+    kernel ``dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel``
+    (``group_norm_silu_pallas``). Bound by bytes; statistics pass and apply
+    pass in one launch, reduced per channel so that C/G = 5 costs nothing.
+    Takes every row size (the TPU kernel's 8 MB limit is not carried over).
+
+``gn_channel_stats``        x [B, N, C] -> (sum, sum of squares), [B, C] fp32
+    kernel ``csrc/group_norm.cu`` (``dsml_gn_channel_stats``); replaces the
+    TPU kernel ``dsml_thesis_tpu/ops/groupnorm.py:_gn_stats_kernel``
+    (``_gn_channel_stats_pallas``). Bound by bytes; one read of x, sums in a
+    fixed order (no atomics), so equal inputs give equal bits.
+
+A wrapper takes its plain version (``group_norm_silu_reference``,
+``gn_channel_stats_reference``) only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises. Statistics are fp32 per (batch,
+group), channel sums first and groups combined on the small [B, C] result.
+``eps`` follows the nets: 1e-5 in the UNet, 1e-6 in the first stage.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ..flags import env_mode
+from ._launch import LAUNCHES, check_cuda_operand, current_stream, raise_on_error
 
-def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    num_groups: int = 32, eps: float = 1e-5,
-                    silu: bool = True) -> torch.Tensor:
-    """x [B, ..., C] (channels last) -> same shape and type."""
-    b, c = x.shape[0], x.shape[-1]
+GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
+
+
+def _check_groups(c: int, num_groups: int) -> None:
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def gn_channel_stats_reference(x3: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x3 [B, N, C] -> per (batch, channel) sum and sum of squares in fp32."""
+    xf = x3.float()
+    return xf.sum(dim=1), (xf * xf).sum(dim=1)
+
+
+def group_norm_silu_from_stats(x: torch.Tensor, ch_sum: torch.Tensor,
+                               ch_sq: torch.Tensor, gamma: torch.Tensor,
+                               beta: torch.Tensor, num_groups: int = 32,
+                               eps: float = 1e-5, silu: bool = True
+                               ) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x [B, ..., C] from its per-channel (sum, sum of
+    squares) [B, C] fp32: the group fold, the E[x^2] - E[x]^2 variance
+    clamped at 0 (cancellation can take it slightly negative), eps inside
+    the root, fp32 affine. The sums must cover exactly x's own rows."""
+    b, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
     xf = x.float().reshape(b, -1, c)
     inv_count = 1.0 / (xf.shape[1] * cg)
-    ch_sum = xf.sum(dim=1)                # [B, C]
-    ch_sq = (xf * xf).sum(dim=1)
     g_mean = ch_sum.reshape(b, num_groups, cg).sum(-1) * inv_count
     g_sq = ch_sq.reshape(b, num_groups, cg).sum(-1) * inv_count
-    # E[x^2] - E[x]^2 can go slightly negative from cancellation: clamp
     g_rstd = torch.rsqrt(torch.clamp(g_sq - g_mean * g_mean, min=0.0) + eps)
     c_mean = g_mean.repeat_interleave(cg, dim=-1)[:, None, :]
     c_rstd = g_rstd.repeat_interleave(cg, dim=-1)[:, None, :]
@@ -33,3 +72,118 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if silu:
         xn = xn * torch.sigmoid(xn)
     return xn.reshape(x.shape).to(x.dtype)
+
+
+def group_norm_silu_reference(x: torch.Tensor, gamma: torch.Tensor,
+                              beta: torch.Tensor, num_groups: int = 32,
+                              eps: float = 1e-5, silu: bool = True
+                              ) -> torch.Tensor:
+    """Plain GroupNorm(+SiLU), the spec of the kernels. x [B, ..., C]
+    (channels last) -> same shape and type."""
+    b, c = x.shape[0], x.shape[-1]
+    _check_groups(c, num_groups)
+    ch_sum, ch_sq = gn_channel_stats_reference(x.reshape(b, -1, c))
+    return group_norm_silu_from_stats(x, ch_sum, ch_sq, gamma, beta,
+                                      num_groups=num_groups, eps=eps, silu=silu)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def gn_chunks(n: int, c: int) -> int:
+    """Blocks a batch row of n x c elements is cut into by both kernels (also
+    the number of partial sums a channel has)."""
+    rows = max(1, GN_CHUNK_ELEMENTS // c)
+    return (n + rows - 1) // rows
+
+
+def _stats_scratch(x3: torch.Tensor, chunks: int):
+    b, _, c = x3.shape
+    f32 = dict(dtype=torch.float32, device=x3.device)
+    return torch.empty((b, chunks, 2, c), **f32), torch.empty((2, b, c), **f32)
+
+
+def gn_channel_stats(x3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x3 [B, N, C] -> (ch_sum, ch_sq), each [B, C] fp32, in one read of x."""
+    if x3.dim() != 3:
+        raise ValueError(f"x must be [B, N, C], got {tuple(x3.shape)}")
+    if x3.device.type == "cpu":
+        return gn_channel_stats_reference(x3)
+    if x3.device.type != "cuda":
+        raise ValueError(f"gn_channel_stats: unsupported device {x3.device}")
+    check_cuda_operand("x", x3, x3)
+    b, n, c = x3.shape
+    from . import _build
+
+    lib = _build.load()
+    chunks = gn_chunks(n, c)
+    partial, sums = _stats_scratch(x3, chunks)
+    code = lib.dsml_gn_channel_stats(x3.data_ptr(), partial.data_ptr(),
+                                     sums.data_ptr(), b, n, c, chunks,
+                                     current_stream(x3))
+    raise_on_error(code, "gn_channel_stats")
+    LAUNCHES["gn_channel_stats"] += 1
+    return sums[0], sums[1]
+
+
+def group_norm_silu_stats_fused(x: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, num_groups: int = 32,
+                                eps: float = 1e-5, silu: bool = True
+                                ) -> torch.Tensor:
+    """GroupNorm(+SiLU) with the statistics from ``gn_channel_stats`` and the
+    normalize / affine / SiLU as plain ops."""
+    b, c = x.shape[0], x.shape[-1]
+    _check_groups(c, num_groups)
+    ch_sum, ch_sq = gn_channel_stats(x.reshape(b, -1, c))
+    return group_norm_silu_from_stats(x, ch_sum, ch_sq, gamma, beta,
+                                      num_groups=num_groups, eps=eps, silu=silu)
+
+
+def group_norm_silu_kernel(x: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor, num_groups: int = 32,
+                           eps: float = 1e-5, silu: bool = True
+                           ) -> torch.Tensor:
+    """Whole-row GroupNorm(+SiLU) in one launch. x [B, ..., C] (channels
+    last) -> same shape and type; gamma / beta [C] in fp32 or bf16."""
+    b, c = x.shape[0], x.shape[-1]
+    _check_groups(c, num_groups)
+    if gamma.shape != (c,) or beta.shape != (c,) or gamma.dtype != beta.dtype:
+        raise ValueError(f"gamma{tuple(gamma.shape)} / beta{tuple(beta.shape)} "
+                         f"must both be [{c}] of one type")
+    if x.device.type == "cpu":
+        return group_norm_silu_reference(x, gamma, beta, num_groups=num_groups,
+                                         eps=eps, silu=silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_silu_kernel: unsupported device {x.device}")
+    check_cuda_operand("x", x, x)
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        check_cuda_operand(name, t, x, (torch.bfloat16, torch.float32))
+    from . import _build
+
+    lib = _build.load()
+    x3 = x.reshape(b, -1, c)
+    n = x3.shape[1]
+    chunks = gn_chunks(n, c)
+    partial, sums = _stats_scratch(x3, chunks)
+    out = torch.empty_like(x)
+    code = lib.dsml_group_norm_silu(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
+        sums.data_ptr(), out.data_ptr(), b, n, c, num_groups, chunks,
+        float(eps), int(silu), int(gamma.dtype == torch.bfloat16),
+        current_stream(x))
+    raise_on_error(code, "group_norm_silu_kernel")
+    LAUNCHES["group_norm_silu"] += 1
+    return out
+
+
+def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    num_groups: int = 32, eps: float = 1e-5,
+                    silu: bool = True) -> torch.Tensor:
+    """Dispatch on ``DSML_PALLAS_GN``: ``0`` (default) plain ops, ``1`` the
+    whole-row kernel, ``stats`` the statistics kernel and a plain apply.
+    x [B, ..., C] (channels last) -> same shape and type."""
+    mode = env_mode("DSML_PALLAS_GN", "0", ("0", "1", "stats"))
+    fn = {"0": group_norm_silu_reference, "1": group_norm_silu_kernel,
+          "stats": group_norm_silu_stats_fused}[mode]
+    return fn(x, gamma, beta, num_groups=num_groups, eps=eps, silu=silu)

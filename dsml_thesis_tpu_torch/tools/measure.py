@@ -1,16 +1,20 @@
 """Measurements of the port on the GPU, beyond what chip_smoke.py checks.
 
-    python -m dsml_thesis_tpu_torch.tools.measure --gate --profile
+    python -m dsml_thesis_tpu_torch.tools.measure --gate --profile \
+        [--config configs/latent-diffusion/mead-256-ldm-f4-fullattn.yaml]
 
---gate     the fused self-attention op against the composed branch
-           (three linears, split-head flash_attention, one linear) at the
-           UNet's two shapes and batch 1, 2, 8, 16, in turns (fused,
-           composed, composed, fused), CUDA events, median of the rounds
---profile  one warm batch of mead-256-ldm-f4 (batch 8, DDIM-50, guidance
-           2.0, random weights): phase times from CUDA events, then one
-           frame under torch.profiler: device time by kernel family and the
-           device's idle share (traced, and estimated against the same
-           frame's untraced wall time)
+--gate     the routes of one CrossAttention module's self-attention, in
+           turns, CUDA events, median of the rounds: the fused-projection op
+           against linears + packed kernel + linear at the UNet's two short
+           shapes and batch 1, 2, 8, 16; and at N = 4096 (batch 8 and 16)
+           the three routes fused-projection op, linears + packed kernel,
+           linears + q/out-fused kernel
+--profile  one warm batch of a model config (default mead-256-ldm-f4; batch
+           8, DDIM-50, guidance 2.0, random weights) under the DSML_* flags
+           of the environment: phase times from CUDA events, then one UNet
+           call and one frame under torch.profiler: kernels launched a call,
+           device time by kernel family and the device's idle share (traced,
+           and estimated against the same frame's untraced wall time)
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 
 from ..config import build_model, load_config
 from ..diffusion import make_ddim_schedule, make_video_pipeline
+from ..flags import KERNEL_FLAGS
 from ..models.unet import CrossAttention
 from ..ops import attention as A
 from ..utils_io import cast_sampling_params
@@ -37,6 +42,7 @@ from ..utils_io import cast_sampling_params
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CONFIG = os.path.join(ROOT, "configs", "latent-diffusion",
                       "mead-256-ldm-f4.yaml")
+PARTIAL = "DSML_ATTN_FPROJ_PARTIAL"
 
 
 def card() -> str:
@@ -57,41 +63,78 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(routes: dict, rounds: int = 5, iters: int = 20) -> dict:
+    """Median and range of each route's ms a call, the routes timed in turns
+    (a, b, c, c, b, a a round) after a warm-up."""
+    for fn in routes.values():
+        event_ms(fn, 5)
+    times = {name: [] for name in routes}
+    order = list(routes) + list(routes)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(event_ms(routes[name], iters))
+    out = {}
+    for name, t in times.items():
+        out[f"{name}_ms"] = statistics.median(t)
+        out[f"{name}_ms_range"] = [min(t), max(t)]
+    return out
+
+
 def gate(smi: str):
-    """Fused op vs the composed branch of the same CrossAttention module."""
+    """Routes of the same CrossAttention module's self-attention. The route
+    is chosen as the serving path chooses it, by the module's own rule and
+    flags; here the rule's constant and the flag are set around each call."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, c, heads in ((1024, 320, 10), (256, 640, 20)):
+
+    def routed(attn, x, max_tokens, partial):
+        def call():
+            saved = A.FPROJ_MAX_TOKENS, os.environ.get(PARTIAL)
+            A.FPROJ_MAX_TOKENS, os.environ[PARTIAL] = max_tokens, partial
+            try:
+                return attn(x)
+            finally:
+                A.FPROJ_MAX_TOKENS = saved[0]
+                if saved[1] is None:
+                    del os.environ[PARTIAL]
+                else:
+                    os.environ[PARTIAL] = saved[1]
+        return call
+
+    for n, c, heads, batches in ((1024, 320, 10, (1, 2, 8, 16)),
+                                 (256, 640, 20, (1, 2, 8, 16)),
+                                 (4096, 160, 5, (8, 16))):
         attn = CrossAttention(c, None, heads, c // heads, dtype=torch.bfloat16)
-        attn = cast_sampling_params(attn).cuda()
-        for b in (1, 2, 8, 16):
+        attn = cast_sampling_params(attn).cuda().eval()
+        for b in batches:
             x = torch.randn(b, n, c, generator=gen, device="cuda"
                             ).to(torch.bfloat16)
+            routes = {"fused": routed(attn, x, n, "0"),
+                      "packed": routed(attn, x, 0, "0")}
+            if n > 1024:
+                routes["qout"] = routed(attn, x, 0, "1")
             with torch.no_grad():
-                fused = lambda: attn.eval()(x)
-                composed = lambda: attn.train()(x)  # the composed branch
-                err = (fused().float() - composed().float()).abs().max().item()
-                for fn in (fused, composed):
-                    event_ms(fn, 5)  # warm-up
-                rounds = {"fused": [], "composed": []}
-                for _ in range(5):
-                    rounds["fused"].append(event_ms(fused, 20))
-                    rounds["composed"].append(event_ms(composed, 20))
-                    rounds["composed"].append(event_ms(composed, 20))
-                    rounds["fused"].append(event_ms(fused, 20))
+                A.reset_launches()
+                outs = {name: fn().float() for name, fn in routes.items()}
+                launched = dict(A.LAUNCHES)
+                res = _in_turns(routes)
             print(json.dumps({
                 "measure": "gate", "card": smi, "shape": [b, n, c, heads],
-                "fused_ms": statistics.median(rounds["fused"]),
-                "composed_ms": statistics.median(rounds["composed"]),
-                "fused_ms_range": [min(rounds["fused"]), max(rounds["fused"])],
-                "composed_ms_range": [min(rounds["composed"]),
-                                      max(rounds["composed"])],
-                "max_abs_diff": err}), flush=True)
+                **res, "launches_of_one_call_each": launched,
+                "max_abs_diff_from_fused": {
+                    name: (o - outs["fused"]).abs().max().item()
+                    for name, o in outs.items() if name != "fused"}}),
+                flush=True)
 
 
 _FAMILIES = (
     ("fproj_attention_kernel", "attention: fproj (attention + to_out)"),
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
+    ("packed_attention_kernel", "attention: packed"),
+    ("qout_attention_kernel", "attention: qout (q proj + attention + to_out)"),
+    ("gn_partial_kernel", "GroupNorm kernels: statistics"),
+    ("gn_finish_kernel", "GroupNorm kernels: statistics"),
+    ("gn_apply_kernel", "GroupNorm kernels: apply"),
     ("cudnn", "convolution"), ("conv", "convolution"), ("wgrad", "convolution"),
     ("nchwToNhwc", "convolution"), ("nhwcToNchw", "convolution"),
     ("gemm", "linear (cuBLAS)"), ("cutlass", "linear (cuBLAS)"),
@@ -110,10 +153,35 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile(smi: str, frames: int):
+def _by_family(kernels: dict, field: int) -> dict:
+    """Device ms (field 0) or launches (field 1) of a profile's kernels,
+    summed by family."""
+    fams = {}
+    for name, rec in kernels.items():
+        fams[_family(name)] = fams.get(_family(name), 0) + rec[field]
+    return fams
+
+
+def _device_kernels(prof) -> dict:
+    """name -> (device ms, launches) of every kernel a profile recorded."""
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and ev.device_type.name == "CUDA":
+            out[ev.key] = (dev_us / 1e3, ev.count)
+    return out
+
+
+def profile(smi: str, frames: int, config: str):
+    from torch.profiler import ProfilerActivity
+
     device = torch.device("cuda")
     batch, steps, size, window = 8, 50, 256, 8
-    cfg = load_config([CONFIG])
+    env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
+    run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
+           "batch": batch}
+    cfg = load_config([config])
     torch.manual_seed(0)
     ldm = build_model(cfg["model"])
     torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
@@ -149,13 +217,29 @@ def profile(smi: str, frames: int):
         total_ms = event_ms(lambda: pipe(mf, au, idn, lab, gen), 1)
         wall = time.monotonic() - t0
     print(json.dumps({
-        "measure": "phases", "card": smi, "batch": batch, "frames": frames,
+        "measure": "phases", **run, "frames": frames,
         "ddim_steps": steps, "batch_ms": total_ms,
         "encode_ms": enc_ms, "ddim_chain_ms": chain_ms,
         "unet_call_ms": chain_ms / (frames * steps),
         "decode_ms_per_frame": dec_ms, "launches": dict(A.LAUNCHES),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
         "host_seconds_all": wall}), flush=True)
+
+    # one guidance-pair UNet call under the profiler: kernels launched
+    x_t = r(batch, 64, 64, 3)
+    cond = {"crossattn": r(2 * batch, 1, ldm.unet.context_dim),
+            "concat": r(batch, 64, 64, 6)}
+    t = torch.full((batch,), 500, device=device)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        ldm.apply_model(x_t, t, cond, cfg_pairs=True)
+        torch.cuda.synchronize()
+    call = _device_kernels(prof)
+    print(json.dumps({
+        "measure": "unet_call", **run,
+        "kernels_launched": sum(n for _, n in call.values()),
+        "device_busy_ms": sum(ms for ms, _ in call.values()),
+        "launched_by_family": _by_family(call, 1)}), flush=True)
 
     # one frame under the profiler: device time by kernel family, idle share.
     # Tracing slows the host, so the same frame is also timed untraced: the
@@ -165,25 +249,18 @@ def profile(smi: str, frames: int):
     pipe(*inputs(1), gen)
     torch.cuda.synchronize()
     wall_untraced_ms = 1e3 * (time.monotonic() - t0)
-    from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
         pipe(*inputs(1), gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
-    fams, kernels = {}, {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us <= 0 or ev.device_type.name != "CUDA":
-            continue
-        fams[_family(ev.key)] = fams.get(_family(ev.key), 0.0) + dev_us / 1e3
-        kernels[ev.key] = (dev_us / 1e3, ev.count)
+    kernels = _device_kernels(prof)
+    fams = _by_family(kernels, 0)
     busy_ms = sum(fams.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({
-        "measure": "profile", "card": smi, "batch": batch, "frames": 1,
+        "measure": "profile", **run, "frames": 1,
+        "kernels_launched": sum(n for _, n in kernels.values()),
         "wall_ms_traced": wall_ms, "wall_ms_untraced": wall_untraced_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share_traced": (1 - busy_ms / wall_ms) if busy_ms
@@ -206,6 +283,8 @@ def main():
     ap.add_argument("--gate", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--config", default=CONFIG,
+                    help="model config YAML of --profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -214,7 +293,7 @@ def main():
     if args.gate:
         gate(smi)
     if args.profile:
-        profile(smi, args.frames)
+        profile(smi, args.frames, args.config)
 
 
 if __name__ == "__main__":

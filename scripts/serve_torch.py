@@ -6,10 +6,21 @@ Concurrent single-clip requests are collected into the batch tier and run as
 one batched pipeline call on the GPU (dsml_thesis_tpu_torch/server.py).
 
 Usage:
-  python scripts/serve_torch.py \
-      --config configs/latent-diffusion/mead-256-ldm-f4.yaml \
-      [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0] \
+  python scripts/serve_torch.py
+      --config configs/latent-diffusion/mead-256-ldm-f4.yaml
+      [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0]
       [--size 256] [--port 8000 --max-wait-ms 50] [--device cuda]
+
+``--config`` is one of the MEAD talking-face YAMLs: the headline
+``mead-256-ldm-f4.yaml``, or ``mead-256-ldm-f4-fullattn.yaml`` with
+self-attention at every level, 64 x 64 (4096 tokens) included.
+
+Environment flags, the JAX package's own (dsml_thesis_tpu_torch/flags.py):
+  DSML_ATTN_PACKED=0         split-head attention instead of the packed kernel
+  DSML_ATTN_FUSED_PROJ=0     no projection-fused self-attention (N <= 1024)
+  DSML_ATTN_FPROJ_PARTIAL=1  q/out-fused kernel for longer self-attention
+  DSML_PALLAS_GN=1|stats     GroupNorm through the whole-row kernel, or
+                             through the statistics kernel + plain apply
 
 ``--ckpt`` is a ``torch.save``d state_dict of the port's LatentDiffusion
 (``dsml_thesis_tpu_torch.convert.from_jax_params`` makes one from a JAX
@@ -41,7 +52,9 @@ from dsml_thesis_tpu_torch.utils_io import cast_sampling_params
 
 
 def main():
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,6 +1,7 @@
 """What the port may and may not depend on: no JAX, no Flax, nothing of the
-JAX package; no library attention; every CUDA source built; and a smoke
-script that refuses to run without a card."""
+JAX package; no library attention or GroupNorm; every CUDA source built; a
+routing rule that is the JAX package's; and a smoke script that refuses to
+run without a card."""
 import os
 import pkgutil
 import re
@@ -74,11 +75,25 @@ def test_no_library_attention_in_the_package():
         assert "torch.compile" not in src, path
 
 
+def test_no_library_group_norm_in_the_package():
+    """GroupNorm is the port's own plain ops or its own kernels: PyTorch's
+    fused operator and module stay out (the smoke script times the operator
+    as a yardstick and uses it nowhere else)."""
+    for path in _python_sources():
+        if os.path.basename(path) == "chip_smoke.py":
+            continue
+        src = open(path).read()
+        assert not re.search(r"\bgroup_norm\(", src), path
+        assert "nn.GroupNorm" not in src and "var_mean" not in src, path
+
+
 def test_every_cuda_source_is_built():
     from dsml_thesis_tpu_torch.ops import _build
 
     on_disk = set(os.listdir(_build.CSRC_DIR))
     assert on_disk == set(_build.SOURCES) | set(_build.HEADERS)
+    assert {"flash_attention_packed.cu", "flash_attention_qout.cu",
+            "group_norm.cu"} <= set(_build.SOURCES)
     assert all(s.endswith(".cu") for s in _build.SOURCES)
     for name in _build.SOURCES:
         src = open(os.path.join(_build.CSRC_DIR, name)).read()
@@ -105,9 +120,66 @@ def test_smoke_script_refuses_to_run_without_a_card():
 
 
 def test_cuda_tensor_never_reaches_a_plain_version():
-    """The wrappers branch on the tensor's device alone: the plain version
-    is behind ``device.type == "cpu"`` and nothing catches a failed launch."""
-    src = open(os.path.join(PKG, "ops", "attention.py")).read()
-    assert src.count('device.type == "cpu"') == 2
-    assert "except" not in src
-    assert "is_available" not in src
+    """The wrappers branch on the tensor's device alone: each of the six
+    plain versions is called once, behind ``device.type == "cpu"``, and
+    nothing catches a failed launch. (``group_norm_silu_reference`` is also
+    what ``DSML_PALLAS_GN=0`` selects by name, as in the JAX package: that
+    choice is the flag's, not a fallback.)"""
+    plain = {
+        "attention.py": ("attention_reference", "fproj_reference",
+                         "packed_reference", "qout_reference"),
+        "groupnorm.py": ("group_norm_silu_reference",
+                         "gn_channel_stats_reference"),
+    }
+    for name, versions in plain.items():
+        src = open(os.path.join(PKG, "ops", name)).read()
+        assert src.count('device.type == "cpu"') == len(versions)
+        for fn in versions:
+            guarded = re.findall(
+                r'device\.type == "cpu":\n\s+return ' + fn + r"\(", src)
+            assert len(guarded) == 1, fn
+        assert "except" not in src
+        assert "is_available" not in src
+
+
+def _self_attention_shapes(path):
+    """(tokens, channels, H*D) of every self-attention of a model YAML's
+    UNet at its own latent size."""
+    import yaml
+
+    p = yaml.safe_load(open(path))["model"]["params"]
+    u = p["unet_config"]["params"]
+    size = u.get("image_size", p["image_size"])
+    out = set()
+    for level, mult in enumerate(u["channel_mult"]):
+        ds = 2 ** level
+        if ds in u["attention_resolutions"]:
+            c = u["model_channels"] * mult
+            out.add(((size // ds) ** 2, c, c))
+    last = len(u["channel_mult"]) - 1
+    c = u["model_channels"] * u["channel_mult"][last]
+    out.add(((size // 2 ** last) ** 2, c, c))   # the middle block
+    return sorted(out)
+
+
+def test_routing_rule_is_the_jax_packages_on_the_shipped_configs():
+    """``fproj_one_q_block`` decides by the token count alone; on every
+    self-attention shape of the eight shipped model configs it is the JAX
+    package's ``fproj_eligible`` (one q-block fits its fast memory)."""
+    import glob
+
+    from dsml_thesis_tpu.ops.attention import fproj_eligible
+    from dsml_thesis_tpu_torch.ops.attention import (FPROJ_MAX_TOKENS,
+                                                     fproj_one_q_block)
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "configs", "latent-diffusion",
+                                          "*.yaml")))
+    assert len(paths) == 8
+    seen = set()
+    for path in paths:
+        for n, c, hd in _self_attention_shapes(path):
+            seen.add(n)
+            assert fproj_one_q_block(n) == fproj_eligible(n, c, hd), (path, n)
+    assert FPROJ_MAX_TOKENS == 1024
+    assert {256, 1024, 4096} <= seen
+    assert fproj_one_q_block(1024) and not fproj_one_q_block(4096)

@@ -42,7 +42,7 @@ def unets():
 @pytest.mark.parametrize("tokens", [1, 3], ids=["one-token", "three-tokens"])
 def test_unet_forward_matches_jax(unets, tokens):
     """One context token takes the broadcast branch of cross-attention,
-    three the composed branch; self-attention takes the fused op."""
+    three the packed branch; self-attention takes the fused op."""
     jm, params, tm = unets
     x, t, ctx = _inputs(2, tokens=tokens)
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(x),
@@ -76,7 +76,7 @@ def test_unet_cfg_pairs_matches_jax_and_the_doubled_call(unets):
 
 def test_unet_train_mode_takes_the_composed_attention(unets):
     """The fused op is for eval-mode self-attention; in train mode the same
-    function goes through projections + split-head attention + to_out."""
+    function goes through projections + packed attention + to_out."""
     _, _, tm = unets
     x, t, ctx = map(torch.from_numpy, _inputs(5))
     with torch.no_grad():
