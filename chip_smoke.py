@@ -26,6 +26,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
              headline        headline config, no flag, one batch
            each checks shapes, finiteness, range, launch counts, and that
            (seed, batch index) reproduces a batch bit for bit
+  train    scripts/train_torch.py's own main() on SyntheticDataset at the
+           real shapes (256 px, audio [17, 768]), batch 8, full width and
+           depth, fp32 parameters with bf16 compute, in four runs:
+             train           headline config, no flag, 6 optimizer steps, one
+                             validation batch, `last` written, then resumed
+                             with --resume for one more step
+             train-fullattn  -fullattn, no flag, 2 steps
+             train-split     headline, DSML_ATTN_PACKED=0, 2 steps
+             train-gn        headline, DSML_PALLAS_GN=1, 2 steps
+           each checks: finite losses, parameters that moved, launch counts
+           against those counted from the model's own blocks, equal loss bits
+           from a second run with the same seed, and loss and a handful of
+           gradients on the kernel path against the plain path on the card
 then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -36,6 +49,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -152,10 +166,16 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
     """One kernel call against its plain version on the same inputs and,
     if ``timed``, the times of the kernel, the plain version and the library
     yardstick beside the bound: bytes moved once over the memory rate against
-    operations over the peak rate of their type, the larger."""
+    operations over the peak rate of their type, the larger. A kernel with
+    several outputs returns a tuple: each output is held against its own
+    maximum and the worst is reported."""
     out = kernel()
     torch.cuda.synchronize()
-    err, rel = _compare(out, plain())
+    ref = plain()
+    if not isinstance(out, tuple):
+        out, ref = (out,), (ref,)
+    errs = [_compare(o, r) for o, r in zip(out, ref)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
     case = {"shape": list(shape), **extra, "max_abs_err": err, "rel_err": rel}
     if timed:
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
@@ -224,6 +244,69 @@ def _packed_case(gen, b, nq, nk, heads, d, timed):
         lambda: F.scaled_dot_product_attention(sp(q), sp(k), sp(v),
                                                scale=scale),
         2 * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, PEAK_BF16_FLOPS)
+
+
+def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
+              plain, sdpa_inputs, scale):
+    """An attention backward kernel on the forward kernel's own output and
+    row log-sum-exp: (dq, dk, dv) against the plain backward formula, each
+    within REL_TOL of its own maximum; a second launch and the same gradient
+    asked for through autograd (the ``Function`` the model uses) must both
+    give the same bits. The yardstick is the backward of
+    ``scaled_dot_product_attention`` through autograd."""
+    import torch.nn.functional as F
+
+    b_h, nq, nk, d = shape[-4:]
+    out, lse = forward()
+    sq, sk, sv, sdo = (t.detach().requires_grad_(t is not sdpa_inputs[3])
+                       for t in sdpa_inputs)
+    so = F.scaled_dot_product_attention(sq, sk, sv, scale=scale)
+    case = _case(
+        shape, timed, lambda: backward(out, lse), plain,
+        lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True),
+        2 * b_h * (4 * nq + 4 * nk) * d + 4 * b_h * nq,
+        10 * b_h * nq * nk * d, PEAK_BF16_FLOPS)
+    first, again = backward(out, lse), backward(out, lse)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(through_autograd(*leaves), leaves, do)
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(first, again, auto))
+    if not same:
+        case["rel_err"] = float("inf")
+    case["repeatable_and_equal_through_autograd"] = same
+    return case
+
+
+def _flash_bwd_case(gen, b, h, nq, nk, d, timed):
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    q, k, v, do = (_rand(gen, b, h, n, d) for n in (nq, nk, nk, nq))
+    scale = d ** -0.5
+    return _bwd_case(
+        (b, h, nq, nk, d)[:1] + (b * h, nq, nk, d), timed, q, k, v, do,
+        lambda: A._launch_flash_forward(q, k, v, scale, True),
+        lambda o, lse: A.flash_attention_bwd(q, k, v, o, lse, do, scale),
+        lambda q_, k_, v_: A.flash_attention(q_, k_, v_, scale=scale),
+        lambda: A.flash_attention_bwd_reference(q, k, v, do, scale=scale),
+        (q, k, v, do), scale)
+
+
+def _packed_bwd_case(gen, b, nq, nk, heads, d, timed):
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    hd = heads * d
+    q, k, v, do = (_rand(gen, b, n, hd) for n in (nq, nk, nk, nq))
+    scale = d ** -0.5
+    sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+    return _bwd_case(
+        (b, b * heads, nq, nk, d), timed, q, k, v, do,
+        lambda: A._launch_packed_forward(q, k, v, heads, scale, True),
+        lambda o, lse: A.flash_attention_bwd_packed(q, k, v, o, lse, do, heads,
+                                                    scale),
+        lambda q_, k_, v_: A.flash_attention_packed(q_, k_, v_, heads,
+                                                    scale=scale),
+        lambda: A.packed_bwd_reference(q, k, v, do, heads, scale=scale),
+        (sp(q), sp(k), sp(v), sp(do)), scale)
 
 
 def _qout_case(gen, b, n, nk, c, heads, timed):
@@ -366,8 +449,25 @@ def phase_kernels():
         _stats_case(gen, 3, 1000, 160, False),
         _stats_case(gen, 2, 77, 2080, False),
     ]
+    # shapes as [B, B*H, Nq, Nk, D]; training at batch 8
+    flash_bwd = [
+        _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
+        _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
+        _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
+        _flash_bwd_case(gen, 2, 3, 200, 200, 64, False),     # 64-wide heads
+    ]
+    packed_bwd = [
+        _packed_bwd_case(gen, 8, 1024, 1024, 10, 32, True),  # training step
+        _packed_bwd_case(gen, 8, 256, 256, 20, 32, True),
+        _packed_bwd_case(gen, 8, 4096, 4096, 5, 32, True),   # -fullattn
+        _packed_bwd_case(gen, 2, 1000, 1000, 5, 32, False),  # ragged N
+        _packed_bwd_case(gen, 2, 333, 77, 10, 32, False),    # Nk != Nq
+        _packed_bwd_case(gen, 2, 200, 200, 3, 64, False),    # 64-wide heads
+    ]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,
+             "flash_attention_bwd": flash_bwd,
+             "flash_attention_bwd_packed": packed_bwd,
              "group_norm_silu": gn, "gn_channel_stats": stats}
     bad = [(name, c["shape"], c["rel_err"], c.get("tol", REL_TOL))
            for name, cs in cases.items() for c in cs
@@ -441,6 +541,7 @@ def expected_launches(ldm, env, unet_calls, encodes, decodes):
         "flash_attention_fproj": unet_calls * short,
         "flash_attention_packed": 0 if partial else unet_calls * long,
         "flash_attention_qout": unet_calls * long if partial else 0,
+        "flash_attention_bwd": 0, "flash_attention_bwd_packed": 0,
         "group_norm_silu": norms if gn_mode == "1" else 0,
         "gn_channel_stats": norms if gn_mode == "stats" else 0,
     }
@@ -600,7 +701,206 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
     return launches
 
 
-# kernel -> (source, the TPU kernel it replaces, the serve run that is its path)
+SYNTHETIC_SPEC = {
+    "image": [[256, 256, 3], "float32"],
+    "masked_image": [[256, 256, 3], "float32"],
+    "identity": [[256, 256, 3], "float32"],
+    "class_label": [[], "int32"],
+    "audio": [[17, 768], "float32"],
+}
+# parameters whose gradients the kernel path and the plain path are held to
+GRAD_PROBES = (
+    "unet.conv_in.weight",
+    "unet.down_1_0_attn.block_0.attn1.to_q.weight",
+    "unet.down_1_0_attn.block_0.attn1.to_out.weight",
+    "unet.down_0_0_res.in_norm.weight",
+    "cond.class_label.embedding.weight",
+)
+
+
+def expected_train_launches(ldm, env, steps, eval_batches):
+    """Launches of every kernel for ``steps`` training steps and
+    ``eval_batches`` validation batches (two loss evaluations each, raw and
+    EMA weights, in eval-mode routing), from the model's own blocks. A step:
+    three frozen first-stage encodes (image and the two concat streams), and
+    every UNet self-attention once forward and once backward through the
+    packed kernels (or the split-head ones under DSML_ATTN_PACKED=0). The
+    GroupNorm kernel runs forward only: its backward differentiates the
+    plain version, as in the JAX package."""
+    short, long = count_attentions(ldm.unet)
+    packed = env.get("DSML_ATTN_PACKED", "1") == "1"
+    norms = count_norms(ldm.unet) + 3 * count_norms(ldm.first_stage.encoder)
+    gn = env.get("DSML_PALLAS_GN", "0") == "1"
+    step = dict.fromkeys(expected_launches(ldm, env, 0, 0, 0), 0)
+    step.update({
+        "flash_attention": 9 + (0 if packed else short + long),
+        "flash_attention_packed": short + long if packed else 0,
+        "flash_attention_bwd_packed": short + long if packed else 0,
+        "flash_attention_bwd": 0 if packed else short + long,
+        "group_norm_silu": norms if gn else 0,
+    })
+    evals = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
+    if not packed:   # no fused branch: every self-attention splits its heads
+        evals.update(flash_attention=9 + short + long, flash_attention_fproj=0,
+                     flash_attention_packed=0)
+    return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
+
+
+def _train_losses(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return ([r["train/loss"] for r in recs if r["split"] == "train"],
+            [r for r in recs if r["split"] == "val"])
+
+
+def _grad_check(trainer, env):
+    """Loss and the probe gradients of one batch through the kernels against
+    the same through the plain versions (patched in here, for this comparison
+    only; the GroupNorm flag unset selects its plain ops), same draws."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.models import autoencoder, unet
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    ldm = trainer.ldm
+    batch = trainer._to_device(next(iter(trainer.train_data)))
+    probes = dict(ldm.named_parameters())
+    gen = torch.Generator(device="cuda")
+
+    def run():
+        gen.manual_seed(7)
+        ldm.zero_grad(set_to_none=True)
+        loss, _ = ldm.training_loss(batch, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: probes[n].grad.detach().float().clone()
+                 for n in GRAD_PROBES}
+        ldm.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    with flags(**env):
+        A.reset_launches()
+        loss_k, grads_k = run()
+        launched = dict(A.LAUNCHES)
+    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
+            mock.patch.object(unet, "packed_multi_head_attention",
+                              A.packed_reference), \
+            mock.patch.object(unet, "flash_attention", A.attention_reference), \
+            mock.patch.object(autoencoder, "flash_attention",
+                              A.attention_reference):
+        A.reset_launches()
+        loss_p, grads_p = run()
+        launched_plain = dict(A.LAUNCHES)
+    rel = {n: _compare(grads_k[n], grads_p[n])[1] for n in GRAD_PROBES}
+    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
+    ok = (loss_rel <= 5e-2 and all(r <= 5e-2 for r in rel.values())
+          and not any(launched_plain.values()))
+    return ok, {"loss_kernels": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": loss_rel, "grad_rel_err": rel, "rel_tol": 5e-2,
+                "launches_one_step": launched}
+
+
+def phase_train(name, config, env, steps, smi, tmp, resume=False):
+    """One train run through scripts/train_torch.py's main(). Returns the
+    launch counts of the run (steps + one validation batch)."""
+    import importlib.util
+
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(HERE, "scripts", "train_torch.py"))
+    train_torch = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_torch)
+
+    node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
+            "params": {"spec": SYNTHETIC_SPEC, "length": 64}}
+    val = {"target": node["target"],
+           "params": {"spec": SYNTHETIC_SPEC, "length": 8, "seed": 1000}}
+    # key=value overrides replace the YAML's MEAD dataset nodes whole (JSON is
+    # YAML's flow form); batch_size 8 is the YAML's own
+    data = [f"data.params.train={json.dumps(node)}",
+            f"data.params.validation={json.dumps(val)}"]
+
+    def run(tag, n_steps):
+        argv = ["--base", config, "-t", "--max-steps", str(n_steps),
+                "--logdir", os.path.join(tmp, tag), "--name", name,
+                "--seed", "0", "--no-test", "--log-every", "1", *data]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        trainer = train_torch.main(argv)
+        torch.cuda.synchronize()
+        return trainer, time.monotonic() - t0
+
+    with flags(**env):
+        A.reset_launches()   # counts below are of this run alone
+        trainer, wall = run(f"{name}-a", steps)
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        state = trainer._state
+        losses, vals = _train_losses(trainer.logdir)
+        moved = sum(not torch.equal(p, e)
+                    for p, e in zip(state.params, state.ema_params))
+        # warm steps, timed on the trained model: CUDA events around whole steps
+        batch = trainer._to_device(next(iter(trainer.train_data)))
+        step_ms = time_ms(lambda: trainer._train_step(state, batch, 0), 4, 1)
+        ckpt = os.path.join(trainer.logdir, "checkpoints", "last", "state.pt")
+        ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+        resumed_step = None
+        if resume:
+            again = train_torch.main(
+                ["--resume", trainer.logdir, "-t", "--max-steps",
+                 str(steps + 1), "--no-test", "--log-every", "1"])
+            resumed_step = again._state.step
+            resumed_losses, _ = _train_losses(trainer.logdir)
+            del again
+        # a run leaves `last` and one top-k checkpoint (2.7 GB each): cleared
+        # as soon as they have been read, so that the script's peak use of
+        # the temporary directory is one run's
+        shutil.rmtree(os.path.join(tmp, f"{name}-a"))
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+        twin, _ = run(f"{name}-b", steps)
+        twin_losses, _ = _train_losses(twin.logdir)
+        shutil.rmtree(os.path.join(tmp, f"{name}-b"))
+        grads_ok, grads = _grad_check(twin, env)
+        expect, per_step = expected_train_launches(twin.ldm, env, steps, 1)
+        del twin
+        torch.cuda.empty_cache()
+
+    checks = {
+        "steps": len(losses) == steps,
+        "finite": all(np.isfinite(losses)) and len(vals) == 1
+        and all(np.isfinite(v) for v in vals[0].values()
+                if isinstance(v, float)),
+        "val_raw_and_ema": bool(vals) and "val_loss" in vals[0]
+        and "val_loss_ema" in vals[0],
+        "parameters_moved": moved > 0,
+        "launches": launches == expect,
+        "same_seed_same_loss_bits": losses == twin_losses,
+        "checkpoint_written": ckpt_bytes > 0,
+        "kernel_path_agrees_with_plain_path": grads_ok,
+    }
+    if resume:
+        checks["resumed_at_saved_step"] = (
+            resumed_step == steps + 1 and len(resumed_losses) == steps + 1
+            and resumed_losses[:steps] == losses
+            and bool(np.isfinite(resumed_losses[-1])))
+    emit({"phase": "train", "run": name,
+          "config": os.path.relpath(config, HERE), "flags": env, "card": smi,
+          "batch": 8, "optimizer_steps": steps, "checks": checks,
+          "losses": losses, "val": vals[0] if vals else None,
+          "tensors_moved": moved, "launches": launches,
+          "launches_expected": expect, "launches_per_step": per_step,
+          "warm_step_ms": step_ms, "img_per_s": 8e3 / step_ms,
+          "peak_memory_bytes": peak, "checkpoint_bytes": ckpt_bytes,
+          "run_wall_seconds": round(wall, 3), "gradients": grads})
+    if not all(checks.values()):
+        fail(f"train {name}: checks failed: {checks}")
+    return launches
+
+
+# kernel -> (source, the TPU kernel it replaces, the run that is its path)
 KERNELS = {
     "flash_attention_fproj": (
         "flash_attention_fproj.cu", "attention.py:950", "fullattn"),
@@ -614,6 +914,10 @@ KERNELS = {
         "group_norm.cu", "groupnorm.py:103", "fullattn-flags"),
     "gn_channel_stats": (
         "group_norm.cu", "groupnorm.py:162", "headline-stats"),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu", "attention.py:1353", "train-split"),
+    "flash_attention_bwd_packed": (
+        "flash_attention_bwd_packed.cu", "attention.py:1378", "train"),
 }
 
 
@@ -624,13 +928,14 @@ def kernels_line(cases, launches_by_run):
         first = timed[0]
         launches = launches_by_run[run][name]
         if launches < 1:
-            fail(f"kernel {name} was launched no time in serve run {run}")
+            fail(f"kernel {name} was launched no time in run {run}")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"dsml_thesis_tpu_torch/csrc/{source}",
             "replaces": f"dsml_thesis_tpu/ops/{replaces}",
             "launches": launches, "launches_in_run": run,
-            "launches_by_run": {r: l[name] for r, l in launches_by_run.items()},
+            "launches_by_run": {r: l.get(name, 0)
+                                for r, l in launches_by_run.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "shape": first["shape"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -648,11 +953,19 @@ RUNS = (
     ("headline-stats", CONFIG, {"DSML_PALLAS_GN": "stats"}, 8),
     ("headline", CONFIG, {}, 8),
 )
+# train runs: (name, config, flags, optimizer steps)
+TRAIN_RUNS = (
+    ("train", CONFIG, {}, 6),
+    ("train-fullattn", CONFIG_FULLATTN, {}, 2),
+    ("train-split", CONFIG, {"DSML_ATTN_PACKED": "0"}, 2),
+    ("train-gn", CONFIG, {"DSML_PALLAS_GN": "1"}, 2),
+)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,model,serve")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,model,serve,train")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -692,7 +1005,17 @@ def main():
             if "serve" in phases:
                 launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
                                              args.frames, smi)
-    if cases is None or not launches:
+        del models, ldm   # free the card for the train runs
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            for name, config, env, steps in TRAIN_RUNS:
+                launches[name] = phase_train(name, config, env, steps, smi, tmp,
+                                             resume=(name == "train"))
+    if cases is None or not all(
+            r[0] in launches for r in RUNS + TRAIN_RUNS):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

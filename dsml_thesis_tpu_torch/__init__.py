@@ -8,7 +8,9 @@ under ``csrc/``, built at first use (``ops/_build.py``); on a CPU tensor a
 kernel's wrapper runs the kernel's plain PyTorch version instead.
 
 Ported so far: the serving path of the talking-face pipeline
-(``configs/latent-diffusion/mead-256-ldm-f4.yaml``): first-stage VQGAN,
-conditioning encoders, UNet, DDIM sampler, the frame-progressive video
-pipeline and the micro-batching server.
+(``configs/latent-diffusion/mead-256-ldm-f4.yaml`` and its ``-fullattn``
+twin): first-stage VQGAN, conditioning encoders, UNet, DDIM sampler, the
+frame-progressive video pipeline and the micro-batching server; and LDM
+training of the same configs (``training/``, ``scripts/train_torch.py``):
+the diffusion loss, AdamW, EMA, LR schedules, validation, checkpoints.
 """

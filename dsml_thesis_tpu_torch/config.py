@@ -4,7 +4,11 @@ drive the JAX package build the PyTorch model.
 Own copies of ``load_config`` / ``_deep_merge`` (plain YAML, no framework)
 and a ``build_model`` for the talking-face (MEAD) model configs: the
 two-conditioning ``LatentDiffusion`` target with a VQ first stage, a
-``ClassEmbedder`` and a ``Conv1DTemporalAttention``. Other targets raise
+``ClassEmbedder`` and a ``Conv1DTemporalAttention``; and ``instantiate_from_config`` for the
+dataset targets the port's trainer drives (``SyntheticDataset``, under the
+JAX package's target names too, so one ``data`` node serves both trainers).
+``scheduler_config``, ``base_learning_rate`` and ``data`` are read by the
+trainer as the JAX trainer reads them. Other targets raise
 ``NotImplementedError`` until their modules are ported.
 """
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Any, Dict, List, Sequence
 
 import yaml
 
+from .data import SyntheticDataset
 from .diffusion import make_schedule
 from .models.autoencoder import VQModel
 from .models.encoders import ClassEmbedder, Conv1DTemporalAttention
@@ -83,6 +88,11 @@ _BUILDERS = {
         lambda p: ClassEmbedder(**p),
     "ldm.modules.encoders.modules.Conv1DTemporalAttention":
         lambda p: Conv1DTemporalAttention(**p),
+    "dsml_thesis_tpu_torch.data.SyntheticDataset":
+        lambda p: SyntheticDataset(**p),
+    "dsml_thesis_tpu.data.SyntheticDataset": lambda p: SyntheticDataset(**p),
+    "dsml_thesis_tpu.data.datasets.SyntheticDataset":
+        lambda p: SyntheticDataset(**p),
 }
 
 _LDM_TARGETS_2COND = {
@@ -114,6 +124,7 @@ def build_model(model_cfg: Dict) -> LatentDiffusion:
         linear_start=p.get("linear_start", 1e-4),
         linear_end=p.get("linear_end", 2e-2),
         cosine_s=p.get("cosine_s", 8e-3),
+        v_posterior=p.get("v_posterior", 0.0),
     )
     trainable = p.get("cond_stage_trainable", False)
     cond_specs: List[CondSpec] = [
@@ -139,4 +150,8 @@ def build_model(model_cfg: Dict) -> LatentDiffusion:
         image_size=p.get("image_size", 32),
         channels=p.get("channels", 3),
         split_input_params=p.get("split_input_params"),
+        loss_type=p.get("loss_type", "l2"),
+        l_simple_weight=p.get("l_simple_weight", 1.0),
+        original_elbo_weight=p.get("original_elbo_weight", 0.0),
+        monitor=p.get("monitor", "val_loss_ema"),
     )

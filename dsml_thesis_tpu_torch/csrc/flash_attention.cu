@@ -1,5 +1,7 @@
 // flash_attention: exact-softmax attention on split heads,
-//   q [BH, Nq, D], k / v [BH, Nk, D] -> o [BH, Nq, D], bf16, contiguous.
+//   q [BH, Nq, D], k / v [BH, Nk, D] -> o [BH, Nq, D], bf16, contiguous,
+// and, where lse is not null, each row's log-sum-exp [BH, Nq] in fp32 (base 2,
+// of the scores times scale * log2(e)) for the backward kernel.
 //
 // Replaces the TPU kernel dsml_thesis_tpu/ops/attention.py:_flash_kernel
 // (flash_attention). That kernel keeps one head's whole K and V in fast
@@ -21,7 +23,8 @@ template <int D, int DSPLIT, int BN>
 __global__ void __launch_bounds__(128 * DSPLIT)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int nq, int nk, int q_tiles, float scale_log2) {
+                       float* __restrict__ lse, int nq, int nk, int q_tiles,
+                       float scale_log2) {
   constexpr int NTHREADS = 128 * DSPLIT;
   constexpr int DO = D / DSPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -41,9 +44,9 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D, NTHREADS>(sQ, q, D, BM, nq - q0, tid);
 
   float acc[DO / 8][4];
-  float l0, l1;
+  float l0, l1, m0, m1;
   attend_rows<D, DSPLIT, BN, NTHREADS>(sQ, D + PAD, k, v, D, nk, scale_log2,
-                                       sK, sV, acc, l0, l1);
+                                       sK, sV, acc, l0, l1, m0, m1);
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -52,6 +55,11 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int col0 = (warp % DSPLIT) * DO + 2 * (lane & 3);
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
+  if (lse != nullptr && warp % DSPLIT == 0 && (lane & 3) == 0) {
+    float* row_lse = lse + static_cast<int64_t>(bh) * nq + q0;
+    if (q0 + r0 < nq) row_lse[r0] = m0 + log2f(l0);
+    if (q0 + r1 < nq) row_lse[r1] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < DO / 8; ++dt) {
     const int col = col0 + dt * 8;
@@ -65,8 +73,9 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, int DSPLIT, int BN>
-static int launch(const void* q, const void* k, const void* v, void* o, int bh,
-                  int nq, int nk, float scale, cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int bh, int nq, int nk, float scale,
+                  cudaStream_t stream) {
   auto kernel = flash_attention_kernel<D, DSPLIT, BN>;
   const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
@@ -76,24 +85,25 @@ static int launch(const void* q, const void* k, const void* v, void* o, int bh,
   const float scale_log2 = scale * 1.4426950408889634f;
   kernel<<<bh * q_tiles, 128 * DSPLIT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), nq, nk, q_tiles,
-      scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), nq, nk, q_tiles, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Returns cudaGetLastError() of the launch (0 = launched), or -1 for a head
 // width this file has no instantiation for.
 extern "C" int dsml_flash_attention(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int nq,
-                                    int nk, int d, float scale, void* stream) {
+                                    const void* v, void* o, void* lse, int bh,
+                                    int nq, int nk, int d, float scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32, 1, 64>(q, k, v, o, bh, nq, nk, scale, s);
+      return launch<32, 1, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
     case 64:
-      return launch<64, 1, 64>(q, k, v, o, bh, nq, nk, scale, s);
+      return launch<64, 1, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
     case 512:
-      return launch<512, 2, 64>(q, k, v, o, bh, nq, nk, scale, s);
+      return launch<512, 2, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
     default:
       return -1;
   }

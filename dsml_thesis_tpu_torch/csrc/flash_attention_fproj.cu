@@ -139,9 +139,10 @@ fproj_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with the previous head's sQ
     load_tile<D, NTHREADS>(sQ, q + h * D, ld_qkv, BM, n - q0, tid);
     float acc[D / 8][4];
-    float l0, l1;
+    float l0, l1, m0, m1;
     attend_rows<D, 1, ABN, NTHREADS>(sQ, D + PAD, k + h * D, v + h * D, ld_qkv,
-                                     n, scale_log2, sK, sV, acc, l0, l1);
+                                     n, scale_log2, sK, sV, acc, l0, l1, m0,
+                                     m1);
     park_rows<D>(sAtt, lda, h * D, acc, l0, l1);
   }
 

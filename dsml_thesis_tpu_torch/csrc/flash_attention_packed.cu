@@ -1,5 +1,7 @@
 // flash_attention_packed: exact-softmax attention on the packed layout,
-//   q [B, Nq, H*D], k / v [B, Nk, H*D] -> o [B, Nq, H*D], bf16, contiguous:
+//   q [B, Nq, H*D], k / v [B, Nk, H*D] -> o [B, Nq, H*D], bf16, contiguous
+// (and, where lse is not null, each row's log-sum-exp [B, H, Nq] in fp32,
+// base 2, of the scores times scale * log2(e), for the backward kernel):
 // the layout the to_q / to_k / to_v projections produce and to_out consumes,
 // so no head-split copy is made on either side.
 //
@@ -29,8 +31,8 @@ template <int D>
 __global__ void __launch_bounds__(128)
 packed_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                        int nq, int nk, int heads, int q_tiles,
-                        float scale_log2) {
+                        float* __restrict__ lse, int nq, int nk, int heads,
+                        int q_tiles, float scale_log2) {
   constexpr int NTHREADS = 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][D + PAD]
@@ -52,15 +54,20 @@ packed_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D, NTHREADS>(sQ, q, ld, BM, nq - q0, tid);
 
   float acc[D / 8][4];
-  float l0, l1;
+  float l0, l1, m0, m1;
   attend_rows<D, 1, ABN, NTHREADS>(sQ, D + PAD, k, v, ld, nk, scale_log2, sK,
-                                   sV, acc, l0, l1);
+                                   sV, acc, l0, l1, m0, m1);
 
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * 16 + (lane >> 2);
   const int r1 = r0 + 8;
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* row_lse = lse + static_cast<int64_t>(bh) * nq + q0;
+    if (q0 + r0 < nq) row_lse[r0] = m0 + log2f(l0);
+    if (q0 + r1 < nq) row_lse[r1] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * (lane & 3);
@@ -74,8 +81,9 @@ packed_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-static int launch(const void* q, const void* k, const void* v, void* o, int b,
-                  int nq, int nk, int heads, float scale, cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int b, int nq, int nk, int heads, float scale,
+                  cudaStream_t stream) {
   auto kernel = packed_attention_kernel<D>;
   const int smem = (BM + 2 * ABN) * (D + PAD) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
@@ -84,23 +92,24 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b,
   const int q_tiles = (nq + BM - 1) / BM;
   kernel<<<b * heads * q_tiles, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), nq, nk, heads,
-      q_tiles, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), nq, nk, heads, q_tiles,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Returns cudaGetLastError() of the launch (0 = launched), or -1 for a head
 // width this file has no instantiation for.
 extern "C" int dsml_flash_attention_packed(const void* q, const void* k,
-                                           const void* v, void* o, int b,
-                                           int nq, int nk, int heads, int d,
-                                           float scale, void* stream) {
+                                           const void* v, void* o, void* lse,
+                                           int b, int nq, int nk, int heads,
+                                           int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, b, nq, nk, heads, scale, s);
+      return launch<32>(q, k, v, o, lse, b, nq, nk, heads, scale, s);
     case 64:
-      return launch<64>(q, k, v, o, b, nq, nk, heads, scale, s);
+      return launch<64>(q, k, v, o, lse, b, nq, nk, heads, scale, s);
     default:
       return -1;
   }

@@ -78,10 +78,10 @@ qout_attention_kernel(const bf16* __restrict__ h, const bf16* __restrict__ k,
   // and sW before sAtt and the k / v tiles are written over them
   for (int head = 0; head < heads; ++head) {
     float acc[D / 8][4];
-    float l0, l1;
+    float l0, l1, m0, m1;
     attend_rows<D, 1, ABN, NTHREADS>(sQ + head * D, lda, k + head * D,
                                      v + head * D, hd, nk, scale_log2, sK, sV,
-                                     acc, l0, l1);
+                                     acc, l0, l1, m0, m1);
     park_rows<D>(sAtt, lda, head * D, acc, l0, l1);
   }
 

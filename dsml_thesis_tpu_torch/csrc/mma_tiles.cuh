@@ -123,8 +123,10 @@ __device__ __forceinline__ void load_rows(bf16* s, int lds, const bf16* g,
 // for one head's columns of a packed tile) against nk key/value rows
 // streamed from device memory in tiles of BN rows. On return `o` holds the
 // warp's unnormalised output fragment (rows lane/4 and lane/4 + 8 of its row
-// group, D / DSPLIT columns) and l0 / l1 the softmax denominators of those
-// two rows.
+// group, D / DSPLIT columns), l0 / l1 the softmax denominators of those two
+// rows and m0 / m1 their row maxima in the scaled base-2 domain (so that
+// m + log2(l) is the row's log-sum-exp of the scores times scale * log2(e),
+// which the backward kernels read).
 //
 // Arithmetic: scores in fp32 times scale * log2(e), running row max and row
 // sum in fp32, P = exp2(s - max) cast to bf16 before P.V, fp32 accumulation.
@@ -133,7 +135,7 @@ __device__ __forceinline__ void attend_rows(
     const bf16* sQ, int ldq, const bf16* gK, const bf16* gV, int64_t ld_kv,
     int nk,
     float scale_log2, bf16* sK, bf16* sV, float (&o)[D / DSPLIT / 8][4],
-    float& l0, float& l1) {
+    float& l0, float& l1, float& m0, float& m1) {
   constexpr int LDS = D + PAD;
   constexpr int DO = D / DSPLIT;
   const int tid = threadIdx.x;
@@ -143,7 +145,8 @@ __device__ __forceinline__ void attend_rows(
   const int dcol0 = (warp % DSPLIT) * DO;
   const LaneOffsets lo(lane);
 
-  float m0 = -INFINITY, m1 = -INFINITY;
+  m0 = -INFINITY;
+  m1 = -INFINITY;
   l0 = 0.f;
   l1 = 0.f;
 #pragma unroll

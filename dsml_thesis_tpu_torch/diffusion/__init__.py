@@ -1,5 +1,13 @@
-"""Schedules, the DDIM step and the video pipeline of the port."""
+"""Schedules, the Gaussian-diffusion training math, the DDIM step and the
+video pipeline of the port."""
 from .ddim import cfg_eps_fn, p_sample_ddim  # noqa: F401
+from .gaussian import (  # noqa: F401
+    get_loss,
+    p_losses,
+    predict_start_from_noise,
+    q_posterior,
+    q_sample,
+)
 from .schedules import (  # noqa: F401
     DDIMSchedule,
     DiffusionSchedule,

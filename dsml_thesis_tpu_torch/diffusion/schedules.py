@@ -71,13 +71,21 @@ def _f32(x) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM chain quantities the sampling path reads, float32 on the CPU."""
+    """The DDPM chain quantities sampling and training read, float32 on the
+    CPU."""
 
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
+    lvlb_weights: torch.Tensor
 
     @property
     def num_timesteps(self) -> int:
@@ -87,7 +95,8 @@ class DiffusionSchedule:
 def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
                   linear_start: float = 1e-4, linear_end: float = 2e-2,
                   cosine_s: float = 8e-3,
-                  given_betas: Optional[np.ndarray] = None
+                  given_betas: Optional[np.ndarray] = None,
+                  v_posterior: float = 0.0, parameterization: str = "eps"
                   ) -> DiffusionSchedule:
     if given_betas is not None:
         betas = np.asarray(given_betas, dtype=np.float64)
@@ -95,14 +104,39 @@ def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
         betas = make_beta_schedule(beta_schedule, timesteps,
                                    linear_start=linear_start,
                                    linear_end=linear_end, cosine_s=cosine_s)
-    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas, axis=0)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = (1 - v_posterior) * betas * (
+        1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod) + v_posterior * betas
+    if parameterization == "eps":
+        # posterior_variance[0] == 0: infinite at index 0, overwritten below
+        with np.errstate(divide="ignore"):
+            lvlb_weights = betas ** 2 / (
+                2 * posterior_variance * alphas * (1 - alphas_cumprod))
+    elif parameterization == "x0":
+        lvlb_weights = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
+    else:
+        raise NotImplementedError("mu not supported")
+    lvlb_weights = np.asarray(lvlb_weights)
+    lvlb_weights[0] = lvlb_weights[1]
     return DiffusionSchedule(
         betas=_f32(betas),
         alphas_cumprod=_f32(alphas_cumprod),
         alphas_cumprod_prev=_f32(alphas_cumprod_prev),
         sqrt_alphas_cumprod=_f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - alphas_cumprod)),
+        sqrt_recip_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod)),
+        sqrt_recipm1_alphas_cumprod=_f32(np.sqrt(1.0 / alphas_cumprod - 1)),
+        posterior_variance=_f32(posterior_variance),
+        posterior_log_variance_clipped=_f32(
+            np.log(np.maximum(posterior_variance, 1e-20))),
+        posterior_mean_coef1=_f32(
+            betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+        posterior_mean_coef2=_f32(
+            (1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+            / (1.0 - alphas_cumprod)),
+        lvlb_weights=_f32(lvlb_weights),
     )
 
 

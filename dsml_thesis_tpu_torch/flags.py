@@ -25,6 +25,13 @@ on the card):
   DSML_GELU_EXACT          (bool, 0)  erf GELU in the GEGLU gate
   DSML_CFG_DEDUP           (bool, 1)  the guidance pair shares the UNet's
                            prefix (``diffusion/video.py``)
+
+Flags of the JAX package's training path that the port does not read (each
+names a TPU fact or an unported option, not a function of the model):
+DSML_OPT_BF16_M (bf16 first Adam moment), DSML_REMAT and ``use_checkpoint``
+(rematerialisation: memory, not numbers), DSML_FLASH_BWD_DEFER,
+DSML_FLASH_PACKED_BWD and DSML_FLASH_STREAMING (forms and fast-memory fits of
+the TPU kernels).
 """
 from __future__ import annotations
 

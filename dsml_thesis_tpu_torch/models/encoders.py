@@ -4,10 +4,14 @@ Counterpart of ``dsml_thesis_tpu/models/encoders.py`` for the two streams
 the serving path uses: the class label (with its trainable null row for
 classifier-free guidance) and the audio window pooled to one token. Both
 compute in the promotion of input and parameter types, like the JAX modules
-(an fp32 input through bf16-cast weights stays fp32). The training-time
-label drop is not ported (no training yet).
+(an fp32 input through bf16-cast weights stays fp32). In training the
+class embedder drops the whole batch's labels to the null token with
+probability ``p_uncond`` (one Bernoulli draw a call, from a
+``torch.Generator`` or handed in as ``drop``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -25,12 +29,26 @@ class ClassEmbedder(nn.Module):
                  key: str = "class_label"):
         super().__init__()
         self.n_classes, self.key = n_classes, key
-        self.p_uncond = p_uncond  # training-time label drop: not ported
+        self.p_uncond = p_uncond
         self.embedding = nn.Embedding(n_classes + 1, embed_dim)
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
-        """labels: int [B] -> tokens [B, 1, embed_dim]."""
-        return self.embedding(labels.long())[:, None, :]
+    def forward(self, labels: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """labels: int [B] -> tokens [B, 1, embed_dim]. With ``training`` and
+        ``p_uncond > 0`` one uniform draw (from ``generator``, on its device)
+        decides whether the whole batch takes the null token; ``drop`` (a
+        bool scalar) fixes that decision instead of drawing it."""
+        c = self.embedding(labels.long())[:, None, :]
+        if training and self.p_uncond > 0:
+            if drop is None:
+                where = generator.device if generator is not None \
+                    else labels.device
+                drop = torch.rand((), generator=generator,
+                                  device=where) < self.p_uncond
+            drop = torch.as_tensor(drop, device=c.device)
+            c = torch.where(drop, self.null_token(labels.shape[0]), c)
+        return c
 
     def null_token(self, batch_size: int) -> torch.Tensor:
         """Unconditional token for classifier-free guidance, [B, 1, D]."""

@@ -1,6 +1,7 @@
 """LatentDiffusion of the port: one engine for every conditioning layout.
 
-Counterpart of ``dsml_thesis_tpu/models/ldm.py`` for sampling. A list of
+Counterpart of ``dsml_thesis_tpu/models/ldm.py`` for sampling and for the
+diffusion training loss. A list of
 ``CondSpec`` says, for every conditioning stream, which batch key feeds
 which encoder and whether the result joins the cross-attention context
 (feature- or token-concatenated) or is channel-concatenated onto the UNet
@@ -8,8 +9,16 @@ input (optionally after the frozen first stage). Unlike the JAX class, whose
 methods take a parameter tree, this is an ``nn.Module`` that owns its
 parameters: ``unet``, ``first_stage`` and ``cond.<key>``.
 
-Not ported yet: training loss, KL first stages, and the split-input patch
-tiling (``split_input_params`` raises ``NotImplementedError``).
+Training: ``training_loss(batch, generator)`` is the JAX class's
+``training_loss(params, batch, rng)``. The first stage is always frozen (eval
+mode, ``torch.no_grad()``); ``trainable_filter`` / ``frozen_subpaths`` say
+which groups and sub-trees the optimizer gets, and ``configure_trainable``
+sets ``requires_grad`` to match. Random draws come from a ``torch.Generator``
+(another stream than ``jax.random`` gives from the same seed), and each can
+be handed in (``t=``, ``noise=``, ``drop=``) as ``x_T`` can for sampling.
+
+Not ported yet: KL first stages and the split-input patch tiling
+(``split_input_params`` raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -19,10 +28,14 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..diffusion.gaussian import p_losses, q_sample
 from ..diffusion.schedules import DiffusionSchedule
+
+from .encoders import ClassEmbedder
 
 ROUTES = ("crossattn_feature", "crossattn_token", "concat_first_stage",
           "concat_raw")
+_LABEL_DROPPERS = (ClassEmbedder,)   # encoders whose forward takes training=
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +50,21 @@ class CondSpec:
 
 
 class LatentDiffusion(nn.Module):
+    # training_loss honours batch["_sample_weights"] (ragged-tail validation)
+    supports_sample_weights = True
+
     def __init__(self, unet: nn.Module, first_stage: Optional[nn.Module],
                  cond_specs: Sequence[CondSpec], schedule: DiffusionSchedule,
                  scale_factor: float = 1.0, parameterization: str = "eps",
                  first_stage_key: str = "image", image_size: int = 32,
-                 channels: int = 3, split_input_params: Optional[Dict] = None):
+                 channels: int = 3, split_input_params: Optional[Dict] = None,
+                 loss_type: str = "l2", l_simple_weight: float = 1.0,
+                 original_elbo_weight: float = 0.0,
+                 monitor: str = "val_loss_ema"):
         super().__init__()
+        self.loss_type, self.monitor = loss_type, monitor
+        self.l_simple_weight = l_simple_weight
+        self.original_elbo_weight = original_elbo_weight
         for spec in cond_specs:
             if spec.route not in ROUTES:
                 raise ValueError(spec.route)
@@ -62,6 +84,67 @@ class LatentDiffusion(nn.Module):
         if self.split_input_params is not None:
             raise NotImplementedError(
                 "split_input_params (patch tiling) is not ported yet")
+
+    # ---------- which parameters train ----------
+
+    def param_groups(self) -> Dict[str, nn.Module]:
+        """Top-level parameter groups under the JAX tree's names: ``unet``,
+        ``first_stage`` and ``cond/<key>``."""
+        groups = {"unet": self.unet}
+        if self.first_stage is not None:
+            groups["first_stage"] = self.first_stage
+        groups.update({f"cond/{k}": m for k, m in self.cond.items()})
+        return groups
+
+    def trainable_filter(self) -> Dict[str, bool]:
+        """Which groups receive gradients: the UNet and the trainable cond
+        stages; the first stage is always frozen."""
+        by_key = {s.key: s for s in self.cond_specs}
+        return {name: name == "unet" or (name.startswith("cond/")
+                                         and by_key[name[5:]].trainable)
+                for name in self.param_groups()}
+
+    def frozen_subpaths(self) -> Dict[str, Sequence[str]]:
+        """Sub-trees inside otherwise-trainable groups that the optimizer
+        must skip ('/'-joined paths by group): what a cond stage declares
+        through ``frozen_paths()``. Decoupled weight decay must not erode
+        them even though they get no gradient."""
+        out: Dict[str, Sequence[str]] = {}
+        for spec in self.cond_specs:
+            if (spec.module is not None and spec.trainable
+                    and hasattr(spec.module, "frozen_paths")):
+                paths = tuple(spec.module.frozen_paths())
+                if paths:
+                    out[f"cond/{spec.key}"] = paths
+        return out
+
+    def named_trainable_parameters(self):
+        """(group, name inside the group, parameter) of every parameter the
+        optimizer updates and the EMA shadows, in module order."""
+        trainable, frozen = self.trainable_filter(), self.frozen_subpaths()
+        for group, module in self.param_groups().items():
+            if not trainable[group]:
+                continue
+            skip = tuple(p.replace("/", ".") for p in frozen.get(group, ()))
+            for name, param in module.named_parameters():
+                if not any(name == f or name.startswith(f + ".") for f in skip):
+                    yield group, name, param
+
+    def configure_trainable(self) -> "LatentDiffusion":
+        """Set ``requires_grad`` on every parameter to what the optimizer
+        will update, and nothing else."""
+        for p in self.parameters():
+            p.requires_grad_(False)
+        for _, _, p in self.named_trainable_parameters():
+            p.requires_grad_(True)
+        return self
+
+    def train(self, mode: bool = True) -> "LatentDiffusion":
+        """The frozen first stage stays in eval mode whatever the mode."""
+        super().train(mode)
+        if self.first_stage is not None:
+            self.first_stage.eval()
+        return self
 
     # ---------- first stage (frozen) ----------
 
@@ -115,6 +198,48 @@ class LatentDiffusion(nn.Module):
             ctx = t if ctx is None else torch.cat([ctx, t], dim=1)
         return ctx
 
+    def encode_conditioning(self, batch: Dict[str, torch.Tensor],
+                            training: bool = False,
+                            generator: Optional[torch.Generator] = None,
+                            drop: Optional[torch.Tensor] = None
+                            ) -> Dict[str, Optional[torch.Tensor]]:
+        """Run every cond stage and route the streams: cross-attention
+        context (feature- then token-concatenated) and the channel-concat
+        group (``concat_first_stage`` streams through the frozen first
+        stage). With ``training`` an encoder that drops labels draws from
+        ``generator`` (or takes ``drop``); a non-trainable encoder's output
+        is detached."""
+        feat, tok, concat = [], [], []
+        for spec in self.cond_specs:
+            v = batch[spec.key]
+            if spec.module is not None:
+                if isinstance(spec.module, _LABEL_DROPPERS):
+                    v = spec.module(v, training=training, generator=generator,
+                                    drop=drop)
+                else:
+                    v = spec.module(v)
+                if not spec.trainable:
+                    v = v.detach()
+            if spec.route == "crossattn_feature":
+                feat.append(v)
+            elif spec.route == "crossattn_token":
+                tok.append(v)
+            elif spec.route == "concat_first_stage":
+                concat.append(self.encode_first_stage(v))
+            else:
+                concat.append(v)
+        ctx = None
+        if feat:
+            dt = feat[0].dtype
+            for f in feat[1:]:
+                dt = torch.promote_types(dt, f.dtype)
+            ctx = torch.cat([f.to(dt) for f in feat], dim=-1)
+        if tok:
+            t = torch.cat(tok, dim=1)
+            ctx = t if ctx is None else torch.cat([ctx, t], dim=1)
+        return {"crossattn": ctx,
+                "concat": torch.cat(concat, dim=-1) if concat else None}
+
     # ---------- model application ----------
 
     def apply_model(self, x_t: torch.Tensor, t: torch.Tensor,
@@ -130,3 +255,41 @@ class LatentDiffusion(nn.Module):
             dt = torch.promote_types(x_t.dtype, cc.dtype)
             x_in = torch.cat([x_t.to(dt), cc.to(dt)], dim=-1)
         return self.unet(x_in, t, cond.get("crossattn"), cfg_pairs=cfg_pairs)
+
+    # ---------- training ----------
+
+    def training_loss(self, batch: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator] = None,
+                      training: bool = True, t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      drop: Optional[torch.Tensor] = None):
+        """The diffusion loss of one batch: frozen first-stage encode of the
+        image (a ``latent`` batch is taken as it is: already encoded and
+        scaled), conditioning, a uniform timestep and normal noise per
+        sample, ``q_sample``, the UNet, ``p_losses``. Returns (loss, aux).
+
+        ``training`` puts the module in that mode first: True is the training
+        form (label drop on; the UNet's self-attention takes the
+        differentiable packed kernels), False the validation form (t and
+        noise stay random, the label drop is off, eval-mode routing). ``t``,
+        ``noise`` and ``drop`` replace the draws from ``generator`` (which
+        must lie on the batch's device). ``batch["_sample_weights"]`` masks
+        rows out of the means."""
+        self.train(training)
+        x = batch[self.first_stage_key]
+        z = x if self.first_stage_key == "latent" else self.encode_first_stage(x)
+        cond = self.encode_conditioning(batch, training=training,
+                                        generator=generator, drop=drop)
+        if t is None:
+            t = torch.randint(0, self.schedule.num_timesteps, (z.shape[0],),
+                              generator=generator, device=z.device)
+        if noise is None:
+            noise = torch.randn(z.shape, generator=generator, device=z.device,
+                                dtype=z.dtype)
+        eps = self.apply_model(q_sample(self.schedule, z, t, noise), t, cond)
+        return p_losses(
+            self.schedule, eps, z, noise, t,
+            parameterization=self.parameterization, loss_type=self.loss_type,
+            l_simple_weight=self.l_simple_weight,
+            original_elbo_weight=self.original_elbo_weight,
+            sample_weights=batch.get("_sample_weights"))

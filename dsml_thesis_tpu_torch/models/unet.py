@@ -132,7 +132,8 @@ def upsample_nearest(x):
 def _no_dropout(dropout: float):
     if dropout:
         raise NotImplementedError(
-            "dropout is not ported (sampling only): set dropout to 0")
+            "dropout is not ported (no shipped config sets it): set dropout "
+            "to 0")
 
 
 # --------------------------------------------------------------------------
@@ -361,7 +362,9 @@ class UNetModel(nn.Module):
             raise ValueError("set one of num_heads / num_head_channels")
         if num_classes is not None:
             raise NotImplementedError("class-conditional UNet is not ported")
-        del use_checkpoint, image_size  # training-only / ignored config keys
+        # use_checkpoint (rematerialisation) changes memory, not numbers: not
+        # ported, so every activation is kept for the backward
+        del use_checkpoint, image_size
         dtype = resolve_dtype(dtype)
         self.dtype = dtype
         self.model_channels = model_channels

@@ -25,8 +25,9 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # every translation unit of the library, and the headers they include
 SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_packed.cu", "flash_attention_qout.cu",
+           "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
            "group_norm.cu")
-HEADERS = ("mma_tiles.cuh",)
+HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,14 +107,20 @@ def load() -> ctypes.CDLL:
                 _compile(lib_path)
             lib = ctypes.CDLL(lib_path)
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.dsml_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+            lib.dsml_flash_attention.argtypes = [p] * 5 + [i, i, i, i, f, p]
             lib.dsml_flash_attention.restype = i
             lib.dsml_flash_attention_fproj.argtypes = (
                 [p] * 8 + [i, i, i, i, i, f, p])
             lib.dsml_flash_attention_fproj.restype = i
             lib.dsml_flash_attention_packed.argtypes = (
-                [p] * 4 + [i, i, i, i, i, f, p])
+                [p] * 5 + [i, i, i, i, i, f, p])
             lib.dsml_flash_attention_packed.restype = i
+            lib.dsml_flash_attention_bwd.argtypes = (
+                [p] * 10 + [i, i, i, i, f, p])
+            lib.dsml_flash_attention_bwd.restype = i
+            lib.dsml_flash_attention_bwd_packed.argtypes = (
+                [p] * 10 + [i, i, i, i, i, f, p])
+            lib.dsml_flash_attention_bwd_packed.restype = i
             lib.dsml_flash_attention_qout.argtypes = (
                 [p] * 7 + [i, i, i, i, i, i, f, p])
             lib.dsml_flash_attention_qout.restype = i

@@ -11,6 +11,7 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0, "flash_attention_fproj": 0,
     "flash_attention_packed": 0, "flash_attention_qout": 0,
+    "flash_attention_bwd": 0, "flash_attention_bwd_packed": 0,
     "group_norm_silu": 0, "gn_channel_stats": 0,
 }
 
@@ -29,9 +30,6 @@ def check_cuda_operand(name: str, t: torch.Tensor, like: torch.Tensor,
                         f"{' or '.join(str(d) for d in dtypes)} only")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} requires grad: the CUDA kernel has no "
-                           "backward yet (run under torch.no_grad())")
 
 
 def raise_on_error(code: int, what: str) -> None:

@@ -1,4 +1,4 @@
-"""Attention ops of the port: four CUDA kernels, their plain PyTorch versions,
+"""Attention ops of the port: six CUDA kernels, their plain PyTorch versions,
 and the wrappers that choose between them by where the tensor lies.
 
 ``flash_attention``        q [B, H, Nq, D], k / v [B, H, Nk, D] -> [B, H, Nq, D]
@@ -30,12 +30,39 @@ and the wrappers that choose between them by where the tensor lies.
     output stay in shared memory. ``fused_qout_self_attention`` is its
     dispatch.
 
+``flash_attention_bwd``    (q, k, v, o, lse, do) on split heads -> (dq, dk, dv)
+    kernels ``csrc/flash_attention_bwd.cu``; replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/attention.py:_flash_bwd_kernel``
+    (``flash_attention_bwd``). Bound by operations; head widths 32 and 64.
+
+``flash_attention_bwd_packed``  the same on packed rows
+    kernels ``csrc/flash_attention_bwd_packed.cu``; replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/attention.py:_flash_bwd_kernel_packed``
+    (``flash_attention_bwd_packed``). Bound by operations; dq, dk, dv are
+    written in place in the packed layout.
+
+    Both backward kernels read the row log-sum-exp the forward kernel saved
+    (the TPU kernels recompute a whole row's softmax, which needs a head's
+    K / V resident), form delta = rowsum(do * o) in a small first launch, and
+    cut the rest in two grids so that no output is summed with atomics: one
+    over key/value tiles writes dk / dv once, one over query tiles writes dq
+    once. Equal inputs give equal bits.
+
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (built at first use, ``ops/_build.py``) or
 raises: there is no fallback on the card. Each wrapper counts its launches in
-``LAUNCHES``. No kernel is differentiated yet (the serving path runs under
-``torch.no_grad()``); calling a wrapper on a CUDA tensor that requires grad
-raises.
+``LAUNCHES``.
+
+Gradients. ``flash_attention`` and ``flash_attention_packed`` are
+``torch.autograd.Function``s: forward launches the forward kernel, backward
+the backward kernel (on the CPU: the plain forward and the plain backward
+formula, through the same ``Function``). ``flash_attention_fproj`` and
+``flash_attention_qout`` run their kernel forward and differentiate the
+composed formula (``fproj_reference``, ``qout_reference``) backward with
+ordinary autograd: in the JAX package that backward is XLA's, not a Pallas
+kernel (``_fproj_bwd``, ``_qout_bwd`` there), so plain PyTorch ops on the card
+are its true counterpart. The training path does not reach those two (the
+model keeps the fused branches for eval mode).
 
 Weights follow ``torch.nn.Linear``: ``[out_features, in_features]``.
 """
@@ -54,6 +81,7 @@ FLASH_HEAD_DIMS = (32, 64, 512)        # instantiations in flash_attention.cu
 FPROJ_HEAD_DIMS = (32, 64)             # ... in flash_attention_fproj.cu
 FPROJ_CHANNEL_MULTIPLE = 32            # depth step of its projection kernel
 PACKED_HEAD_DIMS = (32, 64)            # ... in flash_attention_packed.cu
+BWD_HEAD_DIMS = (32, 64)               # ... in both flash_attention_bwd*.cu
 QOUT_HEAD_DIMS = (32, 64)              # ... in flash_attention_qout.cu
 QOUT_CHANNEL_MULTIPLE = 16             # depth of one tensor-core product
 SHARED_MEMORY_PER_BLOCK = 232448       # bytes a Hopper block may use
@@ -138,9 +166,122 @@ def qout_reference(h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return res.to(h.dtype)
 
 
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, do: torch.Tensor,
+                                  scale: Optional[float] = None):
+    """Plain backward of attention on split heads, the spec of the backward
+    kernel: q / do [B, H, Nq, D], k / v [B, H, Nk, D] -> (dq, dk, dv) in the
+    types of q, k, v. Everything in fp32, step by step."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def packed_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         do: torch.Tensor, heads: int,
+                         scale: Optional[float] = None):
+    """Plain backward on the packed layout: q / do [B, Nq, H*D], k / v
+    [B, Nk, H*D] -> (dq, dk, dv) packed alike, the arithmetic of
+    ``flash_attention_bwd_reference`` per head."""
+    grads = flash_attention_bwd_reference(
+        _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
+        _split_heads(do, heads), scale=scale)
+    merge = lambda t, like: t.permute(0, 2, 1, 3).reshape(like.shape)
+    return merge(grads[0], q), merge(grads[1], k), merge(grads[2], v)
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
+
+def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
+    """Check, launch and count the split-head forward kernel. With
+    ``want_lse`` it also writes each row's log-sum-exp ([B*H*Nq] fp32), which
+    the backward kernel reads; without, the second result is None."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_operand(name, t, q)
+    b, h, nq, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {d} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty_like(q)
+    lse = (torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    code = lib.dsml_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d,
+        float(scale), current_stream(q))
+    raise_on_error(code, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float):
+    """Launch the split-head backward kernels: q / o / do [B, H, Nq, D], k / v
+    [B, H, Nk, D] on the card, lse the forward kernel's [B*H*Nq] fp32 row
+    log-sum-exp -> (dq, dk, dv). ``do`` is made contiguous here (autograd may
+    hand over an expanded or transposed view)."""
+    do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q)
+    check_cuda_operand("lse", lse, q, (torch.float32,))
+    b, h, nq, d = q.shape
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head width {d} not in "
+                         f"{BWD_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    code = lib.dsml_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
+        current_stream(q))
+    raise_on_error(code, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel / backward kernel on the card; the plain forward and the
+    plain backward formula on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return attention_reference(q, k, v, scale=scale)
+        want = any(ctx.needs_input_grad[:3])
+        out, lse = _launch_flash_forward(q, k, v, scale, want)
+        if want:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        if do.device.type == "cpu":
+            q, k, v = ctx.saved_tensors
+            return (*flash_attention_bwd_reference(q, k, v, do,
+                                                   scale=ctx.scale), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -149,29 +290,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    b, h, nq, d = q.shape
-    nk = k.shape[2]
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale=scale)
-    if q.device.type != "cuda":
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, t, q)
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {d} not in "
-                         f"{FLASH_HEAD_DIMS}")
-    from . import _build
+    return _FlashAttention.apply(q, k, v, float(scale))
 
-    lib = _build.load()
-    out = torch.empty_like(q)
-    code = lib.dsml_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, nq,
-        nk, d, float(scale), current_stream(q))
-    raise_on_error(code, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return out
+
+class _KernelForward(torch.autograd.Function):
+    """Forward through a fused kernel, backward by ordinary autograd of the
+    composed formula the kernel implements (recomputed from the saved
+    operands). The JAX package does the same for these two ops (``_fproj_bwd``
+    and ``_qout_bwd`` differentiate the jnp reference; XLA compiles it), so
+    plain PyTorch ops on the card are that backward's true counterpart: no
+    TPU kernel stands behind it."""
+
+    @staticmethod
+    def forward(ctx, launch, reference, heads, scale, *operands):
+        ctx.reference, ctx.heads, ctx.scale = reference, heads, scale
+        ctx.save_for_backward(*operands)
+        return launch(*operands, heads, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        operands = [t.detach().requires_grad_(need) for t, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad[4:])]
+        with torch.enable_grad():
+            out = ctx.reference(*operands, ctx.heads, scale=ctx.scale)
+        wanted = [t for t in operands if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None, None, None,
+                *(next(grads) if t.requires_grad else None for t in operands))
 
 
 def fproj_kernel_takes(c: int, head_dim: int, dtype: torch.dtype) -> bool:
@@ -207,6 +356,15 @@ def flash_attention_fproj(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         return fproj_reference(h, wq, wk, wv, wo, bo, heads, scale=scale)
     if h.device.type != "cuda":
         raise ValueError(f"flash_attention_fproj: unsupported device {h.device}")
+    return _KernelForward.apply(_fproj_launch, fproj_reference, heads,
+                                float(scale), h, wq, wk, wv, wo, bo)
+
+
+def _fproj_launch(h, wq, wk, wv, wo, bo, heads: int, scale: float):
+    """Check, launch and count the fused-projection kernels."""
+    b, n, c = h.shape
+    hd = wq.shape[0]
+    d = hd // heads
     for name, t in (("h", h), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
                     ("bo", bo)):
         check_cuda_operand(name, t, h)
@@ -235,6 +393,93 @@ def packed_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and head_dim in PACKED_HEAD_DIMS
 
 
+def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
+    """Check, launch and count the packed forward kernel; ``want_lse`` as in
+    ``_launch_flash_forward`` ([B*H*Nq] fp32)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_operand(name, t, q)
+    b, nq, hd = q.shape
+    d = hd // heads
+    if d not in PACKED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_packed: head width {d} not in "
+                         f"{PACKED_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty_like(q)
+    lse = (torch.empty(b * heads * nq, dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    code = lib.dsml_flash_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, nq, k.shape[1], heads, d,
+        float(scale), current_stream(q))
+    raise_on_error(code, "flash_attention_packed")
+    LAUNCHES["flash_attention_packed"] += 1
+    return out, lse
+
+
+def flash_attention_bwd_packed(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor, heads: int,
+                               scale: float):
+    """Launch the packed backward kernels: q / o / do [B, Nq, H*D], k / v
+    [B, Nk, H*D] on the card, lse the forward kernel's [B*H*Nq] fp32 row
+    log-sum-exp -> (dq, dk, dv) in the packed layout. ``do`` is made
+    contiguous here."""
+    do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q)
+    check_cuda_operand("lse", lse, q, (torch.float32,))
+    b, nq, hd = q.shape
+    d = hd // heads
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_packed backward: head width {d} "
+                         f"not in {BWD_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    code = lib.dsml_flash_attention_bwd_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, nq, k.shape[1], heads, d, float(scale),
+        current_stream(q))
+    raise_on_error(code, "flash_attention_bwd_packed")
+    LAUNCHES["flash_attention_bwd_packed"] += 1
+    return dq, dk, dv
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Packed forward kernel / packed backward kernel on the card; the plain
+    versions on the CPU. (The JAX package's ``_packed_bwd`` can also go
+    through a head split and the split-head backward, when its packed block
+    does not fit the TPU's fast memory: no such case exists here.)"""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.heads, ctx.scale = heads, scale
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return packed_reference(q, k, v, heads, scale=scale)
+        want = any(ctx.needs_input_grad[:3])
+        out, lse = _launch_packed_forward(q, k, v, heads, scale, want)
+        if want:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        heads, scale = ctx.heads, ctx.scale
+        if do.device.type == "cpu":
+            q, k, v = ctx.saved_tensors
+            return (*packed_bwd_reference(q, k, v, do, heads, scale=scale),
+                    None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_packed(q, k, v, out, lse, do, heads,
+                                            scale), None, None)
+
+
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int, scale: Optional[float] = None
                            ) -> torch.Tensor:
@@ -245,29 +490,11 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or q.shape[2] % heads:
         raise ValueError(f"bad packed attention shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} heads={heads}")
-    b, nq, hd = q.shape
-    nk, d = k.shape[1], hd // heads
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return packed_reference(q, k, v, heads, scale=scale)
-    if q.device.type != "cuda":
+        scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, t, q)
-    if d not in PACKED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_packed: head width {d} not in "
-                         f"{PACKED_HEAD_DIMS}")
-    from . import _build
-
-    lib = _build.load()
-    out = torch.empty_like(q)
-    code = lib.dsml_flash_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
-        heads, d, float(scale), current_stream(q))
-    raise_on_error(code, "flash_attention_packed")
-    LAUNCHES["flash_attention_packed"] += 1
-    return out
+    return _PackedAttention.apply(q, k, v, heads, float(scale))
 
 
 def packed_multi_head_attention(q: torch.Tensor, k: torch.Tensor,
@@ -330,6 +557,15 @@ def flash_attention_qout(h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return qout_reference(h, k, v, wq, wo, bo, heads, scale=scale)
     if h.device.type != "cuda":
         raise ValueError(f"flash_attention_qout: unsupported device {h.device}")
+    return _KernelForward.apply(_qout_launch, qout_reference, heads,
+                                float(scale), h, k, v, wq, wo, bo)
+
+
+def _qout_launch(h, k, v, wq, wo, bo, heads: int, scale: float):
+    """Check, launch and count the q/out-fused kernel."""
+    b, n, c = h.shape
+    nk, hd = k.shape[1], k.shape[2]
+    d = hd // heads
     for name, t in (("h", h), ("k", k), ("v", v), ("wq", wq), ("wo", wo),
                     ("bo", bo)):
         check_cuda_operand(name, t, h)

@@ -21,6 +21,13 @@ A wrapper takes its plain version (``group_norm_silu_reference``,
 tensor it launches its kernel or raises. Statistics are fp32 per (batch,
 group), channel sums first and groups combined on the small [B, C] result.
 ``eps`` follows the nets: 1e-5 in the UNet, 1e-6 in the first stage.
+
+Gradients. Both kernel modes run their kernel forward and differentiate
+``group_norm_silu_reference`` backward with ordinary autograd
+(``_ReferenceBackward``). The JAX package does the same
+(``dsml_thesis_tpu/ops/groupnorm.py:_gn_reference_bwd`` differentiates the jnp
+reference for both modes; XLA compiles it), so plain PyTorch ops on the card
+are that backward's true counterpart: no TPU kernel stands behind it.
 """
 from __future__ import annotations
 
@@ -91,6 +98,31 @@ def group_norm_silu_reference(x: torch.Tensor, gamma: torch.Tensor,
 # wrappers
 # --------------------------------------------------------------------------
 
+class _ReferenceBackward(torch.autograd.Function):
+    """Forward through ``forward_fn`` (a kernel mode of this module), backward
+    by autograd of ``group_norm_silu_reference`` recomputed from the saved
+    operands."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, num_groups, eps, silu, x, gamma, beta):
+        ctx.args = (num_groups, eps, silu)
+        ctx.save_for_backward(x, gamma, beta)
+        return forward_fn(x, gamma, beta, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        num_groups, eps, silu = ctx.args
+        operands = [t.detach().requires_grad_(need) for t, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad[4:])]
+        with torch.enable_grad():
+            out = group_norm_silu_reference(*operands, num_groups=num_groups,
+                                            eps=eps, silu=silu)
+        wanted = [t for t in operands if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None, None, None,
+                *(next(grads) if t.requires_grad else None for t in operands))
+
+
 def gn_chunks(n: int, c: int) -> int:
     """Blocks a batch row of n x c elements is cut into by both kernels (also
     the number of partial sums a channel has)."""
@@ -133,8 +165,13 @@ def group_norm_silu_stats_fused(x: torch.Tensor, gamma: torch.Tensor,
                                 ) -> torch.Tensor:
     """GroupNorm(+SiLU) with the statistics from ``gn_channel_stats`` and the
     normalize / affine / SiLU as plain ops."""
+    _check_groups(x.shape[-1], num_groups)
+    return _ReferenceBackward.apply(_stats_fused_forward, num_groups, eps,
+                                    silu, x, gamma, beta)
+
+
+def _stats_fused_forward(x, gamma, beta, num_groups, eps, silu):
     b, c = x.shape[0], x.shape[-1]
-    _check_groups(c, num_groups)
     ch_sum, ch_sq = gn_channel_stats(x.reshape(b, -1, c))
     return group_norm_silu_from_stats(x, ch_sum, ch_sq, gamma, beta,
                                       num_groups=num_groups, eps=eps, silu=silu)
@@ -151,6 +188,12 @@ def group_norm_silu_kernel(x: torch.Tensor, gamma: torch.Tensor,
     if gamma.shape != (c,) or beta.shape != (c,) or gamma.dtype != beta.dtype:
         raise ValueError(f"gamma{tuple(gamma.shape)} / beta{tuple(beta.shape)} "
                          f"must both be [{c}] of one type")
+    return _ReferenceBackward.apply(_whole_row_forward, num_groups, eps, silu,
+                                    x, gamma, beta)
+
+
+def _whole_row_forward(x, gamma, beta, num_groups, eps, silu):
+    b, c = x.shape[0], x.shape[-1]
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, gamma, beta, num_groups=num_groups,
                                          eps=eps, silu=silu)

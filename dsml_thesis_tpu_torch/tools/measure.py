@@ -1,6 +1,6 @@
 """Measurements of the port on the GPU, beyond what chip_smoke.py checks.
 
-    python -m dsml_thesis_tpu_torch.tools.measure --gate --profile \
+    python -m dsml_thesis_tpu_torch.tools.measure --gate --profile --train \
         [--config configs/latent-diffusion/mead-256-ldm-f4-fullattn.yaml]
 
 --gate     the routes of one CrossAttention module's self-attention, in
@@ -15,6 +15,14 @@
            call and one frame under torch.profiler: kernels launched a call,
            device time by kernel family and the device's idle share (traced,
            and estimated against the same frame's untraced wall time)
+--train    training steps of a model config on synthetic batches at the real
+           shapes (batch 8, 256 px, audio [17, 768]; fp32 parameters, bf16
+           compute) under the DSML_* flags of the environment, through the
+           port's own train step: ms a warm step by CUDA events and img/s,
+           the step's parts (frozen encodes, forward, backward, AdamW + EMA)
+           by events, peak memory, kernel launches a step, then one step
+           under torch.profiler: kernels launched, device time by kernel
+           family and the device's idle share
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -24,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +140,10 @@ _FAMILIES = (
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
     ("packed_attention_kernel", "attention: packed"),
+    ("bwd_dkdv_kernel", "attention backward: dk / dv grid"),
+    ("bwd_dq_kernel", "attention backward: dq grid"),
+    ("bwd_delta_kernel", "attention backward: delta"),
+    ("multi_tensor", "optimizer / EMA (foreach)"),
     ("qout_attention_kernel", "attention: qout (q proj + attention + to_out)"),
     ("gn_partial_kernel", "GroupNorm kernels: statistics"),
     ("gn_finish_kernel", "GroupNorm kernels: statistics"),
@@ -162,13 +175,19 @@ def _by_family(kernels: dict, field: int) -> dict:
     return fams
 
 
+_ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+
+
 def _device_kernels(prof) -> dict:
-    """name -> (device ms, launches) of every kernel a profile recorded."""
+    """name -> (device ms, launches) of every kernel a profile recorded.
+    Annotations that PyTorch mirrors onto the device track
+    (``Optimizer.step#AdamW.step``) span their kernels and are left out."""
     out = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and ev.device_type.name == "CUDA":
+        if (dev_us > 0 and ev.device_type.name == "CUDA"
+                and not _ANNOTATION.match(ev.key)):
             out[ev.key] = (dev_us / 1e3, ev.count)
     return out
 
@@ -278,13 +297,111 @@ def profile(smi: str, frames: int, config: str):
                           "the event-timed phases above are device times"}))
 
 
+def train(smi: str, config: str, steps: int = 10):
+    from torch.profiler import ProfilerActivity
+
+    from ..training.ema import ema_update
+    from ..training.train_state import (create_train_state, make_optimizer,
+                                        make_train_step)
+
+    device = torch.device("cuda")
+    batch_size, size = 8, 256
+    env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
+    run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
+           "batch": batch_size}
+    cfg = load_config([config])
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"]).to(device)
+    base_lr = batch_size * cfg["model"].get("base_learning_rate", 1e-6)
+    state = create_train_state(ldm, make_optimizer(ldm, base_lr), base_lr)
+    step = make_train_step(ldm)
+    gen = torch.Generator(device=device).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    batch = {"image": r(batch_size, size, size, 3),
+             "masked_image": r(batch_size, size, size, 3),
+             "identity": r(batch_size, size, size, 3),
+             "class_label": torch.arange(batch_size, device=device) % 8,
+             "audio": r(batch_size, c2["seq_len"], c2["subspace_dim"])}
+
+    for _ in range(3):   # warm-up: kernel build, cuDNN algorithm choice
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.monotonic()
+    step_ms = event_ms(lambda: step(state, batch, 0), steps)
+    wall_ms = 1e3 * (time.monotonic() - t0) / steps
+    launches = {k: v / steps for k, v in A.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+
+    # the parts of a step, each between its own events (the sum is a little
+    # more than a step: each part ends in a synchronize)
+    ldm.train()
+    enc_ms = event_ms(lambda: [ldm.encode_first_stage(batch[k]) for k in
+                               ("image", "masked_image", "identity")], 3)
+    holder = {}
+
+    def forward():
+        gen.manual_seed(1)
+        holder["loss"] = ldm.training_loss(batch, gen)[0]
+
+    fwd_ms = event_ms(forward, 1)
+    bwd_ms = event_ms(lambda: holder["loss"].backward(), 1)
+
+    def update():
+        state.optimizer.step()
+        ema_update(state.ema_params, state.params, state.step)
+
+    opt_ms = event_ms(update, 1)
+    state.optimizer.zero_grad(set_to_none=True)
+    print(json.dumps({
+        "measure": "train_step", **run, "steps_timed": steps,
+        "step_ms": step_ms, "img_per_s": 1e3 * batch_size / step_ms,
+        "host_ms_per_step": wall_ms, "encodes_ms": enc_ms,
+        "forward_ms_with_encodes": fwd_ms, "backward_ms": bwd_ms,
+        "adamw_ema_ms": opt_ms, "launches_per_step": launches,
+        "peak_memory_gb": peak / 2 ** 30,
+        "trainable_parameters": sum(p.numel() for p in state.params)}),
+        flush=True)
+
+    t0 = time.monotonic()
+    step(state, batch, 0)
+    torch.cuda.synchronize()
+    wall_untraced_ms = 1e3 * (time.monotonic() - t0)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        wall_traced_ms = 1e3 * (time.monotonic() - t0)
+    kernels = _device_kernels(prof)
+    fams = _by_family(kernels, 0)
+    busy_ms = sum(fams.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    print(json.dumps({
+        "measure": "train_profile", **run,
+        "kernels_launched": sum(n for _, n in kernels.values()),
+        "launched_by_family": _by_family(kernels, 1),
+        "wall_ms_traced": wall_traced_ms, "wall_ms_untraced": wall_untraced_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share_untraced_estimate":
+            (1 - busy_ms / wall_untraced_ms) if busy_ms else None,
+        "family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+        "family_share": {k: v / busy_ms for k, v in sorted(
+            fams.items(), key=lambda kv: -kv[1])} if busy_ms else None,
+        "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
+                        for k, v in top]}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gate", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--config", default=CONFIG,
-                    help="model config YAML of --profile")
+                    help="model config YAML of --profile and --train")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -294,6 +411,8 @@ def main():
         gate(smi)
     if args.profile:
         profile(smi, args.frames, args.config)
+    if args.train:
+        train(smi, args.config)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dsml_thesis_tpu_torch")
-FORBIDDEN = ("jax", "flax", "dsml_thesis_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "dsml_thesis_tpu")
 
 
 def _package_modules():
@@ -24,7 +24,8 @@ def _package_modules():
 
 def _python_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "serve_torch.py")]
+           os.path.join(ROOT, "scripts", "serve_torch.py"),
+           os.path.join(ROOT, "scripts", "train_torch.py")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)  # one order for every test worker
@@ -36,7 +37,10 @@ def test_package_has_the_expected_modules():
                  "ops.attention", "ops.groupnorm", "ops._build",
                  "diffusion.schedules", "diffusion.ddim", "diffusion.video",
                  "models.unet", "models.quantize", "models.autoencoder",
-                 "models.encoders", "models.ldm"):
+                 "models.encoders", "models.ldm", "diffusion.gaussian",
+                 "data.datasets", "training.ema", "training.lr_scheduler",
+                 "training.train_state", "training.checkpointing",
+                 "training.loggers", "training.trainer", "tools.measure"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 
@@ -58,8 +62,8 @@ def test_importing_every_module_pulls_in_no_jax():
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_nothing_of_jax(path):
     src = open(path).read()
-    pat = re.compile(r"^\s*(?:from|import)\s+(jax|flax|dsml_thesis_tpu)(?:[.\s]|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(?:from|import)\s+"
+                     r"(jax|flax|optax|orbax|dsml_thesis_tpu)(?:[.\s]|$)", re.M)
     assert not pat.search(src), pat.search(src).group(0)
 
 
@@ -93,6 +97,7 @@ def test_every_cuda_source_is_built():
     on_disk = set(os.listdir(_build.CSRC_DIR))
     assert on_disk == set(_build.SOURCES) | set(_build.HEADERS)
     assert {"flash_attention_packed.cu", "flash_attention_qout.cu",
+            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
             "group_norm.cu"} <= set(_build.SOURCES)
     assert all(s.endswith(".cu") for s in _build.SOURCES)
     for name in _build.SOURCES:
@@ -120,14 +125,19 @@ def test_smoke_script_refuses_to_run_without_a_card():
 
 
 def test_cuda_tensor_never_reaches_a_plain_version():
-    """The wrappers branch on the tensor's device alone: each of the six
-    plain versions is called once, behind ``device.type == "cpu"``, and
-    nothing catches a failed launch. (``group_norm_silu_reference`` is also
-    what ``DSML_PALLAS_GN=0`` selects by name, as in the JAX package: that
-    choice is the flag's, not a fallback.)"""
+    """The wrappers branch on the tensor's device alone: each of the eight
+    plain versions is called once behind ``device.type == "cpu"`` (at most
+    one statement between the test and the call), and nothing catches a
+    failed launch. (``group_norm_silu_reference`` is also what
+    ``DSML_PALLAS_GN=0`` selects by name, as in the JAX package, and what the
+    kernel modes' backward differentiates, as that package's does: neither is
+    a fallback. Likewise ``fproj_reference`` / ``qout_reference`` inside
+    ``_KernelForward.backward``.)"""
     plain = {
         "attention.py": ("attention_reference", "fproj_reference",
-                         "packed_reference", "qout_reference"),
+                         "packed_reference", "qout_reference",
+                         "flash_attention_bwd_reference",
+                         "packed_bwd_reference"),
         "groupnorm.py": ("group_norm_silu_reference",
                          "gn_channel_stats_reference"),
     }
@@ -136,7 +146,8 @@ def test_cuda_tensor_never_reaches_a_plain_version():
         assert src.count('device.type == "cpu"') == len(versions)
         for fn in versions:
             guarded = re.findall(
-                r'device\.type == "cpu":\n\s+return ' + fn + r"\(", src)
+                r'device\.type == "cpu":\n(?:\s+\S.*\n)?\s+return (?:\(\*)?'
+                + fn + r"\(", src)
             assert len(guarded) == 1, fn
         assert "except" not in src
         assert "is_available" not in src
