@@ -18,23 +18,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
            first-stage decode through the kernels against the same calls
            through the plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
-           frames, DDIM-50, guidance 2.0, in four runs:
+           frames, DDIM-50, guidance 2.0, in seven runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-flags  -fullattn, DSML_ATTN_FPROJ_PARTIAL=1 and
                              DSML_PALLAS_GN=1, one batch
              headline-stats  headline config, DSML_PALLAS_GN=stats, one batch
              headline        headline config, no flag, one batch
+             headline-streaming     DSML_FLASH_STREAMING=1, one batch
+             headline-epilogue-res  DSML_GN_EPILOGUE=res, one batch
+             headline-epilogue      DSML_GN_EPILOGUE=1, one batch
            each checks shapes, finiteness, range, launch counts, and that
            (seed, batch index) reproduces a batch bit for bit
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
            real shapes (256 px, audio [17, 768]), batch 8, full width and
-           depth, fp32 parameters with bf16 compute, in four runs:
+           depth, fp32 parameters with bf16 compute, in six runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
                              with --resume for one more step
              train-fullattn  -fullattn, no flag, 2 steps
              train-split     headline, DSML_ATTN_PACKED=0, 2 steps
              train-gn        headline, DSML_PALLAS_GN=1, 2 steps
+             train-streaming headline, DSML_ATTN_PACKED=0 and
+                             DSML_FLASH_STREAMING=1, 2 steps
+             train-epilogue  headline, DSML_GN_EPILOGUE=res, 2 steps
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, equal loss bits
            from a second run with the same seed, and loss and a handful of
@@ -162,18 +168,28 @@ def _compare(out, ref):
 
 
 def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
-          iters=10, **extra):
+          iters=10, stats_from=None, **extra):
     """One kernel call against its plain version on the same inputs and,
     if ``timed``, the times of the kernel, the plain version and the library
     yardstick beside the bound: bytes moved once over the memory rate against
     operations over the peak rate of their type, the larger. A kernel with
     several outputs returns a tuple: each output is held against its own
-    maximum and the worst is reported."""
+    maximum and the worst is reported. With ``stats_from`` the kernel's
+    outputs after the first are statistics of its first output, and are held
+    (under the tolerance of statistics, as "stats_rel_err") against
+    ``stats_from(first output)`` instead of the plain version's."""
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
     if not isinstance(out, tuple):
         out, ref = (out,), (ref,)
+    extra = dict(extra)
+    if stats_from is not None:
+        stat_errs = [_compare(o, r)
+                     for o, r in zip(out[1:], stats_from(out[0]))]
+        extra.update(stats_rel_err=max(r for _, r in stat_errs),
+                     tol_stats=STATS_REL_TOL)
+        out, ref = out[:1], ref[:1]
     errs = [_compare(o, r) for o, r in zip(out, ref)]
     err, rel = max(e for e, _ in errs), max(r for _, r in errs)
     case = {"shape": list(shape), **extra, "max_abs_err": err, "rel_err": rel}
@@ -247,9 +263,11 @@ def _packed_case(gen, b, nq, nk, heads, d, timed):
 
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
-              plain, sdpa_inputs, scale):
+              plain, sdpa_inputs, scale, lse_bytes=4):
     """An attention backward kernel on the forward kernel's own output and
-    row log-sum-exp: (dq, dk, dv) against the plain backward formula, each
+    row log-sum-exp (``forward`` returns both; the streaming pair has no
+    saved log-sum-exp, ``lse_bytes=0``): (dq, dk, dv) against the plain
+    backward formula ``plain(out)``, each
     within REL_TOL of its own maximum; a second launch and the same gradient
     asked for through autograd (the ``Function`` the model uses) must both
     give the same bits. The yardstick is the backward of
@@ -262,9 +280,9 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
                        for t in sdpa_inputs)
     so = F.scaled_dot_product_attention(sq, sk, sv, scale=scale)
     case = _case(
-        shape, timed, lambda: backward(out, lse), plain,
+        shape, timed, lambda: backward(out, lse), lambda: plain(out),
         lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True),
-        2 * b_h * (4 * nq + 4 * nk) * d + 4 * b_h * nq,
+        2 * b_h * (4 * nq + 4 * nk) * d + lse_bytes * b_h * nq,
         10 * b_h * nq * nk * d, PEAK_BF16_FLOPS)
     first, again = backward(out, lse), backward(out, lse)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -287,8 +305,37 @@ def _flash_bwd_case(gen, b, h, nq, nk, d, timed):
         lambda: A._launch_flash_forward(q, k, v, scale, True),
         lambda o, lse: A.flash_attention_bwd(q, k, v, o, lse, do, scale),
         lambda q_, k_, v_: A.flash_attention(q_, k_, v_, scale=scale),
-        lambda: A.flash_attention_bwd_reference(q, k, v, do, scale=scale),
+        lambda _: A.flash_attention_bwd_reference(q, k, v, do, scale=scale),
         (q, k, v, do), scale)
+
+
+def _streaming_case(gen, b, h, nq, nk, d, timed):
+    import torch.nn.functional as F
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
+    scale = d ** -0.5
+    return _case(
+        (b, h, nq, nk, d), timed,
+        lambda: A.flash_attention_streaming(q, k, v, scale=scale),
+        lambda: A.streaming_attention_reference(q, k, v, scale=scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        2 * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
+        PEAK_BF16_FLOPS, kv_splits=A.streaming_splits(b * h, nq, nk))
+
+
+def _streaming_bwd_case(gen, b, h, nq, nk, d, timed):
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    q, k, v, do = (_rand(gen, b, h, n, d) for n in (nq, nk, nk, nq))
+    scale = d ** -0.5
+    return _bwd_case(
+        (b, b * h, nq, nk, d), timed, q, k, v, do,
+        lambda: (A._launch_streaming_forward(q, k, v, scale), None),
+        lambda o, _: A.flash_attention_streaming_bwd(q, k, v, o, do, scale),
+        lambda q_, k_, v_: A.flash_attention_streaming(q_, k_, v_, scale=scale),
+        lambda o: A.streaming_bwd_reference(q, k, v, o, do, scale=scale),
+        (q, k, v, do), scale, lse_bytes=0)
 
 
 def _packed_bwd_case(gen, b, nq, nk, heads, d, timed):
@@ -305,7 +352,7 @@ def _packed_bwd_case(gen, b, nq, nk, heads, d, timed):
                                                     scale),
         lambda q_, k_, v_: A.flash_attention_packed(q_, k_, v_, heads,
                                                     scale=scale),
-        lambda: A.packed_bwd_reference(q, k, v, do, heads, scale=scale),
+        lambda _: A.packed_bwd_reference(q, k, v, do, heads, scale=scale),
         (sp(q), sp(k), sp(v), sp(do)), scale)
 
 
@@ -392,6 +439,60 @@ def _stats_case(gen, b, n, c, timed):
     return case
 
 
+def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
+               eps=1e-5, silu_in=True):
+    """conv_stats: y against the plain version's; the statistics against the
+    sums of the kernel's own stored y (a y that rounds the other way at a bf16
+    tie moves a sum by more than the sums' tolerance, and is no fault), with
+    the same bits from a second call. The yardstick: ``F.group_norm`` +
+    ``F.silu`` (prologue cases), ``F.conv2d``, + bias (+ skip), two sums."""
+    import torch.nn.functional as F
+    from dsml_thesis_tpu_torch.ops import conv_gn as C
+    from dsml_thesis_tpu_torch.ops import groupnorm as G
+
+    f32 = torch.float32
+    x = _rand(gen, b, hh, ww, cin, scale=2.0) + 0.5
+    w = _rand(gen, ksize, ksize, cin, cout, scale=(ksize * ksize * cin) ** -0.5)
+    bias = 0.5 * torch.randn(b, cout, generator=gen, device="cuda")
+    res = _rand(gen, b, hh, ww, cout) if skip else None
+    kw = {}
+    if prologue:
+        gamma = 1 + 0.1 * torch.randn(cin, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(cin, generator=gen, device="cuda")
+        kw = dict(in_stats=G.gn_channel_stats_reference(x.reshape(b, -1, cin)),
+                  gamma=gamma, beta=beta, num_groups=32, eps=eps,
+                  silu_in=silu_in)
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bias16 = bias.to(torch.bfloat16)[:, :, None, None]
+    res_nchw = None if res is None else res.permute(0, 3, 1, 2)
+
+    def library():
+        h = x_nchw
+        if prologue:
+            h = F.group_norm(h, 32, g16, b16, eps)
+            h = F.silu(h) if silu_in else h
+        y = F.conv2d(h, w_oihw, padding=(ksize - 1) // 2) + bias16
+        if res_nchw is not None:
+            y = y + res_nchw
+        return y, y.sum((2, 3), dtype=f32), y.square().sum((2, 3), dtype=f32)
+
+    run = lambda: C.conv_stats(x, w, bias, skip=res, **kw)
+    stats_of = lambda y: G.gn_channel_stats_reference(y.reshape(b, -1, cout))
+    case = _case(
+        (b, hh, ww, cin, cout), timed, run,
+        lambda: C.conv_stats_reference(x, w, bias, skip=res, **kw), library,
+        2 * (x.numel() + w.numel() + b * hh * ww * cout * (2 if skip else 1))
+        + 4 * b * cout * 3 + (4 * (2 * b * cin + 2 * cin) if prologue else 0),
+        2 * b * hh * ww * ksize * ksize * cin * cout, PEAK_BF16_FLOPS,
+        stats_from=stats_of, ksize=ksize, prologue=prologue, skip=skip)
+    first, again = run(), run()
+    if not all(torch.equal(a, c) for a, c in zip(first, again)):
+        case["rel_err"] = float("inf")
+    return case
+
+
 def phase_kernels():
     """Each kernel against its plain version, at the serving path's shapes
     (batch 8, and 16 after the guidance pair is tiled; F = 2 frames a clip)
@@ -464,14 +565,47 @@ def phase_kernels():
         _packed_bwd_case(gen, 2, 333, 77, 10, 32, False),    # Nk != Nq
         _packed_bwd_case(gen, 2, 200, 200, 3, 64, False),    # 64-wide heads
     ]
+    streaming = [
+        _streaming_case(gen, 8, 1, 4096, 4096, 512, True),   # first stage
+        _streaming_case(gen, 16, 1, 4096, 4096, 512, True),
+        _streaming_case(gen, 8, 10, 1024, 1024, 32, True),   # UNet, training
+        _streaming_case(gen, 1, 1, 16384, 16384, 512, True),  # streams by auto
+        _streaming_case(gen, 2, 3, 333, 77, 64, False),      # ragged both ways
+        _streaming_case(gen, 1, 2, 100, 5000, 64, False),    # K/V cut 40 ways
+        _streaming_case(gen, 1, 1, 64, 2000, 512, False),    # 32 ways, D = 512
+    ]
+    streaming_bwd = [
+        _streaming_bwd_case(gen, 8, 10, 1024, 1024, 32, True),
+        _streaming_bwd_case(gen, 8, 20, 256, 256, 32, True),
+        _streaming_bwd_case(gen, 2, 3, 333, 77, 64, False),  # ragged, D = 64
+        _streaming_bwd_case(gen, 2, 5, 200, 200, 32, False),
+    ]
+    conv = [   # b, H, W, Cin, Cout, K, input norm, skip
+        _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),
+        _conv_case(gen, 16, 64, 64, 160, 160, 3, False, False, True),
+        _conv_case(gen, 16, 32, 32, 960, 320, 3, True, False, True),
+        _conv_case(gen, 16, 16, 16, 1280, 640, 3, True, False, True),
+        _conv_case(gen, 8, 256, 256, 128, 128, 3, True, True, True, eps=1e-6),
+        _conv_case(gen, 16, 64, 64, 160, 160, 1, False, True, True),
+        _conv_case(gen, 16, 32, 32, 960, 320, 3, False, True, False),
+        _conv_case(gen, 16, 16, 16, 1280, 640, 3, False, True, False),
+        _conv_case(gen, 2, 13, 9, 64, 96, 3, True, True, False),   # odd H != W
+        _conv_case(gen, 2, 13, 9, 64, 40, 1, True, False, False, eps=1e-6,
+                   silu_in=False),
+        _conv_case(gen, 2, 20, 20, 9, 160, 3, False, False, False),  # stem Cin
+    ]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,
              "flash_attention_bwd": flash_bwd,
              "flash_attention_bwd_packed": packed_bwd,
-             "group_norm_silu": gn, "gn_channel_stats": stats}
+             "flash_attention_streaming": streaming,
+             "flash_attention_streaming_bwd": streaming_bwd,
+             "group_norm_silu": gn, "gn_channel_stats": stats,
+             "conv_stats": conv}
     bad = [(name, c["shape"], c["rel_err"], c.get("tol", REL_TOL))
            for name, cs in cases.items() for c in cs
-           if not c["rel_err"] <= c.get("tol", REL_TOL)]
+           if not c["rel_err"] <= c.get("tol", REL_TOL)
+           or not c.get("stats_rel_err", 0.0) <= STATS_REL_TOL]
     emit({"phase": "kernels", "rel_tol": REL_TOL,
           "stats_rel_tol": STATS_REL_TOL, "dtype": "bfloat16",
           "worst_rel_err": {name: max(c["rel_err"] for c in cs)
@@ -525,26 +659,92 @@ def count_attentions(unet):
     return short, long
 
 
+def count_fused_convs(net, mode):
+    """Launches of the conv + statistics kernel in one forward of a UNet, an
+    Encoder or a Decoder under ``DSML_GN_EPILOGUE=mode``, from its own
+    blocks: both 3x3 convs of every ResBlock / ResnetBlock; under ``1`` also
+    the stem conv, the 1x1 projection into every attention block (it follows
+    a block that leaves statistics) and the one out of it, unless a resampler
+    follows (then no norm reads the statistics and the projection stays
+    plain). A conv with fewer than 32 output channels (the final convs) is
+    not launched."""
+    from dsml_thesis_tpu_torch.models.autoencoder import (AttnBlock, Decoder,
+                                                          ResnetBlock)
+    from dsml_thesis_tpu_torch.models.unet import ResBlock, SpatialTransformer
+    from dsml_thesis_tpu_torch.ops.conv_gn import CONV_MIN_COUT
+
+    if mode == "0":
+        return 0
+    mods = list(net.modules())
+    n = 2 * sum(isinstance(m, (ResBlock, ResnetBlock)) for m in mods)
+    if mode == "res":
+        return n
+    n += net.conv_in.out_channels >= CONV_MIN_COUT
+    n += net.conv_out.out_channels >= CONV_MIN_COUT
+    n += 2 * sum(isinstance(m, (SpatialTransformer, AttnBlock)) for m in mods)
+    if hasattr(net, "attn_levels"):   # first stage: a level's last attention
+        resampled = 0 if isinstance(net, Decoder) else len(net.ch_mult) - 1
+        n -= sum(on and level != resampled
+                 for level, on in enumerate(net.attn_levels))
+    return n
+
+
 def expected_launches(ldm, env, unet_calls, encodes, decodes):
     """Launches of every kernel for a number of UNet calls, first-stage
     encodes and decodes under a flag set, from the model's own blocks."""
     short, long = count_attentions(ldm.unet)
     fs = ldm.first_stage
     gn_mode = env.get("DSML_PALLAS_GN", "0")
+    epilogue = env.get("DSML_GN_EPILOGUE", "0")
     partial = env.get("DSML_ATTN_FPROJ_PARTIAL", "0") == "1"
-    norms = (unet_calls * count_norms(ldm.unet)
-             + encodes * count_norms(fs.encoder)
-             + decodes * count_norms(fs.decoder))
+    streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
+    parts = ((unet_calls, ldm.unet), (encodes, fs.encoder),
+             (decodes, fs.decoder))
+    norms = sum(n * count_norms(net) for n, net in parts)
+    # first stage: 3 attention blocks an encode, 4 a decode
+    first_stage = 3 * encodes + 4 * decodes
     return {
-        # first stage: 3 attention blocks an encode, 4 a decode
-        "flash_attention": 3 * encodes + 4 * decodes,
+        "flash_attention": 0 if streaming else first_stage,
+        "flash_attention_streaming": first_stage if streaming else 0,
         "flash_attention_fproj": unet_calls * short,
         "flash_attention_packed": 0 if partial else unet_calls * long,
         "flash_attention_qout": unet_calls * long if partial else 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_packed": 0,
+        "flash_attention_streaming_bwd": 0,
         "group_norm_silu": norms if gn_mode == "1" else 0,
         "gn_channel_stats": norms if gn_mode == "stats" else 0,
+        "conv_stats": sum(n * count_fused_convs(net, epilogue)
+                          for n, net in parts),
     }
+
+
+@contextlib.contextmanager
+def plain_path(env):
+    """Every kernel's plain version put in its place in the models (for a
+    comparison on the card only): the attention ops by name, the conv op by
+    name, GroupNorm by leaving its flag unset. The flags that route stay."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.models import autoencoder, unet
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.ops import conv_gn as C
+
+    def plain_qout(h, k, v, wq, wo, bo, heads, scale=None):
+        wq, wo, bo = (w.to(h.dtype) for w in (wq, wo, bo))
+        return A.qout_reference(h, k, v, wq, wo, bo, heads, scale=scale)
+
+    split_head = (A.streaming_attention_reference
+                  if env.get("DSML_FLASH_STREAMING") == "1"
+                  else A.attention_reference)
+    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
+            mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
+            mock.patch.object(unet, "packed_multi_head_attention",
+                              A.packed_reference), \
+            mock.patch.object(unet, "fused_qout_self_attention", plain_qout), \
+            mock.patch.object(unet, "multi_head_attention", split_head), \
+            mock.patch.object(autoencoder, "multi_head_attention", split_head), \
+            mock.patch.object(unet, "conv_stats", C.conv_stats_reference):
+        yield
 
 
 def phase_model(name, ldm, env):
@@ -555,9 +755,6 @@ def phase_model(name, ldm, env):
     guidance-pair UNet call at batch 8 and one first-stage decode. A whole
     bf16 model compounds the kernels' rounding differences through its
     layers: tolerance 5e-2 of the output's maximum."""
-    from unittest import mock
-
-    from dsml_thesis_tpu_torch.models import autoencoder, unet
     from dsml_thesis_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -574,21 +771,11 @@ def phase_model(name, ldm, env):
         torch.cuda.synchronize()
         return eps.float(), img.float()
 
-    def plain_qout(h, k, v, wq, wo, bo, heads, scale=None):
-        wq, wo, bo = (w.to(h.dtype) for w in (wq, wo, bo))
-        return A.qout_reference(h, k, v, wq, wo, bo, heads, scale=scale)
-
     with flags(**env):
         A.reset_launches()
         eps_k, img_k = run()
         launched = dict(A.LAUNCHES)
-    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
-            mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
-            mock.patch.object(unet, "packed_multi_head_attention",
-                              A.packed_reference), \
-            mock.patch.object(unet, "fused_qout_self_attention", plain_qout), \
-            mock.patch.object(autoencoder, "flash_attention",
-                              A.attention_reference):
+    with plain_path(env):
         A.reset_launches()
         eps_p, img_p = run()
         launched_plain = dict(A.LAUNCHES)
@@ -715,6 +902,8 @@ GRAD_PROBES = (
     "unet.down_1_0_attn.block_0.attn1.to_out.weight",
     "unet.down_0_0_res.in_norm.weight",
     "cond.class_label.embedding.weight",
+    "unet.down_0_1_res.in_norm.weight",   # folded into in_conv by the epilogue
+    "unet.down_0_1_res.out_conv.weight",
 )
 
 
@@ -729,20 +918,24 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     plain version, as in the JAX package."""
     short, long = count_attentions(ldm.unet)
     packed = env.get("DSML_ATTN_PACKED", "1") == "1"
-    norms = count_norms(ldm.unet) + 3 * count_norms(ldm.first_stage.encoder)
-    gn = env.get("DSML_PALLAS_GN", "0") == "1"
-    step = dict.fromkeys(expected_launches(ldm, env, 0, 0, 0), 0)
+    streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
+    # the split-head kernels: forward (first stage, and the UNet when its
+    # attention is not packed) and backward (the UNet alone: the first stage
+    # is frozen)
+    fwd, bwd = (("flash_attention_streaming", "flash_attention_streaming_bwd")
+                if streaming else ("flash_attention", "flash_attention_bwd"))
+    step = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
     step.update({
-        "flash_attention": 9 + (0 if packed else short + long),
+        "flash_attention_fproj": 0, "flash_attention_qout": 0,   # eval only
+        fwd: 9 + (0 if packed else short + long),
         "flash_attention_packed": short + long if packed else 0,
         "flash_attention_bwd_packed": short + long if packed else 0,
-        "flash_attention_bwd": 0 if packed else short + long,
-        "group_norm_silu": norms if gn else 0,
+        bwd: 0 if packed else short + long,
     })
     evals = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
     if not packed:   # no fused branch: every self-attention splits its heads
-        evals.update(flash_attention=9 + short + long, flash_attention_fproj=0,
-                     flash_attention_packed=0)
+        evals.update({fwd: 9 + short + long, "flash_attention_fproj": 0,
+                      "flash_attention_packed": 0})
     return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
 
 
@@ -757,9 +950,6 @@ def _grad_check(trainer, env):
     """Loss and the probe gradients of one batch through the kernels against
     the same through the plain versions (patched in here, for this comparison
     only; the GroupNorm flag unset selects its plain ops), same draws."""
-    from unittest import mock
-
-    from dsml_thesis_tpu_torch.models import autoencoder, unet
     from dsml_thesis_tpu_torch.ops import attention as A
 
     ldm = trainer.ldm
@@ -782,12 +972,7 @@ def _grad_check(trainer, env):
         A.reset_launches()
         loss_k, grads_k = run()
         launched = dict(A.LAUNCHES)
-    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
-            mock.patch.object(unet, "packed_multi_head_attention",
-                              A.packed_reference), \
-            mock.patch.object(unet, "flash_attention", A.attention_reference), \
-            mock.patch.object(autoencoder, "flash_attention",
-                              A.attention_reference):
+    with plain_path(env):
         A.reset_launches()
         loss_p, grads_p = run()
         launched_plain = dict(A.LAUNCHES)
@@ -918,6 +1103,13 @@ KERNELS = {
         "flash_attention_bwd.cu", "attention.py:1353", "train-split"),
     "flash_attention_bwd_packed": (
         "flash_attention_bwd_packed.cu", "attention.py:1378", "train"),
+    "flash_attention_streaming": (
+        "flash_attention_streaming.cu", "attention.py:453",
+        "headline-streaming"),
+    "flash_attention_streaming_bwd": (
+        "flash_attention_streaming_bwd.cu", "attention.py:610",
+        "train-streaming"),
+    "conv_stats": ("conv_stats.cu", "conv_gn.py:83", "headline-epilogue-res"),
 }
 
 
@@ -952,6 +1144,9 @@ RUNS = (
      {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"}, 8),
     ("headline-stats", CONFIG, {"DSML_PALLAS_GN": "stats"}, 8),
     ("headline", CONFIG, {}, 8),
+    ("headline-streaming", CONFIG, {"DSML_FLASH_STREAMING": "1"}, 8),
+    ("headline-epilogue-res", CONFIG, {"DSML_GN_EPILOGUE": "res"}, 8),
+    ("headline-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "1"}, 8),
 )
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (
@@ -959,6 +1154,9 @@ TRAIN_RUNS = (
     ("train-fullattn", CONFIG_FULLATTN, {}, 2),
     ("train-split", CONFIG, {"DSML_ATTN_PACKED": "0"}, 2),
     ("train-gn", CONFIG, {"DSML_PALLAS_GN": "1"}, 2),
+    ("train-streaming", CONFIG,
+     {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
+    ("train-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "res"}, 2),
 )
 
 

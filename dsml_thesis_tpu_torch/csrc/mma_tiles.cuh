@@ -102,6 +102,30 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int64_t ld,
   }
 }
 
+// load_tile with every element multiplied by c in bf16 on the way (one
+// rounding to bf16, as a bf16 tensor times a bf16 scalar gives): the
+// streaming attention kernels fold scale * log2(e) into q this way.
+template <int COLS, int NTHREADS>
+__device__ __forceinline__ void load_tile_scaled(bf16* s, const bf16* g,
+                                                 int64_t ld, int rows,
+                                                 int valid_rows, int tid,
+                                                 bf16 c) {
+  constexpr int CHUNKS = COLS / 8;
+  const __nv_bfloat162 c2 = __bfloat162bfloat162(c);
+  for (int i = tid; i < rows * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS;
+    const int col = (i % CHUNKS) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid_rows) {
+      v = *reinterpret_cast<const uint4*>(g + r * ld + col);
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = __hmul2(p[j], c2);
+    }
+    *reinterpret_cast<uint4*>(s + r * (COLS + PAD) + col) = v;
+  }
+}
+
 // Same copy for a tile whose width is known only at run time (cols, a
 // multiple of 8) into rows of lds elements.
 template <int NTHREADS>

@@ -22,16 +22,38 @@ on the card):
   DSML_PALLAS_GN           (0 | 1 | stats, 0)  GroupNorm as plain ops, through
                            the whole-row kernel, or through the statistics
                            kernel and a plain apply (``ops/groupnorm.py``)
+  DSML_FLASH_STREAMING     (auto | 1 | 0, auto)  split-head attention
+                           (``ops.attention.multi_head_attention``: the first
+                           stage's blocks, and the UNet's under
+                           DSML_ATTN_PACKED=0) through
+                           ``flash_attention_streaming`` instead of
+                           ``flash_attention``: always, where the JAX
+                           package's resident kernel would not fit its chip
+                           (``streaming_auto``: at D = 512 every Nk above
+                           8,265), or never
+  DSML_GN_EPILOGUE         (0 | res | 1, 0)  GroupNorm statistics taken in the
+                           epilogue of the conv that produces the tensor, and
+                           the norm applied inside the conv that reads it
+                           (``ops.conv_gn.conv_stats``): ``res`` in the 3x3
+                           convs of every ResBlock / ResnetBlock, ``1`` also in
+                           the stem convs, the 1x1 projections around the
+                           attention blocks and the final norm + conv
   DSML_GELU_EXACT          (bool, 0)  erf GELU in the GEGLU gate
   DSML_CFG_DEDUP           (bool, 1)  the guidance pair shares the UNet's
                            prefix (``diffusion/video.py``)
 
-Flags of the JAX package's training path that the port does not read (each
-names a TPU fact or an unported option, not a function of the model):
+Flags of the JAX package that the port does not read (each names a TPU fact,
+a test hook or an unported option, not a function of the model):
 DSML_OPT_BF16_M (bf16 first Adam moment), DSML_REMAT and ``use_checkpoint``
-(rematerialisation: memory, not numbers), DSML_FLASH_BWD_DEFER,
-DSML_FLASH_PACKED_BWD and DSML_FLASH_STREAMING (forms and fast-memory fits of
-the TPU kernels).
+(rematerialisation: memory, not numbers), DSML_FLASH_BWD_DEFER and
+DSML_FLASH_PACKED_BWD (forms and fast-memory fits of the TPU kernels),
+DSML_FLASH_BLOCK_Q and DSML_FLASH_BLOCK_K (block sizes of the TPU kernels: a
+Hopper tile is fixed by registers and shared memory, and ``streaming_auto``
+keeps the default request of 1024 rows), DSML_FLASH_INTERPRET and the
+``interpret`` / ``res-interpret`` values of DSML_GN_EPILOGUE (they run a
+Pallas kernel in interpret mode on the CPU, for the JAX package's tests: a
+CUDA kernel has no such mode, and on the CPU the port's wrappers take their
+plain versions anyway).
 """
 from __future__ import annotations
 
@@ -39,7 +61,8 @@ import os
 
 # the flags that choose between kernels (what a measurement records)
 KERNEL_FLAGS = ("DSML_ATTN_PACKED", "DSML_ATTN_FUSED_PROJ",
-                "DSML_ATTN_FPROJ_PARTIAL", "DSML_PALLAS_GN")
+                "DSML_ATTN_FPROJ_PARTIAL", "DSML_PALLAS_GN",
+                "DSML_FLASH_STREAMING", "DSML_GN_EPILOGUE")
 
 _TRUE = ("1", "true", "on", "yes")
 _FALSE = ("0", "false", "off", "no")

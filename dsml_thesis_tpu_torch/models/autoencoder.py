@@ -4,7 +4,11 @@ Counterpart of ``dsml_thesis_tpu/models/autoencoder.py`` (same sub-module
 names, NHWC at the public boundary, NCHW ``channels_last`` inside).
 GroupNorm eps is 1e-6 here (1e-5 in the UNet). The single-head attention
 block (one head as wide as the channels, 512 in the shipped configs) runs
-through ``ops.attention.flash_attention``. As the latent-diffusion first
+through ``ops.attention.multi_head_attention`` (the resident or the streaming
+kernel, ``DSML_FLASH_STREAMING``). Under ``DSML_GN_EPILOGUE`` the GroupNorm
+statistics ride the convs as in the UNet: a block returns ``(out, stats)``
+and takes ``in_stats``; ``emit_stats`` says whether a norm will read the
+statistics (before a resampler none does). As the latent-diffusion first
 stage, ``encode`` skips quantization and ``decode`` quantizes first.
 """
 from __future__ import annotations
@@ -15,9 +19,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import flash_attention
+from ..ops.attention import multi_head_attention
 from .quantize import VectorQuantizer
-from .unet import (Conv2d, GroupNormSiLU, _no_dropout, resolve_dtype,
+from .unet import (Conv2d, GroupNormSiLU, _no_dropout, fused_conv,
+                   gn_epilogue_mode, head_conv, resolve_dtype, stem_conv,
                    upsample_nearest)
 
 
@@ -34,15 +39,30 @@ class ResnetBlock(nn.Module):
         if channels != out_ch:
             self.nin_shortcut = Conv2d(channels, out_ch, 1, dtype=dtype)
 
-    def forward(self, x):
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+    def forward(self, x, in_stats=None, emit_stats: bool = False):
+        if not gn_epilogue_mode():
+            h = self.conv2(self.norm2(self.conv1(self.norm1(x, in_stats))))
+            if hasattr(self, "nin_shortcut"):
+                x = self.nin_shortcut(x)
+            return x + h, None
+        # conv1 with norm1 folded in where statistics came, norm2's
+        # statistics out; conv2 with norm2 folded in and the residual added
+        fold_in = in_stats is not None
+        h, mid_stats = fused_conv(self.conv1, x if fold_in else self.norm1(x),
+                                  in_stats=in_stats, norm=self.norm1)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
-        return x + h
+        out, stats = fused_conv(self.conv2, h, skip=x, in_stats=mid_stats,
+                                norm=self.norm2)
+        return out, (stats if emit_stats else None)
 
 
 class AttnBlock(nn.Module):
-    """Single-head full self-attention over the spatial tokens."""
+    """Single-head full self-attention over the spatial tokens. Same
+    ``(out, stats)`` / ``in_stats`` / ``emit_stats`` convention as
+    ``ResnetBlock``; under ``DSML_GN_EPILOGUE=1`` the norm folds into one
+    [C, 3C] 1x1 product for q, k and v, and ``proj_out`` + residual leave the
+    statistics of the result."""
 
     def __init__(self, channels: int, dtype=None):
         super().__init__()
@@ -52,16 +72,28 @@ class AttnBlock(nn.Module):
         self.v = Conv2d(channels, channels, 1, dtype=dtype)
         self.proj_out = Conv2d(channels, channels, 1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, in_stats=None, emit_stats: bool = False):
         b, c, hh, ww = x.shape
-        h = self.norm(x)
-        # [B, C, H, W] channels_last -> [B, 1, H*W, C]: a view, then packed
-        tokens = lambda t: t.permute(0, 2, 3, 1).reshape(
-            b, 1, hh * ww, c).contiguous()
-        out = flash_attention(tokens(self.q(h)), tokens(self.k(h)),
-                              tokens(self.v(h)), scale=c ** -0.5)
+        epi = gn_epilogue_mode(full=True)
+        if epi and in_stats is not None:
+            # the normalized tensor is never written: one product for q, k, v
+            # (the three 1x1 weights concatenated along the outputs)
+            qkv, _ = fused_conv((self.q, self.k, self.v), x,
+                                in_stats=in_stats, norm=self.norm)
+            q, k, v = (t.permute(0, 2, 3, 1).reshape(b, 1, hh * ww, c
+                                                     ).contiguous()
+                       for t in qkv.split(c, dim=1))
+        else:
+            h = self.norm(x, in_stats)
+            # [B, C, H, W] channels_last -> [B, 1, H*W, C]: a view, then packed
+            tokens = lambda t: t.permute(0, 2, 3, 1).reshape(
+                b, 1, hh * ww, c).contiguous()
+            q, k, v = tokens(self.q(h)), tokens(self.k(h)), tokens(self.v(h))
+        out = multi_head_attention(q, k, v, scale=c ** -0.5)
         out = out.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
-        return x + self.proj_out(out)
+        if epi and emit_stats:
+            return fused_conv(self.proj_out, out, skip=x)
+        return x + self.proj_out(out), None
 
 
 class DownsampleAE(nn.Module):
@@ -83,6 +115,12 @@ class UpsampleAE(nn.Module):
 
     def forward(self, x):
         return self.conv(upsample_nearest(x))
+
+
+def _mid(net, h, st):
+    h, st = net.mid_block_1(h, st, True)
+    h, st = net.mid_attn_1(h, st, True)
+    return net.mid_block_2(h, st, True)
 
 
 class Encoder(nn.Module):
@@ -123,16 +161,26 @@ class Encoder(nn.Module):
                                padding=1, dtype=dtype)
 
     def forward(self, x):
-        h = self.conv_in(x.permute(0, 3, 1, 2))
+        # ``st``: the channel statistics of h from the fused conv that
+        # produced it, for the next norm; None after a resampler
+        h, st = stem_conv(self.conv_in, x.permute(0, 3, 1, 2))
+        last_level = len(self.ch_mult) - 1
         for i_level in range(len(self.ch_mult)):
+            attn_here = self.attn_levels[i_level]
             for i_block in range(self.num_res_blocks):
-                h = getattr(self, f"down_{i_level}_block_{i_block}")(h)
-                if self.attn_levels[i_level]:
-                    h = getattr(self, f"down_{i_level}_attn_{i_block}")(h)
-            if i_level != len(self.ch_mult) - 1:
-                h = getattr(self, f"down_{i_level}_downsample")(h)
-        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
-        return self.conv_out(self.norm_out(h)).permute(0, 2, 3, 1)
+                # a downsample (no norm) follows a level's last block
+                at_resample = (i_block == self.num_res_blocks - 1
+                               and i_level != last_level)
+                h, st = getattr(self, f"down_{i_level}_block_{i_block}")(
+                    h, st, attn_here or not at_resample)
+                if attn_here:
+                    h, st = getattr(self, f"down_{i_level}_attn_{i_block}")(
+                        h, st, not at_resample)
+            if i_level != last_level:
+                h, st = getattr(self, f"down_{i_level}_downsample")(h), None
+        h, st = _mid(self, h, st)
+        h = head_conv(self.norm_out, self.conv_out, h, st)
+        return h.permute(0, 2, 3, 1)
 
 
 class Decoder(nn.Module):
@@ -175,16 +223,21 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, dtype=dtype)
 
     def forward(self, z):
-        h = self.conv_in(z.permute(0, 3, 1, 2))
-        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        h, st = stem_conv(self.conv_in, z.permute(0, 3, 1, 2))
+        h, st = _mid(self, h, st)
         for i_level in reversed(range(len(self.ch_mult))):
+            attn_here = self.attn_levels[i_level]
             for i_block in range(self.num_res_blocks + 1):
-                h = getattr(self, f"up_{i_level}_block_{i_block}")(h)
-                if self.attn_levels[i_level]:
-                    h = getattr(self, f"up_{i_level}_attn_{i_block}")(h)
+                # an upsample (no norm) follows a level's last block
+                at_resample = i_block == self.num_res_blocks and i_level != 0
+                h, st = getattr(self, f"up_{i_level}_block_{i_block}")(
+                    h, st, attn_here or not at_resample)
+                if attn_here:
+                    h, st = getattr(self, f"up_{i_level}_attn_{i_block}")(
+                        h, st, not at_resample)
             if i_level != 0:
-                h = getattr(self, f"up_{i_level}_upsample")(h)
-        h = self.conv_out(self.norm_out(h))
+                h, st = getattr(self, f"up_{i_level}_upsample")(h), None
+        h = head_conv(self.norm_out, self.conv_out, h, st)
         if self.tanh_out:
             h = torch.tanh(h)
         return h.permute(0, 2, 3, 1)

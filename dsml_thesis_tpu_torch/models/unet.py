@@ -16,7 +16,10 @@ Eval-mode self-attention over up to 1024 tokens goes through the
 projection-fused attention op (``ops.attention.flash_attention_fproj``),
 longer sequences through the packed kernel (or the q/out-fused one under
 ``DSML_ATTN_FPROJ_PARTIAL=1``); single-token cross-attention is the exact
-broadcast of the JAX package. Ported is what the talking-face
+broadcast of the JAX package. Under ``DSML_GN_EPILOGUE`` the GroupNorm
+statistics ride the convs (``ops.conv_gn.conv_stats``): a block returns its
+output together with the output's channel sums, and the next norm reads
+those instead of reducing the tensor again. Ported is what the talking-face
 configs use: the spatial-transformer UNet with conv resampling. Dropout,
 ``use_scale_shift_norm``, ``resblock_updown``, class labels and the
 transformer-less attention block raise ``NotImplementedError``.
@@ -30,11 +33,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..flags import env_flag
-from ..ops.attention import (flash_attention, flash_attention_fproj,
-                             fproj_kernel_takes, fproj_one_q_block,
-                             fused_qout_self_attention,
+from ..flags import env_flag, env_mode
+from ..ops.attention import (flash_attention_fproj, fproj_kernel_takes,
+                             fproj_one_q_block, fused_qout_self_attention,
+                             multi_head_attention,
                              packed_multi_head_attention)
+from ..ops.conv_gn import conv_stats, group_norm_silu_apply
 from ..ops.groupnorm import group_norm_silu
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -105,13 +109,80 @@ class GroupNormSiLU(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, stats=None):
+        """``stats``: the (sum, sum of squares) per channel of x, [B, C] fp32
+        each, from the epilogue of the conv that produced x; the norm is
+        then applied from them and x is not reduced again."""
         # channels_last NCHW is NHWC in memory: the permute is a view and
         # contiguous() copies nothing
-        y = group_norm_silu(x.permute(0, 2, 3, 1).contiguous(), self.weight,
-                            self.bias, num_groups=self.num_groups,
-                            eps=self.eps, silu=self.silu)
+        kw = dict(num_groups=self.num_groups, eps=self.eps, silu=self.silu)
+        xl = x.permute(0, 2, 3, 1).contiguous()
+        if stats is not None:
+            y = group_norm_silu_apply(xl, stats[0], stats[1], self.weight,
+                                      self.bias, **kw)
+        else:
+            y = group_norm_silu(xl, self.weight, self.bias, **kw)
         return y.permute(0, 3, 1, 2)
+
+
+def gn_epilogue_mode(full: bool = False) -> bool:
+    """Whether ``DSML_GN_EPILOGUE`` fuses GroupNorm statistics into the convs
+    at a site: ``res`` at the 3x3 convs of the ResBlocks / ResnetBlocks
+    only, ``1`` also at the sites that ask with ``full=True`` (stem convs,
+    the 1x1 projections around attention, the final norm + conv)."""
+    mode = env_mode("DSML_GN_EPILOGUE", "0", ("0", "1", "res"))
+    return mode == "1" or (mode == "res" and not full)
+
+
+def fused_conv(conv, x, bias=None, skip=None, in_stats=None,
+               norm: Optional[GroupNormSiLU] = None):
+    """A stride-1 ``Conv2d`` through ``conv_stats``, on NCHW ``channels_last``
+    tensors: -> (y, (ch_sum, ch_sq)). ``conv`` may be several convs of one
+    input, run as one with their outputs side by side. ``bias`` replaces the
+    conv's own with a per-batch one [B, Cout] fp32; with ``in_stats`` the
+    input is normalized by ``norm`` from those statistics inside the op. The
+    weight is brought to the op's [K, K, Cin, Cout] layout here, one copy a
+    call."""
+    convs = conv if isinstance(conv, (tuple, list)) else (conv,)
+    dt = _compute_dtype(convs[0].compute_dtype, x, convs[0].weight)
+    nhwc = lambda t: t.to(dt).permute(0, 2, 3, 1)
+    one = len(convs) == 1   # nothing to concatenate, nothing to copy
+    weight = convs[0].weight if one else torch.cat([m.weight for m in convs])
+    if bias is None:
+        bias = convs[0].bias if one else torch.cat([m.bias for m in convs])
+        bias = bias.float().expand(x.shape[0], -1)
+    gn = {} if in_stats is None else dict(
+        in_stats=in_stats, gamma=norm.weight, beta=norm.bias,
+        num_groups=norm.num_groups, eps=norm.eps, silu_in=norm.silu)
+    y, ch_sum, ch_sq = conv_stats(
+        nhwc(x), weight.to(dt).permute(2, 3, 1, 0), bias,
+        skip=None if skip is None else nhwc(skip), **gn)
+    return y.permute(0, 3, 1, 2), (ch_sum, ch_sq)
+
+
+def stem_conv(conv_in, x):
+    """A net's first conv and, under ``DSML_GN_EPILOGUE=1``, its output's
+    statistics."""
+    if gn_epilogue_mode(full=True):
+        return fused_conv(conv_in, x)
+    return conv_in(x), None
+
+
+def head_conv(norm_out, conv_out, h, st):
+    """A net's last ``conv_out(norm_out(h))``; under ``DSML_GN_EPILOGUE=1``
+    the norm folds into the conv where statistics came (they are not used
+    past it)."""
+    if gn_epilogue_mode(full=True) and st is not None:
+        return fused_conv(conv_out, h, in_stats=st, norm=norm_out)[0]
+    return conv_out(norm_out(h, st))
+
+
+def concat_stats(a, b):
+    """Channel statistics of a channel concat: the concat of the statistics;
+    None if either side has none."""
+    if a is None or b is None:
+        return None
+    return torch.cat([a[0], b[0]], dim=-1), torch.cat([a[1], b[1]], dim=-1)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -142,7 +213,9 @@ def _no_dropout(dropout: float):
 
 class ResBlock(nn.Module):
     """Residual block with the timestep embedding added after the first
-    conv."""
+    conv. Returns ``(out, stats)``: under ``DSML_GN_EPILOGUE`` ``stats`` is
+    the channel (sum, sum of squares) of ``out`` for the next norm, else
+    None; ``in_stats`` takes the same pair for this block's ``in_norm``."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  dropout: float = 0.0, dtype=None):
@@ -157,13 +230,27 @@ class ResBlock(nn.Module):
         if channels != out_channels:
             self.skip = Conv2d(channels, out_channels, 1, dtype=dtype)
 
-    def forward(self, x, emb):
-        emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
-        h = self.out_norm(self.in_conv(self.in_norm(x)) + emb_out)
-        h = self.out_conv(h)
+    def forward(self, x, emb, in_stats=None):
+        emb_out = self.emb_proj(F.silu(emb))
+        if not gn_epilogue_mode():
+            h = self.in_conv(self.in_norm(x, in_stats))
+            h = self.out_conv(self.out_norm(h + emb_out[:, :, None, None]))
+            if hasattr(self, "skip"):
+                x = self.skip(x)
+            return x + h, None
+        # in_conv: in_norm folded in where the producer left statistics, the
+        # timestep vector as a per-batch bias, out_norm's statistics out
+        fold_in = in_stats is not None
+        h, mid_stats = fused_conv(
+            self.in_conv, x if fold_in else self.in_norm(x),
+            bias=self.in_conv.bias.float() + emb_out.float(),
+            in_stats=in_stats, norm=self.in_norm)
+        # out_conv: out_norm folded in, the residual added, and the
+        # statistics of the result out for the next block's norm
         if hasattr(self, "skip"):
             x = self.skip(x)
-        return x + h
+        return fused_conv(self.out_conv, h, skip=x, in_stats=mid_stats,
+                          norm=self.out_norm)
 
 
 class CrossAttention(nn.Module):
@@ -183,7 +270,8 @@ class CrossAttention(nn.Module):
       packed [B, N, H*D] layout and ``to_out``: longer self-attention,
       cross-attention over several tokens, training mode;
     * ``DSML_ATTN_PACKED=0`` (it also turns the two fused branches off):
-      the projections, a head split, ``flash_attention`` and a merge.
+      the projections, a head split, ``multi_head_attention`` (the
+      resident or the streaming kernel, ``DSML_FLASH_STREAMING``) and a merge.
 
     The JAX package gates the fused branches further on TPU facts (backend,
     VMEM fit, N >= 256, mesh size, batch >= 8); none is a property of the
@@ -236,7 +324,7 @@ class CrossAttention(nn.Module):
         split = lambda t: t.reshape(b, t.shape[1], self.heads,
                                     self.dim_head).permute(0, 2, 1, 3
                                                            ).contiguous()
-        out = flash_attention(split(q), split(k), split(v), scale=scale)
+        out = multi_head_attention(split(q), split(k), split(v), scale=scale)
         return self.to_out(out.permute(0, 2, 1, 3).reshape(b, n, -1))
 
 
@@ -278,7 +366,10 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """Feature map -> tokens -> transformer blocks -> feature map, residual."""
+    """Feature map -> tokens -> transformer blocks -> feature map, residual.
+    Returns ``(out, stats)`` and takes ``in_stats`` as ``ResBlock`` does;
+    under ``DSML_GN_EPILOGUE=1`` ``norm`` folds into the 1x1 ``proj_in`` and
+    ``proj_out`` + residual leave the statistics of the result."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, dropout: float = 0.0,
@@ -293,10 +384,16 @@ class SpatialTransformer(nn.Module):
                 inner, context_dim, heads, dim_head, dropout, dtype))
         self.proj_out = Conv2d(inner, channels, 1, dtype=dtype)
 
-    def forward(self, x, context=None, tile_pairs: bool = False):
+    def forward(self, x, context=None, tile_pairs: bool = False,
+                in_stats=None):
         b, c, h, w = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x))
+        epi = gn_epilogue_mode(full=True)
+        if epi and in_stats is not None:
+            x, _ = fused_conv(self.proj_in, x, in_stats=in_stats,
+                              norm=self.norm)
+        else:
+            x = self.proj_in(self.norm(x, in_stats))
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, -1)
         for d in range(self.depth):
             x = getattr(self, f"block_{d}")(x, context, tile_pairs and d == 0)
@@ -304,7 +401,9 @@ class SpatialTransformer(nn.Module):
             b = 2 * b
             x_in = torch.cat([x_in, x_in], dim=0)
         x = x.reshape(b, h, w, -1).permute(0, 3, 1, 2)
-        return self.proj_out(x) + x_in
+        if epi:
+            return fused_conv(self.proj_out, x, skip=x_in)
+        return self.proj_out(x) + x_in, None
 
 
 class Upsample(nn.Module):
@@ -449,46 +548,59 @@ class UNetModel(nn.Module):
         t_emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_2(F.silu(self.time_embed_0(t_emb.to(self.dtype))))
 
-        def attn(name, h, tile_pairs=False):
-            return getattr(self, name)(h, context, tile_pairs)
+        # ``st`` rides beside ``h``: the channel (sum, sum of squares) of h
+        # from the fused conv that produced it, or None (the next norm then
+        # reduces h itself); a resampler ends the thread
+        def attn(name, h, st, tile_pairs=False):
+            return getattr(self, name)(h, context, tile_pairs, st)
 
         tile = lambda a: torch.cat([a, a], dim=0)
+
+        def diverge_rest(emb, hs):
+            """The time embedding and every stored skip, with its statistics,
+            tiled to the pair batch."""
+            return tile(emb), [
+                (tile(e), None if s is None else (tile(s[0]), tile(s[1])))
+                for e, s in hs]
+
         diverged = not cfg_pairs
-        h = self.conv_in(x)
-        hs = [h]
+        h, st = stem_conv(self.conv_in, x)
+        hs = [(h, st)]
         ds = 1
         for level in range(len(self.channel_mult)):
             for i in range(self.num_res_blocks):
-                h = getattr(self, f"down_{level}_{i}_res")(h, emb)
+                h, st = getattr(self, f"down_{level}_{i}_res")(h, emb, st)
                 if ds in self.attention_resolutions:
                     first_pair = not diverged
-                    h = attn(f"down_{level}_{i}_attn", h, first_pair)
+                    h, st = attn(f"down_{level}_{i}_attn", h, st, first_pair)
                     if first_pair:
-                        emb, hs = tile(emb), [tile(e) for e in hs]
+                        emb, hs = diverge_rest(emb, hs)
                         diverged = True
-                hs.append(h)
+                hs.append((h, st))
             if level != len(self.channel_mult) - 1:
-                h = getattr(self, f"down_{level}_ds")(h)
-                hs.append(h)
+                h, st = getattr(self, f"down_{level}_ds")(h), None
+                hs.append((h, st))
                 ds *= 2
 
-        h = self.mid_res1(h, emb)
+        h, st = self.mid_res1(h, emb, st)
         first_pair = not diverged  # no attention in the input blocks
-        h = attn("mid_attn", h, first_pair)
+        h, st = attn("mid_attn", h, st, first_pair)
         if first_pair:
-            emb, hs = tile(emb), [tile(e) for e in hs]
+            emb, hs = diverge_rest(emb, hs)
             diverged = True
-        h = self.mid_res2(h, emb)
+        h, st = self.mid_res2(h, emb, st)
 
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
-                h = torch.cat([h, hs.pop()], dim=1)
-                h = getattr(self, f"up_{level}_{i}_res")(h, emb)
+                h_skip, st_skip = hs.pop()
+                st = concat_stats(st, st_skip)
+                h = torch.cat([h, h_skip], dim=1)
+                h, st = getattr(self, f"up_{level}_{i}_res")(h, emb, st)
                 if ds in self.attention_resolutions:
-                    h = attn(f"up_{level}_{i}_attn", h)
+                    h, st = attn(f"up_{level}_{i}_attn", h, st)
                 if level and i == self.num_res_blocks:
-                    h = getattr(self, f"up_{level}_us")(h)
+                    h, st = getattr(self, f"up_{level}_us")(h), None
                     ds //= 2
 
-        h = self.conv_out(self.out_norm(h))
+        h = head_conv(self.out_norm, self.conv_out, h, st)
         return h.permute(0, 2, 3, 1).to(in_dtype)

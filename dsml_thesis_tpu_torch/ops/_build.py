@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_packed.cu", "flash_attention_qout.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
-           "group_norm.cu")
+           "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
+           "group_norm.cu", "conv_stats.cu")
 HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh")
 
 NVCC_FLAGS = (
@@ -124,6 +125,15 @@ def load() -> ctypes.CDLL:
             lib.dsml_flash_attention_qout.argtypes = (
                 [p] * 7 + [i, i, i, i, i, i, f, p])
             lib.dsml_flash_attention_qout.restype = i
+            lib.dsml_flash_attention_streaming.argtypes = (
+                [p] * 6 + [i, i, i, i, i, f, p])
+            lib.dsml_flash_attention_streaming.restype = i
+            lib.dsml_flash_attention_streaming_bwd.argtypes = (
+                [p] * 10 + [i, i, i, i, f, f, p])
+            lib.dsml_flash_attention_streaming_bwd.restype = i
+            lib.dsml_conv_stats.argtypes = (
+                [p] * 11 + [i, i, i, i, i, i, i, i, f, i, p])
+            lib.dsml_conv_stats.restype = i
             lib.dsml_gn_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
             lib.dsml_gn_channel_stats.restype = i
             lib.dsml_group_norm_silu.argtypes = (

@@ -12,7 +12,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0, "flash_attention_fproj": 0,
     "flash_attention_packed": 0, "flash_attention_qout": 0,
     "flash_attention_bwd": 0, "flash_attention_bwd_packed": 0,
-    "group_norm_silu": 0, "gn_channel_stats": 0,
+    "flash_attention_streaming": 0, "flash_attention_streaming_bwd": 0,
+    "group_norm_silu": 0, "gn_channel_stats": 0, "conv_stats": 0,
 }
 
 

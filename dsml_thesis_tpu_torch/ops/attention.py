@@ -1,5 +1,5 @@
-"""Attention ops of the port: six CUDA kernels, their plain PyTorch versions,
-and the wrappers that choose between them by where the tensor lies.
+"""Attention ops of the port: eight CUDA kernels, their plain PyTorch
+versions, and the wrappers that choose between them by where the tensor lies.
 
 ``flash_attention``        q [B, H, Nq, D], k / v [B, H, Nk, D] -> [B, H, Nq, D]
     kernel ``csrc/flash_attention.cu``; replaces the TPU kernel
@@ -48,6 +48,29 @@ and the wrappers that choose between them by where the tensor lies.
     over key/value tiles writes dk / dv once, one over query tiles writes dq
     once. Equal inputs give equal bits.
 
+``flash_attention_streaming``      q [B, H, Nq, D], k / v [B, H, Nk, D]
+    kernel ``csrc/flash_attention_streaming.cu``; replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_streaming``
+    (``flash_attention_streaming``). Bound by operations; any Nq / Nk, head
+    widths 32, 64 and 512. The K / V stream of a query tile is cut over
+    several blocks when the call has few query tiles (``streaming_splits``),
+    and the splits are combined in index order. q is scaled by
+    scale * log2(e) in its own type before the score product and the
+    denominator sums the probabilities as cast to v's type, as that kernel
+    does (``streaming_attention_reference`` is this arithmetic).
+
+``flash_attention_streaming_bwd``  (q, k, v, o, do) -> (dq, dk, dv)
+    kernels ``csrc/flash_attention_streaming_bwd.cu``; replaces the TPU
+    kernels of ``dsml_thesis_tpu/ops/attention.py:flash_attention_streaming_bwd``
+    (``_streaming_lse_kernel``, ``_streaming_dq_kernel``,
+    ``_streaming_dkdv_kernel``). The residuals carry no row statistic: a
+    launch of its own recomputes the row log-sum-exp from q and k, then
+    delta, a dk / dv grid and a dq grid as above. Head widths 32 and 64.
+
+``multi_head_attention`` is the split-head dispatch between
+``flash_attention`` and ``flash_attention_streaming`` under
+``DSML_FLASH_STREAMING`` (``auto`` | ``1`` | ``0``).
+
 A wrapper takes the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel (built at first use, ``ops/_build.py``) or
 raises: there is no fallback on the card. Each wrapper counts its launches in
@@ -74,6 +97,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..flags import env_mode
 from ._launch import (LAUNCHES, check_cuda_operand, current_stream,  # noqa: F401
                       raise_on_error, reset_launches)
 
@@ -82,6 +106,11 @@ FPROJ_HEAD_DIMS = (32, 64)             # ... in flash_attention_fproj.cu
 FPROJ_CHANNEL_MULTIPLE = 32            # depth step of its projection kernel
 PACKED_HEAD_DIMS = (32, 64)            # ... in flash_attention_packed.cu
 BWD_HEAD_DIMS = (32, 64)               # ... in both flash_attention_bwd*.cu
+STREAMING_HEAD_DIMS = (32, 64, 512)    # ... in flash_attention_streaming.cu
+STREAMING_BWD_HEAD_DIMS = (32, 64)     # ... in flash_attention_streaming_bwd.cu
+STREAMING_TILE = 64                    # query / key rows of its tiles
+STREAMING_TARGET_BLOCKS = 264          # two blocks on each of 132 SMs
+LOG2E = 1.4426950408889634
 QOUT_HEAD_DIMS = (32, 64)              # ... in flash_attention_qout.cu
 QOUT_CHANNEL_MULTIPLE = 16             # depth of one tensor-core product
 SHARED_MEMORY_PER_BLOCK = 232448       # bytes a Hopper block may use
@@ -101,6 +130,37 @@ def fproj_one_q_block(n: int) -> bool:
     return n <= FPROJ_MAX_TOKENS
 
 
+def streaming_auto(nq: int, nk: int, d: int) -> bool:
+    """Whether the JAX package's ``auto`` dispatch sends a split-head
+    attention to its streaming kernel: where no q-block of its resident
+    kernel fits the TPU's fast memory
+    (dsml_thesis_tpu/ops/attention.py:1594-1612, ``_fit_block_q`` returning
+    None, at its default request of 1024 rows). The fit is sized in fp32
+    whatever the type: six K / V-sized buffers, four [block_q, Nk] score
+    buffers and eight q-sized blocks against 100 MiB less 2 MiB; the request
+    is halved down to 8 rows, so at D = 512 every Nk above 8,265 streams.
+    Kept as a routing rule (it decides which kernel a shape gets), as
+    ``fproj_one_q_block`` keeps the fused-projection rule."""
+    bq = min(1024, nq)
+    while bq >= 8:
+        if (6 * nk * d * 4 + 4 * bq * nk * 4 + 8 * bq * d * 4 + (1 << 21)
+                <= 100 * (1 << 20)):
+            return False
+        bq //= 2
+    return True
+
+
+def streaming_splits(bh: int, nq: int, nk: int) -> int:
+    """Blocks the K / V stream of one query tile is cut over by the streaming
+    forward kernel: as many as bring the grid to ``STREAMING_TARGET_BLOCKS``,
+    at most one per key tile, every split non-empty."""
+    q_tiles = -(-nq // STREAMING_TILE)
+    kv_tiles = -(-nk // STREAMING_TILE)
+    want = min(max(1, STREAMING_TARGET_BLOCKS // (bh * q_tiles)), kv_tiles)
+    per_split = -(-kv_tiles // want)
+    return -(-kv_tiles // per_split)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -116,6 +176,54 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attn = torch.softmax(sim, dim=-1)
     out = torch.matmul(attn.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def _folded_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """scale * log2(e) rounded to ``dtype``: the factor the streaming kernels
+    multiply q by, in q's type, before the score product."""
+    return torch.tensor(scale * LOG2E, dtype=torch.float64).to(dtype)
+
+
+def streaming_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Plain version of the streaming attention kernel, with its roundings:
+    q times scale * log2(e) in q's type, base-2 scores and softmax in fp32,
+    the probabilities cast to v's type, and the denominator the sum of the
+    cast probabilities. q [B, H, Nq, D], k / v [B, H, Nk, D]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q * _folded_scale(scale, q.dtype).to(q.device)).float()
+    s2 = torch.matmul(qs, k.float().transpose(-1, -2))
+    p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True)).to(v.dtype).float()
+    out = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True
+                                             ).clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def streaming_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor,
+                            scale: Optional[float] = None):
+    """Plain version of the streaming attention backward: the row
+    log-sum-exp recomputed from q times scale * log2(e) (in q's type) and k,
+    p = exp2(s - lse), delta = rowsum(do * o) from the saved output, the rest
+    in fp32 -> (dq, dk, dv) in the types of q, k, v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    qs = (q * _folded_scale(scale, q.dtype).to(q.device)).float()
+    s2 = torch.matmul(qs, kf.transpose(-1, -2))
+    m = s2.amax(dim=-1, keepdim=True)
+    lse2 = m + torch.log2(torch.exp2(s2 - m).sum(dim=-1, keepdim=True
+                                                 ).clamp_min(1e-30))
+    p = torch.exp2(s2 - lse2)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dof * o.float()).sum(dim=-1, keepdim=True))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fproj_reference(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -202,6 +310,15 @@ def packed_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # wrappers
 # --------------------------------------------------------------------------
 
+def _check_split_head_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: unsupported device {q.device}")
+
+
 def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     """Check, launch and count the split-head forward kernel. With
     ``want_lse`` it also writes each row's log-sum-exp ([B*H*Nq] fp32), which
@@ -286,15 +403,124 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Exact-softmax attention. q [B, H, Nq, D], k / v [B, H, Nk, D]."""
-    if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
-            or k.shape[3] != q.shape[3]:
-        raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    _check_split_head_shapes(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _FlashAttention.apply(q, k, v, float(scale))
+
+
+def _launch_streaming_forward(q, k, v, scale: float):
+    """Check, launch and count the streaming forward kernel."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_operand(name, t, q)
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if d not in STREAMING_HEAD_DIMS:
+        raise ValueError(f"flash_attention_streaming: head width {d} not in "
+                         f"{STREAMING_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    out = torch.empty_like(q)
+    splits = streaming_splits(b * h, nq, nk)
+    part_o = part_ml = None
+    if splits > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_o = torch.empty((splits, b * h * nq, d), **f32)
+        part_ml = torch.empty((splits, 2, b * h * nq), **f32)
+    code = lib.dsml_flash_attention_streaming(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), b * h, nq, nk, d,
+        splits, float(_folded_scale(scale, q.dtype)), current_stream(q))
+    raise_on_error(code, "flash_attention_streaming")
+    LAUNCHES["flash_attention_streaming"] += 1
+    return out
+
+
+def flash_attention_streaming_bwd(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  do: torch.Tensor,
+                                  scale: Optional[float] = None):
+    """Backward of the streaming attention from (q, k, v), the saved output
+    o and its gradient do: q / o / do [B, H, Nq, D], k / v [B, H, Nk, D]
+    -> (dq, dk, dv). The row log-sum-exp is recomputed by a launch of its
+    own. ``do`` is made contiguous here."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_split_head_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o{tuple(o.shape)} and do{tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return streaming_bwd_reference(q, k, v, o, do, scale=scale)
+    do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q)
+    b, h, nq, d = q.shape
+    if d not in STREAMING_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_streaming backward: head width {d} "
+                         f"not in {STREAMING_BWD_HEAD_DIMS}")
+    from . import _build
+
+    lib = _build.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    code = lib.dsml_flash_attention_streaming_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
+        float(_folded_scale(scale, q.dtype)), current_stream(q))
+    raise_on_error(code, "flash_attention_streaming_bwd")
+    LAUNCHES["flash_attention_streaming_bwd"] += 1
+    return dq, dk, dv
+
+
+class _StreamingAttention(torch.autograd.Function):
+    """Streaming forward kernel / streaming backward kernels on the card,
+    their plain versions on the CPU. The residuals are (q, k, v, o), as the
+    JAX package's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            out = streaming_attention_reference(q, k, v, scale=scale)
+        else:
+            out = _launch_streaming_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_attention_streaming_bwd(q, k, v, out, do, ctx.scale),
+                None)
+
+
+def flash_attention_streaming(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Exact-softmax attention for sequences of any length. q [B, H, Nq, D],
+    k / v [B, H, Nk, D] -> [B, H, Nq, D]."""
+    _check_split_head_shapes(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _StreamingAttention.apply(q, k, v, float(scale))
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """The split-head dispatch, in the JAX package's order: the resident
+    kernel's counterpart ``flash_attention`` unless ``DSML_FLASH_STREAMING``
+    is ``1`` or, under ``auto`` (the default), ``streaming_auto`` holds for
+    the shape; then ``flash_attention_streaming``. ``0`` never streams."""
+    mode = env_mode("DSML_FLASH_STREAMING", "auto", ("auto", "1", "0"))
+    if mode == "1" or (mode == "auto" and streaming_auto(
+            q.shape[2], k.shape[2], q.shape[3])):
+        return flash_attention_streaming(q, k, v, scale=scale)
+    return flash_attention(q, k, v, scale=scale)
 
 
 class _KernelForward(torch.autograd.Function):
@@ -503,15 +729,15 @@ def packed_multi_head_attention(q: torch.Tensor, k: torch.Tensor,
     """Attention for callers that keep activations packed: q [B, Nq, H*D],
     k / v [B, Nk, H*D] -> [B, Nq, H*D]. The packed kernel for the head widths
     and type it takes; on the card, anything else goes through a head split,
-    ``flash_attention`` and a merge (which raises for what that kernel does
-    not take either)."""
+    ``multi_head_attention`` and a merge (which raises for what its kernels
+    do not take either)."""
     d = q.shape[-1] // heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if not q.is_cuda or packed_kernel_takes(d, q.dtype):
         return flash_attention_packed(q, k, v, heads, scale=scale)
     split = lambda t: _split_heads(t, heads).contiguous()
-    out = flash_attention(split(q), split(k), split(v), scale=scale)
+    out = multi_head_attention(split(q), split(k), split(v), scale=scale)
     return out.permute(0, 2, 1, 3).reshape(q.shape)
 
 

@@ -1,0 +1,219 @@
+"""Convolution with the GroupNorm statistics of its output in its epilogue,
+and the apply that normalizes from such statistics.
+
+``conv_stats``  x [B, H, W, Cin], w [K, K, Cin, Cout] (K = 1 or 3), bias
+    [B, Cout] fp32 (+ skip [B, H, W, Cout]; + in_stats, gamma, beta)
+    -> (y [B, H, W, Cout], ch_sum [B, Cout] fp32, ch_sq [B, Cout] fp32)
+    kernel ``csrc/conv_stats.cu``; replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/conv_gn.py:_conv_kernel`` (``conv_stats_pallas``).
+    SAME stride-1 conv, fp32 accumulation, plus a per-batch bias (the conv
+    bias and the timestep vector of a ResBlock), plus an optional skip, one
+    cast to x's type, and the per-channel sum and sum of squares of the values
+    as stored. With ``in_stats`` the input is first GroupNorm(+SiLU)-normalized
+    from those channel sums, and the zero border of the conv is applied after
+    that. Bound by operations; an implicit GEMM over 16 x 16 pixel patches.
+    The layouts are the JAX package's (NHWC, HWIO): a caller that holds
+    ``torch.nn.Conv2d`` weights permutes them once a call.
+
+``group_norm_silu_apply`` is ``ops.groupnorm.group_norm_silu_from_stats``: the
+one fold from channel sums to a normalized tensor, shared with the kernel's
+plain version so that the fused and the unfused path cannot drift apart.
+
+The wrapper takes the plain version (``conv_stats_reference``) for a tensor
+on the CPU; for a CUDA tensor it launches the kernel or raises. One routing
+rule is the JAX package's own (``conv_stats`` there, lines 336-341): fewer
+than 32 output channels (the 3-channel final convs) do not go to the kernel;
+there the input is normalized from the given statistics and the conv is the
+plain one, on either device. The JAX package's second rule, the fit of a whole
+image in the TPU's fast memory, has no counterpart: every other shape goes to
+the kernel.
+
+Gradients. The kernel runs forward; backward differentiates
+``conv_stats_reference`` recomputed from the saved operands with ordinary
+autograd, as the JAX package's ``_conv_stats_bwd`` differentiates its jnp
+reference: no TPU kernel stands behind that backward.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ._launch import LAUNCHES, check_cuda_operand, current_stream, raise_on_error
+from .groupnorm import group_norm_silu_from_stats
+
+CONV_TILE_W = 16                   # output columns of a block (conv_stats.cu)
+CONV_MIN_COUT = 32                 # narrower outputs take the plain conv
+CONV_MAX_GROUPS = 64               # groups of the input norm the kernel takes
+
+group_norm_silu_apply = group_norm_silu_from_stats
+
+
+@contextlib.contextmanager
+def _exact_fp32_conv(dtype: torch.dtype):
+    """bf16 values are exact in TF32 (8 of its 10 mantissa bits), so for bf16
+    operands a TF32 convolution on the card IS the product in fp32 with fp32
+    accumulation that the kernel computes: allowed inside this block, whatever
+    the caller set, and restored after it."""
+    saved = torch.backends.cudnn.allow_tf32
+    if dtype == torch.bfloat16:
+        torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def conv_stats_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                         skip: Optional[torch.Tensor] = None,
+                         in_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         gamma: Optional[torch.Tensor] = None,
+                         beta: Optional[torch.Tensor] = None,
+                         num_groups: int = 32, eps: float = 1e-5,
+                         silu_in: bool = True):
+    """Plain version of the kernel (and what its backward differentiates):
+    optional GroupNorm(+SiLU) of the input from given channel sums, cast to
+    x's type; the conv with fp32 accumulation; + per-batch bias (+ skip) in
+    fp32; one cast to x's type; channel sums of the cast values."""
+    if in_stats is not None:
+        x = group_norm_silu_apply(x, in_stats[0], in_stats[1], gamma, beta,
+                                  num_groups=num_groups, eps=eps, silu=silu_in)
+    pad = (w.shape[0] - 1) // 2
+    with _exact_fp32_conv(x.dtype):
+        y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                     w.float().permute(3, 2, 0, 1), padding=pad)
+    y = y.permute(0, 2, 3, 1) + bias[:, None, None, :].float()
+    if skip is not None:
+        y = y + skip.float()
+    y = y.to(x.dtype)
+    yf = y.float().reshape(y.shape[0], -1, y.shape[-1])
+    return y, yf.sum(dim=1), (yf * yf).sum(dim=1)
+
+
+def conv_tile_rows(hh: int, ksize: int) -> int:
+    """Output rows of a block's patch in the kernel: 16 for a 3x3 conv, 8 for
+    a 1x1 conv (too little work a chunk for eight warps) and for an image of
+    up to 8 rows (half of a 16-row block's warps would own no pixel)."""
+    return 16 if ksize == 3 and hh > 8 else 8
+
+
+def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
+                       eps, silu_in):
+    """Check, launch and count the kernel."""
+    b, hh, ww, cin = x.shape
+    ksize, cout = w.shape[0], w.shape[-1]
+    f32 = (torch.float32,)
+    check_cuda_operand("x", x, x)
+    check_cuda_operand("w", w, x)
+    check_cuda_operand("bias", bias, x, f32)
+    if skip is not None:
+        check_cuda_operand("skip", skip, x)
+    if cout % 8:
+        raise ValueError(f"conv_stats: Cout={cout} must be a multiple of 8")
+    null = [None] * 4
+    if in_stats is not None:
+        if cin % num_groups or num_groups > CONV_MAX_GROUPS:
+            raise ValueError(
+                f"conv_stats: Cin={cin} must divide into at most "
+                f"{CONV_MAX_GROUPS} groups, got {num_groups}")
+        null = [in_stats[0], in_stats[1], gamma, beta]
+        for name, t in zip(("in_stats[0]", "in_stats[1]", "gamma", "beta"),
+                           null):
+            check_cuda_operand(name, t, x, f32)
+    from . import _build
+
+    lib = _build.load()
+    rows = conv_tile_rows(hh, ksize)
+    tiles = -(-hh // rows) * -(-ww // CONV_TILE_W)
+    y = torch.empty((b, hh, ww, cout), dtype=x.dtype, device=x.device)
+    partial = torch.empty((b, tiles, 2, cout), dtype=torch.float32,
+                          device=x.device)
+    sums = torch.empty((2, b, cout), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = lib.dsml_conv_stats(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(skip), *map(ptr, null),
+        y.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, hh, ww, cin,
+        cout, ksize, rows, num_groups, float(eps), int(silu_in),
+        current_stream(x))
+    raise_on_error(code, "conv_stats")
+    LAUNCHES["conv_stats"] += 1
+    return y, sums[0], sums[1]
+
+
+class _ConvStats(torch.autograd.Function):
+    """Forward through the kernel, backward by autograd of
+    ``conv_stats_reference`` recomputed from the saved operands. ``skip``,
+    ``s1``, ``s2``, ``gamma`` and ``beta`` may be None."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, silu_in, x, w, bias, skip, s1, s2,
+                gamma, beta):
+        ctx.cfg = (num_groups, eps, silu_in)
+        operands = (x, w, bias, skip, s1, s2, gamma, beta)
+        ctx.present = [t is not None for t in operands]
+        ctx.save_for_backward(*(t for t in operands if t is not None))
+        f32 = lambda t: None if t is None else t.float().contiguous()
+        return _launch_conv_stats(
+            x, w, bias, skip, None if s1 is None else (f32(s1), f32(s2)),
+            f32(gamma), f32(beta), num_groups, eps, silu_in)
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        num_groups, eps, silu_in = ctx.cfg
+        saved = iter(ctx.saved_tensors)
+        operands = [next(saved).detach().requires_grad_(need) if here else None
+                    for here, need in zip(ctx.present,
+                                          ctx.needs_input_grad[3:])]
+        x, w, bias, skip, s1, s2, gamma, beta = operands
+        with torch.enable_grad(), _exact_fp32_conv(x.dtype):
+            outs = conv_stats_reference(
+                x, w, bias, skip, None if s1 is None else (s1, s2), gamma,
+                beta, num_groups, eps, silu_in)
+            wanted = [t for t in operands if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wanted, (gy, gs1, gs2)))
+        return (None, None, None,
+                *(next(grads) if t is not None and t.requires_grad else None
+                  for t in operands))
+
+
+def conv_stats(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               skip: Optional[torch.Tensor] = None,
+               in_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               gamma: Optional[torch.Tensor] = None,
+               beta: Optional[torch.Tensor] = None, num_groups: int = 32,
+               eps: float = 1e-5, silu_in: bool = True):
+    """``[GroupNorm(+SiLU) from in_stats ->] conv K x K (+ per-batch bias,
+    + optional skip)`` with the output's channel statistics: returns
+    (y, ch_sum, ch_sq). Feed the statistics to the next
+    ``conv_stats(in_stats=...)`` or ``group_norm_silu_apply``; they must not
+    cross a change of spatial size."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[0] not in (1, 3) \
+            or w.shape[1] != w.shape[0] or w.shape[2] != x.shape[-1]:
+        raise ValueError(
+            f"conv_stats takes x [B, H, W, Cin] and square 1x1 / 3x3 weights "
+            f"[K, K, Cin, Cout], got x{tuple(x.shape)} w{tuple(w.shape)}")
+    b, cout = x.shape[0], w.shape[-1]
+    if bias.shape != (b, cout):
+        raise ValueError(f"bias must be [{b}, {cout}], got {tuple(bias.shape)}")
+    if skip is not None and skip.shape != (*x.shape[:3], cout):
+        raise ValueError(f"skip{tuple(skip.shape)} must have the output's "
+                         f"shape {(*x.shape[:3], cout)}")
+    if in_stats is not None and (gamma is None or beta is None):
+        raise ValueError("in_stats needs gamma and beta")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv_stats: unsupported device {x.device}")
+    if x.device.type == "cpu" or cout < CONV_MIN_COUT:
+        return conv_stats_reference(x, w, bias, skip, in_stats, gamma, beta,
+                                    num_groups, eps, silu_in)
+    s1, s2 = in_stats if in_stats is not None else (None, None)
+    if in_stats is None:
+        gamma = beta = None
+    return _ConvStats.apply(num_groups, eps, silu_in, x.contiguous(),
+                            w.contiguous(), bias.contiguous(),
+                            None if skip is None else skip.contiguous(),
+                            s1, s2, gamma, beta)
+
+
+conv3x3_stats = conv_stats   # the JAX package's older name for the same op

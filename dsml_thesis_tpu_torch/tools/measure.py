@@ -8,7 +8,8 @@
            against linears + packed kernel + linear at the UNet's two short
            shapes and batch 1, 2, 8, 16; and at N = 4096 (batch 8 and 16)
            the three routes fused-projection op, linears + packed kernel,
-           linears + q/out-fused kernel
+           linears + q/out-fused kernel; and the two split-head kernels
+           (DSML_FLASH_STREAMING=0 / 1) at the first stage's [8, 1, 4096, 512]
 --profile  one warm batch of a model config (default mead-256-ldm-f4; batch
            8, DDIM-50, guidance 2.0, random weights) under the DSML_* flags
            of the environment: phase times from CUDA events, then one UNet
@@ -134,11 +135,35 @@ def gate(smi: str):
                     for name, o in outs.items() if name != "fused"}}),
                 flush=True)
 
+    # the split-head dispatch's two kernels on the first stage's attention
+    q, k, v = (torch.randn(8, 1, 4096, 512, generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for _ in range(3))
+    routes = {"resident": lambda: A.flash_attention(q, k, v),
+              "streaming": lambda: A.flash_attention_streaming(q, k, v)}
+    with torch.no_grad():
+        A.reset_launches()
+        outs = {name: fn().float() for name, fn in routes.items()}
+        launched = dict(A.LAUNCHES)
+        res = _in_turns(routes)
+    print(json.dumps({
+        "measure": "gate", "card": smi, "shape": list(q.shape), **res,
+        "launches_of_one_call_each": launched,
+        "max_abs_diff_from_resident":
+            (outs["streaming"] - outs["resident"]).abs().max().item()}),
+        flush=True)
+
 
 _FAMILIES = (
     ("fproj_attention_kernel", "attention: fproj (attention + to_out)"),
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
+    ("streaming_fwd_kernel", "attention: streaming"),
+    ("streaming_combine_kernel", "attention: streaming"),
+    ("streaming_lse_kernel", "attention backward: streaming log-sum-exp"),
+    ("streaming_dkdv_kernel", "attention backward: dk / dv grid"),
+    ("streaming_dq_kernel", "attention backward: dq grid"),
+    ("conv_stats_kernel", "conv + statistics kernel"),
+    ("conv_stats_finish_kernel", "conv + statistics kernel"),
     ("packed_attention_kernel", "attention: packed"),
     ("bwd_dkdv_kernel", "attention backward: dk / dv grid"),
     ("bwd_dq_kernel", "attention backward: dq grid"),

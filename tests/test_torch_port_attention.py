@@ -128,7 +128,9 @@ def test_cpu_wrappers_count_no_launch_and_check_shapes():
     assert set(tatt.LAUNCHES) == {
         "flash_attention", "flash_attention_fproj", "flash_attention_packed",
         "flash_attention_qout", "flash_attention_bwd",
-        "flash_attention_bwd_packed", "group_norm_silu", "gn_channel_stats"}
+        "flash_attention_bwd_packed", "flash_attention_streaming",
+        "flash_attention_streaming_bwd", "group_norm_silu",
+        "gn_channel_stats", "conv_stats"}
     assert not any(tatt.LAUNCHES.values())
     with pytest.raises(ValueError):
         tatt.flash_attention(q, k[:, :, :8], v)

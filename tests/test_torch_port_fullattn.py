@@ -40,7 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FULLATTN_YAML = os.path.join(ROOT, "configs", "latent-diffusion",
                              "mead-256-ldm-f4-fullattn.yaml")
 ROUTES = ("flash_attention_fproj", "fused_qout_self_attention",
-          "packed_multi_head_attention", "flash_attention")
+          "packed_multi_head_attention", "multi_head_attention")
 
 
 @pytest.fixture
@@ -67,7 +67,7 @@ FLAG_SETS = {
                                 "DSML_ATTN_FPROJ_PARTIAL": "1"}, 1024, False,
                                "fused_qout_self_attention"),
     "packed-off": ({"DSML_ATTN_PACKED": "0", "DSML_ATTN_FPROJ_PARTIAL": "1"},
-                   1024, False, "flash_attention"),
+                   1024, False, "multi_head_attention"),
     "train-mode": ({"DSML_ATTN_FPROJ_PARTIAL": "1"}, 1024, True,
                    "packed_multi_head_attention"),
 }

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dsml_thesis_tpu_torch")
@@ -34,7 +35,7 @@ def _python_sources():
 def test_package_has_the_expected_modules():
     names = set(_package_modules())
     for want in ("flags", "config", "convert", "utils_io", "server",
-                 "ops.attention", "ops.groupnorm", "ops._build",
+                 "ops.attention", "ops.groupnorm", "ops.conv_gn", "ops._build",
                  "diffusion.schedules", "diffusion.ddim", "diffusion.video",
                  "models.unet", "models.quantize", "models.autoencoder",
                  "models.encoders", "models.ldm", "diffusion.gaussian",
@@ -98,7 +99,8 @@ def test_every_cuda_source_is_built():
     assert on_disk == set(_build.SOURCES) | set(_build.HEADERS)
     assert {"flash_attention_packed.cu", "flash_attention_qout.cu",
             "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
-            "group_norm.cu"} <= set(_build.SOURCES)
+            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
+            "group_norm.cu", "conv_stats.cu"} <= set(_build.SOURCES)
     assert all(s.endswith(".cu") for s in _build.SOURCES)
     for name in _build.SOURCES:
         src = open(os.path.join(_build.CSRC_DIR, name)).read()
@@ -125,10 +127,13 @@ def test_smoke_script_refuses_to_run_without_a_card():
 
 
 def test_cuda_tensor_never_reaches_a_plain_version():
-    """The wrappers branch on the tensor's device alone: each of the eight
+    """The wrappers branch on the tensor's device alone: each of the eleven
     plain versions is called once behind ``device.type == "cpu"`` (at most
     one statement between the test and the call), and nothing catches a
-    failed launch. (``group_norm_silu_reference`` is also what
+    failed launch. (``conv_stats_reference`` shares its branch with the JAX
+    package's own routing rule for convs of fewer than 32 output channels,
+    and is what the conv op's backward differentiates, as that package's
+    does. ``group_norm_silu_reference`` is also what
     ``DSML_PALLAS_GN=0`` selects by name, as in the JAX package, and what the
     kernel modes' backward differentiates, as that package's does: neither is
     a fallback. Likewise ``fproj_reference`` / ``qout_reference`` inside
@@ -137,20 +142,92 @@ def test_cuda_tensor_never_reaches_a_plain_version():
         "attention.py": ("attention_reference", "fproj_reference",
                          "packed_reference", "qout_reference",
                          "flash_attention_bwd_reference",
-                         "packed_bwd_reference"),
+                         "packed_bwd_reference",
+                         "streaming_attention_reference",
+                         "streaming_bwd_reference"),
         "groupnorm.py": ("group_norm_silu_reference",
                          "gn_channel_stats_reference"),
+        "conv_gn.py": ("conv_stats_reference",),
     }
     for name, versions in plain.items():
         src = open(os.path.join(PKG, "ops", name)).read()
         assert src.count('device.type == "cpu"') == len(versions)
         for fn in versions:
             guarded = re.findall(
-                r'device\.type == "cpu":\n(?:\s+\S.*\n)?\s+return (?:\(\*)?'
-                + fn + r"\(", src)
+                r'device\.type == "cpu"(?: or cout < CONV_MIN_COUT)?:\n'
+                r"(?:\s+\S.*\n)?\s+(?:return|out =) (?:\(\*)?" + fn + r"\(",
+                src)
             assert len(guarded) == 1, fn
         assert "except" not in src
         assert "is_available" not in src
+
+
+class _OnCard(torch.Tensor):
+    """A tensor that says it lies on a CUDA device (this machine has none):
+    what a wrapper sees of a tensor on the card before it launches."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("op", ["streaming", "streaming-bwd", "conv-stats",
+                                "conv-stats-norm"])
+def test_new_wrappers_raise_for_a_cuda_tensor_without_a_library(monkeypatch,
+                                                                op):
+    """For a CUDA tensor a wrapper launches or raises: with no kernel library
+    to load, the error of the build comes out, and no plain version runs."""
+    from dsml_thesis_tpu_torch.ops import _build
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.ops import conv_gn as C
+
+    def no_library():
+        raise RuntimeError("no kernel library on this machine")
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    for mod, name in ((A, "streaming_attention_reference"),
+                      (A, "streaming_bwd_reference"),
+                      (A, "attention_reference"),
+                      (C, "conv_stats_reference")):
+        monkeypatch.setattr(mod, name, plain)
+    card = lambda *shape, dtype=torch.bfloat16: torch.zeros(
+        *shape, dtype=dtype).as_subclass(_OnCard)
+    q = card(1, 2, 16, 32)
+    x, w, bias = card(1, 4, 4, 32), card(3, 3, 32, 32), card(
+        1, 32, dtype=torch.float32)
+    stats = (card(1, 32, dtype=torch.float32),) * 2
+    call = {
+        "streaming": lambda: A.flash_attention_streaming(q, q, q),
+        "streaming-bwd": lambda: A.flash_attention_streaming_bwd(q, q, q, q, q),
+        "conv-stats": lambda: C.conv_stats(x, w, bias, skip=x),
+        "conv-stats-norm": lambda: C.conv_stats(
+            x, w, bias, in_stats=stats, gamma=stats[0][0], beta=stats[0][0]),
+    }[op]
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        call()
+    assert not any(A.LAUNCHES.values())
+
+
+def test_kernel_flags_are_the_flags_the_code_reads():
+    """``KERNEL_FLAGS`` (what a measurement records and the smoke script
+    resets) against the DSML_* names the package's code passes to
+    ``env_flag`` / ``env_mode``: every flag that chooses between kernels is
+    listed, and nothing is listed that no code reads."""
+    from dsml_thesis_tpu_torch.flags import KERNEL_FLAGS
+
+    read = set()
+    for path in _python_sources():
+        read |= set(re.findall(r'env_(?:flag|mode)\(\s*"(DSML_\w+)"',
+                               open(path).read()))
+    not_kernels = {"DSML_GELU_EXACT", "DSML_CFG_DEDUP"}   # a formula, a batch
+    assert set(KERNEL_FLAGS) == read - not_kernels
+    assert {"DSML_FLASH_STREAMING", "DSML_GN_EPILOGUE"} <= set(KERNEL_FLAGS)
+    doc = open(os.path.join(PKG, "flags.py")).read()
+    for name in read:
+        assert name in doc
 
 
 def _self_attention_shapes(path):
