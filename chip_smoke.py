@@ -11,8 +11,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
            plain version, one library call computing the same function
            (timed as a yardstick only; the port never calls it) and the
            least time the card could take (bytes over 3.35 TB/s against
-           operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 outside the
-           tensor cores, the larger)
+           operations over 989 TFLOP/s bf16, 494.7 TF32 for the fp32
+           attention kernels, or 67 TFLOP/s fp32 outside the tensor cores,
+           the larger); the fp32 kernels (first-stage training's D = 512
+           attention) are held to fp32 plain versions with TF32 off
   model    mead-256-ldm-f4.yaml and its -fullattn twin at full width and
            depth, random weights from a seed: one UNet call and one
            first-stage decode through the kernels against the same calls
@@ -44,7 +46,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, equal loss bits
            from a second run with the same seed, and loss and a handful of
-           gradients on the kernel path against the plain path on the card
+           gradients on the kernel path against the plain path on the card;
+           then first-stage training (fp32, the AttnBlock at D = 512) of
+           configs/autoencoder/*.yaml at full width, batch 16, 128 px,
+           SyntheticDataset images, LPIPS files written from seed 0,
+           disc_start 0 (the GAN term and its adaptive weight run), in
+           three runs:
+             ae-vq           vqgan-f4, 4 steps, one validation batch, `last`,
+                             then resumed with --resume for one more step
+             ae-vq-streaming vqgan-f4, DSML_FLASH_STREAMING=1, 2 steps
+             ae-kl           kl-f4, 2 steps
+           each checks the same, plus a d_weight above zero and moved
+           discriminator parameters
 then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -71,9 +84,13 @@ sys.path.insert(0, HERE)
 CONFIG_DIR = os.path.join(HERE, "configs", "latent-diffusion")
 CONFIG = os.path.join(CONFIG_DIR, "mead-256-ldm-f4.yaml")
 CONFIG_FULLATTN = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn.yaml")
+CONFIG_VQ = os.path.join(HERE, "configs", "autoencoder", "vqgan-f4.yaml")
+CONFIG_KL = os.path.join(HERE, "configs", "autoencoder", "kl-f4.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 tensor cores (the fp32
+                             # attention kernels multiply there)
 # bf16 keeps 8 significant bits (2^-8 = 3.9e-3 relative per rounding). The
 # kernels round P, q / k / v, the attention output and the result once each,
 # in another order than the plain version; a few such roundings on values up
@@ -154,9 +171,15 @@ def phase_build():
           "ptxas": report})
 
 
-def _rand(gen, *shape, scale=1.0):
+def _rand(gen, *shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale
-            ).to(torch.bfloat16)
+            ).to(dtype)
+
+
+def _width(dtype):
+    """(bytes an element, peak rate of the unit the kernel multiplies on)."""
+    return (4, PEAK_TF32_FLOPS) if dtype == torch.float32 else (2,
+                                                                PEAK_BF16_FLOPS)
 
 
 def _compare(out, ref):
@@ -202,19 +225,20 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
     return case
 
 
-def _flash_case(gen, b, h, nq, nk, d, timed):
+def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
+    q, k, v = (_rand(gen, b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
+    esize, peak = _width(dtype)
     return _case(
         (b, h, nq, nk, d), timed,
         lambda: A.flash_attention(q, k, v, scale=scale),
         lambda: A.attention_reference(q, k, v, scale=scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-        2 * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
-        PEAK_BF16_FLOPS)
+        esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
+        peak, dtype=str(dtype).split(".")[1])
 
 
 def _fproj_case(gen, b, n, c, heads, timed):
@@ -264,6 +288,7 @@ def _packed_case(gen, b, nq, nk, heads, d, timed):
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
               plain, sdpa_inputs, scale, lse_bytes=4):
+    esize, peak = _width(q.dtype)
     """An attention backward kernel on the forward kernel's own output and
     row log-sum-exp (``forward`` returns both; the streaming pair has no
     saved log-sum-exp, ``lse_bytes=0``): (dq, dk, dv) against the plain
@@ -282,8 +307,8 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     case = _case(
         shape, timed, lambda: backward(out, lse), lambda: plain(out),
         lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True),
-        2 * b_h * (4 * nq + 4 * nk) * d + lse_bytes * b_h * nq,
-        10 * b_h * nq * nk * d, PEAK_BF16_FLOPS)
+        esize * b_h * (4 * nq + 4 * nk) * d + lse_bytes * b_h * nq,
+        10 * b_h * nq * nk * d, peak, dtype=str(q.dtype).split(".")[1])
     first, again = backward(out, lse), backward(out, lse)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     auto = torch.autograd.grad(through_autograd(*leaves), leaves, do)
@@ -295,10 +320,11 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     return case
 
 
-def _flash_bwd_case(gen, b, h, nq, nk, d, timed):
+def _flash_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    q, k, v, do = (_rand(gen, b, h, n, d) for n in (nq, nk, nk, nq))
+    q, k, v, do = (_rand(gen, b, h, n, d, dtype=dtype)
+                   for n in (nq, nk, nk, nq))
     scale = d ** -0.5
     return _bwd_case(
         (b, h, nq, nk, d)[:1] + (b * h, nq, nk, d), timed, q, k, v, do,
@@ -309,25 +335,28 @@ def _flash_bwd_case(gen, b, h, nq, nk, d, timed):
         (q, k, v, do), scale)
 
 
-def _streaming_case(gen, b, h, nq, nk, d, timed):
+def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
+    q, k, v = (_rand(gen, b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
+    esize, peak = _width(dtype)
     return _case(
         (b, h, nq, nk, d), timed,
         lambda: A.flash_attention_streaming(q, k, v, scale=scale),
         lambda: A.streaming_attention_reference(q, k, v, scale=scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-        2 * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
-        PEAK_BF16_FLOPS, kv_splits=A.streaming_splits(b * h, nq, nk))
+        esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
+        peak, kv_splits=A.streaming_splits(b * h, nq, nk),
+        dtype=str(dtype).split(".")[1])
 
 
-def _streaming_bwd_case(gen, b, h, nq, nk, d, timed):
+def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    q, k, v, do = (_rand(gen, b, h, n, d) for n in (nq, nk, nk, nq))
+    q, k, v, do = (_rand(gen, b, h, n, d, dtype=dtype)
+                   for n in (nq, nk, nk, nq))
     scale = d ** -0.5
     return _bwd_case(
         (b, b * h, nq, nk, d), timed, q, k, v, do,
@@ -499,12 +528,17 @@ def phase_kernels():
     plus ragged and other-head-width cases. The first timed case of a kernel
     is the one its entry in the "kernels" line reports."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    f32 = torch.float32   # the fp32 instantiations: first-stage training
     flash = [
         _flash_case(gen, 8, 1, 4096, 4096, 512, True),    # decode, identity
         _flash_case(gen, 16, 1, 4096, 4096, 512, True),   # B*F masked frames
         _flash_case(gen, 2, 1, 1000, 1000, 512, False),   # ragged N
         _flash_case(gen, 2, 5, 333, 77, 32, False),       # composed branch
         _flash_case(gen, 2, 3, 200, 200, 64, False),
+        _flash_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
+        _flash_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
+        _flash_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
+        _flash_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
     ]
     fproj = [
         _fproj_case(gen, 16, 1024, 320, 10, True),   # 2B after the pair tiles
@@ -551,7 +585,13 @@ def phase_kernels():
         _stats_case(gen, 2, 77, 2080, False),
     ]
     # shapes as [B, B*H, Nq, Nk, D]; training at batch 8
+    # the first timed case of rows 5 and 7 is first-stage training's (their
+    # kernels line's run); the bf16 cases are the UNet's
     flash_bwd = [
+        _flash_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
+        _flash_bwd_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
+        _flash_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged
+        _flash_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
         _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
@@ -573,8 +613,14 @@ def phase_kernels():
         _streaming_case(gen, 2, 3, 333, 77, 64, False),      # ragged both ways
         _streaming_case(gen, 1, 2, 100, 5000, 64, False),    # K/V cut 40 ways
         _streaming_case(gen, 1, 1, 64, 2000, 512, False),    # 32 ways, D = 512
+        _streaming_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
+        _streaming_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
+        _streaming_case(gen, 1, 1, 64, 2000, 512, False, f32),     # 32 ways
     ]
     streaming_bwd = [
+        _streaming_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),  # vqgan
+        _streaming_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),  # ragged
+        _streaming_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),     # Nk != Nq
         _streaming_bwd_case(gen, 8, 10, 1024, 1024, 32, True),
         _streaming_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _streaming_bwd_case(gen, 2, 3, 333, 77, 64, False),  # ragged, D = 64
@@ -607,7 +653,8 @@ def phase_kernels():
            if not c["rel_err"] <= c.get("tol", REL_TOL)
            or not c.get("stats_rel_err", 0.0) <= STATS_REL_TOL]
     emit({"phase": "kernels", "rel_tol": REL_TOL,
-          "stats_rel_tol": STATS_REL_TOL, "dtype": "bfloat16",
+          "stats_rel_tol": STATS_REL_TOL,
+          "dtype": "bfloat16 unless a case says float32",
           "worst_rel_err": {name: max(c["rel_err"] for c in cs)
                             for name, cs in cases.items()},
           "cases": cases})
@@ -946,12 +993,33 @@ def _train_losses(logdir):
             [r for r in recs if r["split"] == "val"])
 
 
-def _grad_check(trainer, env):
-    """Loss and the probe gradients of one batch through the kernels against
-    the same through the plain versions (patched in here, for this comparison
-    only; the GroupNorm flag unset selects its plain ops), same draws."""
+def _kernel_vs_plain(run, env):
+    """``run()`` -> (loss, {name: gradient}) once through the kernels and
+    once through the plain versions (patched in here, for this comparison
+    only; the GroupNorm flag unset selects its plain ops): both within 5e-2,
+    and no kernel launched on the plain path."""
     from dsml_thesis_tpu_torch.ops import attention as A
 
+    with flags(**env):
+        A.reset_launches()
+        loss_k, grads_k = run()
+        launched = dict(A.LAUNCHES)
+    with plain_path(env):
+        A.reset_launches()
+        loss_p, grads_p = run()
+        launched_plain = dict(A.LAUNCHES)
+    rel = {n: _compare(grads_k[n], grads_p[n])[1] for n in grads_k}
+    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
+    ok = (loss_rel <= 5e-2 and all(r <= 5e-2 for r in rel.values())
+          and not any(launched_plain.values()))
+    return ok, {"loss_kernels": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": loss_rel, "grad_rel_err": rel, "rel_tol": 5e-2,
+                "launches_one_step": {k: v for k, v in launched.items() if v}}
+
+
+def _grad_check(trainer, env):
+    """Loss and the probe gradients of one batch, kernels against plain
+    versions, same draws."""
     ldm = trainer.ldm
     batch = trainer._to_device(next(iter(trainer.train_data)))
     probes = dict(ldm.named_parameters())
@@ -968,35 +1036,27 @@ def _grad_check(trainer, env):
         ldm.zero_grad(set_to_none=True)
         return float(loss.detach()), grads
 
-    with flags(**env):
-        A.reset_launches()
-        loss_k, grads_k = run()
-        launched = dict(A.LAUNCHES)
-    with plain_path(env):
-        A.reset_launches()
-        loss_p, grads_p = run()
-        launched_plain = dict(A.LAUNCHES)
-    rel = {n: _compare(grads_k[n], grads_p[n])[1] for n in GRAD_PROBES}
-    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
-    ok = (loss_rel <= 5e-2 and all(r <= 5e-2 for r in rel.values())
-          and not any(launched_plain.values()))
-    return ok, {"loss_kernels": loss_k, "loss_plain": loss_p,
-                "loss_rel_err": loss_rel, "grad_rel_err": rel, "rel_tol": 5e-2,
-                "launches_one_step": launched}
+    return _kernel_vs_plain(run, env)
+
+
+def _train_torch():
+    """scripts/train_torch.py as a module (its main() is the entry point the
+    train runs drive)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(HERE, "scripts", "train_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def phase_train(name, config, env, steps, smi, tmp, resume=False):
     """One train run through scripts/train_torch.py's main(). Returns the
     launch counts of the run (steps + one validation batch)."""
-    import importlib.util
-
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    spec = importlib.util.spec_from_file_location(
-        "train_torch", os.path.join(HERE, "scripts", "train_torch.py"))
-    train_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(train_torch)
-
+    train_torch = _train_torch()
     node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
             "params": {"spec": SYNTHETIC_SPEC, "length": 64}}
     val = {"target": node["target"],
@@ -1085,6 +1145,217 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
     return launches
 
 
+AE_SPEC = {"image": [[128, 128, 3], "float32"]}
+# parameters whose gradients the kernel path and the plain path are held to:
+# q / k / v of AttnBlocks of the encoder and the decoder, and layers before,
+# between and after them
+AE_GRAD_PROBES = {
+    "VQModel": ("encoder.down_2_attn_0.q.weight", "encoder.mid_attn_1.k.weight",
+           "decoder.up_2_attn_2.v.weight", "decoder.mid_attn_1.q.weight",
+           "encoder.conv_in.weight", "decoder.conv_out.weight",
+           "quantize.embedding.weight"),
+    "AutoencoderKL": ("encoder.mid_attn_1.q.weight", "encoder.mid_attn_1.k.weight",
+           "decoder.mid_attn_1.v.weight", "encoder.conv_in.weight",
+           "decoder.conv_out.weight"),
+}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block. Its default choice
+    for some fp32 convs' weight gradients sums in no fixed order, so two
+    first-stage runs from one seed part after the first update; the port's
+    own kernels give equal bits either way."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def write_lpips_files(tmp):
+    """LPIPS weights from seed 0 in the torchvision / taming key layout the
+    first-stage configs' loss reads (the real files are not in the
+    repository)."""
+    from dsml_thesis_tpu_torch.losses.lpips import LPIPS, lpips_weight_files
+
+    torch.manual_seed(0)
+    paths = (os.path.join(tmp, "vgg16_features.pth"),
+             os.path.join(tmp, "lpips_lin.pth"))
+    for path, part in zip(paths, lpips_weight_files(LPIPS().state_dict())):
+        torch.save(part, path)
+    return paths
+
+
+def count_attn_blocks(model):
+    from dsml_thesis_tpu_torch.models.autoencoder import AttnBlock
+
+    return sum(isinstance(m, AttnBlock) for m in model.modules())
+
+
+def expected_ae_launches(model, env, steps, eval_batches):
+    """Launches of every kernel for ``steps`` first-stage training steps and
+    ``eval_batches`` validation batches, from the model's own blocks: each
+    AttnBlock once forward and once backward a step (the adaptive weight's
+    two gradients stop at the decoder's last conv), once forward a
+    validation batch. No other kernel runs in fp32 first-stage training."""
+    n = count_attn_blocks(model)
+    streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
+    fwd, bwd = (("flash_attention_streaming", "flash_attention_streaming_bwd")
+                if streaming else ("flash_attention", "flash_attention_bwd"))
+    from dsml_thesis_tpu_torch.ops.attention import LAUNCHES
+
+    out = dict.fromkeys(LAUNCHES, 0)
+    out.update({fwd: n * (steps + eval_batches), bwd: n * steps})
+    return out, {fwd: n, bwd: n}
+
+
+def _ae_grad_check(trainer, env):
+    """The generator loss of one batch and the probe gradients, kernels
+    against plain versions, same batch and, for the KL model, the same
+    posterior noise."""
+    from dsml_thesis_tpu_torch.models.autoencoder import AutoencoderKL
+
+    model, loss = trainer.model, trainer.loss
+    x = trainer._to_device(next(iter(trainer.train_data)))
+    named = dict(model.named_parameters())
+    probes = AE_GRAD_PROBES[type(model).__name__]
+    kl = isinstance(model, AutoencoderKL)
+    noise = None
+    if kl:
+        with torch.no_grad():
+            shape = model.encode(x).mean.shape
+        noise = torch.randn(shape, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda")
+
+    def run():
+        if kl:
+            rec, post = model(x, noise=noise)
+            reg = post.kl()
+        else:
+            rec, reg, _ = model(x)
+        total, _ = loss.generator_loss(
+            reg, x, rec, trainer._state.step,
+            last_layer=model.decoder.conv_out.weight)
+        grads = torch.autograd.grad(total, [named[n] for n in probes])
+        torch.cuda.synchronize()
+        return float(total.detach()), {n: g.float().clone()
+                                       for n, g in zip(probes, grads)}
+
+    return _kernel_vs_plain(run, env)
+
+
+def phase_ae_train(name, config, env, steps, smi, tmp, lpips_files,
+                   resume=False):
+    """One first-stage train run through scripts/train_torch.py's main().
+    Returns the launch counts of the run (steps + one validation batch)."""
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    train_torch = _train_torch()
+    node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
+            "params": {"spec": AE_SPEC, "length": 64}}
+    val = {"target": node["target"],
+           "params": {"spec": AE_SPEC, "length": 16, "seed": 1000}}
+    lc = "model.params.lossconfig.params"
+    overrides = [f"data.params.train={json.dumps(node)}",
+                 f"data.params.validation={json.dumps(val)}",
+                 f"{lc}.disc_start=0", f"{lc}.vgg_ckpt={lpips_files[0]}",
+                 f"{lc}.lpips_lin_ckpt={lpips_files[1]}"]
+
+    def run(tag, n_steps):
+        argv = ["--base", config, "-t", "--max-steps", str(n_steps),
+                "--logdir", os.path.join(tmp, tag), "--name", name,
+                "--seed", "0", "--log-every", "1", *overrides]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        trainer = train_torch.main(argv)
+        torch.cuda.synchronize()
+        return trainer, time.monotonic() - t0
+
+    def records(logdir):
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        return ([r for r in recs if r["split"] == "train"],
+                [r for r in recs if r["split"] == "val"])
+
+    with flags(**env), deterministic_cudnn():
+        A.reset_launches()   # counts below are of this run alone
+        trainer, wall = run(f"{name}-a", steps)
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        train, vals = records(trainer.logdir)
+        losses = [r["train/total_loss"] for r in train]
+        # parameters against a fresh build from the run's seed
+        torch.manual_seed(0)
+        fresh_model, fresh_loss = type(trainer)._build(trainer.config["model"])
+        moved = lambda now, was: sum(
+            not torch.equal(a.detach().cpu(), b) for a, b in
+            zip(now.parameters(), was.parameters()))
+        ae_moved = moved(trainer.model, fresh_model)
+        disc_moved = moved(trainer.loss.discriminator,
+                           fresh_loss.discriminator)
+        n_attn = count_attn_blocks(trainer.model)
+        x = trainer._to_device(next(iter(trainer.train_data)))
+        step_ms = time_ms(lambda: trainer._step(trainer._state, x), 3, 1)
+        ckpt = os.path.join(trainer.logdir, "checkpoints", "last", "state.pt")
+        ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+        resumed_step = resumed = None
+        if resume:
+            again = train_torch.main(
+                ["--resume", trainer.logdir, "-t", "--max-steps",
+                 str(steps + 1), "--log-every", "1"])
+            resumed_step = again._state.step
+            resumed = [r["train/total_loss"] for r in records(trainer.logdir)[0]]
+            del again
+        shutil.rmtree(os.path.join(tmp, f"{name}-a"))
+        del trainer, x
+        torch.cuda.empty_cache()
+        twin, _ = run(f"{name}-b", steps)
+        twin_losses = [r["train/total_loss"] for r in records(twin.logdir)[0]]
+        shutil.rmtree(os.path.join(tmp, f"{name}-b"))
+        grads_ok, grads = _ae_grad_check(twin, env)
+        expect, per_step = expected_ae_launches(twin.model, env, steps, 1)
+        del twin
+        torch.cuda.empty_cache()
+
+    checks = {
+        "steps": len(losses) == steps,
+        "finite": all(np.isfinite(losses)) and len(vals) == 1
+        and all(np.isfinite(v) for v in vals[0].values()
+                if isinstance(v, float)),
+        "d_weight_above_zero": all(r["train/d_weight"] > 0 for r in train),
+        "autoencoder_moved": ae_moved > 0,
+        "discriminator_moved": disc_moved > 0,
+        "launches": launches == expect,
+        "same_seed_same_loss_bits": losses == twin_losses,
+        "checkpoint_written": ckpt_bytes > 0,
+        "kernel_path_agrees_with_plain_path": grads_ok,
+    }
+    if resume:
+        checks["resumed_at_saved_step"] = (
+            resumed_step == steps + 1 and len(resumed) == steps + 1
+            and resumed[:steps] == losses and bool(np.isfinite(resumed[-1])))
+    emit({"phase": "train", "run": name,
+          "config": os.path.relpath(config, HERE), "flags": env, "card": smi,
+          "batch": 16, "dtype": "float32", "cudnn_deterministic": True,
+          "optimizer_steps": steps,
+          "attn_blocks": n_attn, "checks": checks, "losses": losses,
+          "d_weight": [r["train/d_weight"] for r in train],
+          "val": vals[0] if vals else None,
+          "tensors_moved": {"autoencoder": ae_moved,
+                            "discriminator": disc_moved},
+          "launches": launches, "launches_expected": expect,
+          "launches_per_step": per_step, "warm_step_ms": step_ms,
+          "img_per_s": 16e3 / step_ms, "peak_memory_bytes": peak,
+          "checkpoint_bytes": ckpt_bytes, "run_wall_seconds": round(wall, 3),
+          "gradients": grads})
+    if not all(checks.values()):
+        fail(f"train {name}: checks failed: {checks}")
+    return launches
+
+
 # kernel -> (source, the TPU kernel it replaces, the run that is its path)
 KERNELS = {
     "flash_attention_fproj": (
@@ -1100,7 +1371,7 @@ KERNELS = {
     "gn_channel_stats": (
         "group_norm.cu", "groupnorm.py:162", "headline-stats"),
     "flash_attention_bwd": (
-        "flash_attention_bwd.cu", "attention.py:1353", "train-split"),
+        "flash_attention_bwd.cu", "attention.py:1353", "ae-vq"),
     "flash_attention_bwd_packed": (
         "flash_attention_bwd_packed.cu", "attention.py:1378", "train"),
     "flash_attention_streaming": (
@@ -1108,7 +1379,7 @@ KERNELS = {
         "headline-streaming"),
     "flash_attention_streaming_bwd": (
         "flash_attention_streaming_bwd.cu", "attention.py:610",
-        "train-streaming"),
+        "ae-vq-streaming"),
     "conv_stats": ("conv_stats.cu", "conv_gn.py:83", "headline-epilogue-res"),
 }
 
@@ -1158,6 +1429,12 @@ TRAIN_RUNS = (
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
     ("train-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "res"}, 2),
 )
+# first-stage train runs: (name, config, flags, optimizer steps)
+AE_RUNS = (
+    ("ae-vq", CONFIG_VQ, {}, 4),
+    ("ae-vq-streaming", CONFIG_VQ, {"DSML_FLASH_STREAMING": "1"}, 2),
+    ("ae-kl", CONFIG_KL, {}, 2),
+)
 
 
 def main():
@@ -1174,7 +1451,7 @@ def main():
               "card and has no CPU mode", file=sys.stderr)
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
-    for config in (CONFIG, CONFIG_FULLATTN):
+    for config in (CONFIG, CONFIG_FULLATTN, CONFIG_VQ, CONFIG_KL):
         if not os.path.exists(config):
             print(f"chip_smoke: {config} is missing: run from a checkout",
                   file=sys.stderr)
@@ -1212,8 +1489,13 @@ def main():
             for name, config, env, steps in TRAIN_RUNS:
                 launches[name] = phase_train(name, config, env, steps, smi, tmp,
                                              resume=(name == "train"))
+            lpips_files = write_lpips_files(tmp)
+            for name, config, env, steps in AE_RUNS:
+                launches[name] = phase_ae_train(name, config, env, steps, smi,
+                                                tmp, lpips_files,
+                                                resume=(name == "ae-vq"))
     if cases is None or not all(
-            r[0] in launches for r in RUNS + TRAIN_RUNS):
+            r[0] in launches for r in RUNS + TRAIN_RUNS + AE_RUNS):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

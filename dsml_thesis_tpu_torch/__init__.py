@@ -12,5 +12,7 @@ Ported so far: the serving path of the talking-face pipeline
 twin): first-stage VQGAN, conditioning encoders, UNet, DDIM sampler, the
 frame-progressive video pipeline and the micro-batching server; and LDM
 training of the same configs (``training/``, ``scripts/train_torch.py``):
-the diffusion loss, AdamW, EMA, LR schedules, validation, checkpoints.
+the diffusion loss, AdamW, EMA, LR schedules, validation, checkpoints; and
+first-stage training of ``configs/autoencoder/{vqgan-f4,kl-f4}.yaml``
+(``losses/``, ``training/vqgan_trainer.py``), in fp32.
 """

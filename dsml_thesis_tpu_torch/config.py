@@ -8,8 +8,10 @@ two-conditioning ``LatentDiffusion`` target with a VQ first stage, a
 dataset targets the port's trainer drives (``SyntheticDataset``, under the
 JAX package's target names too, so one ``data`` node serves both trainers).
 ``scheduler_config``, ``base_learning_rate`` and ``data`` are read by the
-trainer as the JAX trainer reads them. Other targets raise
-``NotImplementedError`` until their modules are ported.
+trainer as the JAX trainer reads them. The first-stage targets
+(``VQModel``, ``AutoencoderKL``) are trained by ``training/vqgan_trainer.py``
+(``TRAINERS``), which builds model and loss from the node. Other targets
+raise ``NotImplementedError`` until their modules are ported.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import yaml
 
 from .data import SyntheticDataset
 from .diffusion import make_schedule
-from .models.autoencoder import VQModel
+from .models.autoencoder import AutoencoderKL, VQModel
 from .models.encoders import ClassEmbedder, Conv1DTemporalAttention
 from .models.ldm import CondSpec, LatentDiffusion
 from .models.unet import UNetModel
@@ -80,10 +82,17 @@ def _build_vq(params: Dict) -> VQModel:
                    dtype=params.get("dtype"))
 
 
+def _build_kl(params: Dict) -> AutoencoderKL:
+    return AutoencoderKL(ddconfig=dict(params["ddconfig"]),
+                         embed_dim=params["embed_dim"],
+                         dtype=params.get("dtype"))
+
+
 _BUILDERS = {
     "ldm.modules.diffusionmodules.openaimodel.UNetModel": _build_unet,
     "ldm.models.autoencoder.VQModelInterface": _build_vq,
     "ldm.models.autoencoder.VQModel": _build_vq,
+    "ldm.models.autoencoder.AutoencoderKL": _build_kl,
     "ldm.modules.encoders.modules.ClassEmbedder":
         lambda p: ClassEmbedder(**p),
     "ldm.modules.encoders.modules.Conv1DTemporalAttention":

@@ -30,19 +30,23 @@ import torch.nn as nn
 _KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
+def _join(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
 def _leaf(path: str, name: str, value) -> tuple:
     a = np.array(value, dtype=np.float32)  # a copy: never a view of the source
     if name == "kernel":
-        return f"{path}.weight", np.ascontiguousarray(
+        return _join(path, "weight"), np.ascontiguousarray(
             np.transpose(a, _KERNEL_AXES[a.ndim]))
     if name == "scale":
-        return f"{path}.weight", a
+        return _join(path, "weight"), a
     if name == "embedding":
         # a bare table (the quantizer's codebook) lives in an nn.Embedding
         # called `embedding`; an Embed sub-module is already named by its path
-        owner = path if path.endswith("embedding") else f"{path}.embedding"
-        return f"{owner}.weight", a
-    return f"{path}.{name}", a
+        owner = path if path.endswith("embedding") else _join(path, "embedding")
+        return _join(owner, "weight"), a
+    return _join(path, name), a
 
 
 def from_jax_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -51,8 +55,7 @@ def from_jax_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, value in tree.items():
         if isinstance(value, Mapping):
-            out.update(from_jax_tree(value, f"{prefix}.{name}" if prefix
-                                     else name))
+            out.update(from_jax_tree(value, _join(prefix, name)))
         else:
             key, arr = _leaf(prefix, name, value)
             out[key] = torch.from_numpy(arr)

@@ -17,6 +17,13 @@
 // group's scores (1.5x the operations of the function). K / V tiles are
 // loaded synchronously and single-buffered; overlapping the loads (cp.async
 // or TMA) and wgmma are later work.
+//
+// fp32 at D = 512 (dsml_flash_attention_f32; the first stage's AttnBlock in
+// first-stage training): the TF32 design of attention_f32.cuh, 64 query rows
+// a block against K / V tiles of 16 rows, the same output and row
+// log-sum-exp. Bound at [16, 1, 1024, 512]: operations on the TF32 tensor
+// cores (4 N^2 D a head against 4 * 4 N D bytes).
+#include "attention_f32.cuh"
 #include "mma_tiles.cuh"
 
 template <int D, int DSPLIT, int BN>
@@ -107,4 +114,54 @@ extern "C" int dsml_flash_attention(const void* q, const void* k,
     default:
       return -1;
   }
+}
+
+namespace {
+
+__global__ void __launch_bounds__(128 * f32attn::FDSPLIT)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int nq, int nk, int q_tiles,
+                     float scale_log2) {
+  using namespace f32attn;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * FBM;
+  const int64_t row_base = bh * nq + q0;
+  float acc[D / FDSPLIT / 8][4];
+  float m0, m1, l0, l1;
+  fwd_rows<false>(q + row_base * D, k + bh * nk * D, v + bh * nk * D, nq - q0,
+                  nk, 0, nk, scale_log2,
+                  reinterpret_cast<uint32_t*>(smem_raw), acc, m0, m1, l0, l1);
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp / FDSPLIT) * 16 + lane_g();
+  if (lse != nullptr && warp % FDSPLIT == 0 && lane_t() == 0) {
+    if (q0 + r0 < nq) lse[row_base + r0] = m0 + log2f(l0);
+    if (q0 + r0 + 8 < nq) lse[row_base + r0 + 8] = m1 + log2f(l1);
+  }
+  store_fwd_rows(o + row_base * D, nq - q0, acc, 1.f / l0, 1.f / l1);
+}
+
+}  // namespace
+
+// The fp32 instantiation (d = 512 only): the same contract as
+// dsml_flash_attention on fp32 tensors.
+extern "C" int dsml_flash_attention_f32(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int bh, int nq, int nk, int d,
+                                        float scale, void* stream) {
+  using namespace f32attn;
+  if (d != D || bh < 1 || nq < 1 || nk < 1) return -1;
+  const int smem = fwd_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (nq + FBM - 1) / FBM;
+  flash_fwd_f32_kernel<<<bh * q_tiles, 128 * FDSPLIT, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), nq, nk, q_tiles,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }

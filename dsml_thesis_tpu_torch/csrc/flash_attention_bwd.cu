@@ -17,9 +17,16 @@
 // bytes). This version does 14 * Nq * Nk * D (the scores and dp are formed in
 // both grids), loads tiles synchronously and single-buffered, and uses
 // mma.sync; fusing the two grids' recomputation, cp.async / TMA and wgmma are
-// later work. Head widths 32 and 64: at D = 512 a thread's dk and dv
-// fragments alone would be 512 registers.
+// later work. Head widths 32 and 64 in bf16: at D = 512 this design's dk and
+// dv fragments alone would be 512 registers a thread.
+//
+// fp32 at D = 512 (dsml_flash_attention_bwd_f32; first-stage training): the
+// TF32 design of attention_f32.cuh, the same three launches with D cut over
+// the eight warps of a block (64 columns of dk / dv, or of dq, a warp), 32
+// owned rows a block against streamed tiles of 16. It does 14 N^2 D
+// operations a head for the function's 10.
 #include "attention_bwd.cuh"
+#include "attention_f32.cuh"
 
 template <int D>
 __global__ void __launch_bounds__(128)
@@ -113,4 +120,21 @@ extern "C" int dsml_flash_attention_bwd(const void* q, const void* k,
     default:
       return -1;
   }
+}
+
+// The fp32 instantiation (d = 512 only): the same contract as
+// dsml_flash_attention_bwd on fp32 tensors.
+extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
+                                            const void* v, const void* o,
+                                            const void* dout, const void* lse,
+                                            void* delta, void* dq, void* dk,
+                                            void* dv, int bh, int nq, int nk,
+                                            int d, float scale, void* stream) {
+  if (d != f32attn::D) return -1;
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  return f32attn::launch_bwd_f32(
+      c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk), m(dv),
+      bh, nq, nk, scale * 1.4426950408889634f, 1.f, scale, scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,14 @@
 // 16-row group (a thread holds 128 accumulators) and both recompute the
 // scores; tiles are loaded synchronously and single-buffered, and the
 // products are mma.sync. cp.async / TMA and wgmma are later work.
+//
+// fp32 at D = 512 (dsml_flash_attention_streaming_f32; first-stage training
+// under DSML_FLASH_STREAMING=1): the TF32 design of attention_f32.cuh with
+// this kernel's roundings in fp32 (q times scale * log2(e) in fp32, the
+// -1e30 mask, the denominator the sum of the probabilities as "cast" to fp32,
+// which is the identity), the same splits in 64-key units and the same
+// combine launch writing fp32.
+#include "attention_f32.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -223,13 +231,20 @@ streaming_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // o[row] = sum_s 2^(m_s - m) o_s / sum_s 2^(m_s - m) l_s, m = max_s m_s, the
 // splits added in index order. One thread per (row, 2 columns).
+template <typename T>
 __global__ void __launch_bounds__(256)
 streaming_combine_kernel(const float* __restrict__ part_o,
                          const float* __restrict__ part_ml,
-                         bf16* __restrict__ o, int64_t rows, int d,
-                         int splits) {
+                         T* __restrict__ o, int64_t rows, int d, int splits) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   const int half = d / 2;
   if (idx >= rows * half) return;
@@ -247,7 +262,7 @@ streaming_combine_kernel(const float* __restrict__ part_o,
     a1 += w * po.y;
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  *reinterpret_cast<uint32_t*>(o + row * d + col) = pack_bf16(a0 * inv, a1 * inv);
+  store_pair(o + row * d + col, a0 * inv, a1 * inv);
 }
 
 template <int D, int DSPLIT, int BN>
@@ -274,14 +289,104 @@ int launch(const void* q, const void* k, const void* v, void* o, void* part_o,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int64_t rows = static_cast<int64_t>(bh) * nq;
   const int64_t threads = rows * (D / 2);
-  streaming_combine_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256,
-                             0, stream>>>(
+  streaming_combine_kernel<bf16><<<static_cast<unsigned>((threads + 255) / 256),
+                                   256, 0, stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
       static_cast<bf16*>(o), rows, D, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fp32 forward of one 64-row query tile over one split of the keys.
+__global__ void __launch_bounds__(128 * f32attn::FDSPLIT)
+streaming_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ part_o,
+                         float* __restrict__ part_ml, int nq, int nk,
+                         int q_tiles, int kv_per_split, float q_scale) {
+  using namespace f32attn;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * FBM;
+  const int split = blockIdx.y;
+  const int kv_begin = split * kv_per_split;
+  const int kv_end = min(nk, kv_begin + kv_per_split);
+  const int64_t row_base = bh * nq + q0;
+  float acc[D / FDSPLIT / 8][4];
+  float m0, m1, l0, l1;
+  fwd_rows<true>(q + row_base * D, k + bh * nk * D, v + bh * nk * D, nq - q0,
+                 nk, kv_begin, kv_end, q_scale,
+                 reinterpret_cast<uint32_t*>(smem_raw), acc, m0, m1, l0, l1);
+  if (gridDim.y == 1) {
+    store_fwd_rows(o + row_base * D, nq - q0, acc, 1.f / fmaxf(l0, 1e-30f),
+                   1.f / fmaxf(l1, 1e-30f));
+    return;
+  }
+  // part_o [splits, BH * Nq, D], part_ml [splits, 2, BH * Nq]
+  const int64_t rows = static_cast<int64_t>(gridDim.x / q_tiles) * nq;
+  part_ml += split * 2 * rows + row_base;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp / FDSPLIT) * 16 + lane_g();
+  if (warp % FDSPLIT == 0 && lane_t() == 0) {
+    if (q0 + r0 < nq) {
+      part_ml[r0] = m0;
+      part_ml[rows + r0] = l0;
+    }
+    if (q0 + r0 + 8 < nq) {
+      part_ml[r0 + 8] = m1;
+      part_ml[rows + r0 + 8] = l1;
+    }
+  }
+  store_fwd_rows(part_o + (split * rows + row_base) * D, nq - q0, acc, 1.f,
+                 1.f);
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* part_o, void* part_ml, int bh, int nq, int nk,
+               int splits, float q_scale, cudaStream_t stream) {
+  using namespace f32attn;
+  constexpr int SPLIT_KEYS = 64;  // a split's keys are a multiple of this
+  const int chunks = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  if (bh < 1 || nq < 1 || nk < 1 || splits < 1 || splits > chunks ||
+      splits > 65535 || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return -1;
+  const int kv_per_split = (chunks + splits - 1) / splits * SPLIT_KEYS;
+  const int smem = fwd_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      streaming_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (nq + FBM - 1) / FBM;
+  streaming_fwd_f32_kernel<<<dim3(bh * q_tiles, splits), 128 * FDSPLIT, smem,
+                             stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), nq, nk,
+      q_tiles, kv_per_split, q_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t rows = static_cast<int64_t>(bh) * nq;
+  const int64_t threads = rows * (D / 2);
+  streaming_combine_kernel<float><<<
+      static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<float*>(o), rows, D, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The fp32 instantiation (d = 512 only): the same contract as
+// dsml_flash_attention_streaming on fp32 tensors, q_scale = scale * log2(e)
+// in fp32.
+extern "C" int dsml_flash_attention_streaming_f32(
+    const void* q, const void* k, const void* v, void* o, void* part_o,
+    void* part_ml, int bh, int nq, int nk, int d, int splits, float q_scale,
+    void* stream) {
+  if (d != f32attn::D) return -1;
+  return launch_f32(q, k, v, o, part_o, part_ml, bh, nq, nk, splits, q_scale,
+                    static_cast<cudaStream_t>(stream));
+}
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. splits cuts
 // the K / V stream of a query tile into that many blocks (at most one per 64

@@ -28,8 +28,19 @@
 // Bound: operations (10 * Nq * Nk * D a head, plus 2 * Nq * Nk * D for the
 // log-sum-exp launch, against 2 * (4 Nq + 4 Nk) * D bytes). This version does
 // 16 (scores and dp are formed in both grids), loads tiles synchronously and
-// uses mma.sync. Head widths 32 and 64, as flash_attention_bwd.cu.
+// uses mma.sync. Head widths 32 and 64 in bf16, as flash_attention_bwd.cu.
+//
+// fp32 at D = 512 (dsml_flash_attention_streaming_bwd_f32; first-stage
+// training under DSML_FLASH_STREAMING=1): a log-sum-exp launch of its own
+// (64 query rows a block, key tiles of 16, TF32 products from q times
+// scale * log2(e) in fp32), then the three launches of flash_attention_bwd's
+// fp32 instantiation (attention_f32.cuh) with that pre-scaled q: the scores
+// of all four launches are formed from the same rounded operands. dk is taken
+// against the stored q * c and divided by c = scale * log2(e) at the end, so
+// no fifth tile is kept: the two differ by one fp32 rounding of q * c, far
+// under the TF32 rounding of the operand itself.
 #include "attention_bwd.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
@@ -175,7 +186,96 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+__global__ void __launch_bounds__(128)
+streaming_lse_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k, float* __restrict__ lse,
+                         int nq, int nk, int q_tiles, float q_scale) {
+  using namespace f32attn;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* sQ = reinterpret_cast<uint32_t*>(smem_raw);
+  uint32_t* sK = sQ + FBM * LDS;
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * FBM;
+  const int tid = threadIdx.x;
+  const int row0 = (tid >> 5) * 16;
+  const int t = lane_t();
+  k += bh * nk * D;
+
+  load_tile_tf32<128>(sQ, q + (bh * nq + q0) * D, FBM, nq - q0, tid, q_scale);
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  for (int kv0 = 0; kv0 < nk; kv0 += FBN) {
+    __syncthreads();  // the previous tile's readers are done; sQ is visible
+    load_tile_tf32<128>(sK, k + static_cast<int64_t>(kv0) * D, FBN, nk - kv0,
+                        tid);
+    __syncthreads();
+    float s[2][4];
+    scores_16x16(s, sQ, row0, sK);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kv0 + nt * 8 + 2 * t + (j & 1) >= nk) s[nt][j] = MASKED;
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    l0 *= exp2f(m0 - mx0);
+    l1 *= exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const bool ok0 = kv0 + nt * 8 + 2 * t < nk;
+      const bool ok1 = kv0 + nt * 8 + 2 * t + 1 < nk;
+      l0 += (ok0 ? exp2f(s[nt][0] - m0) : 0.f) +
+            (ok1 ? exp2f(s[nt][1] - m0) : 0.f);
+      l1 += (ok0 ? exp2f(s[nt][2] - m1) : 0.f) +
+            (ok1 ? exp2f(s[nt][3] - m1) : 0.f);
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (t == 0) {
+    const int r0 = row0 + lane_g();
+    float* row_lse = lse + bh * nq + q0;
+    if (q0 + r0 < nq) row_lse[r0] = m0 + log2f(fmaxf(l0, 1e-30f));
+    if (q0 + r0 + 8 < nq) row_lse[r0 + 8] = m1 + log2f(fmaxf(l1, 1e-30f));
+  }
+}
+
 }  // namespace
+
+// The fp32 instantiation (d = 512 only): the same contract as
+// dsml_flash_attention_streaming_bwd on fp32 tensors, q_scale = scale *
+// log2(e) in fp32.
+extern "C" int dsml_flash_attention_streaming_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
+    int bh, int nq, int nk, int d, float scale, float q_scale, void* stream) {
+  using namespace f32attn;
+  if (d != D || bh < 1 || nq < 1 || nk < 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = lse_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      streaming_lse_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (nq + FBM - 1) / FBM;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  float* l = static_cast<float*>(lse);
+  streaming_lse_f32_kernel<<<bh * q_tiles, 128, smem, s>>>(qf, kf, l, nq, nk,
+                                                            q_tiles, q_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  return launch_bwd_f32(qf, kf, c(v), c(o), c(dout), l, m(delta), m(dq), m(dk),
+                        m(dv), bh, nq, nk, 1.f, q_scale, scale,
+                        scale / q_scale, s);
+}
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. Returns
 // cudaGetLastError() of the first launch that failed (0 = all launched), or

@@ -1,4 +1,5 @@
-"""First-stage VQGAN of the port: Encoder / Decoder and the VQModel wrapper.
+"""First stage of the port: Encoder / Decoder, the VQModel (VQGAN) and the
+AutoencoderKL wrappers with their training surface.
 
 Counterpart of ``dsml_thesis_tpu/models/autoencoder.py`` (same sub-module
 names, NHWC at the public boundary, NCHW ``channels_last`` inside).
@@ -10,9 +11,13 @@ statistics ride the convs as in the UNet: a block returns ``(out, stats)``
 and takes ``in_stats``; ``emit_stats`` says whether a norm will read the
 statistics (before a resampler none does). As the latent-diffusion first
 stage, ``encode`` skips quantization and ``decode`` quantizes first.
+``VQModel.forward`` returns (reconstruction, commitment loss, codes) and
+``AutoencoderKL.forward`` (reconstruction, ``DiagonalGaussian`` posterior),
+as the JAX modules do.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -274,9 +279,82 @@ class VQModel(nn.Module):
 
     def decode(self, z, force_not_quantize: bool = False):
         if not force_not_quantize:
-            z, _ = self.quantize(z)
+            z, _, _ = self.quantize(z)
         return self.decoder(self._conv_nhwc(self.post_quant_conv, z))
 
     def forward(self, x):
-        quant, idx = self.encode_quantized(x)
-        return self.decode(quant, force_not_quantize=True), idx
+        """x [B, H, W, C] -> (reconstruction, commitment loss, codes)."""
+        quant, qloss, idx = self.encode_quantized(x)
+        return self.decode(quant, force_not_quantize=True), qloss, idx
+
+
+@dataclasses.dataclass
+class DiagonalGaussian:
+    """Posterior of the KL autoencoder, NHWC like the latents."""
+
+    mean: torch.Tensor
+    logvar: torch.Tensor
+
+    @classmethod
+    def from_params(cls, params: torch.Tensor) -> "DiagonalGaussian":
+        mean, logvar = params.chunk(2, dim=-1)
+        return cls(mean, logvar.clamp(-30.0, 20.0))
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise: ``noise`` as given, or a standard normal
+        draw from ``generator``."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + torch.exp(0.5 * self.logvar) * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL(posterior || N(0, 1)) per sample, [B]."""
+        return 0.5 * torch.sum(
+            self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+            dim=tuple(range(1, self.mean.dim())))
+
+
+class AutoencoderKL(nn.Module):
+    """KL-regularised autoencoder: encoder -> [mean | logvar] -> sample ->
+    post-quant conv -> decoder."""
+
+    def __init__(self, ddconfig: dict, embed_dim: int, dtype=None):
+        super().__init__()
+        dd = dict(ddconfig)
+        dd.pop("dtype", None)
+        if not dd.get("double_z", True):
+            raise ValueError("AutoencoderKL needs double_z: true (the encoder "
+                             "emits mean and log-variance)")
+        dtype = resolve_dtype(dtype)
+        self.dtype = dtype
+        self.encoder = Encoder(dtype=dtype, **dd)
+        self.decoder = Decoder(dtype=dtype, **dd)
+        self.quant_conv = Conv2d(2 * dd["z_channels"], 2 * embed_dim, 1,
+                                 dtype=dtype)
+        self.post_quant_conv = Conv2d(embed_dim, dd["z_channels"], 1,
+                                      dtype=dtype)
+
+    def encode(self, x) -> DiagonalGaussian:
+        return DiagonalGaussian.from_params(
+            VQModel._conv_nhwc(self.quant_conv, self.encoder(x)))
+
+    def decode(self, z):
+        return self.decoder(VQModel._conv_nhwc(self.post_quant_conv, z))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None,
+                sample_posterior: Optional[bool] = None):
+        """x [B, H, W, C] -> (reconstruction, posterior). The posterior is
+        sampled (from ``noise``, or drawn from ``generator``) when either is
+        given, else its mode is decoded, unless ``sample_posterior`` says."""
+        posterior = self.encode(x)
+        if sample_posterior is None:
+            sample_posterior = generator is not None or noise is not None
+        z = (posterior.sample(generator, noise) if sample_posterior
+             else posterior.mode())
+        return self.decode(z), posterior

@@ -1,8 +1,9 @@
-"""Vector quantization for the VQGAN first stage (inference form).
+"""Vector quantization for the VQGAN first stage.
 
-Counterpart of ``dsml_thesis_tpu/models/quantize.py``: the nearest-codebook
-search is one [BHW, D] x [D, K] product plus an argmin, in fp32. The
-commitment loss belongs to first-stage training and is not ported yet.
+Counterpart of ``dsml_thesis_tpu/models/quantize.py`` (``VectorQuantizer``):
+the nearest-codebook search is one [BHW, D] x [D, K] product plus an argmin,
+in fp32; the commitment loss and the straight-through gradient are those of
+first-stage training.
 """
 from __future__ import annotations
 
@@ -21,20 +22,32 @@ def _nearest_code(flat: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 class VectorQuantizer(nn.Module):
-    """Codebook lookup: z [B, H, W, e_dim] -> (z_q, indices [B, H, W])."""
+    """Codebook lookup: z [B, H, W, e_dim] -> (z_q, loss, indices [B, H, W]).
 
-    def __init__(self, n_e: int, e_dim: int, beta: float = 0.25):
+    ``legacy=True`` (the reference's default) weighs the loss as
+    ||sg(z_q) - z||^2 + beta ||z_q - sg(z)||^2, ``legacy=False`` the other
+    way round; z_q passes the gradient straight through to z."""
+
+    def __init__(self, n_e: int, e_dim: int, beta: float = 0.25,
+                 legacy: bool = True):
         super().__init__()
-        self.n_e, self.e_dim, self.beta = n_e, e_dim, beta
+        self.n_e, self.e_dim, self.beta, self.legacy = n_e, e_dim, beta, legacy
         self.embedding = nn.Embedding(n_e, e_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / n_e, 1.0 / n_e)
 
-    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, z: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         zf = z.float()
-        idx = _nearest_code(zf.reshape(-1, self.e_dim), self.embedding.weight)
-        z_q = self.embedding.weight[idx].reshape(zf.shape).float()
-        z_q = zf + (z_q - zf)  # the straight-through form, values only
-        return z_q.to(z.dtype), idx.reshape(zf.shape[:-1])
+        e = self.embedding.weight
+        with torch.no_grad():
+            idx = _nearest_code(zf.reshape(-1, self.e_dim), e)
+        z_q = e[idx].reshape(zf.shape).float()
+        to_z = torch.mean((z_q.detach() - zf) ** 2)
+        to_code = torch.mean((z_q - zf.detach()) ** 2)
+        loss = (to_z + self.beta * to_code if self.legacy
+                else self.beta * to_z + to_code)
+        z_q = zf + (z_q - zf).detach()  # straight-through
+        return z_q.to(z.dtype), loss, idx.reshape(zf.shape[:-1])
 
     def get_codebook_entry(self, indices: torch.Tensor, shape=None):
         z_q = self.embedding.weight[indices.reshape(-1)]

@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..flags import env_flag, env_mode
+from ..flags import env_flag, env_mode, refuse_unported
 from ..ops.attention import (flash_attention_fproj, fproj_kernel_takes,
                              fproj_one_q_block, fused_qout_self_attention,
                              multi_head_attention,
@@ -295,6 +295,7 @@ class CrossAttention(nn.Module):
         dt = self.dtype or x.dtype
         scale = self.dim_head ** -0.5
         if context is not None and context.shape[1] == 1:
+            refuse_unported("DSML_XATTN_1TOK")
             out = self.to_out(self.to_v(context))
             return out.expand(x.shape[0], x.shape[1], out.shape[-1])
         x = x.to(dt)  # once: the LayerNorm before hands over fp32

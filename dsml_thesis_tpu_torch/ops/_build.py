@@ -28,7 +28,7 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
            "group_norm.cu", "conv_stats.cu")
-HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh")
+HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh", "attention_f32.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,6 +131,13 @@ def load() -> ctypes.CDLL:
             lib.dsml_flash_attention_streaming_bwd.argtypes = (
                 [p] * 10 + [i, i, i, i, f, f, p])
             lib.dsml_flash_attention_streaming_bwd.restype = i
+            # the fp32 instantiations at D = 512, same arguments
+            for name in ("dsml_flash_attention", "dsml_flash_attention_bwd",
+                         "dsml_flash_attention_streaming",
+                         "dsml_flash_attention_streaming_bwd"):
+                f32 = getattr(lib, name + "_f32")
+                f32.argtypes = getattr(lib, name).argtypes
+                f32.restype = i
             lib.dsml_conv_stats.argtypes = (
                 [p] * 11 + [i, i, i, i, i, i, i, i, f, i, p])
             lib.dsml_conv_stats.restype = i

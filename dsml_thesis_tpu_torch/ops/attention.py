@@ -33,7 +33,8 @@ versions, and the wrappers that choose between them by where the tensor lies.
 ``flash_attention_bwd``    (q, k, v, o, lse, do) on split heads -> (dq, dk, dv)
     kernels ``csrc/flash_attention_bwd.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_bwd_kernel``
-    (``flash_attention_bwd``). Bound by operations; head widths 32 and 64.
+    (``flash_attention_bwd``). Bound by operations; head widths 32 and 64 in
+    bf16, 512 in fp32.
 
 ``flash_attention_bwd_packed``  the same on packed rows
     kernels ``csrc/flash_attention_bwd_packed.cu``; replaces the TPU kernel
@@ -65,7 +66,15 @@ versions, and the wrappers that choose between them by where the tensor lies.
     (``_streaming_lse_kernel``, ``_streaming_dq_kernel``,
     ``_streaming_dkdv_kernel``). The residuals carry no row statistic: a
     launch of its own recomputes the row log-sum-exp from q and k, then
-    delta, a dk / dv grid and a dq grid as above. Head widths 32 and 64.
+    delta, a dk / dv grid and a dq grid as above. Head widths 32 and 64 in
+    bf16, 512 in fp32.
+
+fp32. The split-head forward, the streaming forward and both their backward
+kernels also take fp32 tensors at head width 512 (``F32_HEAD_DIMS``): the
+first stage's single-head attention block in first-stage training, which
+runs in fp32 as the JAX package's does. Those instantiations multiply on the
+tensor cores in TF32 (operands rounded once, fp32 accumulation and softmax;
+``csrc/attention_f32.cuh``); every other kernel takes bf16 only.
 
 ``multi_head_attention`` is the split-head dispatch between
 ``flash_attention`` and ``flash_attention_streaming`` under
@@ -97,7 +106,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..flags import env_mode
+from ..flags import env_mode, refuse_unported
 from ._launch import (LAUNCHES, check_cuda_operand, current_stream,  # noqa: F401
                       raise_on_error, reset_launches)
 
@@ -108,6 +117,9 @@ PACKED_HEAD_DIMS = (32, 64)            # ... in flash_attention_packed.cu
 BWD_HEAD_DIMS = (32, 64)               # ... in both flash_attention_bwd*.cu
 STREAMING_HEAD_DIMS = (32, 64, 512)    # ... in flash_attention_streaming.cu
 STREAMING_BWD_HEAD_DIMS = (32, 64)     # ... in flash_attention_streaming_bwd.cu
+# fp32 instantiations (TF32 products) of the four kernels above that the
+# first stage's attention block runs in first-stage training
+F32_HEAD_DIMS = (512,)
 STREAMING_TILE = 64                    # query / key rows of its tiles
 STREAMING_TARGET_BLOCKS = 264          # two blocks on each of 132 SMs
 LOG2E = 1.4426950408889634
@@ -319,23 +331,37 @@ def _check_split_head_shapes(q, k, v) -> None:
         raise ValueError(f"attention: unsupported device {q.device}")
 
 
+def _entry(name: str, t: torch.Tensor, bf16_dims, what: str) -> str:
+    """The name of a split-head kernel's C entry point for t's type and head
+    width: ``name`` for bf16 at ``bf16_dims``, ``name + "_f32"`` for fp32 at
+    ``F32_HEAD_DIMS``; anything else raises (before any build)."""
+    d = t.shape[-1]
+    dims = F32_HEAD_DIMS if t.dtype == torch.float32 else bf16_dims
+    if d not in dims:
+        raise ValueError(f"{what}: head width {d} not in {dims} for {t.dtype}")
+    return name + ("_f32" if t.dtype == torch.float32 else "")
+
+
+_SPLIT_HEAD_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     """Check, launch and count the split-head forward kernel. With
     ``want_lse`` it also writes each row's log-sum-exp ([B*H*Nq] fp32), which
     the backward kernel reads; without, the second result is None."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     b, h, nq, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {d} not in "
-                         f"{FLASH_HEAD_DIMS}")
     from . import _build
 
-    lib = _build.load()
+    entry = _entry("dsml_flash_attention", q, FLASH_HEAD_DIMS,
+                   "flash_attention")
+    launch = getattr(_build.load(), entry)
     out = torch.empty_like(q)
     lse = (torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
            if want_lse else None)
-    code = lib.dsml_flash_attention(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d,
         float(scale), current_stream(q))
@@ -352,19 +378,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp -> (dq, dk, dv). ``do`` is made contiguous here (autograd may
     hand over an expanded or transposed view)."""
     do = do.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     check_cuda_operand("lse", lse, q, (torch.float32,))
     b, h, nq, d = q.shape
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention backward: head width {d} not in "
-                         f"{BWD_HEAD_DIMS}")
     from . import _build
 
-    lib = _build.load()
+    entry = _entry("dsml_flash_attention_bwd", q, BWD_HEAD_DIMS,
+                   "flash_attention backward")
+    launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    code = lib.dsml_flash_attention_bwd(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
@@ -411,16 +437,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_streaming_forward(q, k, v, scale: float):
     """Check, launch and count the streaming forward kernel."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if d not in STREAMING_HEAD_DIMS:
-        raise ValueError(f"flash_attention_streaming: head width {d} not in "
-                         f"{STREAMING_HEAD_DIMS}")
     from . import _build
 
-    lib = _build.load()
+    entry = _entry("dsml_flash_attention_streaming", q, STREAMING_HEAD_DIMS,
+                   "flash_attention_streaming")
+    launch = getattr(_build.load(), entry)
     out = torch.empty_like(q)
     splits = streaming_splits(b * h, nq, nk)
     part_o = part_ml = None
@@ -428,7 +454,7 @@ def _launch_streaming_forward(q, k, v, scale: float):
         f32 = dict(dtype=torch.float32, device=q.device)
         part_o = torch.empty((splits, b * h * nq, d), **f32)
         part_ml = torch.empty((splits, 2, b * h * nq), **f32)
-    code = lib.dsml_flash_attention_streaming(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), b * h, nq, nk, d,
@@ -455,19 +481,19 @@ def flash_attention_streaming_bwd(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return streaming_bwd_reference(q, k, v, o, do, scale=scale)
     do = do.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     b, h, nq, d = q.shape
-    if d not in STREAMING_BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_streaming backward: head width {d} "
-                         f"not in {STREAMING_BWD_HEAD_DIMS}")
     from . import _build
 
-    lib = _build.load()
+    entry = _entry("dsml_flash_attention_streaming_bwd", q,
+                   STREAMING_BWD_HEAD_DIMS, "flash_attention_streaming backward")
+    launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    code = lib.dsml_flash_attention_streaming_bwd(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
@@ -516,6 +542,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's counterpart ``flash_attention`` unless ``DSML_FLASH_STREAMING``
     is ``1`` or, under ``auto`` (the default), ``streaming_auto`` holds for
     the shape; then ``flash_attention_streaming``. ``0`` never streams."""
+    refuse_unported("DSML_FLASH_ATTN")
     mode = env_mode("DSML_FLASH_STREAMING", "auto", ("auto", "1", "0"))
     if mode == "1" or (mode == "auto" and streaming_auto(
             q.shape[2], k.shape[2], q.shape[3])):
@@ -578,6 +605,7 @@ def flash_attention_fproj(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     d = hd // heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    refuse_unported("DSML_FLASH_ATTN")
     if h.device.type == "cpu":
         return fproj_reference(h, wq, wk, wv, wo, bo, heads, scale=scale)
     if h.device.type != "cuda":
@@ -731,6 +759,7 @@ def packed_multi_head_attention(q: torch.Tensor, k: torch.Tensor,
     and type it takes; on the card, anything else goes through a head split,
     ``multi_head_attention`` and a merge (which raises for what its kernels
     do not take either)."""
+    refuse_unported("DSML_FLASH_ATTN")
     d = q.shape[-1] // heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -823,6 +852,7 @@ def fused_qout_self_attention(h: torch.Tensor, k: torch.Tensor,
     shapes it takes; on the card, anything else is composed from a linear,
     ``packed_multi_head_attention`` and a linear. Weights are cast to h's
     type here."""
+    refuse_unported("DSML_FLASH_ATTN")
     wq, wo, bo = (w.to(h.dtype) for w in (wq, wo, bo))
     hd = k.shape[-1]
     if not h.is_cuda or qout_kernel_takes(h.shape[-1], hd, hd // heads,

@@ -24,6 +24,15 @@
            by events, peak memory, kernel launches a step, then one step
            under torch.profiler: kernels launched, device time by kernel
            family and the device's idle share
+--ae CFG   first-stage training steps of an autoencoder config
+           (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
+           128 px, random weights and LPIPS from seed 0, disc_start 0 so
+           that the GAN term and its adaptive weight run) under the DSML_*
+           flags of the environment, through the port's own fused step: ms a
+           warm step by CUDA events over 10 steps and img/s, kernel launches
+           a step, peak memory, then one step under torch.profiler: kernels
+           launched, device-busy ms, device time by kernel family and the
+           device's idle share
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -154,6 +163,12 @@ def gate(smi: str):
 
 
 _FAMILIES = (
+    ("flash_fwd_f32_kernel", "attention: flash_attention (fp32)"),
+    ("streaming_fwd_f32_kernel", "attention: streaming (fp32)"),
+    ("streaming_lse_f32_kernel", "attention backward: streaming log-sum-exp"),
+    ("bwd_dkdv_f32_kernel", "attention backward: dk / dv grid"),
+    ("bwd_dq_f32_kernel", "attention backward: dq grid"),
+    ("bwd_delta_f32_kernel", "attention backward: delta"),
     ("fproj_attention_kernel", "attention: fproj (attention + to_out)"),
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
@@ -323,8 +338,6 @@ def profile(smi: str, frames: int, config: str):
 
 
 def train(smi: str, config: str, steps: int = 10):
-    from torch.profiler import ProfilerActivity
-
     from ..training.ema import ema_update
     from ..training.train_state import (create_train_state, make_optimizer,
                                         make_train_step)
@@ -390,14 +403,23 @@ def train(smi: str, config: str, steps: int = 10):
         "trainable_parameters": sum(p.numel() for p in state.params)}),
         flush=True)
 
+    _profile_step(lambda: step(state, batch, 0), "train_profile", run)
+
+
+def _profile_step(step, measure: str, run: dict):
+    """One step untraced, then one under torch.profiler: kernels launched,
+    device-busy ms, device time by family and the idle share (the traced
+    busy time over the untraced wall time)."""
+    from torch.profiler import ProfilerActivity
+
     t0 = time.monotonic()
-    step(state, batch, 0)
+    step()
     torch.cuda.synchronize()
     wall_untraced_ms = 1e3 * (time.monotonic() - t0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
-        step(state, batch, 0)
+        step()
         torch.cuda.synchronize()
         wall_traced_ms = 1e3 * (time.monotonic() - t0)
     kernels = _device_kernels(prof)
@@ -405,7 +427,7 @@ def train(smi: str, config: str, steps: int = 10):
     busy_ms = sum(fams.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({
-        "measure": "train_profile", **run,
+        "measure": measure, **run,
         "kernels_launched": sum(n for _, n in kernels.values()),
         "launched_by_family": _by_family(kernels, 1),
         "wall_ms_traced": wall_traced_ms, "wall_ms_untraced": wall_untraced_ms,
@@ -419,6 +441,53 @@ def train(smi: str, config: str, steps: int = 10):
                         for k, v in top]}), flush=True)
 
 
+def ae(smi: str, config: str, steps: int = 10):
+    from ..training.vqgan import create_first_stage_state
+    from ..training.vqgan_trainer import TRAINERS
+
+    device = torch.device("cuda")
+    env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
+    cfg = load_config([config])
+    trainer = TRAINERS[cfg["model"]["target"]]
+    cfg["model"]["params"]["lossconfig"]["params"]["disc_start"] = 0
+    batch_size = 16
+    size = cfg["model"]["params"]["ddconfig"]["resolution"]
+    run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
+           "batch": batch_size, "dtype": "float32",
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.manual_seed(0)
+    model, loss = trainer._build(cfg["model"])
+    model, loss = model.to(device), loss.to(device)
+    lr = batch_size * cfg["model"].get("base_learning_rate", 4.5e-6)
+    state = create_first_stage_state(model, loss, lr)
+    step = trainer._make_train_step(model, loss)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(batch_size, size, size, 3, generator=gen,
+                    device=device).clamp(-1, 1)
+
+    for _ in range(3):   # warm-up: kernel build, cuDNN algorithm choice
+        step(state, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.monotonic()
+    step_ms = event_ms(lambda: step(state, x), steps)
+    wall_ms = 1e3 * (time.monotonic() - t0) / steps
+    print(json.dumps({
+        "measure": "ae_step", **run, "steps_timed": steps,
+        "step_ms": step_ms, "img_per_s": 1e3 * batch_size / step_ms,
+        "host_ms_per_step": wall_ms,
+        "launches_per_step": {k: v / steps for k, v in A.LAUNCHES.items()
+                              if v},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "trainable_parameters": sum(p.numel() for p in state.ae_params),
+        "discriminator_parameters": sum(p.numel()
+                                        for p in state.disc_params)}),
+        flush=True)
+
+    _profile_step(lambda: step(state, x), "ae_profile", run)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gate", action="store_true")
@@ -427,6 +496,8 @@ def main():
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--config", default=CONFIG,
                     help="model config YAML of --profile and --train")
+    ap.add_argument("--ae", default=None, metavar="CONFIG",
+                    help="first-stage config YAML to time training steps of")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -438,6 +509,8 @@ def main():
         profile(smi, args.frames, args.config)
     if args.train:
         train(smi, args.config)
+    if args.ae:
+        ae(smi, args.ae)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ One process on one device: no mesh, no sharding. Not ported, each raising
 ``NotImplementedError`` where a config or caller asks for it: periodic image
 logging (``log_images``), warm start from ``model.params.ckpt_path`` or a
 first-stage ``ckpt_path``, tensor / fully-sharded parallelism, the step
-profiler, and the finetune and first-stage trainers.
+profiler, and the finetune trainer. First-stage training is
+``training/vqgan_trainer.py``.
 """
 from __future__ import annotations
 

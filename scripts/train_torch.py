@@ -9,8 +9,11 @@
 Builds the port's ``Trainer`` from the merged config, trains (``-t``),
 validates with raw and EMA weights, writes ``metrics.jsonl`` and a ``last``
 checkpoint under the run's logdir, and evaluates the test split if the
-config has one. It runs on the card; without one it fails unless ``--cpu``
-is given. The shipped model configs name the MEAD dataset, which the port
+config has one. A first-stage config (``configs/autoencoder/*.yaml``: a
+``VQModel`` or ``AutoencoderKL`` target) goes to ``VQGANTrainer`` /
+``KLAETrainer`` instead (validation, top-k on ``val/rec_loss``, ``last``; no
+test split). It runs on the card; without one it fails unless ``--cpu`` is
+given. The shipped model configs name the MEAD dataset, which the port
 does not read yet: override ``data`` with a synthetic node, e.g.
 
     data.params.train='{target: dsml_thesis_tpu_torch.data.SyntheticDataset,
@@ -18,7 +21,12 @@ does not read yet: override ``data`` with a synthetic node, e.g.
       masked_image: [[256, 256, 3], float32], identity: [[256, 256, 3],
       float32], class_label: [[], int32], audio: [[17, 768], float32]}}}'
 
-(and the same for ``data.params.validation``).
+(and the same for ``data.params.validation``). The first-stage configs name
+AffectNet, likewise not read: a node with ``spec: {image: [[128, 128, 3],
+float32]}``; their ``perceptual_weight: 1.0`` needs the LPIPS files,
+``model.params.lossconfig.params.vgg_ckpt=<torchvision vgg16 features
+state_dict>`` and ``model.params.lossconfig.params.lpips_lin_ckpt=<taming
+lin heads>``.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ def main(argv=None):
 
     from dsml_thesis_tpu_torch.config import load_config
     from dsml_thesis_tpu_torch.training.trainer import Trainer
+    from dsml_thesis_tpu_torch.training.vqgan_trainer import TRAINERS
 
     opt, unknown = get_parser().parse_known_args(argv)
     if opt.cpu:
@@ -99,12 +108,16 @@ def main(argv=None):
         yaml.safe_dump(config, f)
 
     target = config["model"]["target"]
-    if "autoencoder" in target or "tune" in target.rsplit(".", 2)[-2]:
+    first_stage = target in TRAINERS
+    if first_stage:
+        trainer = TRAINERS[target](config, logdir, seed=opt.seed,
+                                   max_steps=opt.max_steps, device=device)
+    elif "autoencoder" in target or "tune" in target.rsplit(".", 2)[-2]:
         raise NotImplementedError(
-            f"model target {target}: the first-stage and finetune trainers "
-            "are not ported")
-    trainer = Trainer(config, logdir, seed=opt.seed, max_steps=opt.max_steps,
-                      device=device)
+            f"model target {target}: the finetune trainer is not ported")
+    else:
+        trainer = Trainer(config, logdir, seed=opt.seed,
+                          max_steps=opt.max_steps, device=device)
     print(f"logdir: {logdir}; device: {device}; lr: {trainer.lr:.3e}")
 
     try:
@@ -114,7 +127,7 @@ def main(argv=None):
             state = trainer.fit(epochs=opt.epochs or None,
                                 log_every=opt.log_every)
             print("training done; final step:", state.step)
-            if not opt.no_test:
+            if not (opt.no_test or first_stage):
                 test_metrics = trainer.test()
                 if test_metrics:
                     print("test:", {k: round(v, 5)

@@ -86,7 +86,7 @@ def test_code_indices_equal_away_from_ties(vq):
     zq_j, _, idx_j = jm.apply({"params": params}, jnp.asarray(z),
                               method=lambda m, v: m.quantize(v))
     with torch.no_grad():
-        zq_t, idx_t = tm.quantize(torch.from_numpy(z))
+        zq_t, _, idx_t = tm.quantize(torch.from_numpy(z))
         looked_up = tm.quantize.get_codebook_entry(idx_t, (4, 16, 16, 3))
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     np.testing.assert_allclose(zq_t.numpy(), np.asarray(zq_j), atol=1e-6,
@@ -117,7 +117,7 @@ def test_full_forward_matches_jax(vq):
     x = _images(5)
     rec_j, _, idx_j = jm.apply({"params": params}, jnp.asarray(x))
     with torch.no_grad():
-        rec_t, idx_t = tm(torch.from_numpy(x))
+        rec_t, _, idx_t = tm(torch.from_numpy(x))
     same = idx_t.numpy() == np.asarray(idx_j)
     assert same.mean() > 0.95  # a tie may flip a code; most must agree
     if same.all():

@@ -41,7 +41,10 @@ def test_package_has_the_expected_modules():
                  "models.encoders", "models.ldm", "diffusion.gaussian",
                  "data.datasets", "training.ema", "training.lr_scheduler",
                  "training.train_state", "training.checkpointing",
-                 "training.loggers", "training.trainer", "tools.measure"):
+                 "training.loggers", "training.trainer", "tools.measure",
+                 "losses.discriminator", "losses.lpips", "losses.vqperceptual",
+                 "losses.contperceptual", "training.vqgan", "training.kl_ae",
+                 "training.vqgan_trainer"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 
@@ -228,6 +231,43 @@ def test_kernel_flags_are_the_flags_the_code_reads():
     doc = open(os.path.join(PKG, "flags.py")).read()
     for name in read:
         assert name in doc
+    # every DSML_* name the JAX package's code mentions is read here or named
+    # in flags.py with its reason
+    jax_names = set()
+    for base, _, files in os.walk(os.path.join(ROOT, "dsml_thesis_tpu")):
+        for f in files:
+            if f.endswith(".py"):
+                jax_names |= set(re.findall(r"DSML_[A-Z0-9_]+",
+                                            open(os.path.join(base, f)).read()))
+    assert len(jax_names) >= 32
+    assert not [n for n in sorted(jax_names) if n not in read and n not in doc]
+
+
+@pytest.mark.parametrize("name", ["DSML_FLASH_ATTN", "DSML_XATTN_1TOK"])
+def test_flags_of_routes_the_port_lacks_raise(name, monkeypatch):
+    """A flag whose non-default value selects a route the port does not have
+    raises where the JAX package reads it; its default spelled out does
+    not."""
+    from dsml_thesis_tpu_torch.flags import REFUSED_FLAGS
+    from dsml_thesis_tpu_torch.models.unet import CrossAttention
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    assert REFUSED_FLAGS[name] is True
+    x = torch.randn(1, 8, 16)
+    q = torch.randn(1, 1, 8, 32)
+    if name == "DSML_FLASH_ATTN":
+        calls = [lambda: A.multi_head_attention(q, q, q),
+                 lambda: A.packed_multi_head_attention(x, x, x, 2)]
+    else:
+        attn = CrossAttention(16, context_dim=4, heads=2, dim_head=8)
+        calls = [lambda: attn(x, torch.randn(1, 1, 4))]
+    monkeypatch.setenv(name, "1")
+    for call in calls:
+        call()
+    monkeypatch.setenv(name, "0")
+    for call in calls:
+        with pytest.raises(ValueError, match="route"):
+            call()
 
 
 def _self_attention_shapes(path):
