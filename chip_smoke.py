@@ -6,15 +6,16 @@
 Phases, each printing one JSON line (any failure exits non-zero):
   device   the card's name and power limit as nvidia-smi gives them
   build    compiles the CUDA kernels from dsml_thesis_tpu_torch/csrc/
-  kernels  every kernel against its plain PyTorch version on the card, at the
-           shapes the serving paths give it, with times: the kernel, the
-           plain version, one library call computing the same function
-           (timed as a yardstick only; the port never calls it) and the
-           least time the card could take (bytes over 3.35 TB/s against
-           operations over 989 TFLOP/s bf16, 494.7 TF32 for the fp32
-           attention kernels, or 67 TFLOP/s fp32 outside the tensor cores,
-           the larger); the fp32 kernels (first-stage training's D = 512
-           attention) are held to fp32 plain versions with TF32 off
+  kernels  every kernel against its plain PyTorch version on the card, at
+           the shapes the serving and training paths give it, with times:
+           the kernel, the plain version, one library call computing the
+           same function (timed as a yardstick only; the port never calls
+           it) and the least time the card could take (bytes over 3.35 TB/s
+           against operations over 989 TFLOP/s bf16, 494.7 TF32 for the fp32
+           attention and conv kernels, or 67 TFLOP/s fp32 outside the tensor
+           cores, the larger); the fp32 instantiations (first-stage
+           training: the D = 512 attention, GroupNorm, channel statistics,
+           conv + statistics) are held to fp32 plain versions with TF32 off
   model    mead-256-ldm-f4.yaml and its -fullattn twin at full width and
            depth, random weights from a seed: one UNet call and one
            first-stage decode through the kernels against the same calls
@@ -51,11 +52,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
            configs/autoencoder/*.yaml at full width, batch 16, 128 px,
            SyntheticDataset images, LPIPS files written from seed 0,
            disc_start 0 (the GAN term and its adaptive weight run), in
-           three runs:
+           seven runs:
              ae-vq           vqgan-f4, 4 steps, one validation batch, `last`,
                              then resumed with --resume for one more step
              ae-vq-streaming vqgan-f4, DSML_FLASH_STREAMING=1, 2 steps
              ae-kl           kl-f4, 2 steps
+             ae-vq-gn        vqgan-f4, DSML_PALLAS_GN=1, 2 steps
+             ae-kl-stats     kl-f4, DSML_PALLAS_GN=stats, 2 steps
+             ae-vq-epilogue  vqgan-f4, DSML_GN_EPILOGUE=1, 2 steps
+             ae-kl-epilogue-res  kl-f4, DSML_GN_EPILOGUE=res, 2 steps
            each checks the same, plus a d_weight above zero and moved
            discriminator parameters
 then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -413,54 +418,63 @@ def _qout_case(gen, b, n, nk, c, heads, timed):
         2 * b * n * c * hd * 2 + 4 * b * n * nk * hd, PEAK_BF16_FLOPS)
 
 
-def _gn_input(gen, b, n, c, mean=0.5, std=2.0):
+def _gn_input(gen, b, n, c, mean=0.5, std=2.0, dtype=torch.bfloat16):
     x = torch.randn(b, n, c, generator=gen, device="cuda") * std + mean
     gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
-    return x.to(torch.bfloat16), gamma, beta
+    return x.to(dtype), gamma, beta
+
+
+def _dtype_name(dtype):
+    return str(dtype).split(".")[1]
 
 
 def _gn_case(gen, b, n, c, eps, silu, timed, mean=0.5, std=2.0,
-             bf16_params=False):
-    """Whole-row GroupNorm(+SiLU). A large-mean row (|mean| >> std) is held
-    to finiteness only: there E[x^2] - E[x]^2 cancels in fp32 and the two
-    summation orders legitimately disagree."""
+             bf16_params=False, dtype=torch.bfloat16):
+    """Whole-row GroupNorm(+SiLU); the same bits from a second call. A
+    large-mean row (|mean| >> std) is held to finiteness only: there E[x^2] -
+    E[x]^2 cancels in fp32 and the two summation orders legitimately
+    disagree. The library yardstick takes parameters of x's type."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import groupnorm as G
 
-    x, gamma, beta = _gn_input(gen, b, n, c, mean, std)
-    g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    x, gamma, beta = _gn_input(gen, b, n, c, mean, std, dtype)
+    gx, bx = gamma.to(dtype), beta.to(dtype)
     if bf16_params:
-        gamma, beta = g16, b16
+        gamma, beta = gx, bx
     kw = dict(num_groups=32, eps=eps, silu=silu)
 
     def library():
-        y = F.group_norm(x.transpose(1, 2), 32, g16, b16, eps)
+        y = F.group_norm(x.transpose(1, 2), 32, gx, bx, eps)
         return F.silu(y) if silu else y
 
+    run = lambda: G.group_norm_silu_kernel(x, gamma, beta, **kw)
+    esize = x.element_size()
     case = _case(
-        (b, n, c), timed, lambda: G.group_norm_silu_kernel(x, gamma, beta, **kw),
+        (b, n, c), timed, run,
         lambda: G.group_norm_silu_reference(x, gamma, beta, **kw), library,
-        2 * 2 * b * n * c + 2 * 4 * c, 10 * b * n * c, PEAK_FP32_FLOPS,
-        eps=eps, silu=silu)
+        2 * esize * b * n * c + 2 * 4 * c, 10 * b * n * c, PEAK_FP32_FLOPS,
+        eps=eps, silu=silu, dtype=_dtype_name(dtype))
+    if not torch.equal(run(), run()):
+        case["rel_err"] = float("inf")
     if abs(mean) > 10 * std and case["rel_err"] != float("inf"):
         case["large_mean_rel_err"], case["rel_err"] = case["rel_err"], 0.0
     return case
 
 
-def _stats_case(gen, b, n, c, timed):
+def _stats_case(gen, b, n, c, timed, dtype=torch.bfloat16):
     """Channel statistics: sum and sum of squares differ in size, so each is
     held against its own maximum; a second call must give the same bits."""
     from dsml_thesis_tpu_torch.ops import groupnorm as G
 
-    x, _, _ = _gn_input(gen, b, n, c)
+    x, _, _ = _gn_input(gen, b, n, c, dtype=dtype)
     f32 = torch.float32
     case = _case(
         (b, n, c), timed, lambda: torch.stack(G.gn_channel_stats(x)),
         lambda: torch.stack(G.gn_channel_stats_reference(x)),
         lambda: (x.sum(1, dtype=f32), x.square().sum(1, dtype=f32)),
-        2 * b * n * c + 2 * 4 * b * c, 3 * b * n * c, PEAK_FP32_FLOPS,
-        tol=STATS_REL_TOL)
+        x.element_size() * b * n * c + 2 * 4 * b * c, 3 * b * n * c,
+        PEAK_FP32_FLOPS, tol=STATS_REL_TOL, dtype=_dtype_name(dtype))
     out, again = (torch.stack(G.gn_channel_stats(x)) for _ in range(2))
     ref = torch.stack(G.gn_channel_stats_reference(x))
     case["rel_err"] = (max(_compare(o, r)[1] for o, r in zip(out, ref))
@@ -468,22 +482,38 @@ def _stats_case(gen, b, n, c, timed):
     return case
 
 
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's convolutions in TF32 inside the block (PyTorch's default; the
+    script turns it off for its fp32 references)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
-               eps=1e-5, silu_in=True):
-    """conv_stats: y against the plain version's; the statistics against the
+               eps=1e-5, silu_in=True, dtype=torch.bfloat16, chunk=None):
+    """conv_stats: y against the plain version's (in fp32 with TF32 off: the
+    disagreement is the kernel's TF32 rounding); the statistics against the
     sums of the kernel's own stored y (a y that rounds the other way at a bf16
     tie moves a sum by more than the sums' tolerance, and is no fault), with
     the same bits from a second call. The yardstick: ``F.group_norm`` +
-    ``F.silu`` (prologue cases), ``F.conv2d``, + bias (+ skip), two sums."""
+    ``F.silu`` (prologue cases), ``F.conv2d`` (in fp32 under TF32, as the
+    kernel multiplies), + bias (+ skip), two sums. ``chunk`` sets the input
+    channels of an fp32 block's chunk for this case."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import conv_gn as C
     from dsml_thesis_tpu_torch.ops import groupnorm as G
 
     f32 = torch.float32
-    x = _rand(gen, b, hh, ww, cin, scale=2.0) + 0.5
-    w = _rand(gen, ksize, ksize, cin, cout, scale=(ksize * ksize * cin) ** -0.5)
+    x = _rand(gen, b, hh, ww, cin, scale=2.0, dtype=dtype) + 0.5
+    w = _rand(gen, ksize, ksize, cin, cout, scale=(ksize * ksize * cin) ** -0.5,
+              dtype=dtype)
     bias = 0.5 * torch.randn(b, cout, generator=gen, device="cuda")
-    res = _rand(gen, b, hh, ww, cout) if skip else None
+    res = _rand(gen, b, hh, ww, cout, dtype=dtype) if skip else None
     kw = {}
     if prologue:
         gamma = 1 + 0.1 * torch.randn(cin, generator=gen, device="cuda")
@@ -491,31 +521,49 @@ def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
         kw = dict(in_stats=G.gn_channel_stats_reference(x.reshape(b, -1, cin)),
                   gamma=gamma, beta=beta, num_groups=32, eps=eps,
                   silu_in=silu_in)
-        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        gx, bx = gamma.to(dtype), beta.to(dtype)
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    bias16 = bias.to(torch.bfloat16)[:, :, None, None]
+    bias_x = bias.to(dtype)[:, :, None, None]
     res_nchw = None if res is None else res.permute(0, 3, 1, 2)
 
     def library():
         h = x_nchw
         if prologue:
-            h = F.group_norm(h, 32, g16, b16, eps)
+            h = F.group_norm(h, 32, gx, bx, eps)
             h = F.silu(h) if silu_in else h
-        y = F.conv2d(h, w_oihw, padding=(ksize - 1) // 2) + bias16
+        with cudnn_tf32():
+            y = F.conv2d(h, w_oihw, padding=(ksize - 1) // 2) + bias_x
         if res_nchw is not None:
             y = y + res_nchw
         return y, y.sum((2, 3), dtype=f32), y.square().sum((2, 3), dtype=f32)
 
-    run = lambda: C.conv_stats(x, w, bias, skip=res, **kw)
+    def run():
+        saved = C.CONV_F32_CHUNK
+        C.CONV_F32_CHUNK = chunk or saved
+        try:
+            return C.conv_stats(x, w, bias, skip=res, **kw)
+        finally:
+            C.CONV_F32_CHUNK = saved
+
+    esize, peak = _width(dtype)
     stats_of = lambda y: G.gn_channel_stats_reference(y.reshape(b, -1, cout))
+    extra = {}
+    if dtype == f32:
+        extra = {"chunk": chunk or C.CONV_F32_CHUNK,
+                 "plain_version": "fp32, cuDNN with TF32 off",
+                 "library_call": "F.conv2d under TF32 (+ F.group_norm, "
+                                 "F.silu, bias, skip, two sums)"}
     case = _case(
         (b, hh, ww, cin, cout), timed, run,
         lambda: C.conv_stats_reference(x, w, bias, skip=res, **kw), library,
-        2 * (x.numel() + w.numel() + b * hh * ww * cout * (2 if skip else 1))
+        esize * (x.numel() + w.numel()
+                 + b * hh * ww * cout * (2 if skip else 1))
         + 4 * b * cout * 3 + (4 * (2 * b * cin + 2 * cin) if prologue else 0),
-        2 * b * hh * ww * ksize * ksize * cin * cout, PEAK_BF16_FLOPS,
-        stats_from=stats_of, ksize=ksize, prologue=prologue, skip=skip)
+        2 * b * hh * ww * ksize * ksize * cin * cout, peak,
+        stats_from=stats_of, ksize=ksize, prologue=prologue, skip=skip,
+        silu_in=silu_in if prologue else None, dtype=_dtype_name(dtype),
+        **extra)
     first, again = run(), run()
     if not all(torch.equal(a, c) for a, c in zip(first, again)):
         case["rel_err"] = float("inf")
@@ -575,6 +623,12 @@ def phase_kernels():
         _gn_case(gen, 3, 1000, 160, 1e-5, False, False),  # ragged N, C/G = 5
         _gn_case(gen, 2, 77, 2080, 1e-5, True, False),    # two column slabs
         _gn_case(gen, 2, 4096, 64, 1e-5, True, False, mean=100.0, std=0.5),
+        # fp32: first-stage training, vqgan-f4 / kl-f4 at 128 px, batch 16
+        _gn_case(gen, 16, 16384, 128, 1e-6, True, True, dtype=f32),
+        _gn_case(gen, 16, 4096, 256, 1e-6, True, True, dtype=f32),
+        _gn_case(gen, 16, 1024, 512, 1e-6, False, True, dtype=f32),  # attn
+        _gn_case(gen, 3, 1000, 160, 1e-6, True, False, dtype=f32),   # ragged
+        _gn_case(gen, 2, 77, 2080, 1e-6, False, False, dtype=f32),   # 3 slabs
     ]
     stats = [
         _stats_case(gen, 16, 4096, 160, True),
@@ -583,6 +637,10 @@ def phase_kernels():
         _stats_case(gen, 8, 65536, 128, True),
         _stats_case(gen, 3, 1000, 160, False),
         _stats_case(gen, 2, 77, 2080, False),
+        _stats_case(gen, 16, 16384, 128, True, f32),   # first-stage training
+        _stats_case(gen, 16, 4096, 256, True, f32),
+        _stats_case(gen, 16, 1024, 512, True, f32),
+        _stats_case(gen, 3, 1000, 160, False, f32),
     ]
     # shapes as [B, B*H, Nq, Nk, D]; training at batch 8
     # the first timed case of rows 5 and 7 is first-stage training's (their
@@ -639,6 +697,32 @@ def phase_kernels():
         _conv_case(gen, 2, 13, 9, 64, 40, 1, True, False, False, eps=1e-6,
                    silu_in=False),
         _conv_case(gen, 2, 20, 20, 9, 160, 3, False, False, False),  # stem Cin
+        # fp32 (TF32 products): first-stage training at 128 px, batch 16
+        _conv_case(gen, 16, 128, 128, 128, 128, 3, True, False, True,
+                   eps=1e-6, dtype=f32),                     # level-0 conv1
+        _conv_case(gen, 16, 64, 64, 256, 256, 3, True, True, True, eps=1e-6,
+                   dtype=f32),                               # conv2 + skip
+        _conv_case(gen, 16, 32, 32, 512, 512, 3, True, False, True, eps=1e-6,
+                   dtype=f32),
+        _conv_case(gen, 16, 64, 64, 128, 256, 1, False, False, True,
+                   dtype=f32),                               # 1x1, 128->256
+        _conv_case(gen, 16, 32, 32, 512, 1536, 1, True, False, True, eps=1e-6,
+                   silu_in=False, dtype=f32),                # AttnBlock qkv
+        _conv_case(gen, 16, 32, 32, 512, 512, 1, False, True, True,
+                   dtype=f32),                               # proj_out + skip
+        _conv_case(gen, 16, 128, 128, 3, 128, 3, False, False, True,
+                   dtype=f32),                               # stem, Cin = 3
+        # the same convs with 32 input channels a chunk (one block an SM)
+        _conv_case(gen, 16, 128, 128, 128, 128, 3, True, False, True,
+                   eps=1e-6, dtype=f32, chunk=32),
+        _conv_case(gen, 16, 32, 32, 512, 512, 3, True, False, True, eps=1e-6,
+                   dtype=f32, chunk=32),
+        _conv_case(gen, 2, 13, 9, 64, 96, 3, True, True, False, dtype=f32),
+        _conv_case(gen, 2, 13, 9, 64, 40, 1, True, False, False, eps=1e-6,
+                   silu_in=False, dtype=f32),
+        _conv_case(gen, 2, 20, 20, 9, 160, 3, False, False, False, dtype=f32),
+        _conv_case(gen, 2, 9, 7, 3, 512, 3, False, False, False, dtype=f32,
+                   chunk=32),                                # decoder stem
     ]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,
@@ -1153,10 +1237,14 @@ AE_GRAD_PROBES = {
     "VQModel": ("encoder.down_2_attn_0.q.weight", "encoder.mid_attn_1.k.weight",
            "decoder.up_2_attn_2.v.weight", "decoder.mid_attn_1.q.weight",
            "encoder.conv_in.weight", "decoder.conv_out.weight",
-           "quantize.embedding.weight"),
+           "quantize.embedding.weight",
+           # a norm and the conv it folds into under DSML_GN_EPILOGUE
+           "encoder.down_0_block_1.norm1.weight",
+           "encoder.down_0_block_1.conv1.weight"),
     "AutoencoderKL": ("encoder.mid_attn_1.q.weight", "encoder.mid_attn_1.k.weight",
            "decoder.mid_attn_1.v.weight", "encoder.conv_in.weight",
-           "decoder.conv_out.weight"),
+           "decoder.conv_out.weight", "decoder.up_0_block_0.norm2.weight",
+           "decoder.up_0_block_0.conv2.weight"),
 }
 
 
@@ -1196,19 +1284,37 @@ def count_attn_blocks(model):
 
 def expected_ae_launches(model, env, steps, eval_batches):
     """Launches of every kernel for ``steps`` first-stage training steps and
-    ``eval_batches`` validation batches, from the model's own blocks: each
-    AttnBlock once forward and once backward a step (the adaptive weight's
-    two gradients stop at the decoder's last conv), once forward a
-    validation batch. No other kernel runs in fp32 first-stage training."""
+    ``eval_batches`` validation batches under a flag set, from the model's
+    own blocks. A step and a validation batch run the autoencoder forward
+    once (one encode, one decode): every AttnBlock through the split-head
+    forward kernel, every GroupNorm through the whole-row kernel under
+    ``DSML_PALLAS_GN=1`` or the statistics kernel under ``stats``, and the
+    convs ``count_fused_convs`` counts through the conv + statistics kernel
+    under ``DSML_GN_EPILOGUE``. A step's backward launches the attention
+    backward kernel once an AttnBlock (the adaptive weight's two gradients
+    stop at the decoder's last conv) and nothing else: the GroupNorm kernel
+    modes and the conv + statistics op differentiate their plain versions,
+    as in the JAX package. Returns (the run's counts, one step's)."""
     n = count_attn_blocks(model)
     streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
     fwd, bwd = (("flash_attention_streaming", "flash_attention_streaming_bwd")
                 if streaming else ("flash_attention", "flash_attention_bwd"))
+    gn_mode = env.get("DSML_PALLAS_GN", "0")
+    epilogue = env.get("DSML_GN_EPILOGUE", "0")
+    nets = (model.encoder, model.decoder)
+    norms = sum(count_norms(net) for net in nets)
     from dsml_thesis_tpu_torch.ops.attention import LAUNCHES
 
-    out = dict.fromkeys(LAUNCHES, 0)
-    out.update({fwd: n * (steps + eval_batches), bwd: n * steps})
-    return out, {fwd: n, bwd: n}
+    forward = dict.fromkeys(LAUNCHES, 0)
+    forward.update({
+        fwd: n,
+        "group_norm_silu": norms if gn_mode == "1" else 0,
+        "gn_channel_stats": norms if gn_mode == "stats" else 0,
+        "conv_stats": sum(count_fused_convs(net, epilogue) for net in nets),
+    })
+    step = dict(forward, **{bwd: n})
+    runs = {k: steps * step[k] + eval_batches * forward[k] for k in step}
+    return runs, {k: v for k, v in step.items() if v}
 
 
 def _ae_grad_check(trainer, env):
@@ -1434,6 +1540,10 @@ AE_RUNS = (
     ("ae-vq", CONFIG_VQ, {}, 4),
     ("ae-vq-streaming", CONFIG_VQ, {"DSML_FLASH_STREAMING": "1"}, 2),
     ("ae-kl", CONFIG_KL, {}, 2),
+    ("ae-vq-gn", CONFIG_VQ, {"DSML_PALLAS_GN": "1"}, 2),
+    ("ae-kl-stats", CONFIG_KL, {"DSML_PALLAS_GN": "stats"}, 2),
+    ("ae-vq-epilogue", CONFIG_VQ, {"DSML_GN_EPILOGUE": "1"}, 2),
+    ("ae-kl-epilogue-res", CONFIG_KL, {"DSML_GN_EPILOGUE": "res"}, 2),
 )
 
 

@@ -1,10 +1,13 @@
-// GroupNorm(+SiLU) on channel-last tensors, and its channel statistics:
-//   dsml_group_norm_silu   x [B, N, C] bf16 -> y [B, N, C] bf16,
+// GroupNorm(+SiLU) on channel-last tensors, and its channel statistics, for
+// activations in bf16 (the UNet, the first stage in sampling) or fp32 (the
+// first stage in training):
+//   dsml_group_norm_silu[_f32]   x [B, N, C] -> y [B, N, C] of x's type,
 //       fp32 mean / rstd per (batch, group) over N x C/G elements, variance
 //       max(E[x^2] - E[x]^2, 0) with eps inside the root, fp32 affine,
-//       optional SiLU, one cast to bf16;
-//   dsml_gn_channel_stats  x [B, N, C] bf16 -> per (batch, channel) sum and
+//       optional SiLU, one cast to x's type (none in fp32);
+//   dsml_gn_channel_stats[_f32]  x [B, N, C] -> per (batch, channel) sum and
 //       sum of squares, fp32, as sums [2, B, C].
+// Both types run the same kernels: templates on the activation type T.
 //
 // Replace the TPU kernels dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel
 // (group_norm_silu_pallas) and :_gn_stats_kernel (_gn_channel_stats_pallas).
@@ -12,14 +15,15 @@
 // 8 MB) and folds channels into groups with an indicator matrix product; the
 // second carries its sums from one grid step to the next. Neither carries
 // over: a Hopper block holds 227 KB, blocks run in no order, and a batch row
-// (up to 16 MB in the first stage) is one reduction across many blocks.
+// (up to 16 MB in the first stage in bf16, 8 MB at 128 px in fp32) is one
+// reduction across many blocks.
 //
 // Both are bound by bytes: x read once, y written once (or 2 * B * C floats).
 // The design reduces per channel, never per group: C/G is 5 at C = 160, so a
 // group is 10 bytes of each 320-byte row, while channels-last rows read as
-// 16 bytes (8 channels) a thread coalesce whatever C/G is. A block is
-// cvb x rl threads: cvb = min(C / 8, 256) column vectors, rl = 256 / cvb row
-// lanes; a thread keeps its 8 channels for all its rows.
+// 16 bytes a thread (VEC = 8 bf16 or 4 fp32 channels) coalesce whatever C/G
+// is. A block is cvb x rl threads: cvb = min(C / VEC, 256) column vectors,
+// rl = 256 / cvb row lanes; a thread keeps its VEC channels for all its rows.
 //   partial  grid (chunks, B, slabs): sums of a chunk of rows, reduced over
 //            the row lanes in shared memory, to partial [B, chunks, 2, C];
 //   finish   one thread per (batch, channel): adds the chunks' partial sums
@@ -30,22 +34,68 @@
 // No floating-point atomics anywhere: every sum has a fixed order, so equal
 // inputs give equal bits. The statistics pass and the apply pass both read x
 // from device memory; at the UNet's shapes (up to 63 MB a tensor) the second
-// read mostly finds x in the 50 MB L2 cache.
+// read mostly finds x in the 50 MB L2 cache, at the first stage's fp32 shapes
+// (up to 134 MB) much of it does not.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int GN_THREADS = 256;
 
+// 16 bytes of activations as floats: VEC channels, loaded and stored whole.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<bf16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const bf16* p, float (&f)[8]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ __forceinline__ static void store(bf16* p, const float (&f)[8]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&f)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&f)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <int VEC>
 struct GnBlock {
-  int cvb;  // column vectors (8 channels each) of a block
+  int cvb;  // column vectors (VEC channels each) of a block
   int rl;   // row lanes
   int cv;   // this thread's column vector of the row, or -1 if it has none
   int lane; // this thread's row lane
   __device__ __forceinline__ GnBlock(int c) {
-    const int cvs = c / 8;
+    const int cvs = c / VEC;
     cvb = cvs < GN_THREADS ? cvs : GN_THREADS;
     rl = GN_THREADS / cvb;
     lane = threadIdx.x / cvb;
@@ -54,47 +104,38 @@ struct GnBlock {
   }
 };
 
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
+template <typename T>
 __global__ void __launch_bounds__(GN_THREADS)
-gn_partial_kernel(const bf16* __restrict__ x, float* __restrict__ partial,
+gn_partial_kernel(const T* __restrict__ x, float* __restrict__ partial,
                   int n, int c, int rows_per_chunk) {
-  // [2][rl][cvb * 8] floats: at most 2 * 256 * 8
+  constexpr int VEC = Vec<T>::N;
+  // [2][rl][cvb * VEC] floats: at most 2 * 256 * 8
   __shared__ float red[2 * GN_THREADS * 8];
-  const GnBlock blk(c);
+  const GnBlock<VEC> blk(c);
   const int chunk = blockIdx.x;
   const int b = blockIdx.y;
-  const int width = blk.cvb * 8;  // channels of this block's slab
-  float s[8], sq[8];
+  const int width = blk.cvb * VEC;  // channels of this block's slab
+  float s[VEC], sq[VEC];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s[j] = sq[j] = 0.f;
+  for (int j = 0; j < VEC; ++j) s[j] = sq[j] = 0.f;
   if (blk.cv >= 0) {
     const int r_end = min(n, (chunk + 1) * rows_per_chunk);
-    const bf16* xb = x + static_cast<int64_t>(b) * n * c + blk.cv * 8;
+    const T* xb = x + static_cast<int64_t>(b) * n * c + blk.cv * VEC;
     for (int r = chunk * rows_per_chunk + blk.lane; r < r_end; r += blk.rl) {
-      float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(xb + static_cast<int64_t>(r) * c),
-              f);
+      float f[VEC];
+      Vec<T>::load(xb + static_cast<int64_t>(r) * c, f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < VEC; ++j) {
         s[j] += f[j];
         sq[j] += f[j] * f[j];
       }
     }
   }
   if (blk.lane < blk.rl) {
-    float* rs = red + blk.lane * width + (threadIdx.x % blk.cvb) * 8;
+    float* rs = red + blk.lane * width + (threadIdx.x % blk.cvb) * VEC;
     float* rq = rs + blk.rl * width;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < VEC; ++j) {
       rs[j] = s[j];
       rq[j] = sq[j];
     }
@@ -133,14 +174,15 @@ __device__ __forceinline__ float param(const void* p, int i) {
   return static_cast<const float*>(p)[i];
 }
 
-template <bool PARAMS_BF16, bool SILU>
+template <typename T, bool PARAMS_BF16, bool SILU>
 __global__ void __launch_bounds__(GN_THREADS)
-gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ sums,
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ sums,
                 const void* __restrict__ gamma, const void* __restrict__ beta,
-                bf16* __restrict__ y, int batch, int n, int c, int groups,
+                T* __restrict__ y, int batch, int n, int c, int groups,
                 int rows_per_chunk, float inv_count, float eps) {
+  constexpr int VEC = Vec<T>::N;
   extern __shared__ float g_stats[];  // [groups] mean, [groups] rstd
-  const GnBlock blk(c);
+  const GnBlock<VEC> blk(c);
   const int chunk = blockIdx.x;
   const int b = blockIdx.y;
   const int cg = c / groups;
@@ -160,49 +202,46 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ sums,
   __syncthreads();
   if (blk.cv < 0) return;
 
-  float mean[8], rstd[8], ga[8], be[8];
+  float mean[VEC], rstd[VEC], ga[VEC], be[VEC];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int ch = blk.cv * 8 + j;
+  for (int j = 0; j < VEC; ++j) {
+    const int ch = blk.cv * VEC + j;
     mean[j] = g_stats[ch / cg];
     rstd[j] = g_stats[groups + ch / cg];
     ga[j] = param<PARAMS_BF16>(gamma, ch);
     be[j] = param<PARAMS_BF16>(beta, ch);
   }
   const int r_end = min(n, (chunk + 1) * rows_per_chunk);
-  const int64_t base = static_cast<int64_t>(b) * n * c + blk.cv * 8;
+  const int64_t base = static_cast<int64_t>(b) * n * c + blk.cv * VEC;
   for (int r = chunk * rows_per_chunk + blk.lane; r < r_end; r += blk.rl) {
     const int64_t off = base + static_cast<int64_t>(r) * c;
-    float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + off), f);
-    uint4 packed;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+    float f[VEC];
+    Vec<T>::load(x + off, f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < VEC; ++j) {
       float t = (f[j] - mean[j]) * rstd[j] * ga[j] + be[j];
       if (SILU) t = t / (1.f + expf(-t));
       f[j] = t;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      o[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(y + off) = packed;
+    Vec<T>::store(y + off, f);
   }
 }
 
 // The statistics pass: partial sums, then the fixed-order finish.
-static int launch_stats(const bf16* x, float* partial, float* sums, int b,
-                        int n, int c, int chunks, dim3* grid,
-                        int* rows_per_chunk, cudaStream_t stream) {
-  if (b < 1 || n < 1 || c < 8 || c % 8 != 0 || chunks < 1 || chunks > n ||
+template <typename T>
+static int launch_stats(const T* x, float* partial, float* sums, int b, int n,
+                        int c, int chunks, dim3* grid, int* rows_per_chunk,
+                        cudaStream_t stream) {
+  constexpr int VEC = Vec<T>::N;
+  if (b < 1 || n < 1 || c < VEC || c % VEC != 0 || chunks < 1 || chunks > n ||
       b > 65535)
     return -1;
   *rows_per_chunk = (n + chunks - 1) / chunks;
-  const int cvs = c / 8;
+  const int cvs = c / VEC;
   const int cvb = cvs < GN_THREADS ? cvs : GN_THREADS;
   *grid = dim3(chunks, b, (cvs + cvb - 1) / cvb);
-  gn_partial_kernel<<<*grid, GN_THREADS, 0, stream>>>(x, partial, n, c,
-                                                      *rows_per_chunk);
+  gn_partial_kernel<T><<<*grid, GN_THREADS, 0, stream>>>(x, partial, n, c,
+                                                         *rows_per_chunk);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   gn_finish_kernel<<<dim3((2 * c + GN_THREADS - 1) / GN_THREADS, b), GN_THREADS,
@@ -210,45 +249,83 @@ static int launch_stats(const bf16* x, float* partial, float* sums, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [B, N, C] bf16; partial is scratch of B * chunks * 2 * C floats; sums
-// [2, B, C] floats (sum, then sum of squares). Needs C % 8 == 0 and
+template <typename T>
+static int channel_stats(const void* x, void* partial, void* sums, int b,
+                         int n, int c, int chunks, void* stream) {
+  dim3 grid;
+  int rows_per_chunk;
+  return launch_stats(static_cast<const T*>(x), static_cast<float*>(partial),
+                      static_cast<float*>(sums), b, n, c, chunks, &grid,
+                      &rows_per_chunk, static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+static int group_norm_silu(const void* x, const void* gamma, const void* beta,
+                           void* partial, void* sums, void* y, int b, int n,
+                           int c, int groups, int chunks, float eps, int silu,
+                           int params_bf16, void* stream) {
+  constexpr bool BF16 = std::is_same<T, bf16>::value;
+  // bf16 parameters (a model cast for sampling) only beside bf16 activations
+  if (groups < 1 || c % groups != 0 || (params_bf16 && !BF16)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid;
+  int rows_per_chunk;
+  int err = launch_stats(static_cast<const T*>(x),
+                         static_cast<float*>(partial),
+                         static_cast<float*>(sums), b, n, c, chunks, &grid,
+                         &rows_per_chunk, s);
+  if (err != 0) return err;
+  auto kernel = silu ? gn_apply_kernel<T, false, true>
+                     : gn_apply_kernel<T, false, false>;
+  if constexpr (BF16) {
+    if (params_bf16)
+      kernel = silu ? gn_apply_kernel<T, true, true>
+                    : gn_apply_kernel<T, true, false>;
+  }
+  const float inv_count =
+      1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
+  kernel<<<grid, GN_THREADS, 2 * groups * sizeof(float), s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(sums), gamma, beta,
+      static_cast<T*>(y), b, n, c, groups, rows_per_chunk, inv_count, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [B, N, C] bf16 (the _f32 entry: fp32); partial is scratch of
+// B * chunks * 2 * C floats; sums [2, B, C] floats (sum, then sum of
+// squares). Needs C % VEC == 0 (VEC = 8 bf16, 4 fp32) and
 // 1 <= chunks <= N. Returns cudaGetLastError() of the launches (0 =
 // launched), -1 for a shape this file does not take.
 extern "C" int dsml_gn_channel_stats(const void* x, void* partial, void* sums,
                                      int b, int n, int c, int chunks,
                                      void* stream) {
-  dim3 grid;
-  int rows_per_chunk;
-  return launch_stats(static_cast<const bf16*>(x), static_cast<float*>(partial),
-                      static_cast<float*>(sums), b, n, c, chunks, &grid,
-                      &rows_per_chunk, static_cast<cudaStream_t>(stream));
+  return channel_stats<bf16>(x, partial, sums, b, n, c, chunks, stream);
 }
 
-// x, y [B, N, C] bf16; gamma, beta [C], bf16 if params_bf16 else fp32;
-// partial and sums as above (scratch). Also needs C % groups == 0.
+extern "C" int dsml_gn_channel_stats_f32(const void* x, void* partial,
+                                         void* sums, int b, int n, int c,
+                                         int chunks, void* stream) {
+  return channel_stats<float>(x, partial, sums, b, n, c, chunks, stream);
+}
+
+// x, y [B, N, C] bf16 (the _f32 entry: fp32); gamma, beta [C], bf16 if
+// params_bf16 (bf16 entry only) else fp32; partial and sums as above
+// (scratch). Also needs C % groups == 0.
 extern "C" int dsml_group_norm_silu(const void* x, const void* gamma,
                                     const void* beta, void* partial, void* sums,
                                     void* y, int b, int n, int c, int groups,
                                     int chunks, float eps, int silu,
                                     int params_bf16, void* stream) {
-  if (groups < 1 || c % groups != 0) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid;
-  int rows_per_chunk;
-  int err = launch_stats(static_cast<const bf16*>(x),
-                         static_cast<float*>(partial),
-                         static_cast<float*>(sums), b, n, c, chunks, &grid,
-                         &rows_per_chunk, s);
-  if (err != 0) return err;
-  auto kernel = params_bf16
-                    ? (silu ? gn_apply_kernel<true, true>
-                            : gn_apply_kernel<true, false>)
-                    : (silu ? gn_apply_kernel<false, true>
-                            : gn_apply_kernel<false, false>);
-  const float inv_count =
-      1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
-  kernel<<<grid, GN_THREADS, 2 * groups * sizeof(float), s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(sums), gamma, beta,
-      static_cast<bf16*>(y), b, n, c, groups, rows_per_chunk, inv_count, eps);
-  return static_cast<int>(cudaGetLastError());
+  return group_norm_silu<bf16>(x, gamma, beta, partial, sums, y, b, n, c,
+                               groups, chunks, eps, silu, params_bf16, stream);
+}
+
+extern "C" int dsml_group_norm_silu_f32(const void* x, const void* gamma,
+                                        const void* beta, void* partial,
+                                        void* sums, void* y, int b, int n,
+                                        int c, int groups, int chunks,
+                                        float eps, int silu, int params_bf16,
+                                        void* stream) {
+  return group_norm_silu<float>(x, gamma, beta, partial, sums, y, b, n, c,
+                                groups, chunks, eps, silu, params_bf16,
+                                stream);
 }

@@ -27,8 +27,9 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_packed.cu", "flash_attention_qout.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
-           "group_norm.cu", "conv_stats.cu")
-HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh", "attention_f32.cuh")
+           "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
+HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh", "attention_f32.cuh",
+           "conv_stats.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -141,10 +142,18 @@ def load() -> ctypes.CDLL:
             lib.dsml_conv_stats.argtypes = (
                 [p] * 11 + [i, i, i, i, i, i, i, i, f, i, p])
             lib.dsml_conv_stats.restype = i
+            lib.dsml_conv_stats_f32.argtypes = (
+                [p] * 11 + [i, i, i, i, i, i, i, i, f, i, i, p])
+            lib.dsml_conv_stats_f32.restype = i
             lib.dsml_gn_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
             lib.dsml_gn_channel_stats.restype = i
             lib.dsml_group_norm_silu.argtypes = (
                 [p] * 6 + [i, i, i, i, i, f, i, i, p])
             lib.dsml_group_norm_silu.restype = i
+            # the GroupNorm kernels' fp32 instantiations, same arguments
+            for name in ("dsml_gn_channel_stats", "dsml_group_norm_silu"):
+                f32 = getattr(lib, name + "_f32")
+                f32.argtypes = getattr(lib, name).argtypes
+                f32.restype = i
             _lib = lib
         return _lib

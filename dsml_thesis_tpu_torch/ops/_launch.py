@@ -17,6 +17,11 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# activation types of the GroupNorm and conv + statistics kernels: bf16 (the
+# UNet, the first stage in sampling) and fp32 (first-stage training)
+ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -31,6 +36,12 @@ def check_cuda_operand(name: str, t: torch.Tensor, like: torch.Tensor,
                         f"{' or '.join(str(d) for d in dtypes)} only")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def typed_entry(name: str, t: torch.Tensor) -> str:
+    """The C entry point of a kernel for t's type: ``name`` for bf16,
+    ``name + "_f32"`` for fp32."""
+    return name + ("_f32" if t.dtype == torch.float32 else "")
 
 
 def raise_on_error(code: int, what: str) -> None:

@@ -4,7 +4,9 @@ and the apply that normalizes from such statistics.
 ``conv_stats``  x [B, H, W, Cin], w [K, K, Cin, Cout] (K = 1 or 3), bias
     [B, Cout] fp32 (+ skip [B, H, W, Cout]; + in_stats, gamma, beta)
     -> (y [B, H, W, Cout], ch_sum [B, Cout] fp32, ch_sq [B, Cout] fp32)
-    kernel ``csrc/conv_stats.cu``; replaces the TPU kernel
+    kernel ``csrc/conv_stats.cuh`` (entry points ``dsml_conv_stats`` in
+    ``conv_stats.cu`` for bf16, ``dsml_conv_stats_f32`` in
+    ``conv_stats_f32.cu`` for fp32); replaces the TPU kernel
     ``dsml_thesis_tpu/ops/conv_gn.py:_conv_kernel`` (``conv_stats_pallas``).
     SAME stride-1 conv, fp32 accumulation, plus a per-batch bias (the conv
     bias and the timestep vector of a ResBlock), plus an optional skip, one
@@ -14,6 +16,15 @@ and the apply that normalizes from such statistics.
     that. Bound by operations; an implicit GEMM over 16 x 16 pixel patches.
     The layouts are the JAX package's (NHWC, HWIO): a caller that holds
     ``torch.nn.Conv2d`` weights permutes them once a call.
+
+Types. x, w and skip are of one type, bf16 (the UNet; the first stage in
+sampling) or fp32 (first-stage training), on every device: a mixed call
+raises ``TypeError``. bias, the statistics, gamma and beta are fp32 (the op
+brings statistics and norm parameters to fp32). In bf16 the kernel multiplies
+bf16 operands exactly; in fp32 it multiplies on the tensor cores in TF32
+(operands rounded once, fp32 accumulation), where the plain version's cuDNN
+conv follows the caller's ``torch.backends.cudnn.allow_tf32``.
+``CONV_F32_CHUNK`` is the input channels an fp32 block loads at a time.
 
 ``group_norm_silu_apply`` is ``ops.groupnorm.group_norm_silu_from_stats``: the
 one fold from channel sums to a normalized tensor, shared with the kernel's
@@ -41,12 +52,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._launch import LAUNCHES, check_cuda_operand, current_stream, raise_on_error
+from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
+                      current_stream, raise_on_error, typed_entry)
 from .groupnorm import group_norm_silu_from_stats
 
 CONV_TILE_W = 16                   # output columns of a block (conv_stats.cu)
 CONV_MIN_COUT = 32                 # narrower outputs take the plain conv
 CONV_MAX_GROUPS = 64               # groups of the input norm the kernel takes
+CONV_F32_CHUNK = 16                # input channels of an fp32 block's chunk
 
 group_norm_silu_apply = group_norm_silu_from_stats
 
@@ -105,11 +118,11 @@ def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
     b, hh, ww, cin = x.shape
     ksize, cout = w.shape[0], w.shape[-1]
     f32 = (torch.float32,)
-    check_cuda_operand("x", x, x)
-    check_cuda_operand("w", w, x)
+    check_cuda_operand("x", x, x, ACTIVATION_DTYPES)
+    check_cuda_operand("w", w, x, (x.dtype,))
     check_cuda_operand("bias", bias, x, f32)
     if skip is not None:
-        check_cuda_operand("skip", skip, x)
+        check_cuda_operand("skip", skip, x, (x.dtype,))
     if cout % 8:
         raise ValueError(f"conv_stats: Cout={cout} must be a multiple of 8")
     null = [None] * 4
@@ -124,7 +137,7 @@ def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
             check_cuda_operand(name, t, x, f32)
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), typed_entry("dsml_conv_stats", x))
     rows = conv_tile_rows(hh, ksize)
     tiles = -(-hh // rows) * -(-ww // CONV_TILE_W)
     y = torch.empty((b, hh, ww, cout), dtype=x.dtype, device=x.device)
@@ -132,10 +145,11 @@ def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
                           device=x.device)
     sums = torch.empty((2, b, cout), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    code = lib.dsml_conv_stats(
+    chunk = (CONV_F32_CHUNK,) if x.dtype == torch.float32 else ()
+    code = launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(skip), *map(ptr, null),
         y.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, hh, ww, cin,
-        cout, ksize, rows, num_groups, float(eps), int(silu_in),
+        cout, ksize, rows, num_groups, float(eps), int(silu_in), *chunk,
         current_stream(x))
     raise_on_error(code, "conv_stats")
     LAUNCHES["conv_stats"] += 1
@@ -202,6 +216,10 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"shape {(*x.shape[:3], cout)}")
     if in_stats is not None and (gamma is None or beta is None):
         raise ValueError("in_stats needs gamma and beta")
+    for name, t in (("w", w), ("skip", skip)):
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f"conv_stats: {name} is {t.dtype}, x {x.dtype}: "
+                            f"x, w and skip take one type")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv_stats: unsupported device {x.device}")
     if x.device.type == "cpu" or cout < CONV_MIN_COUT:

@@ -4,17 +4,24 @@ default: ``0`` plain ops, ``1`` the whole-row kernel, ``stats`` the statistics
 kernel followed by a plain apply).
 
 ``group_norm_silu_kernel``  x [B, ..., C] -> same shape
-    kernel ``csrc/group_norm.cu`` (``dsml_group_norm_silu``); replaces the TPU
-    kernel ``dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel``
+    kernel ``csrc/group_norm.cu`` (``dsml_group_norm_silu``, fp32:
+    ``dsml_group_norm_silu_f32``); replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel``
     (``group_norm_silu_pallas``). Bound by bytes; statistics pass and apply
     pass in one launch, reduced per channel so that C/G = 5 costs nothing.
     Takes every row size (the TPU kernel's 8 MB limit is not carried over).
 
 ``gn_channel_stats``        x [B, N, C] -> (sum, sum of squares), [B, C] fp32
-    kernel ``csrc/group_norm.cu`` (``dsml_gn_channel_stats``); replaces the
-    TPU kernel ``dsml_thesis_tpu/ops/groupnorm.py:_gn_stats_kernel``
+    kernel ``csrc/group_norm.cu`` (``dsml_gn_channel_stats``, fp32:
+    ``dsml_gn_channel_stats_f32``); replaces the TPU kernel
+    ``dsml_thesis_tpu/ops/groupnorm.py:_gn_stats_kernel``
     (``_gn_channel_stats_pallas``). Bound by bytes; one read of x, sums in a
     fixed order (no atomics), so equal inputs give equal bits.
+
+Types. x is bf16 (the UNet; the first stage in sampling) or fp32 (the first
+stage in training, as the JAX package trains it); the output has x's type.
+gamma and beta are fp32 or x's own type (bf16 beside bf16 x: a model cast
+for sampling), on every device: another pairing raises ``TypeError``.
 
 A wrapper takes its plain version (``group_norm_silu_reference``,
 ``gn_channel_stats_reference``) only for a tensor on the CPU; for a CUDA
@@ -36,7 +43,8 @@ from typing import Tuple
 import torch
 
 from ..flags import env_mode
-from ._launch import LAUNCHES, check_cuda_operand, current_stream, raise_on_error
+from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
+                      current_stream, raise_on_error, typed_entry)
 
 GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
 
@@ -44,6 +52,18 @@ GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
 def _check_groups(c: int, num_groups: int) -> None:
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+
+
+def _check_params(x: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor) -> None:
+    """gamma / beta [C] of one type, fp32 or x's own, on every device."""
+    c = x.shape[-1]
+    if gamma.shape != (c,) or beta.shape != (c,) or gamma.dtype != beta.dtype:
+        raise ValueError(f"gamma{tuple(gamma.shape)} / beta{tuple(beta.shape)} "
+                         f"must both be [{c}] of one type")
+    if gamma.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"gamma / beta are {gamma.dtype} beside x of "
+                        f"{x.dtype}: fp32 or x's type only")
 
 
 # --------------------------------------------------------------------------
@@ -144,16 +164,15 @@ def gn_channel_stats(x3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return gn_channel_stats_reference(x3)
     if x3.device.type != "cuda":
         raise ValueError(f"gn_channel_stats: unsupported device {x3.device}")
-    check_cuda_operand("x", x3, x3)
+    check_cuda_operand("x", x3, x3, ACTIVATION_DTYPES)
     b, n, c = x3.shape
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), typed_entry("dsml_gn_channel_stats", x3))
     chunks = gn_chunks(n, c)
     partial, sums = _stats_scratch(x3, chunks)
-    code = lib.dsml_gn_channel_stats(x3.data_ptr(), partial.data_ptr(),
-                                     sums.data_ptr(), b, n, c, chunks,
-                                     current_stream(x3))
+    code = launch(x3.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, n, c,
+                  chunks, current_stream(x3))
     raise_on_error(code, "gn_channel_stats")
     LAUNCHES["gn_channel_stats"] += 1
     return sums[0], sums[1]
@@ -166,6 +185,7 @@ def group_norm_silu_stats_fused(x: torch.Tensor, gamma: torch.Tensor,
     """GroupNorm(+SiLU) with the statistics from ``gn_channel_stats`` and the
     normalize / affine / SiLU as plain ops."""
     _check_groups(x.shape[-1], num_groups)
+    _check_params(x, gamma, beta)
     return _ReferenceBackward.apply(_stats_fused_forward, num_groups, eps,
                                     silu, x, gamma, beta)
 
@@ -182,12 +202,9 @@ def group_norm_silu_kernel(x: torch.Tensor, gamma: torch.Tensor,
                            eps: float = 1e-5, silu: bool = True
                            ) -> torch.Tensor:
     """Whole-row GroupNorm(+SiLU) in one launch. x [B, ..., C] (channels
-    last) -> same shape and type; gamma / beta [C] in fp32 or bf16."""
-    b, c = x.shape[0], x.shape[-1]
-    _check_groups(c, num_groups)
-    if gamma.shape != (c,) or beta.shape != (c,) or gamma.dtype != beta.dtype:
-        raise ValueError(f"gamma{tuple(gamma.shape)} / beta{tuple(beta.shape)} "
-                         f"must both be [{c}] of one type")
+    last) -> same shape and type; gamma / beta [C] in fp32 or x's type."""
+    _check_groups(x.shape[-1], num_groups)
+    _check_params(x, gamma, beta)
     return _ReferenceBackward.apply(_whole_row_forward, num_groups, eps, silu,
                                     x, gamma, beta)
 
@@ -199,18 +216,18 @@ def _whole_row_forward(x, gamma, beta, num_groups, eps, silu):
                                          eps=eps, silu=silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_silu_kernel: unsupported device {x.device}")
-    check_cuda_operand("x", x, x)
+    check_cuda_operand("x", x, x, ACTIVATION_DTYPES)
     for name, t in (("gamma", gamma), ("beta", beta)):
-        check_cuda_operand(name, t, x, (torch.bfloat16, torch.float32))
+        check_cuda_operand(name, t, x, (torch.float32, x.dtype))
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), typed_entry("dsml_group_norm_silu", x))
     x3 = x.reshape(b, -1, c)
     n = x3.shape[1]
     chunks = gn_chunks(n, c)
     partial, sums = _stats_scratch(x3, chunks)
     out = torch.empty_like(x)
-    code = lib.dsml_group_norm_silu(
+    code = launch(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
         sums.data_ptr(), out.data_ptr(), b, n, c, num_groups, chunks,
         float(eps), int(silu), int(gamma.dtype == torch.bfloat16),
