@@ -495,15 +495,14 @@ def cudnn_tf32():
 
 
 def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
-               eps=1e-5, silu_in=True, dtype=torch.bfloat16, chunk=None):
+               eps=1e-5, silu_in=True, dtype=torch.bfloat16):
     """conv_stats: y against the plain version's (in fp32 with TF32 off: the
     disagreement is the kernel's TF32 rounding); the statistics against the
     sums of the kernel's own stored y (a y that rounds the other way at a bf16
     tie moves a sum by more than the sums' tolerance, and is no fault), with
     the same bits from a second call. The yardstick: ``F.group_norm`` +
     ``F.silu`` (prologue cases), ``F.conv2d`` (in fp32 under TF32, as the
-    kernel multiplies), + bias (+ skip), two sums. ``chunk`` sets the input
-    channels of an fp32 block's chunk for this case."""
+    kernel multiplies), + bias (+ skip), two sums."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import conv_gn as C
     from dsml_thesis_tpu_torch.ops import groupnorm as G
@@ -538,20 +537,12 @@ def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
             y = y + res_nchw
         return y, y.sum((2, 3), dtype=f32), y.square().sum((2, 3), dtype=f32)
 
-    def run():
-        saved = C.CONV_F32_CHUNK
-        C.CONV_F32_CHUNK = chunk or saved
-        try:
-            return C.conv_stats(x, w, bias, skip=res, **kw)
-        finally:
-            C.CONV_F32_CHUNK = saved
-
+    run = lambda: C.conv_stats(x, w, bias, skip=res, **kw)
     esize, peak = _width(dtype)
     stats_of = lambda y: G.gn_channel_stats_reference(y.reshape(b, -1, cout))
     extra = {}
     if dtype == f32:
-        extra = {"chunk": chunk or C.CONV_F32_CHUNK,
-                 "plain_version": "fp32, cuDNN with TF32 off",
+        extra = {"plain_version": "fp32, cuDNN with TF32 off",
                  "library_call": "F.conv2d under TF32 (+ F.group_norm, "
                                  "F.silu, bias, skip, two sums)"}
     case = _case(
@@ -712,17 +703,12 @@ def phase_kernels():
                    dtype=f32),                               # proj_out + skip
         _conv_case(gen, 16, 128, 128, 3, 128, 3, False, False, True,
                    dtype=f32),                               # stem, Cin = 3
-        # the same convs with 32 input channels a chunk (one block an SM)
-        _conv_case(gen, 16, 128, 128, 128, 128, 3, True, False, True,
-                   eps=1e-6, dtype=f32, chunk=32),
-        _conv_case(gen, 16, 32, 32, 512, 512, 3, True, False, True, eps=1e-6,
-                   dtype=f32, chunk=32),
         _conv_case(gen, 2, 13, 9, 64, 96, 3, True, True, False, dtype=f32),
         _conv_case(gen, 2, 13, 9, 64, 40, 1, True, False, False, eps=1e-6,
                    silu_in=False, dtype=f32),
         _conv_case(gen, 2, 20, 20, 9, 160, 3, False, False, False, dtype=f32),
-        _conv_case(gen, 2, 9, 7, 3, 512, 3, False, False, False, dtype=f32,
-                   chunk=32),                                # decoder stem
+        _conv_case(gen, 2, 9, 7, 3, 512, 3, False, False, False,
+                   dtype=f32),                               # decoder stem
     ]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,

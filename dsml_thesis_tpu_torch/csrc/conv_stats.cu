@@ -17,7 +17,7 @@ extern "C" int dsml_conv_stats(const void* x, const void* w, const void* bias,
                                void* sums, int b, int hh, int ww, int cin,
                                int cout, int ksize, int tile_rows, int groups,
                                float eps, int silu, void* stream) {
-  return conv::dispatch<bf16, 32>(x, w, bias, skip, in_sum, in_sq, gamma, beta,
-                                  y, partial, sums, b, hh, ww, cin, cout, ksize,
-                                  tile_rows, groups, eps, silu, stream);
+  return conv::dispatch<bf16>(x, w, bias, skip, in_sum, in_sq, gamma, beta, y,
+                              partial, sums, b, hh, ww, cin, cout, ksize,
+                              tile_rows, groups, eps, silu, stream);
 }

@@ -36,11 +36,11 @@
 // card idle. Here the conv is an implicit GEMM on mma.sync: a block owns a
 // 16 x 16 (or, for K = 1 and for images of up to 8 rows, 8 x 16) patch of
 // output pixels of one image and 64 output channels, a warp two patch rows,
-// and walks Cin in chunks of KC (32 in bf16; 16 or 32 in fp32, the caller's
-// choice). For a chunk it loads the patch with its one-pixel halo once into
-// shared memory and the chunk's weights of all K * K taps; a tap is then the
-// same tile read at shifted pixel rows (a fragment load takes a row address
-// per lane, so the shift costs nothing), never a gathered copy.
+// and walks Cin in chunks of KC (32 in bf16, 16 in fp32). For a chunk it
+// loads the patch with its one-pixel halo once into shared memory and the
+// chunk's weights of all K * K taps; a tap is then the same tile read at
+// shifted pixel rows (a fragment load takes a row address per lane, so the
+// shift costs nothing), never a gathered copy.
 //   * The input's GroupNorm(+SiLU) is applied while the halo tile is loaded:
 //     once a block, the channel sums are folded into the groups' mean and
 //     rstd (variance max(E[x^2] - E[x]^2, 0), eps inside the root) and from
@@ -59,13 +59,12 @@
 // Bound: operations (2 * B * H * W * K * K * Cin * Cout against the bytes of
 // x, w, skip and y once each) for every shape of the UNet and the first
 // stage; the 1 x 1 convs at small Cin and the stem are close to or on the
-// bytes side. Shared memory a block, K = 3, 16 x 16 patch: 67,392 bytes for
-// bf16 at KC = 32 and for fp32 at KC = 16 (room for three blocks an SM),
-// 129,600 for fp32 at KC = 32 (one), plus 2 Cin floats with the norm. This
-// first version loads synchronously and single-buffered, re-reads the input
-// patch once per 64 output channels and masks a last, partly empty channel
-// tile (Cout = 160 wastes a sixth); cp.async / TMA pipelining, wgmma and a
-// channel tile that divides Cout are later work.
+// bytes side. Shared memory a block, K = 3, 16 x 16 patch: 67,392 bytes in
+// either type, plus 2 Cin floats with the norm. This first version loads
+// synchronously and single-buffered, re-reads the input patch once per 64
+// output channels and masks a last, partly empty channel tile (Cout = 160
+// wastes a sixth); cp.async / TMA pipelining, wgmma and a channel tile that
+// divides Cout are later work.
 #pragma once
 
 #include "attention_f32.cuh"
@@ -81,14 +80,16 @@ constexpr int BNC = 64;         // output channels of a block
 constexpr int MAX_GROUPS = 64;  // of the input GroupNorm
 
 // What the activation type decides: the shared-memory element (bf16, or the
-// TF32 bits of an fp32 value), channels of a 16-byte load, the tensor-core
-// step's depth and the rows' padding in elements.
+// TF32 bits of an fp32 value), the input channels of a chunk, channels of a
+// 16-byte load, the tensor-core step's depth and the rows' padding in
+// elements.
 template <typename T>
 struct Traits;
 
 template <>
 struct Traits<bf16> {
   using S = bf16;
+  static constexpr int KC = 32;  // input channels of a chunk
   static constexpr int VEC = 8;
   static constexpr int KSTEP = 16;
   static constexpr int PADX = PAD;
@@ -98,6 +99,11 @@ struct Traits<bf16> {
 template <>
 struct Traits<float> {
   using S = uint32_t;
+  // 16 input channels a chunk: a K = 3 block takes 67,392 bytes of shared
+  // memory and 126 registers a thread, so two blocks share an SM and one's
+  // loads overlap the other's products (32 channels: one block an SM,
+  // 1.5-1.7x slower on an H100 at the first stage's K = 3 shapes)
+  static constexpr int KC = 16;
   static constexpr int VEC = 4;
   static constexpr int KSTEP = 8;
   static constexpr int PADX = 4;  // x rows of KC + 4 words: 4 banks apart
@@ -107,11 +113,11 @@ struct Traits<float> {
 // Bytes of shared memory of the tiles of a block with TH patch rows: the halo
 // tile and the weights of a chunk. With the input norm, a scale and a shift
 // per input channel (fp32) follow them.
-template <typename T, int KS, int TH, int KC>
+template <typename T, int KS, int TH>
 constexpr int tile_bytes() {
   using Tr = Traits<T>;
-  return ((TH + KS - 1) * (TW + KS - 1) * (KC + Tr::PADX) +
-          KS * KS * KC * (BNC + Tr::PADW)) *
+  return ((TH + KS - 1) * (TW + KS - 1) * (Tr::KC + Tr::PADX) +
+          KS * KS * Tr::KC * (BNC + Tr::PADW)) *
          static_cast<int>(sizeof(typename Tr::S));
 }
 
@@ -285,7 +291,7 @@ __device__ __forceinline__ float2 store_pair(float* y, float v0, float v1) {
 
 // TH output rows of a block's patch; TH / 2 warps, warp w owns patch rows
 // 2 w and 2 w + 1.
-template <typename T, int KS, bool GN, int TH, int KC>
+template <typename T, int KS, bool GN, int TH>
 __global__ void __launch_bounds__(TH * 16)
 conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ bias, const T* __restrict__ skip,
@@ -298,6 +304,7 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   float inv_count, float eps, int silu) {
   using Tr = Traits<T>;
   using S = typename Tr::S;
+  constexpr int KC = Tr::KC;
   constexpr int VEC = Tr::VEC;
   constexpr int NTHREADS = TH * 16;
   constexpr int HALO_H = TH + KS - 1;
@@ -478,14 +485,14 @@ conv_stats_finish_kernel(const float* __restrict__ partial,
   sums[(static_cast<int64_t>(which) * batch + b) * cout + i % cout] = t;
 }
 
-template <typename T, int KS, bool GN, int TH, int KC>
+template <typename T, int KS, bool GN, int TH>
 int launch(const T* x, const T* w, const float* bias, const T* skip,
            const float* in_sum, const float* in_sq, const float* gamma,
            const float* beta, T* y, float* partial, float* sums, int b, int hh,
            int ww, int cin, int cout, int groups, float eps, int silu,
            cudaStream_t stream) {
-  auto kernel = conv_stats_kernel<T, KS, GN, TH, KC>;
-  const int smem = tile_bytes<T, KS, TH, KC>() +
+  auto kernel = conv_stats_kernel<T, KS, GN, TH>;
+  const int smem = tile_bytes<T, KS, TH>() +
                    (GN ? 2 * ((cin + 7) / 8 * 8) * static_cast<int>(sizeof(float))
                        : 0);
   if (smem > 232448) return -1;  // what a block may use
@@ -509,8 +516,8 @@ int launch(const T* x, const T* w, const float* bias, const T* skip,
 }
 
 // The C entry points' common body: the shape checks, then the instantiation
-// for (K, input norm, patch rows) at chunk KC.
-template <typename T, int KC>
+// for (K, input norm, patch rows).
+template <typename T>
 int dispatch(const void* x, const void* w, const void* bias, const void* skip,
              const void* in_sum, const void* in_sq, const void* gamma,
              const void* beta, void* y, void* partial, void* sums, int b,
@@ -530,10 +537,10 @@ int dispatch(const void* x, const void* w, const void* bias, const void* skip,
   T* yo = static_cast<T*>(y);
   float* pa = static_cast<float*>(partial);
   float* su = static_cast<float*>(sums);
-#define DSML_CONV_LAUNCH(KS, GN, TH)                                     \
-  launch<T, KS, GN, TH, KC>(ct(x), ct(w), cf(bias), ct(skip), cf(in_sum), \
-                            cf(in_sq), cf(gamma), cf(beta), yo, pa, su, b, \
-                            hh, ww, cin, cout, groups, eps, silu, s)
+#define DSML_CONV_LAUNCH(KS, GN, TH)                                    \
+  launch<T, KS, GN, TH>(ct(x), ct(w), cf(bias), ct(skip), cf(in_sum),   \
+                        cf(in_sq), cf(gamma), cf(beta), yo, pa, su, b, hh, \
+                        ww, cin, cout, groups, eps, silu, s)
 #define DSML_CONV_ROWS(KS, GN)                                                \
   (tile_rows == 8 ? DSML_CONV_LAUNCH(KS, GN, 8) : DSML_CONV_LAUNCH(KS, GN, 16))
   if (ksize == 1)

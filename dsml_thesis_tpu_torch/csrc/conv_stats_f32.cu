@@ -3,10 +3,9 @@
 // conv_stats.cuh.
 #include "conv_stats.cuh"
 
-// As dsml_conv_stats (conv_stats.cu) with x, w, skip, y fp32, and
-// chunk_channels, the input channels a block loads at a time: 16 (two blocks
-// an SM) or 32 (one). Returns cudaGetLastError() of the launches (0 =
-// launched), or -1 for a shape or a chunk this file does not take.
+// As dsml_conv_stats (conv_stats.cu) with x, w, skip, y fp32. Returns
+// cudaGetLastError() of the launches (0 = launched), or -1 for a shape this
+// file does not take.
 extern "C" int dsml_conv_stats_f32(const void* x, const void* w,
                                    const void* bias, const void* skip,
                                    const void* in_sum, const void* in_sq,
@@ -14,17 +13,8 @@ extern "C" int dsml_conv_stats_f32(const void* x, const void* w,
                                    void* y, void* partial, void* sums, int b,
                                    int hh, int ww, int cin, int cout,
                                    int ksize, int tile_rows, int groups,
-                                   float eps, int silu, int chunk_channels,
-                                   void* stream) {
-  if (chunk_channels == 16)
-    return conv::dispatch<float, 16>(x, w, bias, skip, in_sum, in_sq, gamma,
-                                     beta, y, partial, sums, b, hh, ww, cin,
-                                     cout, ksize, tile_rows, groups, eps, silu,
-                                     stream);
-  if (chunk_channels == 32)
-    return conv::dispatch<float, 32>(x, w, bias, skip, in_sum, in_sq, gamma,
-                                     beta, y, partial, sums, b, hh, ww, cin,
-                                     cout, ksize, tile_rows, groups, eps, silu,
-                                     stream);
-  return -1;
+                                   float eps, int silu, void* stream) {
+  return conv::dispatch<float>(x, w, bias, skip, in_sum, in_sq, gamma, beta, y,
+                               partial, sums, b, hh, ww, cin, cout, ksize,
+                               tile_rows, groups, eps, silu, stream);
 }

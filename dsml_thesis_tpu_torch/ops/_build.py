@@ -142,16 +142,14 @@ def load() -> ctypes.CDLL:
             lib.dsml_conv_stats.argtypes = (
                 [p] * 11 + [i, i, i, i, i, i, i, i, f, i, p])
             lib.dsml_conv_stats.restype = i
-            lib.dsml_conv_stats_f32.argtypes = (
-                [p] * 11 + [i, i, i, i, i, i, i, i, f, i, i, p])
-            lib.dsml_conv_stats_f32.restype = i
             lib.dsml_gn_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
             lib.dsml_gn_channel_stats.restype = i
             lib.dsml_group_norm_silu.argtypes = (
                 [p] * 6 + [i, i, i, i, i, f, i, i, p])
             lib.dsml_group_norm_silu.restype = i
-            # the GroupNorm kernels' fp32 instantiations, same arguments
-            for name in ("dsml_gn_channel_stats", "dsml_group_norm_silu"):
+            # their fp32 instantiations (first-stage training), same arguments
+            for name in ("dsml_conv_stats", "dsml_gn_channel_stats",
+                         "dsml_group_norm_silu"):
                 f32 = getattr(lib, name + "_f32")
                 f32.argtypes = getattr(lib, name).argtypes
                 f32.restype = i

@@ -24,7 +24,6 @@ brings statistics and norm parameters to fp32). In bf16 the kernel multiplies
 bf16 operands exactly; in fp32 it multiplies on the tensor cores in TF32
 (operands rounded once, fp32 accumulation), where the plain version's cuDNN
 conv follows the caller's ``torch.backends.cudnn.allow_tf32``.
-``CONV_F32_CHUNK`` is the input channels an fp32 block loads at a time.
 
 ``group_norm_silu_apply`` is ``ops.groupnorm.group_norm_silu_from_stats``: the
 one fold from channel sums to a normalized tensor, shared with the kernel's
@@ -59,7 +58,6 @@ from .groupnorm import group_norm_silu_from_stats
 CONV_TILE_W = 16                   # output columns of a block (conv_stats.cu)
 CONV_MIN_COUT = 32                 # narrower outputs take the plain conv
 CONV_MAX_GROUPS = 64               # groups of the input norm the kernel takes
-CONV_F32_CHUNK = 16                # input channels of an fp32 block's chunk
 
 group_norm_silu_apply = group_norm_silu_from_stats
 
@@ -145,11 +143,10 @@ def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
                           device=x.device)
     sums = torch.empty((2, b, cout), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    chunk = (CONV_F32_CHUNK,) if x.dtype == torch.float32 else ()
     code = launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(skip), *map(ptr, null),
         y.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, hh, ww, cin,
-        cout, ksize, rows, num_groups, float(eps), int(silu_in), *chunk,
+        cout, ksize, rows, num_groups, float(eps), int(silu_in),
         current_stream(x))
     raise_on_error(code, "conv_stats")
     LAUNCHES["conv_stats"] += 1
