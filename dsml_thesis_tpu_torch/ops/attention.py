@@ -74,7 +74,7 @@ kernels also take fp32 tensors at head width 512 (``F32_HEAD_DIMS``): the
 first stage's single-head attention block in first-stage training, which
 runs in fp32 as the JAX package's does. Those instantiations multiply on the
 tensor cores in TF32 (operands rounded once, fp32 accumulation and softmax;
-``csrc/attention_f32.cuh``); every other kernel takes bf16 only.
+``csrc/attention_f32.cuh``); every other attention kernel takes bf16 only.
 
 ``multi_head_attention`` is the split-head dispatch between
 ``flash_attention`` and ``flash_attention_streaming`` under
