@@ -170,7 +170,9 @@ def phase_build():
     t0 = time.monotonic()
     _build.load()
     report = [ln.strip() for ln in _build.build_log.splitlines()
-              if "registers" in ln or "spill" in ln]
+              if "registers" in ln or "spill" in ln
+              or "Compiling entry function" in ln
+              or "Performance Loss" in ln]
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "nvcc_seconds": _build.build_seconds, "sources": list(_build.SOURCES),
           "ptxas": report})
@@ -266,12 +268,17 @@ def _fproj_case(gen, b, n, c, heads, timed):
             scale=scale)
         return F.linear(o.transpose(1, 2).reshape(b, n, hd), wo, bo)
 
-    return _case(
-        (b, n, c, heads), timed,
-        lambda: A.flash_attention_fproj(*args, scale=scale),
+    run = lambda: A.flash_attention_fproj(*args, scale=scale)
+    case = _case(
+        (b, n, c, heads), timed, run,
         lambda: A.fproj_reference(*args, scale=scale), library,
         2 * (2 * b * n * c + 4 * c * hd + c),
         2 * b * n * c * hd * 4 + 4 * b * n * n * hd, PEAK_BF16_FLOPS, iters=20)
+    same = torch.equal(run(), run())
+    if not same:
+        case["rel_err"] = float("inf")
+    case["repeatable"] = same
+    return case
 
 
 def _packed_case(gen, b, nq, nk, heads, d, timed):
@@ -586,6 +593,7 @@ def phase_kernels():
         _fproj_case(gen, 3, 200, 320, 10, False),    # ragged N
         _fproj_case(gen, 2, 100, 128, 2, False),     # 64-wide heads
         _fproj_case(gen, 2, 300, 160, 5, False),     # H*D not a multiple of 64
+        _fproj_case(gen, 16, 250, 640, 20, False),   # widest, clusters, ragged
     ]
     packed = [
         _packed_case(gen, 16, 4096, 4096, 5, 32, True),   # -fullattn, 64x64
@@ -653,6 +661,7 @@ def phase_kernels():
         _packed_bwd_case(gen, 2, 1000, 1000, 5, 32, False),  # ragged N
         _packed_bwd_case(gen, 2, 333, 77, 10, 32, False),    # Nk != Nq
         _packed_bwd_case(gen, 2, 200, 200, 3, 64, False),    # 64-wide heads
+        _packed_bwd_case(gen, 2, 1000, 1000, 3, 64, False),  # ragged, D = 64
     ]
     streaming = [
         _streaming_case(gen, 8, 1, 4096, 4096, 512, True),   # first stage

@@ -28,8 +28,34 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
            "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
-HEADERS = ("mma_tiles.cuh", "attention_bwd.cuh", "attention_f32.cuh",
-           "conv_stats.cuh")
+HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "attention_bwd.cuh",
+           "attention_f32.cuh", "conv_stats.cuh")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes argument types of every C entry point of the library, in the order
+# of its declaration under csrc/ (a pointer or the stream: c_void_p, or
+# ctypes would pass a 32-bit int and cut it). Every entry returns int.
+SIGNATURES = {
+    "dsml_flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "dsml_flash_attention_fproj": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "dsml_flash_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "dsml_flash_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "dsml_flash_attention_bwd_packed": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "dsml_flash_attention_qout": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "dsml_flash_attention_streaming": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "dsml_flash_attention_streaming_bwd": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
+    "dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
+    "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P],
+    "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
+}
+# the fp32 instantiations (D = 512 attention, first-stage training's
+# GroupNorm and conv kernels) take the same arguments as their bf16 twins
+SIGNATURES.update({
+    name + "_f32": SIGNATURES[name]
+    for name in ("dsml_flash_attention", "dsml_flash_attention_bwd",
+                 "dsml_flash_attention_streaming",
+                 "dsml_flash_attention_streaming_bwd", "dsml_conv_stats",
+                 "dsml_gn_channel_stats", "dsml_group_norm_silu")})
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,50 +134,9 @@ def load() -> ctypes.CDLL:
             if not os.path.exists(lib_path):
                 _compile(lib_path)
             lib = ctypes.CDLL(lib_path)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.dsml_flash_attention.argtypes = [p] * 5 + [i, i, i, i, f, p]
-            lib.dsml_flash_attention.restype = i
-            lib.dsml_flash_attention_fproj.argtypes = (
-                [p] * 8 + [i, i, i, i, i, f, p])
-            lib.dsml_flash_attention_fproj.restype = i
-            lib.dsml_flash_attention_packed.argtypes = (
-                [p] * 5 + [i, i, i, i, i, f, p])
-            lib.dsml_flash_attention_packed.restype = i
-            lib.dsml_flash_attention_bwd.argtypes = (
-                [p] * 10 + [i, i, i, i, f, p])
-            lib.dsml_flash_attention_bwd.restype = i
-            lib.dsml_flash_attention_bwd_packed.argtypes = (
-                [p] * 10 + [i, i, i, i, i, f, p])
-            lib.dsml_flash_attention_bwd_packed.restype = i
-            lib.dsml_flash_attention_qout.argtypes = (
-                [p] * 7 + [i, i, i, i, i, i, f, p])
-            lib.dsml_flash_attention_qout.restype = i
-            lib.dsml_flash_attention_streaming.argtypes = (
-                [p] * 6 + [i, i, i, i, i, f, p])
-            lib.dsml_flash_attention_streaming.restype = i
-            lib.dsml_flash_attention_streaming_bwd.argtypes = (
-                [p] * 10 + [i, i, i, i, f, f, p])
-            lib.dsml_flash_attention_streaming_bwd.restype = i
-            # the fp32 instantiations at D = 512, same arguments
-            for name in ("dsml_flash_attention", "dsml_flash_attention_bwd",
-                         "dsml_flash_attention_streaming",
-                         "dsml_flash_attention_streaming_bwd"):
-                f32 = getattr(lib, name + "_f32")
-                f32.argtypes = getattr(lib, name).argtypes
-                f32.restype = i
-            lib.dsml_conv_stats.argtypes = (
-                [p] * 11 + [i, i, i, i, i, i, i, i, f, i, p])
-            lib.dsml_conv_stats.restype = i
-            lib.dsml_gn_channel_stats.argtypes = [p, p, p, i, i, i, i, p]
-            lib.dsml_gn_channel_stats.restype = i
-            lib.dsml_group_norm_silu.argtypes = (
-                [p] * 6 + [i, i, i, i, i, f, i, i, p])
-            lib.dsml_group_norm_silu.restype = i
-            # their fp32 instantiations (first-stage training), same arguments
-            for name in ("dsml_conv_stats", "dsml_gn_channel_stats",
-                         "dsml_group_norm_silu"):
-                f32 = getattr(lib, name + "_f32")
-                f32.argtypes = getattr(lib, name).argtypes
-                f32.restype = i
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

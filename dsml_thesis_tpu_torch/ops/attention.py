@@ -12,8 +12,10 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernels ``csrc/flash_attention_fproj.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_packed_fproj``
     (``flash_attention_fproj``). Bound by operations; q, k, v go once through
-    a bf16 scratch, the attention output and the head split stay in shared
-    memory.
+    a bf16 scratch (a ``wgmma`` GEMM), the attention output and the head
+    split stay in shared memory: the head-group blocks of a q-tile form a
+    thread-block cluster and read each other's outputs for the output
+    projection.
 
 ``flash_attention_packed`` q [B, Nq, H*D], k / v [B, Nk, H*D] -> [B, Nq, H*D]
     kernel ``csrc/flash_attention_packed.cu``; replaces the TPU kernel
@@ -40,7 +42,9 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernels ``csrc/flash_attention_bwd_packed.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_bwd_kernel_packed``
     (``flash_attention_bwd_packed``). Bound by operations; dq, dk, dv are
-    written in place in the packed layout.
+    written in place in the packed layout; 128 owned rows a block, streamed
+    tiles through a ``cp.async`` ring on mbarriers, every product on
+    ``wgmma``.
 
     Both backward kernels read the row log-sum-exp the forward kernel saved
     (the TPU kernels recompute a whole row's softmax, which needs a head's

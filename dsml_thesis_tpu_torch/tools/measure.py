@@ -24,6 +24,13 @@
            by events, peak memory, kernel launches a step, then one step
            under torch.profiler: kernels launched, device time by kernel
            family and the device's idle share
+--split    the launches of the two redesigned kernel families, each call
+           under torch.profiler: device ms of each kernel name a call for
+           the fused-projection op (projection GEMM, attention + output
+           projection) at [16, 1024, 320] x 10, [8, 1024, 320] x 10,
+           [16, 256, 640] x 20, and the packed backward (delta, dk / dv
+           grid, dq grid) at [8, 1024, 10 x 32], [8, 256, 20 x 32],
+           [8, 4096, 5 x 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -230,6 +237,59 @@ def _device_kernels(prof) -> dict:
                 and not _ANNOTATION.match(ev.key)):
             out[ev.key] = (dev_us / 1e3, ev.count)
     return out
+
+
+def split(smi: str, calls: int = 10):
+    """Device ms of each kernel a call of rows 1 and 8 launches, from
+    ``calls`` warm calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen,
+                                             device="cuda") * s
+                                 ).to(torch.bfloat16)
+
+    def fproj(b, n, c, heads):
+        h = rnd(b, n, c)
+        wq, wk, wv = (rnd(c, c, s=c ** -0.5) for _ in range(3))
+        wo, bo = rnd(c, c, s=c ** -0.5), rnd(c, s=0.1)
+        return lambda: A.flash_attention_fproj(h, wq, wk, wv, wo, bo, heads)
+
+    def packed_bwd(b, n, heads, d):
+        q, k, v, do = (rnd(b, n, heads * d) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = A._launch_packed_forward(q, k, v, heads, scale, True)
+        return lambda: A.flash_attention_bwd_packed(q, k, v, out, lse, do,
+                                                    heads, scale)
+
+    cases = [("flash_attention_fproj", [16, 1024, 320, 10],
+              fproj(16, 1024, 320, 10)),
+             ("flash_attention_fproj", [8, 1024, 320, 10],
+              fproj(8, 1024, 320, 10)),
+             ("flash_attention_fproj", [16, 256, 640, 20],
+              fproj(16, 256, 640, 20)),
+             ("flash_attention_bwd_packed", [8, 1024, 10, 32],
+              packed_bwd(8, 1024, 10, 32)),
+             ("flash_attention_bwd_packed", [8, 256, 20, 32],
+              packed_bwd(8, 256, 20, 32)),
+             ("flash_attention_bwd_packed", [8, 4096, 5, 32],
+              packed_bwd(8, 4096, 5, 32))]
+    with torch.no_grad():
+        for name, shape, fn in cases:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = _device_kernels(prof)
+            print(json.dumps({
+                "measure": "split", "card": smi, "op": name, "shape": shape,
+                "calls": calls,
+                "ms_a_call": {k: ms / calls for k, (ms, _) in kernels.items()},
+                "launches": {k: n for k, (_, n) in kernels.items()}}),
+                flush=True)
 
 
 def profile(smi: str, frames: int, config: str):
@@ -493,6 +553,7 @@ def main():
     ap.add_argument("--gate", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--config", default=CONFIG,
                     help="model config YAML of --profile and --train")
@@ -505,6 +566,8 @@ def main():
     smi = card()
     if args.gate:
         gate(smi)
+    if args.split:
+        split(smi)
     if args.profile:
         profile(smi, args.frames, args.config)
     if args.train:

@@ -1,0 +1,166 @@
+"""Design variants of the two Hopper-redesigned kernels, timed in turns.
+
+    python -m dsml_thesis_tpu_torch.tools.variants '{"base": [],
+        "g4": [["flash_attention_fproj.cu", "MAX_GROUPS = 2;",
+                "MAX_GROUPS = 4;"]]}'
+
+Each variant is a list of [file, old text, new text] substitutions applied
+to a copy of ``csrc/`` under ``_build/variants/<name>/``. Every variant's
+``flash_attention_fproj.cu`` and ``flash_attention_bwd_packed.cu`` are
+compiled (all ``nvcc`` processes started together; ptxas's "Performance
+Loss" lines are printed) and linked into a library of their own; a name
+that starts with ``c_`` is compiled only. Then, for the fused-projection op
+at [16, 1024, 320] x 10, [8, 1024, 320] x 10, [16, 256, 640] x 20 and
+[3, 200, 320] x 10 and the packed backward at [8, 1024, 10 x 32],
+[8, 256, 20 x 32], [8, 4096, 5 x 32] and [2, 1000, 3 x 64], every variant's
+C entry is held against the plain version (relative error to the maximum)
+and timed by CUDA events, 20 calls, in three rounds of the variants in
+turns (a, b, b, a); the median is printed. Needs a CUDA device and nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+from ..ops import _build
+from ..ops import attention as A
+
+SOURCES = ("flash_attention_fproj.cu", "flash_attention_bwd_packed.cu")
+
+
+def build(variants: dict) -> dict:
+    """name -> loaded library of every variant not named ``c_*``."""
+    root = os.path.join(_build.BUILD_DIR, "variants")
+    procs = []
+    for name, subs in variants.items():
+        d = os.path.join(root, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC_DIR, d)
+        for f, old, new in subs:
+            path = os.path.join(d, f)
+            src = open(path).read()
+            if old not in src:
+                raise ValueError(f"{name}: {old!r} not in {f}")
+            open(path, "w").write(src.replace(old, new))
+        for src in SOURCES:
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-c",
+                   os.path.join(d, src), "-o", os.path.join(d, src + ".o")]
+            procs.append((name, src, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    for name, src, proc in procs:
+        out, _ = proc.communicate()
+        loss = [ln.strip() for ln in out.splitlines() if "Performance Loss" in ln]
+        print(json.dumps({"variant": name, "source": src,
+                          "rc": proc.returncode, "performance_loss": loss}),
+              flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed on {src}:\n{out}")
+    libs = {}
+    for name in variants:
+        if name.startswith("c_"):
+            continue
+        d = os.path.join(root, name)
+        lib_path = os.path.join(d, "lib.so")
+        subprocess.run([_build._nvcc(), "-shared", "-o", lib_path,
+                        *(os.path.join(d, s + ".o") for s in SOURCES)],
+                       check=True)
+        lib = ctypes.CDLL(lib_path)
+        for fn in ("dsml_flash_attention_fproj",
+                   "dsml_flash_attention_bwd_packed"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+        libs[name] = lib
+    return libs
+
+
+def cases() -> dict:
+    """name -> (call(lib) returning the C entry's code, relative error of
+    the last call's outputs against the plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s, sc=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                              * sc).to(torch.bfloat16)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    rel = lambda a, r: ((a.float() - r.float()).abs().max()
+                        / r.float().abs().max()).item()
+
+    def fproj(b, n, c, heads):
+        d = c // heads
+        h = rnd(b, n, c)
+        wq, wk, wv, wo = (rnd(c, c, sc=c ** -0.5) for _ in range(4))
+        bo = rnd(c, sc=0.1)
+        ref = A.fproj_reference(h, wq, wk, wv, wo, bo, heads)
+        qkv = torch.empty(b, n, 3 * c, dtype=h.dtype, device="cuda")
+        out = torch.empty_like(h)
+        call = lambda lib: lib.dsml_flash_attention_fproj(
+            h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(), out.data_ptr(), b,
+            n, c, heads, d, d ** -0.5, stream())
+        return call, lambda: rel(out, ref)
+
+    def packed_bwd(b, n, heads, d):
+        q, k, v, do = (rnd(b, n, heads * d) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = A._launch_packed_forward(q, k, v, heads, scale, True)
+        ref = A.packed_bwd_reference(q, k, v, do, heads, scale=scale)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        delta = torch.empty_like(lse)
+        call = lambda lib: lib.dsml_flash_attention_bwd_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), b, n, n, heads, d, scale,
+            stream())
+        return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
+
+    return {"fproj [16,1024,320] x 10": fproj(16, 1024, 320, 10),
+            "fproj [8,1024,320] x 10": fproj(8, 1024, 320, 10),
+            "fproj [16,256,640] x 20": fproj(16, 256, 640, 20),
+            "fproj [3,200,320] x 10": fproj(3, 200, 320, 10),
+            "bwd_packed [8,1024,10x32]": packed_bwd(8, 1024, 10, 32),
+            "bwd_packed [8,256,20x32]": packed_bwd(8, 256, 20, 32),
+            "bwd_packed [8,4096,5x32]": packed_bwd(8, 4096, 5, 32),
+            "bwd_packed [2,1000,3x64]": packed_bwd(2, 1000, 3, 64)}
+
+
+def event_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("variants: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    libs = build(json.loads(sys.argv[1]))
+    names = list(libs)
+    for case, (call, err) in cases().items():
+        res = {}
+        for name in names:
+            if call(libs[name]) != 0:
+                raise RuntimeError(f"{name}: launch failed on {case}")
+            torch.cuda.synchronize()
+            res[name] = {"rel_err": err()}
+        times = {name: [] for name in names}
+        for _ in range(3):
+            for name in names + names[::-1]:
+                times[name].append(event_ms(lambda: call(libs[name])))
+        for name in names:
+            res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
+        print(json.dumps({"case": case, **res}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -112,6 +112,42 @@ def test_every_cuda_source_is_built():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+_C_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(dsml_\w+)\s*\(([^)]*)\)')
+
+
+def _c_kind(param: str):
+    """The ctypes type a C parameter declaration must be bound as."""
+    import ctypes
+
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return ctypes.c_void_p
+    kind = decl.rsplit(" ", 1)[0].replace("const ", "")
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[kind]
+
+
+def test_c_entry_points_match_their_signatures():
+    """Every ``extern "C" int dsml_*(...)`` under csrc/ is bound with the
+    argument count and kinds it declares (a pointer as c_void_p, int as
+    c_int, float as c_float), and nothing else is bound: a mismatch cuts a
+    pointer or shifts an argument, and shows only on the card."""
+    import ctypes
+
+    from dsml_thesis_tpu_torch.ops import _build
+
+    declared = {}
+    for name in _build.SOURCES:
+        src = open(os.path.join(_build.CSRC_DIR, name)).read()
+        for fn, params in _C_ENTRY.findall(src):
+            assert fn not in declared, f"{fn} declared twice"
+            declared[fn] = [_c_kind(p) for p in params.split(",")]
+    assert declared.keys() == _build.SIGNATURES.keys()
+    for fn, kinds in declared.items():
+        assert _build.SIGNATURES[fn] == kinds, fn
+    assert all(k in (ctypes.c_void_p, ctypes.c_int, ctypes.c_float)
+               for kinds in declared.values() for k in kinds)
+
+
 def test_build_directory_is_ignored_by_git():
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "dsml_thesis_tpu_torch/_build/" in ignored
