@@ -40,7 +40,9 @@
 //       After a cluster barrier each block copies the other blocks' columns
 //       from their shared memory (distributed shared memory) into its own
 //       tile, and computes C / G output columns of att @ Wo^T + bo on wgmma
-//       while Wo's 32-column panels stream through the same ring. No atomics:
+//       while Wo's 32-column panels stream through the same ring
+//       (hopper::gather_head_groups and project_out, which the q/out-fused
+//       kernel shares). No atomics:
 //       equal inputs give equal bits. G is the largest count up to
 //       MAX_GROUPS = 2 that divides H and leaves C / G a multiple of 32:
 //       clusters of 4 and 5 measured slower at the model's shapes (the
@@ -165,12 +167,8 @@ qkv_proj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ wq,
 }
 
 // ---------------------------------------------------------------- (2) ---
-constexpr int AQ = 64;        // query rows a block
 constexpr int AKV = 128;      // key / value rows a streamed tile
 constexpr int A_STAGES = 3;
-constexpr int PANEL = AQ * 128;  // a 64-column panel of the [64, H*D] tile
-constexpr int WK = 32;        // Wo columns (reduction) a streamed panel
-constexpr int NTA = 128;
 constexpr int MAX_GROUPS = 2; // blocks of a cluster, at most
 
 __host__ __device__ constexpr int round_up(int x, int r) {
@@ -179,21 +177,16 @@ __host__ __device__ constexpr int round_up(int x, int r) {
 
 // bytes of a ring stage: a K and a V tile, or cols rows of a Wo panel
 __host__ __device__ constexpr int attn_stage_bytes(int d, int pass_cols) {
-  return round_up(2 * AKV * 2 * d > pass_cols * WK * 2 ? 2 * AKV * 2 * d
-                                                       : pass_cols * WK * 2,
+  return round_up(2 * AKV * 2 * d > pass_cols * WO_COLS * 2
+                      ? 2 * AKV * 2 * d
+                      : pass_cols * WO_COLS * 2,
                   1024);
-}
-
-// byte offset of channel col (a multiple of 8) of row r in the [64, H*D]
-// tile of 64-column panels swizzled by 128 bytes
-__device__ __forceinline__ uint32_t att_at(int r, int col) {
-  return (col / 64) * PANEL + Swz<128>::at(r, (col % 64) / 8);
 }
 
 // NCH: 32-wide output chunks of a pass of the output projection (a
 // compile-time count keeps every wgmma on a path all threads take)
 template <int D, int NCH>
-__global__ void __launch_bounds__(NTA)
+__global__ void __launch_bounds__(ATT_THREADS)
 fproj_attention_kernel(const bf16* __restrict__ qkv,
                        const bf16* __restrict__ wo,
                        const bf16* __restrict__ bo, bf16* __restrict__ out,
@@ -212,8 +205,8 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_smem(smem_raw, 1024);
   const uint32_t att = cvta(base);
-  const uint32_t ring = att + panels * PANEL;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + panels * PANEL +
+  const uint32_t ring = att + panels * ATT_PANEL;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + panels * ATT_PANEL +
                                                A_STAGES * stage);
   uint64_t* empty = full + A_STAGES;
   uint64_t* qbar = empty + A_STAGES;
@@ -222,22 +215,22 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
   const int lane = tid & 31;
   const int tile = blockIdx.x / groups;
   const int b = tile / q_tiles;
-  const int q0 = (tile % q_tiles) * AQ;
+  const int q0 = (tile % q_tiles) * ATT_ROWS;
   const bf16* rows = qkv + static_cast<int64_t>(b) * n * ld;
   const int col0 = g * hg * D;              // this block's attention columns
 
   if (tid == 0) {
     for (int s = 0; s < A_STAGES; ++s) {
-      mbar_init(&full[s], NTA);
-      mbar_init(&empty[s], NTA);
+      mbar_init(&full[s], ATT_THREADS);
+      mbar_init(&empty[s], ATT_THREADS);
     }
-    mbar_init(qbar, NTA);
+    mbar_init(qbar, ATT_THREADS);
     mbar_fence_init();
   }
   __syncthreads();  // the barriers exist before anyone waits on them
 
   // q of the block's heads into their columns of the [64, H*D] tile
-  for (int i = tid; i < AQ * hg * D / 8; i += NTA) {
+  for (int i = tid; i < ATT_ROWS * hg * D / 8; i += ATT_THREADS) {
     const int r = i / (hg * D / 8), col = col0 + (i % (hg * D / 8)) * 8;
     const bool ok = q0 + r < n;
     cp_async16(att + att_at(r, col), rows + (ok ? (q0 + r) * ld + col : 0),
@@ -247,7 +240,7 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
 
   const int kv_tiles = (n + AKV - 1) / AKV;
   const int natt = hg * kv_tiles;           // items: (head, K / V tile) ...
-  const int kpanels = hd / WK;              // ... then (pass, Wo panel)
+  const int kpanels = wo_panels(hd);        // ... then (pass, Wo panel)
   const int passes = cg / pass_cols;
   const int nitems = natt + passes * kpanels;
   auto issue = [&](int i) {
@@ -257,14 +250,13 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
     if (i < natt) {
       const int h = g * hg + i / kv_tiles, kv0 = (i % kv_tiles) * AKV;
       const bf16* src = rows + kv0 * ld + hd + h * D;
-      load_tile_async<ROWB, AKV, NTA>(st, src, ld, n - kv0, tid);
-      load_tile_async<ROWB, AKV, NTA>(st + AKV * ROWB, src + hd, ld, n - kv0,
-                                      tid);
+      load_tile_async<ROWB, AKV, ATT_THREADS>(st, src, ld, n - kv0, tid);
+      load_tile_async<ROWB, AKV, ATT_THREADS>(st + AKV * ROWB, src + hd, ld,
+                                              n - kv0, tid);
     } else {
       const int pass = (i - natt) / kpanels, p = (i - natt) % kpanels;
       const int r0 = g * cg + pass * pass_cols;
-      load_tile_async<WK * 2, pass_cols, NTA>(
-          st, wo + static_cast<int64_t>(r0) * hd + p * WK, hd, pass_cols, tid);
+      load_wo_panel<pass_cols>(st, wo, hd, r0, pass_cols, p, tid);
     }
     cp_async_arrive(&full[s]);
   };
@@ -297,7 +289,7 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
     const int s = i % A_STAGES;
     const int t = i % kv_tiles;
     const int hcol = col0 + (i / kv_tiles) * D;
-    const uint32_t sq = att + (hcol / 64) * PANEL + (hcol % 64) * 2;
+    const uint32_t sq = att + (hcol / 64) * ATT_PANEL + (hcol % 64) * 2;
     const uint32_t sk = ring + s * stage, sv = sk + AKV * ROWB;
     mbar_wait(&full[s], (i / A_STAGES) & 1);
     fence_async_shared();
@@ -383,111 +375,39 @@ fproj_attention_kernel(const bf16* __restrict__ qkv,
   }
   park(hg - 1);
 
-  // ---- the other head groups' columns, from their blocks' shared memory
-  cluster_arrive();
-  cluster_wait();  // every block of the cluster has parked its heads
-  const int gcols = hg * D / 8;  // 16-byte chunks of a row of one group
-  for (int i = tid; i < (groups - 1) * AQ * gcols; i += NTA) {
-    const int rr = i / (AQ * gcols);
-    const int rank = rr < g ? rr : rr + 1;
-    const int r = (i / gcols) % AQ, col = (rank * gcols + i % gcols) * 8;
-    const uint32_t at = att + att_at(r, col);
-    st_shared16(at, ld_cluster16(map_rank(at, rank)));
-  }
-  fence_async_shared();
-  cluster_arrive();  // done reading the other blocks (waited for at exit)
-  __syncthreads();   // every gathered chunk is in place before wgmma
-
-  // ---- out[:, g*cg .. +cg] = att @ Wo^T + bo, pass_cols columns a pass
-  bf16* orow = out + (static_cast<int64_t>(b) * n + q0) * c;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int c0 = g * cg + pass * pass_cols;
-    float acc[NCH][16];
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[ch][j] = 0.f;
-    for (int p = 0; p < kpanels; ++p) {
-      const int i = natt + pass * kpanels + p;
-      const int s = i % A_STAGES;
-      mbar_wait(&full[s], (i / A_STAGES) & 1);
-      fence_async_shared();
-      const uint32_t sw = ring + s * stage;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk) {
-        const int acol = p * WK + 16 * kk;
-        const uint64_t da =
-            desc_k<128>(att + (acol / 64) * PANEL + (acol % 64) * 2);
-#pragma unroll
-        for (int ch = 0; ch < NCH; ++ch)
-          wgmma_ss<32, 0>(acc[ch], da,
-                            desc_k<WK * 2>(sw + ch * 32 * WK * 2 + 32 * kk));
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int ch = 0; ch < NCH; ++ch) fence_regs(acc[ch]);
-      mbar_arrive(&empty[s]);
-      if (i + A_STAGES < nitems) issue(i + A_STAGES);
-    }
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + ch * 32 + 8 * j + 2 * (lane & 3);
-        const float b0 = __bfloat162float(bo[col]);
-        const float b1 = __bfloat162float(bo[col + 1]);
-        if (q0 + r0 < n)
-          *reinterpret_cast<uint32_t*>(orow + r0 * c + col) =
-              pack2(acc[ch][4 * j] + b0, acc[ch][4 * j + 1] + b1);
-        if (q0 + r0 + 8 < n)
-          *reinterpret_cast<uint32_t*>(orow + (r0 + 8) * c + col) =
-              pack2(acc[ch][4 * j + 2] + b0, acc[ch][4 * j + 3] + b1);
-      }
-    }
-  }
+  // ---- the other head groups' columns, then out[:, g*cg .. +cg]; the Wo
+  // panels are the ring's items natt ..
+  gather_head_groups(att, g, groups, hg * D / 8, tid);
+  int next = natt;
+  auto take = [&]() {
+    const int s = next % A_STAGES;
+    mbar_wait(&full[s], (next / A_STAGES) & 1);
+    fence_async_shared();
+    ++next;
+    return ring + s * stage;
+  };
+  auto release = [&]() {
+    const int i = next - 1;
+    mbar_arrive(&empty[i % A_STAGES]);
+    if (i + A_STAGES < nitems) issue(i + A_STAGES);
+  };
+  project_out<NCH>(att, bo, out + (static_cast<int64_t>(b) * n + q0) * c, c,
+                   n - q0, g * cg, g * cg + cg, passes, hd, take, release);
   cluster_wait();  // no block leaves while another may still read it
-}
-
-// head groups of a cluster: the largest count up to MAX_GROUPS that divides
-// the heads and leaves each block a multiple of 32 output columns
-int head_groups(int heads, int c) {
-  for (int g = MAX_GROUPS; g > 1; --g)
-    if (heads % g == 0 && c % (32 * g) == 0) return g;
-  return 1;
 }
 
 template <int D, int NCH>
 int launch_attention(const bf16* qkv, const bf16* wo, const bf16* bo,
                      bf16* out, int b, int n, int c, int heads, int groups,
                      float scale, cudaStream_t stream) {
-  auto kernel = fproj_attention_kernel<D, NCH>;
   const int hd = heads * D;
-  const int pass_cols = NCH * 32;
-  const int smem = 1024 + (hd + 63) / 64 * PANEL +
-                   A_STAGES * attn_stage_bytes(D, pass_cols) +
+  const int smem = 1024 + (hd + 63) / 64 * ATT_PANEL +
+                   A_STAGES * attn_stage_bytes(D, NCH * 32) +
                    (2 * A_STAGES + 1) * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (n + AQ - 1) / AQ;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(b * q_tiles * groups));
-  cfg.blockDim = dim3(NTA);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = groups;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, qkv, wo, bo, out, n, heads, c,
-                           groups, q_tiles, scale * 1.4426950408889634f);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const int q_tiles = (n + ATT_ROWS - 1) / ATT_ROWS;
+  return launch_clusters(fproj_attention_kernel<D, NCH>, b * q_tiles * groups,
+                         smem, groups, stream, qkv, wo, bo, out, n, heads, c,
+                         groups, q_tiles, scale * 1.4426950408889634f);
 }
 
 }  // namespace
@@ -518,7 +438,7 @@ extern "C" int dsml_flash_attention_fproj(
   auto cw = static_cast<const bf16*>(wo);
   auto cb = static_cast<const bf16*>(bo);
   auto o = static_cast<bf16*>(out);
-  const int groups = head_groups(heads, c);
+  const int groups = head_groups(heads, c, MAX_GROUPS, 32);
   const int chunks = c / groups / 32;  // 32-wide output chunks of a block
   const int nch = chunks % 5 == 0 ? 5 : chunks % 4 == 0 ? 4
                 : chunks % 3 == 0 ? 3 : chunks % 2 == 0 ? 2 : 1;

@@ -30,10 +30,25 @@
 //   * everything else in fp32; one cast of o at the end.
 //
 // Bound: operations (4 * Nq * Nk * D a head against 2 * (2 Nq + 2 Nk) * D
-// bytes). As in flash_attention.cu, D = 512 is split over two warps per
+// bytes), and at D = 32 / 64 the exp2 of every score on the special-function
+// unit (16 a cycle an SM) more than the tensor cores.
+//
+// bf16 at D = 32 / 64 (streaming_wgmma_kernel, hopper_tiles.cuh): one
+// warpgroup (64 query rows) a (B*H, q-tile, split). Each thread
+// loads its rows of q straight into registers as the A fragment of the
+// score product, multiplied by the factor in bf16 on the way. The split's
+// keys stream in 128-key K / V tiles through a ring of S_STAGES cp.async
+// stages completing on mbarriers; hopper::attend_tiles runs S = q K^T and
+// O += P V on wgmma with P packed to bf16 in registers, exp2 by ex2.approx,
+// and takes the denominator as the TPU kernel does, from the cast
+// probabilities: a product of P with an all-ones bf16 tile on the tensor
+// cores (the ones column of V), which also keeps that sum off the FMA
+// units.
+//
+// bf16 at D = 512 (streaming_fwd_kernel): D is split over two warps per
 // 16-row group (a thread holds 128 accumulators) and both recompute the
 // scores; tiles are loaded synchronously and single-buffered, and the
-// products are mma.sync. cp.async / TMA and wgmma are later work.
+// products are mma.sync.
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_f32; first-stage training
 // under DSML_FLASH_STREAMING=1): the TF32 design of attention_f32.cuh with
@@ -42,6 +57,7 @@
 // which is the identity), the same splits in 64-key units and the same
 // combine launch writing fp32.
 #include "attention_f32.cuh"
+#include "hopper_tiles.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -231,6 +247,151 @@ streaming_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+constexpr int SROWS = 64;           // query rows a block
+constexpr int SNT = 128;            // threads a block: one warpgroup
+constexpr int SKV = 128;            // key / value rows a streamed tile
+constexpr int S_STAGES = 3;
+constexpr int SPLIT_KEYS = 64;      // a split's keys are a multiple of this
+
+template <int D>
+__global__ void __launch_bounds__(SNT)
+streaming_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ part_o, float* __restrict__ part_ml,
+                       int nq, int nk, int q_tiles, int keys_per_split,
+                       float q_scale) {
+  using namespace hopper;
+  constexpr int ROWB = 2 * D;
+  constexpr int STAGE = 2 * SKV * ROWB;   // a K and a V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw, 1024);
+  const uint32_t ring = cvta(base);
+  unsigned char* ones = base + S_STAGES * STAGE;   // 1024 B of bf16 ones
+  uint64_t* full = reinterpret_cast<uint64_t*>(ones + 1024);
+  uint64_t* empty = full + S_STAGES;
+
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * SROWS;
+  const int split = blockIdx.y;
+  const int kv_begin = split * keys_per_split;
+  const int kv_end = min(nk, kv_begin + keys_per_split);
+  const int ntiles = (kv_end - kv_begin + SKV - 1) / SKV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // the thread's two rows
+  k += bh * nk * D;
+  v += bh * nk * D;
+
+  if (tid == 0) {
+    for (int s = 0; s < S_STAGES; ++s) {
+      mbar_init(&full[s], SNT);
+      mbar_init(&empty[s], SNT);
+    }
+    mbar_fence_init();
+  }
+  fill_ones<SNT>(ones, tid);
+  __syncthreads();  // the barriers and the ones exist before anyone reads them
+
+  int issued = 0;
+  auto issue_next = [&]() {  // the keys of tile `issued` into its stage
+    const int i = issued++;
+    const int s = i % S_STAGES;
+    if (i >= S_STAGES) mbar_wait(&empty[s], ((i / S_STAGES) - 1) & 1);
+    const int kv0 = kv_begin + i * SKV;
+    const uint32_t st = ring + s * STAGE;
+    const int64_t off = static_cast<int64_t>(kv0) * D;
+    load_tile_async<ROWB, SKV, SNT>(st, k + off, D, kv_end - kv0, tid);
+    load_tile_async<ROWB, SKV, SNT>(st + SKV * ROWB, v + off, D, kv_end - kv0,
+                                    tid);
+    cp_async_arrive(&full[s]);
+  };
+  while (issued < S_STAGES && issued < ntiles) issue_next();
+
+  // q times the factor in bf16, as the A fragment of k16 step s: rows r0
+  // and r0 + 8, columns 16 s + 2 (lane % 4) + {0, 1} and + 8; rows past nq
+  // are zeros
+  uint32_t qa[D / 16][4];
+  {
+    const __nv_bfloat162 c2 = __float2bfloat162_rn(q_scale);
+    const int64_t row0 = bh * nq + q0 + r0;
+    const bool ok0 = q0 + r0 < nq, ok1 = q0 + r0 + 8 < nq;
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (e & 1) ? ok1 : ok0;
+        const int64_t row = row0 + ((e & 1) ? 8 : 0);
+        const int col = 16 * s + ((e & 2) ? 8 : 0) + 2 * (lane & 3);
+        __nv_bfloat162 x = __float2bfloat162_rn(0.f);
+        if (ok) x = *reinterpret_cast<const __nv_bfloat162*>(q + row * D + col);
+        x = __hmul2(x, c2);
+        qa[s][e] = *reinterpret_cast<uint32_t*>(&x);
+      }
+    }
+  }
+
+  int taken = 0;
+  auto wait = [&]() {
+    const int s = taken % S_STAGES;
+    mbar_wait(&full[s], (taken / S_STAGES) & 1);
+    fence_async_shared();
+    ++taken;
+    return ring + s * STAGE;
+  };
+  auto done = [&]() {  // frees the tile taken last and refills its stage
+    mbar_arrive(&empty[(taken - 1) % S_STAGES]);
+    if (issued < ntiles) issue_next();
+  };
+  float acc[D / 2];
+  float m0, m1, l0, l1;
+  attend_tiles<D, SKV, true>(qa, acc, m0, m1, l0, l1, ntiles, kv_begin,
+                             kv_end, 1.f, cvta(ones), lane, wait, done);
+
+  const int r1 = r0 + 8;
+  const int col0 = 2 * (lane & 3);
+  const int64_t row_base = bh * nq + q0;  // of this tile's first row
+  if (gridDim.y == 1) {
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    o += row_base * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = col0 + 8 * j;
+      if (q0 + r0 < nq)
+        *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r0) * D + col) =
+            pack2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (q0 + r1 < nq)
+        *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r1) * D + col) =
+            pack2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
+    return;
+  }
+  // part_o [splits, BH * Nq, D], part_ml [splits, 2, BH * Nq]
+  const int64_t rows = static_cast<int64_t>(gridDim.x / q_tiles) * nq;
+  part_o += (split * rows + row_base) * D;
+  part_ml += split * 2 * rows + row_base;
+  if ((lane & 3) == 0) {
+    if (q0 + r0 < nq) {
+      part_ml[r0] = m0;
+      part_ml[rows + r0] = l0;
+    }
+    if (q0 + r1 < nq) {
+      part_ml[r1] = m1;
+      part_ml[rows + r1] = l1;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = col0 + 8 * j;
+    if (q0 + r0 < nq)
+      *reinterpret_cast<float2*>(part_o + static_cast<int64_t>(r0) * D + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (q0 + r1 < nq)
+      *reinterpret_cast<float2*>(part_o + static_cast<int64_t>(r1) * D + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
@@ -265,14 +426,62 @@ streaming_combine_kernel(const float* __restrict__ part_o,
   store_pair(o + row * d + col, a0 * inv, a1 * inv);
 }
 
+// The second launch of a call with splits > 1: o from the splits' parts.
+template <typename T>
+int launch_combine(const void* part_o, const void* part_ml, void* o,
+                   int64_t rows, int d, int splits, cudaStream_t stream) {
+  const int64_t threads = rows * (d / 2);
+  streaming_combine_kernel<T><<<static_cast<unsigned>((threads + 255) / 256),
+                                256, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<T*>(o), rows, d, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a split count is one this file takes: at most one split per unit
+// keys, none of them empty, and scratch given when it splits.
+bool splits_ok(int bh, int nq, int nk, int splits, int unit,
+               const void* part_o, const void* part_ml) {
+  const int units = (nk + unit - 1) / unit;
+  if (bh < 1 || nq < 1 || nk < 1 || splits < 1 || splits > units ||
+      splits > 65535 ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return false;
+  const int per = (units + splits - 1) / splits;
+  return (splits - 1) * per < units;  // no split is empty
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* part_o, void* part_ml, int bh, int nq, int nk,
+                 int splits, float q_scale, cudaStream_t stream) {
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
+  const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
+  auto kernel = streaming_wgmma_kernel<D>;
+  const int smem = 1024 + S_STAGES * 2 * SKV * 2 * D + 1024 + 2 * S_STAGES * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (nq + SROWS - 1) / SROWS;
+  kernel<<<dim3(bh * q_tiles, splits), SNT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), nq, nk,
+      q_tiles, keys_per_split, q_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_combine<bf16>(part_o, part_ml, o,
+                              static_cast<int64_t>(bh) * nq, D, splits,
+                              stream);
+}
+
 template <int D, int DSPLIT, int BN>
 int launch(const void* q, const void* k, const void* v, void* o, void* part_o,
            void* part_ml, int bh, int nq, int nk, int splits, float q_scale,
            cudaStream_t stream) {
+  if (!splits_ok(bh, nq, nk, splits, BN, part_o, part_ml)) return -1;
   const int kv_tiles = (nk + BN - 1) / BN;
-  if (bh < 1 || nq < 1 || nk < 1 || splits < 1 || splits > kv_tiles ||
-      splits > 65535 || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
-    return -1;
   const int tiles_per_split = (kv_tiles + splits - 1) / splits;
   auto kernel = streaming_fwd_kernel<D, DSPLIT, BN>;
   const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(bf16));
@@ -287,13 +496,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* part_o,
       q_tiles, tiles_per_split, q_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t rows = static_cast<int64_t>(bh) * nq;
-  const int64_t threads = rows * (D / 2);
-  streaming_combine_kernel<bf16><<<static_cast<unsigned>((threads + 255) / 256),
-                                   256, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<bf16*>(o), rows, D, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<bf16>(part_o, part_ml, o,
+                              static_cast<int64_t>(bh) * nq, D, splits,
+                              stream);
 }
 
 // The fp32 forward of one 64-row query tile over one split of the keys.
@@ -345,11 +550,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* part_o, void* part_ml, int bh, int nq, int nk,
                int splits, float q_scale, cudaStream_t stream) {
   using namespace f32attn;
-  constexpr int SPLIT_KEYS = 64;  // a split's keys are a multiple of this
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
   const int chunks = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
-  if (bh < 1 || nq < 1 || nk < 1 || splits < 1 || splits > chunks ||
-      splits > 65535 || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
-    return -1;
   const int kv_per_split = (chunks + splits - 1) / splits * SPLIT_KEYS;
   const int smem = fwd_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
@@ -365,13 +567,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       q_tiles, kv_per_split, q_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t rows = static_cast<int64_t>(bh) * nq;
-  const int64_t threads = rows * (D / 2);
-  streaming_combine_kernel<float><<<
-      static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<float*>(o), rows, D, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<float>(part_o, part_ml, o,
+                               static_cast<int64_t>(bh) * nq, D, splits,
+                               stream);
 }
 
 }  // namespace
@@ -402,11 +600,11 @@ extern "C" int dsml_flash_attention_streaming(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32, 1, 64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
-                               q_scale, s);
+      return launch_wgmma<32>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
+                              q_scale, s);
     case 64:
-      return launch<64, 1, 64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
-                               q_scale, s);
+      return launch_wgmma<64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
+                              q_scale, s);
     case 512:
       return launch<512, 2, 64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
                                 q_scale, s);

@@ -1,7 +1,6 @@
-// Shared device code of the attention kernels: bf16 tensor-core tiles
-// (mma.sync m16n8k16, fp32 accumulate), shared-memory tile loads, the
-// online-softmax attention core every attention kernel is built from, and the
-// rows-times-weight product of the kernels that fuse a projection.
+// Shared device code of the mma.sync attention kernels: bf16 tensor-core
+// tiles (mma.sync m16n8k16, fp32 accumulate), shared-memory tile loads and
+// the online-softmax attention core they are built from.
 //
 // Conventions
 //   * Every shared-memory tile is row-major with PAD extra bf16 per row. The
@@ -23,8 +22,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int PAD = 8;    // bf16 elements of row padding in shared memory
 constexpr int BM = 64;    // query rows per block
 constexpr int ABN = 128;  // key / value rows per tile of the packed kernels
-constexpr int EN = 64;    // rows_times_weight: output columns per step
-constexpr int EK = 64;    // rows_times_weight: depth per step
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -123,22 +120,6 @@ __device__ __forceinline__ void load_tile_scaled(bf16* s, const bf16* g,
       for (int j = 0; j < 4; ++j) p[j] = __hmul2(p[j], c2);
     }
     *reinterpret_cast<uint4*>(s + r * (COLS + PAD) + col) = v;
-  }
-}
-
-// Same copy for a tile whose width is known only at run time (cols, a
-// multiple of 8) into rows of lds elements.
-template <int NTHREADS>
-__device__ __forceinline__ void load_rows(bf16* s, int lds, const bf16* g,
-                                          int64_t ldg, int rows, int valid_rows,
-                                          int cols, int tid) {
-  const int chunks = cols / 8;
-  for (int i = tid; i < rows * chunks; i += NTHREADS) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows) v = *reinterpret_cast<const uint4*>(g + r * ldg + c);
-    *reinterpret_cast<uint4*>(s + r * lds + c) = v;
   }
 }
 
@@ -266,95 +247,3 @@ __device__ __forceinline__ void attend_rows(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 }
-
-// Normalise the warp's output fragment of attend_rows (DSPLIT = 1) by the
-// row sums and park it, cast to bf16, in columns col0 .. col0 + D - 1 of a
-// shared-memory tile of 64 rows (row stride lds).
-template <int D>
-__device__ __forceinline__ void park_rows(bf16* s, int lds, int col0,
-                                          const float (&o)[D / 8][4], float l0,
-                                          float l1) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = col0 + dt * 8 + 2 * (lane & 3);
-    *reinterpret_cast<uint32_t*>(s + r0 * lds + col) =
-        pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    *reinterpret_cast<uint32_t*>(s + (r0 + 8) * lds + col) =
-        pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
-  }
-}
-
-// out[64, ncols] = sA[64, kdim] @ w[ncols, kdim]^T for the block's 64 rows in
-// shared memory (row stride lda; 4 warps of 16 rows), w row-major in device
-// memory as torch.nn.Linear keeps it, kdim a multiple of 16. The weight goes
-// through the EN x EK panel sW; fp32 accumulation. store(col, acc) receives,
-// for each even output column col < ncols, the warp's fragment: acc[0], acc[1]
-// are columns col, col + 1 of row warp * 16 + lane / 4, acc[2], acc[3] of that
-// row + 8. The first barrier inside makes sA's writers visible and frees sW.
-template <int NTHREADS, typename Store>
-__device__ __forceinline__ void rows_times_weight(const bf16* sA, int lda,
-                                                  const bf16* __restrict__ w,
-                                                  int ncols, int kdim, bf16* sW,
-                                                  Store store) {
-  constexpr int LDW = EK + PAD;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const LaneOffsets lo(lane);
-  for (int c0 = 0; c0 < ncols; c0 += EN) {
-    float acc[EN / 8][4];
-#pragma unroll
-    for (int j = 0; j < EN / 8; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < kdim; k0 += EK) {
-      __syncthreads();
-      load_tile<EK, NTHREADS>(sW, w + static_cast<int64_t>(c0) * kdim + k0,
-                              kdim, EN, ncols - c0, tid, kdim - k0);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < EK; kk += 16) {
-        if (k0 + kk >= kdim) break;  // kdim is not always a multiple of EK
-        uint32_t a[4];
-        ldmatrix_x4(a, sA + (warp * 16 + lo.a_row) * lda + k0 + kk + lo.a_col);
-#pragma unroll
-        for (int j = 0; j < EN / 8; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, sW + (j * 8 + lo.b_row) * LDW + kk + lo.b_col);
-          mma_bf16(acc[j], a, b[0], b[1]);
-          mma_bf16(acc[j + 1], a, b[2], b[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < EN / 8; ++j) {
-      const int col = c0 + j * 8 + 2 * (lane & 3);
-      if (col < ncols) store(col, acc[j]);
-    }
-  }
-}
-
-// A store of rows_times_weight: adds the bias and writes the block's rows
-// below valid_rows, cast to bf16, into a device tensor of row stride ldo.
-struct StoreRowsWithBias {
-  bf16* out;
-  int64_t ldo;
-  const bf16* bias;
-  int valid_rows;
-  __device__ __forceinline__ void operator()(int col,
-                                             const float (&acc)[4]) const {
-    const int lane = threadIdx.x & 31;
-    const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-    const float b0 = __bfloat162float(bias[col]);
-    const float b1 = __bfloat162float(bias[col + 1]);
-    if (r0 < valid_rows)
-      *reinterpret_cast<uint32_t*>(out + r0 * ldo + col) =
-          pack_bf16(acc[0] + b0, acc[1] + b1);
-    if (r0 + 8 < valid_rows)
-      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * ldo + col) =
-          pack_bf16(acc[2] + b0, acc[3] + b1);
-  }
-};

@@ -104,6 +104,7 @@ Weights follow ``torch.nn.Linear``: ``[out_features, in_features]``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -127,8 +128,9 @@ F32_HEAD_DIMS = (512,)
 STREAMING_TILE = 64                    # query / key rows of its tiles
 STREAMING_TARGET_BLOCKS = 264          # two blocks on each of 132 SMs
 LOG2E = 1.4426950408889634
-QOUT_HEAD_DIMS = (32, 64)              # ... in flash_attention_qout.cu
+QOUT_HEAD_DIMS = (32, 64, 80)          # ... in flash_attention_qout.cu
 QOUT_CHANNEL_MULTIPLE = 16             # depth of one tensor-core product
+QOUT_ROWS = 64                         # query rows of one of its blocks
 SHARED_MEMORY_PER_BLOCK = 232448       # bytes a Hopper block may use
 
 # The fused-projection op is for sequences that one q-block of the JAX
@@ -198,6 +200,13 @@ def _folded_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
     """scale * log2(e) rounded to ``dtype``: the factor the streaming kernels
     multiply q by, in q's type, before the score product."""
     return torch.tensor(scale * LOG2E, dtype=torch.float64).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _folded_factor(scale: float, dtype: torch.dtype) -> float:
+    """``_folded_scale`` as the float the kernels' C entries take, made once
+    for each (scale, type): a launch then builds no tensor on the host."""
+    return float(_folded_scale(scale, dtype))
 
 
 def streaming_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -462,7 +471,7 @@ def _launch_streaming_forward(q, k, v, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), b * h, nq, nk, d,
-        splits, float(_folded_scale(scale, q.dtype)), current_stream(q))
+        splits, _folded_factor(scale, q.dtype), current_stream(q))
     raise_on_error(code, "flash_attention_streaming")
     LAUNCHES["flash_attention_streaming"] += 1
     return out
@@ -501,7 +510,7 @@ def flash_attention_streaming_bwd(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
-        float(_folded_scale(scale, q.dtype)), current_stream(q))
+        _folded_factor(scale, q.dtype), current_stream(q))
     raise_on_error(code, "flash_attention_streaming_bwd")
     LAUNCHES["flash_attention_streaming_bwd"] += 1
     return dq, dk, dv
@@ -774,11 +783,17 @@ def packed_multi_head_attention(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 2, 1, 3).reshape(q.shape)
 
 
-def _qout_shared_memory(c: int, hd: int, head_dim: int) -> int:
+def _qout_shared_memory(hd: int, head_dim: int) -> int:
     """Bytes of shared memory a block of the q/out-fused kernel needs (as
-    ``qout_smem_bytes`` in its source): the h / attention tile, the q tile
-    and the K / V tiles, rows padded by 8."""
-    return 2 * (64 * (max(c, hd) + 8) + 64 * (hd + 8) + 2 * 128 * (head_dim + 8))
+    ``smem_bytes`` in its source): 1024 of alignment slack, the [rows, H*D]
+    attention tile in 64-column panels, three ring stages (each the largest
+    of a K and a V tile of 128 rows, an h panel and one head's Wq panel of
+    64 channels, a Wo panel of 160 rows of 32 columns, rounded up to 1024)
+    and six 8-byte barriers."""
+    stage = max(2 * 128 * 2 * head_dim, (QOUT_ROWS + head_dim) * 64 * 2,
+                160 * 32 * 2)
+    stage = -(-stage // 1024) * 1024
+    return 1024 + -(-hd // 64) * QOUT_ROWS * 128 + 3 * stage + 6 * 8
 
 
 def qout_kernel_takes(c: int, hd: int, head_dim: int,
@@ -787,7 +802,7 @@ def qout_kernel_takes(c: int, hd: int, head_dim: int,
     width, packed width H*D, head width, activation type)."""
     return (dtype == torch.bfloat16 and head_dim in QOUT_HEAD_DIMS
             and c % QOUT_CHANNEL_MULTIPLE == 0
-            and _qout_shared_memory(c, hd, head_dim) <= SHARED_MEMORY_PER_BLOCK)
+            and _qout_shared_memory(hd, head_dim) <= SHARED_MEMORY_PER_BLOCK)
 
 
 def flash_attention_qout(h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -833,7 +848,7 @@ def _qout_launch(h, k, v, wq, wo, bo, heads: int, scale: float):
             f"flash_attention_qout: C={c} must be a multiple of "
             f"{QOUT_CHANNEL_MULTIPLE}, the head width {d} one of "
             f"{QOUT_HEAD_DIMS}, and its tiles "
-            f"({_qout_shared_memory(c, hd, d)} bytes) must fit the "
+            f"({_qout_shared_memory(hd, d)} bytes) must fit the "
             f"{SHARED_MEMORY_PER_BLOCK} bytes of shared memory of a block")
     from . import _build
 

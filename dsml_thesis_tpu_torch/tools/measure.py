@@ -24,13 +24,16 @@
            by events, peak memory, kernel launches a step, then one step
            under torch.profiler: kernels launched, device time by kernel
            family and the device's idle share
---split    the launches of the two redesigned kernel families, each call
-           under torch.profiler: device ms of each kernel name a call for
-           the fused-projection op (projection GEMM, attention + output
+--split    the launches of the Hopper-redesigned kernels, each call under
+           torch.profiler: device ms of each kernel name a call for the
+           fused-projection op (projection GEMM, attention + output
            projection) at [16, 1024, 320] x 10, [8, 1024, 320] x 10,
-           [16, 256, 640] x 20, and the packed backward (delta, dk / dv
-           grid, dq grid) at [8, 1024, 10 x 32], [8, 256, 20 x 32],
-           [8, 4096, 5 x 32]
+           [16, 256, 640] x 20, the packed backward (delta, dk / dv grid,
+           dq grid) at [8, 1024, 10 x 32], [8, 256, 20 x 32],
+           [8, 4096, 5 x 32], the q/out-fused op at [8, 4096, 160] and
+           [16, 4096, 160] x 5, and the streaming forward (the split
+           kernel, and the combine kernel where the K / V stream is cut)
+           at [8, 10, 1024, 32], [8, 20, 256, 32] and [1, 2, 100, 5000, 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -240,7 +243,7 @@ def _device_kernels(prof) -> dict:
 
 
 def split(smi: str, calls: int = 10):
-    """Device ms of each kernel a call of rows 1 and 8 launches, from
+    """Device ms of each kernel a call of rows 1, 8, 6 and 4 launches, from
     ``calls`` warm calls under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -262,7 +265,27 @@ def split(smi: str, calls: int = 10):
         return lambda: A.flash_attention_bwd_packed(q, k, v, out, lse, do,
                                                     heads, scale)
 
-    cases = [("flash_attention_fproj", [16, 1024, 320, 10],
+    def qout(b, n, c, heads):
+        h, k, v = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
+        wq, wo = rnd(c, c, s=c ** -0.5), rnd(c, c, s=c ** -0.5)
+        bo = rnd(c, s=0.1)
+        return lambda: A.flash_attention_qout(h, k, v, wq, wo, bo, heads)
+
+    def streaming(b, h, nq, nk, d):
+        q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
+        return lambda: A.flash_attention_streaming(q, k, v)
+
+    cases = [("flash_attention_qout", [8, 4096, 160, 5],
+              qout(8, 4096, 160, 5)),
+             ("flash_attention_qout", [16, 4096, 160, 5],
+              qout(16, 4096, 160, 5)),
+             ("flash_attention_streaming", [8, 10, 1024, 1024, 32],
+              streaming(8, 10, 1024, 1024, 32)),
+             ("flash_attention_streaming", [8, 20, 256, 256, 32],
+              streaming(8, 20, 256, 256, 32)),
+             ("flash_attention_streaming", [1, 2, 100, 5000, 32],
+              streaming(1, 2, 100, 5000, 32)),
+             ("flash_attention_fproj", [16, 1024, 320, 10],
               fproj(16, 1024, 320, 10)),
              ("flash_attention_fproj", [8, 1024, 320, 10],
               fproj(8, 1024, 320, 10)),

@@ -1,21 +1,28 @@
-"""Design variants of the two Hopper-redesigned kernels, timed in turns.
+"""Design variants of the Hopper-redesigned kernels, timed in turns.
 
     python -m dsml_thesis_tpu_torch.tools.variants '{"base": [],
-        "g4": [["flash_attention_fproj.cu", "MAX_GROUPS = 2;",
-                "MAX_GROUPS = 4;"]]}'
+        "g1": [["flash_attention_qout.cu", "MAX_GROUPS = 8;",
+                "MAX_GROUPS = 1;"]]}'
 
 Each variant is a list of [file, old text, new text] substitutions applied
-to a copy of ``csrc/`` under ``_build/variants/<name>/``. Every variant's
-``flash_attention_fproj.cu`` and ``flash_attention_bwd_packed.cu`` are
+to a copy of ``csrc/`` under ``_build/variants/<name>/`` (an empty old text
+replaces the whole file by the file at the path, relative to the
+repository and inside it, that new text names: an earlier design unpacked
+under ``_ab/``). Every variant's
+``flash_attention_fproj.cu``, ``flash_attention_bwd_packed.cu``,
+``flash_attention_qout.cu`` and ``flash_attention_streaming.cu`` are
 compiled (all ``nvcc`` processes started together; ptxas's "Performance
 Loss" lines are printed) and linked into a library of their own; a name
 that starts with ``c_`` is compiled only. Then, for the fused-projection op
 at [16, 1024, 320] x 10, [8, 1024, 320] x 10, [16, 256, 640] x 20 and
-[3, 200, 320] x 10 and the packed backward at [8, 1024, 10 x 32],
-[8, 256, 20 x 32], [8, 4096, 5 x 32] and [2, 1000, 3 x 64], every variant's
-C entry is held against the plain version (relative error to the maximum)
-and timed by CUDA events, 20 calls, in three rounds of the variants in
-turns (a, b, b, a); the median is printed. Needs a CUDA device and nvcc.
+[3, 200, 320] x 10, the packed backward at [8, 1024, 10 x 32],
+[8, 256, 20 x 32], [8, 4096, 5 x 32] and [2, 1000, 3 x 64], the q/out-fused
+op at [8, 4096, 160] x 5, [16, 4096, 160] x 5 and [2, 1000, 128] x 2 and the
+streaming forward at [8, 10, 1024, 32], [8, 20, 256, 32] and
+[2, 3, 333, 77, 64], every variant's C entry is held against the plain
+version (relative error to the maximum) and timed by CUDA events, 20
+calls, in three rounds of the variants in turns (a, b, b, a); the median is
+printed. Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -31,7 +38,11 @@ import torch
 from ..ops import _build
 from ..ops import attention as A
 
-SOURCES = ("flash_attention_fproj.cu", "flash_attention_bwd_packed.cu")
+ROOT = os.path.realpath(os.path.dirname(_build.PKG_DIR))
+SOURCES = ("flash_attention_fproj.cu", "flash_attention_bwd_packed.cu",
+           "flash_attention_qout.cu", "flash_attention_streaming.cu")
+ENTRIES = ("dsml_flash_attention_fproj", "dsml_flash_attention_bwd_packed",
+           "dsml_flash_attention_qout", "dsml_flash_attention_streaming")
 
 
 def build(variants: dict) -> dict:
@@ -44,6 +55,13 @@ def build(variants: dict) -> dict:
         shutil.copytree(_build.CSRC_DIR, d)
         for f, old, new in subs:
             path = os.path.join(d, f)
+            if old == "":  # the whole file from another tree
+                other = os.path.realpath(os.path.join(ROOT, new))
+                if os.path.commonpath([other, ROOT]) != ROOT:
+                    raise ValueError(f"{name}: {new!r} is outside the "
+                                     "repository")
+                shutil.copyfile(other, path)
+                continue
             src = open(path).read()
             if old not in src:
                 raise ValueError(f"{name}: {old!r} not in {f}")
@@ -72,8 +90,7 @@ def build(variants: dict) -> dict:
                         *(os.path.join(d, s + ".o") for s in SOURCES)],
                        check=True)
         lib = ctypes.CDLL(lib_path)
-        for fn in ("dsml_flash_attention_fproj",
-                   "dsml_flash_attention_bwd_packed"):
+        for fn in ENTRIES:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         libs[name] = lib
     return libs
@@ -117,7 +134,41 @@ def cases() -> dict:
             stream())
         return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
 
-    return {"fproj [16,1024,320] x 10": fproj(16, 1024, 320, 10),
+    def qout(b, n, c, heads):
+        d = c // heads
+        h, k, v = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
+        wq, wo = rnd(c, c, sc=c ** -0.5), rnd(c, c, sc=c ** -0.5)
+        bo = rnd(c, sc=0.1)
+        ref = A.qout_reference(h, k, v, wq, wo, bo, heads)
+        out = torch.empty_like(h)
+        call = lambda lib: lib.dsml_flash_attention_qout(
+            h.data_ptr(), k.data_ptr(), v.data_ptr(), wq.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, n, n, c, heads,
+            d, d ** -0.5, stream())
+        return call, lambda: rel(out, ref)
+
+    def streaming(b, h, nq, nk, d):
+        q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
+        ref = A.streaming_attention_reference(q, k, v)
+        splits = A.streaming_splits(b * h, nq, nk)
+        out = torch.empty_like(q)
+        f32 = dict(dtype=torch.float32, device="cuda")
+        part_o = torch.empty((splits, b * h * nq, d), **f32)
+        part_ml = torch.empty((splits, 2, b * h * nq), **f32)
+        factor = A._folded_factor(d ** -0.5, q.dtype)
+        call = lambda lib: lib.dsml_flash_attention_streaming(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), b * h, nq, nk, d, splits,
+            factor, stream())
+        return call, lambda: rel(out, ref)
+
+    return {"qout [8,4096,160] x 5": qout(8, 4096, 160, 5),
+            "qout [16,4096,160] x 5": qout(16, 4096, 160, 5),
+            "qout [2,1000,128] x 2": qout(2, 1000, 128, 2),
+            "streaming [8,10,1024,32]": streaming(8, 10, 1024, 1024, 32),
+            "streaming [8,20,256,32]": streaming(8, 20, 256, 256, 32),
+            "streaming [2,3,333,77,64]": streaming(2, 3, 333, 77, 64),
+            "fproj [16,1024,320] x 10": fproj(16, 1024, 320, 10),
             "fproj [8,1024,320] x 10": fproj(8, 1024, 320, 10),
             "fproj [16,256,640] x 20": fproj(16, 256, 640, 20),
             "fproj [3,200,320] x 10": fproj(3, 200, 320, 10),

@@ -288,8 +288,12 @@ def test_new_cpu_wrappers_check_shapes():
 
 @pytest.mark.parametrize("c,hd,d,dtype,takes", [
     (160, 160, 32, torch.bfloat16, True), (640, 640, 32, torch.bfloat16, True),
-    (640, 640, 64, torch.bfloat16, True),
-    (1280, 1280, 32, torch.bfloat16, False),   # tiles beyond shared memory
+    (160, 160, 80, torch.bfloat16, True),      # -fullattn-dh64, level 0
+    (240, 240, 80, torch.bfloat16, True),      # H*D % 32 == 16: 3 heads of 80
+    (80, 80, 80, torch.bfloat16, True),        # one head of 80
+    (640, 640, 64, torch.bfloat16, True), (1280, 1280, 32, torch.bfloat16, True),
+    (1280, 1280, 64, torch.bfloat16, False),   # tiles beyond shared memory
+    (2560, 2560, 32, torch.bfloat16, False),
     (160, 160, 32, torch.float32, False), (168, 160, 32, torch.bfloat16, False),
     (48, 48, 16, torch.bfloat16, False)])
 def test_qout_kernel_takes(c, hd, d, dtype, takes):
