@@ -15,14 +15,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
            attention and conv kernels, or 67 TFLOP/s fp32 outside the tensor
            cores, the larger); the fp32 instantiations (first-stage
            training: the D = 512 attention, GroupNorm, channel statistics,
-           conv + statistics) are held to fp32 plain versions with TF32 off
-  model    mead-256-ldm-f4.yaml and its -fullattn twin at full width and
-           depth, random weights from a seed: one UNet call and one
-           first-stage decode through the kernels against the same calls
-           through the plain versions, under each flag set of the serve runs
+           conv + statistics) are held to fp32 plain versions with TF32 off;
+           every kernel but the split-head forward must also give the same
+           bits from two launches (the backward kernels also through
+           autograd)
+  model    mead-256-ldm-f4.yaml, its -fullattn twin and -fullattn-dh64 at
+           full width and depth, random weights from a seed: one UNet call
+           and one first-stage decode through the kernels against the same
+           calls through the plain versions, under each flag set of the
+           serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
-           frames, DDIM-50, guidance 2.0, in seven runs:
+           frames, DDIM-50, guidance 2.0, in eight runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
+             fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
+                             packed kernel), no flag, one batch
              fullattn-flags  -fullattn, DSML_ATTN_FPROJ_PARTIAL=1 and
                              DSML_PALLAS_GN=1, one batch
              headline-stats  headline config, DSML_PALLAS_GN=stats, one batch
@@ -89,6 +95,7 @@ sys.path.insert(0, HERE)
 CONFIG_DIR = os.path.join(HERE, "configs", "latent-diffusion")
 CONFIG = os.path.join(CONFIG_DIR, "mead-256-ldm-f4.yaml")
 CONFIG_FULLATTN = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn.yaml")
+CONFIG_DH64 = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn-dh64.yaml")
 CONFIG_VQ = os.path.join(HERE, "configs", "autoencoder", "vqgan-f4.yaml")
 CONFIG_KL = os.path.join(HERE, "configs", "autoencoder", "kl-f4.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -290,13 +297,14 @@ def _packed_case(gen, b, nq, nk, heads, d, timed):
     q, k, v = (_rand(gen, b, n, hd) for n in (nq, nk, nk))
     scale = d ** -0.5
     sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
-    return _case(
-        (b, nq, nk, heads, d), timed,
-        lambda: A.flash_attention_packed(q, k, v, heads, scale=scale),
+    run = lambda: A.flash_attention_packed(q, k, v, heads, scale=scale)
+    return _repeatable(_case(
+        (b, nq, nk, heads, d), timed, run,
         lambda: A.packed_reference(q, k, v, heads, scale=scale),
         lambda: F.scaled_dot_product_attention(sp(q), sp(k), sp(v),
                                                scale=scale),
-        2 * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, PEAK_BF16_FLOPS)
+        2 * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, PEAK_BF16_FLOPS),
+        run)
 
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
@@ -610,9 +618,18 @@ def phase_kernels():
     packed = [
         _packed_case(gen, 16, 4096, 4096, 5, 32, True),   # -fullattn, 64x64
         _packed_case(gen, 8, 4096, 4096, 5, 32, True),    # its first block
+        _packed_case(gen, 8, 1024, 1024, 10, 32, True),   # training step
+        _packed_case(gen, 8, 256, 256, 20, 32, True),
+        _packed_case(gen, 8, 4096, 4096, 2, 80, True),    # -fullattn-dh64
         _packed_case(gen, 2, 1000, 1000, 5, 32, False),   # ragged N
         _packed_case(gen, 2, 333, 77, 10, 32, False),     # cross: Nk != Nq
         _packed_case(gen, 2, 200, 200, 3, 64, False),     # 64-wide heads
+        _packed_case(gen, 2, 300, 300, 3, 80, False),     # H*D % 32 == 16
+        _packed_case(gen, 2, 150, 150, 1, 80, False),     # one head of 80
+        _packed_case(gen, 2, 333, 77, 2, 80, False),      # Nk != Nq at 80
+        _packed_case(gen, 2, 64, 64, 5, 32, False),       # one q-tile exactly
+        _packed_case(gen, 2, 200, 129, 5, 32, False),     # Nk = 128 + 1
+        _packed_case(gen, 2, 100, 50, 3, 64, False),      # Nk < one K tile
     ]
     qout = [
         _qout_case(gen, 16, 4096, 4096, 160, 5, True),
@@ -708,6 +725,9 @@ def phase_kernels():
         _streaming_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _streaming_bwd_case(gen, 2, 3, 333, 77, 64, False),  # ragged, D = 64
         _streaming_bwd_case(gen, 2, 5, 200, 200, 32, False),
+        _streaming_bwd_case(gen, 2, 5, 129, 129, 32, False),  # 128 rows + 1
+        _streaming_bwd_case(gen, 2, 5, 1000, 40, 32, False),  # Nk < a tile
+        _streaming_bwd_case(gen, 1, 2, 100, 5000, 32, False),  # long K
     ]
     conv = [   # b, H, W, Cin, Cout, K, input norm, skip
         _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),
@@ -1537,6 +1557,7 @@ def kernels_line(cases, launches_by_run):
 # serve runs and model checks: (name, config, flags, requests)
 RUNS = (
     ("fullattn", CONFIG_FULLATTN, {}, 16),
+    ("fullattn-dh64", CONFIG_DH64, {}, 8),
     ("fullattn-flags", CONFIG_FULLATTN,
      {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"}, 8),
     ("headline-stats", CONFIG, {"DSML_PALLAS_GN": "stats"}, 8),
@@ -1581,7 +1602,7 @@ def main():
               "card and has no CPU mode", file=sys.stderr)
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
-    for config in (CONFIG, CONFIG_FULLATTN, CONFIG_VQ, CONFIG_KL):
+    for config in (CONFIG, CONFIG_FULLATTN, CONFIG_DH64, CONFIG_VQ, CONFIG_KL):
         if not os.path.exists(config):
             print(f"chip_smoke: {config} is missing: run from a checkout",
                   file=sys.stderr)

@@ -1,6 +1,6 @@
-// Shared device code of the two attention backward kernels
-// (flash_attention_bwd.cu on split heads, flash_attention_bwd_packed.cu on
-// packed rows). The function, per (batch, head), with s = scale * q k^T:
+// Device code of the split-head attention backward (flash_attention_bwd.cu,
+// mma.sync), and the delta launch that the Hopper grids of hopper_bwd.cuh
+// share with it. The function, per (batch, head), with s = scale * q k^T:
 //   p  = softmax(s)                      fp32, recomputed from the saved
 //                                        row log-sum-exp: p = exp(s - lse)
 //   dp = do v^T
@@ -25,26 +25,18 @@
 //     from o and do before the other two run.
 //
 // A head is addressed by base pointer and row stride (D on split heads, H*D
-// on packed rows), so both layouts share this code and the packed backward
-// writes dq, dk, dv in place in the packed layout.
-//
-// PRESCALED_Q (the streaming backward, flash_attention_streaming_bwd.cu): the
-// scores are formed from q times q_scale = scale * log2(e) rounded to bf16,
-// the product rounded to bf16 again, as its forward forms them; scale_log2 is
-// then 1 and lse is that kernel's own. dk is still taken against the
-// unscaled q, which costs the dk/dv grid a fifth tile.
+// on packed rows).
 #pragma once
 
 #include "mma_tiles.cuh"
 
 constexpr int BT = 64;  // rows of a backward tile (owned and streamed)
 
-// Bytes of shared memory a block of either backward kernel uses: four
-// [BT][D + PAD] bf16 tiles (five with PRESCALED_Q) and two [BT] fp32 vectors.
-template <int D, bool PRESCALED_Q = false>
+// Bytes of shared memory a block of either backward grid uses: four
+// [BT][D + PAD] bf16 tiles and two [BT] fp32 vectors.
+template <int D>
 constexpr int bwd_smem_bytes() {
-  return (PRESCALED_Q ? 5 : 4) * BT * (D + PAD) *
-             static_cast<int>(sizeof(bf16)) +
+  return 4 * BT * (D + PAD) * static_cast<int>(sizeof(bf16)) +
          2 * BT * static_cast<int>(sizeof(float));
 }
 
@@ -159,12 +151,12 @@ __device__ __forceinline__ void store_rows(bf16* g, int64_t ld, int row0,
 // across the loop over the query tiles. The scores are formed transposed
 // (S^T = K Q^T), so that P^T and dS^T come out as the A operands of the two
 // accumulating products.
-template <int D, bool PRESCALED_Q = false>
+template <int D>
 __device__ __forceinline__ void bwd_dkdv_tile(
     const bf16* gQ, const bf16* gdO, int64_t ld_q, const bf16* gK,
     const bf16* gV, bf16* gdK, bf16* gdV, int64_t ld_kv, const float* gLse,
     const float* gDelta, int nq, int kv_valid, float scale, float scale_log2,
-    unsigned char* smem, float q_scale = 1.f) {
+    unsigned char* smem) {
   constexpr int NTHREADS = 128;
   constexpr int LDS = D + PAD;
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -173,8 +165,6 @@ __device__ __forceinline__ void bwd_dkdv_tile(
   bf16* sdO = sQ + BT * LDS;
   float* sLse = reinterpret_cast<float*>(sdO + BT * LDS);
   float* sDelta = sLse + BT;
-  // the q tile the scores are formed from
-  bf16* sQs = PRESCALED_Q ? reinterpret_cast<bf16*>(sDelta + BT) : sQ;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -194,9 +184,6 @@ __device__ __forceinline__ void bwd_dkdv_tile(
   for (int q0 = 0; q0 < nq; q0 += BT) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<D, NTHREADS>(sQ, gQ + q0 * ld_q, ld_q, BT, nq - q0, tid);
-    if (PRESCALED_Q)
-      load_tile_scaled<D, NTHREADS>(sQs, gQ + q0 * ld_q, ld_q, BT, nq - q0,
-                                    tid, __float2bfloat16(q_scale));
     load_tile<D, NTHREADS>(sdO, gdO + q0 * ld_q, ld_q, BT, nq - q0, tid);
     if (tid < BT) {
       const bool ok = q0 + tid < nq;
@@ -206,7 +193,7 @@ __device__ __forceinline__ void bwd_dkdv_tile(
     __syncthreads();  // also makes sK / sV visible on the first round
 
     float st[BT / 8][4], dpt[BT / 8][4];
-    rows_times_rows_t<D>(st, sK, row0, sQs, lo);   // S^T  = K Q^T
+    rows_times_rows_t<D>(st, sK, row0, sQ, lo);    // S^T  = K Q^T
     rows_times_rows_t<D>(dpt, sV, row0, sdO, lo);  // dP^T = V dO^T
 
     // P^T = exp2(S^T * scale * log2(e) - lse[q]); dS^T = P^T (dP^T - delta[q]).
@@ -243,12 +230,11 @@ __device__ __forceinline__ void bwd_dkdv_tile(
 // row (row stride ld_kv, nk rows). 128 threads: warp w owns query rows
 // 16 w .. 16 w + 15 and holds their dq in registers across the loop over the
 // key/value tiles.
-template <int D, bool PRESCALED_Q = false>
+template <int D>
 __device__ __forceinline__ void bwd_dq_tile(
     const bf16* gQ, const bf16* gdO, bf16* gdQ, int64_t ld_q, const bf16* gK,
     const bf16* gV, int64_t ld_kv, const float* gLse, const float* gDelta,
-    int q_valid, int nk, float scale, float scale_log2, unsigned char* smem,
-    float q_scale = 1.f) {
+    int q_valid, int nk, float scale, float scale_log2, unsigned char* smem) {
   constexpr int NTHREADS = 128;
   constexpr int LDS = D + PAD;
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -261,11 +247,7 @@ __device__ __forceinline__ void bwd_dq_tile(
   const int row0 = (tid >> 5) * 16;
   const LaneOffsets lo(lane);
 
-  if (PRESCALED_Q)  // q is read for the scores alone here
-    load_tile_scaled<D, NTHREADS>(sQ, gQ, ld_q, BT, q_valid, tid,
-                                  __float2bfloat16(q_scale));
-  else
-    load_tile<D, NTHREADS>(sQ, gQ, ld_q, BT, q_valid, tid);
+  load_tile<D, NTHREADS>(sQ, gQ, ld_q, BT, q_valid, tid);
   load_tile<D, NTHREADS>(sdO, gdO, ld_q, BT, q_valid, tid);
 
   const int r0 = row0 + (lane >> 2);

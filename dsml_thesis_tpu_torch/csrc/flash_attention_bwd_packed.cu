@@ -11,406 +11,18 @@
 // q-block), keeps the batch element's whole K / V resident, walks the heads
 // by column slice and carries dk / dv (fp32) from one q-block to the next.
 // Blocks of a GPU run in no order and carry nothing over, so the work is
-// cut in three launches: row dots delta = rowsum(do o) (attention_bwd.cuh);
-// a grid over (batch, head, 128 key/value rows) that streams the query
-// tiles and writes dk / dv once; a grid over (batch, head, 128 query rows)
-// that streams the key/value tiles and writes dq once. A head is addressed
-// by base pointer + h * D and the packed row stride H*D. No atomics: equal
-// inputs give equal bits. The arithmetic is attention_bwd.cuh's: P and dS
-// cast to bf16 before their products, fp32 accumulation, dk and dv summed
-// over all query rows in fp32 and cast once.
+// cut in three launches: row dots delta = rowsum(do o); a grid over (batch,
+// head, 128 key/value rows) that streams the query tiles and writes dk / dv
+// once; a grid over (batch, head, 128 query rows) that streams the
+// key/value tiles and writes dq once. Those are hopper_bwd.cuh's grids,
+// which the streaming backward (flash_attention_streaming_bwd.cu) launches
+// too; here with the scores (q k^T) * scale * log2(e) in fp32, as the packed
+// forward kernel forms them.
 //
-// Bound on this card: operations. The function is 10 Nq Nk H D operations a
-// batch element against 2 (4 Nq + 4 Nk) H D bytes (0.22 ms at [8, 4096,
-// 5 x 32] at 989 TFLOP/s); with the scores and dP formed in both grids the
-// kernels execute 14, and at D = 32 each score also costs an exp2 in each
-// grid (671 M at that shape, 0.18 ms a grid on the special-function units
-// alone) and a few fp32 operations outside the tensor cores.
-//
-// Design (hopper_tiles.cuh): a block is two warpgroups, each owning 64 of
-// the block's 128 rows, whose K and V (or q and do) stay in shared memory.
-// The streamed 64-row tiles (q, do and the rows' lse and delta; or K and V)
-// arrive through a ring of STAGES buffers filled by cp.async, each stage
-// completing on an mbarrier and released on another, so the copies of the
-// next tiles overlap the products of this one. Every product runs on wgmma
-// from the swizzled tiles: S^T = K q^T and dP^T = V do^T with both
-// operands in shared memory, then dV += P^T do and dK += dS^T q with P^T
-// and dS^T packed to bf16 in registers as the A operand; in the dq grid
-// S = q K^T, dP = do V^T and dq += dS K alike. exp2 is the special-function
-// unit's alone (exp2_fast), and the dk/dv grid fits two blocks an SM at
-// D = 32 (at most 128 registers a thread).
-#include "attention_bwd.cuh"  // bwd_delta_kernel
-#include "hopper_tiles.cuh"
-
-namespace {
-
-using namespace hopper;
-
-constexpr int OWN = 128;    // rows a block owns: two warpgroups of 64
-constexpr int STR = 64;     // rows of a streamed tile
-constexpr int STAGES = 3;   // buffers of the ring
-constexpr int NT = 256;     // threads of a block
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-template <int D>
-struct Layout {
-  static constexpr int ROWB = 2 * D;                 // bytes of a tile row
-  static constexpr int OWN_TILE = OWN * ROWB;
-  static constexpr int STR_TILE = STR * ROWB;
-  // dk/dv grid: a stage holds q, do, lse, delta; dq grid: K, V
-  static constexpr int STAGE_DKDV = round_up(2 * STR_TILE + 2 * STR * 4, 1024);
-  static constexpr int STAGE_DQ = 2 * STR_TILE;
-  static constexpr int BARS = 2 * STAGES + 1;        // full, empty, own
-  static constexpr int smem(int stage) {
-    return 1024 + 2 * OWN_TILE + STAGES * stage + BARS * 8;
-  }
-};
-
-// Epilogue of both grids: the warpgroup's [64 x D] accumulator times mul,
-// cast to bf16, into rows below valid of a tensor of row stride ld; g
-// points at the warpgroup's first row.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* g, int64_t ld, int valid,
-                                          const float (&acc)[D / 2],
-                                          float mul) {
-  const int wt = threadIdx.x & 127;
-  const int r0 = (wt >> 5) * 16 + ((wt & 31) >> 2);
-  const int c = 2 * (wt & 3);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (r0 < valid)
-      *reinterpret_cast<uint32_t*>(g + r0 * ld + 8 * j + c) =
-          pack2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    if (r0 + 8 < valid)
-      *reinterpret_cast<uint32_t*>(g + (r0 + 8) * ld + 8 * j + c) =
-          pack2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-  }
-}
-
-// two blocks an SM at D = 32 (at most 128 registers a thread)
-template <int D>
-__global__ void __launch_bounds__(NT, D == 32 ? 2 : 1)
-packed_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int nq, int nk, int heads,
-                       int kv_tiles, float scale, float scale_log2) {
-  using L = Layout<D>;
-  constexpr int ROWB = L::ROWB;
-  constexpr int STAGE = L::STAGE_DKDV;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = align_smem(smem_raw, 1024);
-  const uint32_t sK = cvta(base), sV = sK + L::OWN_TILE;
-  const uint32_t ring = sV + L::OWN_TILE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * L::OWN_TILE +
-                                               STAGES * STAGE);
-  uint64_t* empty = full + STAGES;
-  uint64_t* own = empty + STAGES;
-
-  const int tid = threadIdx.x;
-  const int kv0 = (blockIdx.x % kv_tiles) * OWN;
-  const int64_t bh = blockIdx.x / kv_tiles;
-  const int h = static_cast<int>(bh % heads);
-  const int64_t b = bh / heads;
-  const int64_t ld = static_cast<int64_t>(heads) * D;
-  const bf16* gq = q + b * nq * ld + h * D;
-  const bf16* gdo = dout + b * nq * ld + h * D;
-  const float* glse = lse + bh * nq;
-  const float* gdl = delta + bh * nq;
-  const int64_t kv_off = (b * nk + kv0) * ld + h * D;
-  const int kv_valid = nk - kv0;
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], NT);
-      mbar_init(&empty[s], NT);
-    }
-    mbar_init(own, NT);
-    mbar_fence_init();
-  }
-  __syncthreads();  // the barriers exist before anyone waits on them
-
-  load_tile_async<ROWB, OWN, NT>(sK, k + kv_off, ld, kv_valid, tid);
-  load_tile_async<ROWB, OWN, NT>(sV, v + kv_off, ld, kv_valid, tid);
-  cp_async_arrive(own);
-
-  const int q_tiles = (nq + STR - 1) / STR;
-  auto issue = [&](int j) {  // query tile j into stage j % STAGES
-    const int s = j % STAGES;
-    if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
-    const uint32_t st = ring + s * STAGE;
-    const int q0 = j * STR;
-    load_tile_async<ROWB, STR, NT>(st, gq + q0 * ld, ld, nq - q0, tid);
-    load_tile_async<ROWB, STR, NT>(st + L::STR_TILE, gdo + q0 * ld, ld,
-                                   nq - q0, tid);
-    if (tid < 2 * STR) {  // lse then delta, one fp32 a thread
-      const int i = tid % STR;
-      const bool ok = q0 + i < nq;
-      const float* src = (tid < STR ? glse : gdl) + (ok ? q0 + i : 0);
-      cp_async4(st + 2 * L::STR_TILE + 4 * tid, src, ok);
-    }
-    cp_async_arrive(&full[s]);
-  };
-  for (int j = 0; j < STAGES - 1 && j < q_tiles; ++j) issue(j);
-
-  const int wg = tid >> 7;
-  const int lane = tid & 31;
-  const uint32_t myK = sK + wg * 64 * ROWB, myV = sV + wg * 64 * ROWB;
-  float dkacc[D / 2], dvacc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
-  mbar_wait(own, 0);
-
-  for (int j = 0; j < q_tiles; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(&full[s], (j / STAGES) & 1);
-    if (j + STAGES - 1 < q_tiles) issue(j + STAGES - 1);
-    fence_async_shared();
-    const uint32_t sQ = ring + s * STAGE, sdO = sQ + L::STR_TILE;
-    const float* sLse = reinterpret_cast<const float*>(
-        base + 2 * L::OWN_TILE + s * STAGE + 2 * L::STR_TILE);
-    const float* sDl = sLse + STR;
-
-    // S^T = K q^T and dP^T = V do^T: [64 key rows] x [64 query rows]
-    float st[32], dpt[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(st, desc_k<ROWB>(myK + 32 * kk),
-                      desc_k<ROWB>(sQ + 32 * kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dpt, desc_k<ROWB>(myV + 32 * kk),
-                      desc_k<ROWB>(sdO + 32 * kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
-
-    // P^T = exp2(S^T scale log2(e) - lse[q]); dS^T = P^T (dP^T - delta[q]).
-    // A column is a query row: those past nq give 0.
-    const int q0 = j * STR;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int c0 = 8 * jj + 2 * (lane & 3);
-      const bool ok0 = q0 + c0 < nq, ok1 = q0 + c0 + 1 < nq;
-      const float l0 = sLse[c0], l1 = sLse[c0 + 1];
-      const float d0 = sDl[c0], d1 = sDl[c0 + 1];
-      const float p0 = ok0 ? exp2_fast(st[4 * jj] * scale_log2 - l0) : 0.f;
-      const float p1 = ok1 ? exp2_fast(st[4 * jj + 1] * scale_log2 - l1) : 0.f;
-      const float p2 = ok0 ? exp2_fast(st[4 * jj + 2] * scale_log2 - l0) : 0.f;
-      const float p3 = ok1 ? exp2_fast(st[4 * jj + 3] * scale_log2 - l1) : 0.f;
-      dpt[4 * jj] = p0 * (dpt[4 * jj] - d0);
-      dpt[4 * jj + 1] = p1 * (dpt[4 * jj + 1] - d1);
-      dpt[4 * jj + 2] = p2 * (dpt[4 * jj + 2] - d0);
-      dpt[4 * jj + 3] = p3 * (dpt[4 * jj + 3] - d1);
-      st[4 * jj] = p0;
-      st[4 * jj + 1] = p1;
-      st[4 * jj + 2] = p2;
-      st[4 * jj + 3] = p3;
-    }
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      acc_to_a<64>(pa[t], st, t);
-      acc_to_a<64>(da[t], dpt, t);
-    }
-
-    // dV += P^T do, dK += dS^T q: the query rows are the reduction
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dvacc, pa[t], desc_mn<ROWB>(sdO + t * 16 * ROWB));
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dkacc, da[t], desc_mn<ROWB>(sQ + t * 16 * ROWB));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dvacc);
-    fence_regs(dkacc);
-    fence_regs(pa);
-    fence_regs(da);
-    mbar_arrive(&empty[s]);
-  }
-
-  const int64_t wg_off = kv_off + wg * 64 * ld;
-  store_acc<D>(dk + wg_off, ld, kv_valid - wg * 64, dkacc, scale);
-  store_acc<D>(dv + wg_off, ld, kv_valid - wg * 64, dvacc, 1.f);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-packed_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int nq, int nk, int heads, int q_tiles, float scale,
-                     float scale_log2) {
-  using L = Layout<D>;
-  constexpr int ROWB = L::ROWB;
-  constexpr int STAGE = L::STAGE_DQ;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = align_smem(smem_raw, 1024);
-  const uint32_t sQ = cvta(base), sdO = sQ + L::OWN_TILE;
-  const uint32_t ring = sdO + L::OWN_TILE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * L::OWN_TILE +
-                                               STAGES * STAGE);
-  uint64_t* empty = full + STAGES;
-  uint64_t* own = empty + STAGES;
-
-  const int tid = threadIdx.x;
-  const int q0 = (blockIdx.x % q_tiles) * OWN;
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int h = static_cast<int>(bh % heads);
-  const int64_t b = bh / heads;
-  const int64_t ld = static_cast<int64_t>(heads) * D;
-  const int64_t q_off = (b * nq + q0) * ld + h * D;
-  const bf16* gk = k + b * nk * ld + h * D;
-  const bf16* gv = v + b * nk * ld + h * D;
-  const int q_valid = nq - q0;
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], NT);
-      mbar_init(&empty[s], NT);
-    }
-    mbar_init(own, NT);
-    mbar_fence_init();
-  }
-  __syncthreads();  // the barriers exist before anyone waits on them
-
-  load_tile_async<ROWB, OWN, NT>(sQ, q + q_off, ld, q_valid, tid);
-  load_tile_async<ROWB, OWN, NT>(sdO, dout + q_off, ld, q_valid, tid);
-  cp_async_arrive(own);
-
-  const int kv_tiles = (nk + STR - 1) / STR;
-  auto issue = [&](int j) {  // key/value tile j into stage j % STAGES
-    const int s = j % STAGES;
-    if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
-    const uint32_t st = ring + s * STAGE;
-    const int kv0 = j * STR;
-    load_tile_async<ROWB, STR, NT>(st, gk + kv0 * ld, ld, nk - kv0, tid);
-    load_tile_async<ROWB, STR, NT>(st + L::STR_TILE, gv + kv0 * ld, ld,
-                                   nk - kv0, tid);
-    cp_async_arrive(&full[s]);
-  };
-  for (int j = 0; j < STAGES - 1 && j < kv_tiles; ++j) issue(j);
-
-  const int wg = tid >> 7;
-  const int wt = tid & 127;
-  const int lane = tid & 31;
-  const uint32_t myQ = sQ + wg * 64 * ROWB, mydO = sdO + wg * 64 * ROWB;
-  // the thread's two query rows and their statistics
-  const int r0 = wg * 64 + (wt >> 5) * 16 + (lane >> 2), r1 = r0 + 8;
-  const int64_t row_stat = bh * nq + q0;
-  const float lse0 = r0 < q_valid ? lse[row_stat + r0] : 0.f;
-  const float lse1 = r1 < q_valid ? lse[row_stat + r1] : 0.f;
-  const float dl0 = r0 < q_valid ? delta[row_stat + r0] : 0.f;
-  const float dl1 = r1 < q_valid ? delta[row_stat + r1] : 0.f;
-  float dqacc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
-  mbar_wait(own, 0);
-
-  for (int j = 0; j < kv_tiles; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(&full[s], (j / STAGES) & 1);
-    if (j + STAGES - 1 < kv_tiles) issue(j + STAGES - 1);
-    fence_async_shared();
-    const uint32_t sK = ring + s * STAGE, sV = sK + L::STR_TILE;
-
-    // S = q K^T and dP = do V^T: [64 query rows] x [64 key rows]
-    float sc[32], dp[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(sc, desc_k<ROWB>(myQ + 32 * kk),
-                      desc_k<ROWB>(sK + 32 * kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dp, desc_k<ROWB>(mydO + 32 * kk),
-                      desc_k<ROWB>(sV + 32 * kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-
-    // dS = P (dP - delta), P = exp2(S scale log2(e) - lse); keys past nk
-    // are outside the softmax and give 0.
-    const int kv0 = j * STR;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int key = kv0 + 8 * jj + 2 * (lane & 3);
-      const bool ok0 = key < nk, ok1 = key + 1 < nk;
-      const float p0 = ok0 ? exp2_fast(sc[4 * jj] * scale_log2 - lse0) : 0.f;
-      const float p1 = ok1 ? exp2_fast(sc[4 * jj + 1] * scale_log2 - lse0) : 0.f;
-      const float p2 = ok0 ? exp2_fast(sc[4 * jj + 2] * scale_log2 - lse1) : 0.f;
-      const float p3 = ok1 ? exp2_fast(sc[4 * jj + 3] * scale_log2 - lse1) : 0.f;
-      dp[4 * jj] = p0 * (dp[4 * jj] - dl0);
-      dp[4 * jj + 1] = p1 * (dp[4 * jj + 1] - dl0);
-      dp[4 * jj + 2] = p2 * (dp[4 * jj + 2] - dl1);
-      dp[4 * jj + 3] = p3 * (dp[4 * jj + 3] - dl1);
-    }
-    uint32_t da[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc_to_a<64>(da[t], dp, t);
-
-    // dq += dS K: the key rows are the reduction
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dqacc, da[t], desc_mn<ROWB>(sK + t * 16 * ROWB));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dqacc);
-    fence_regs(da);
-    mbar_arrive(&empty[s]);
-  }
-
-  store_acc<D>(dq + q_off + wg * 64 * ld, ld, q_valid - wg * 64, dqacc, scale);
-}
-
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, const float* lse, float* delta, bf16* dq,
-           bf16* dk, bf16* dv, int b, int nq, int nk, int heads, float scale,
-           cudaStream_t stream) {
-  using L = Layout<D>;
-  auto dkdv = packed_bwd_dkdv_kernel<D>;
-  auto dqk = packed_bwd_dq_kernel<D>;
-  const int smem_dkdv = L::smem(L::STAGE_DKDV);
-  const int smem_dq = L::smem(L::STAGE_DQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const int64_t rows = static_cast<int64_t>(b) * heads * nq;
-  bwd_delta_kernel<D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
-                        stream>>>(o, dout, delta, nq, heads, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int kv_tiles = (nk + OWN - 1) / OWN;
-  dkdv<<<b * heads * kv_tiles, NT, smem_dkdv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, nq, nk, heads, kv_tiles, scale,
-      scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + OWN - 1) / OWN;
-  dqk<<<b * heads * q_tiles, NT, smem_dq, stream>>>(
-      q, k, v, dout, lse, delta, dq, nq, nk, heads, q_tiles, scale,
-      scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// Bound on this card: operations (0.22 ms at [8, 4096, 5 x 32] at 989
+// TFLOP/s); at D = 32 each score also costs an exp2 in each grid (671 M at
+// that shape, 0.18 ms a grid on the special-function units alone).
+#include "hopper_bwd.cuh"
 
 // delta is [B, H, Nq] fp32 scratch. Returns cudaGetLastError() of the first
 // launch that failed (0 = all launched), or -1 for a head width this file
@@ -425,13 +37,16 @@ extern "C" int dsml_flash_attention_bwd_packed(
   auto m = [](void* p) { return static_cast<bf16*>(p); };
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const float scale_log2 = scale * 1.4426950408889634f;
   switch (d) {
     case 32:
-      return launch<32>(c(q), c(k), c(v), c(o), c(dout), l, dl, m(dq), m(dk),
-                        m(dv), b, nq, nk, heads, scale, s);
+      return hbwd::launch<32, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), b, nq, nk,
+                                     heads, scale, scale_log2, s);
     case 64:
-      return launch<64>(c(q), c(k), c(v), c(o), c(dout), l, dl, m(dq), m(dk),
-                        m(dv), b, nq, nk, heads, scale, s);
+      return hbwd::launch<64, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), b, nq, nk,
+                                     heads, scale, scale_log2, s);
     default:
       return -1;
   }

@@ -96,7 +96,7 @@ qout_attention_kernel(const bf16* __restrict__ h, const bf16* __restrict__ k,
                       bf16* __restrict__ out, int n, int nk, int c, int heads,
                       int groups, int q_tiles, float scale_log2) {
   constexpr int NT = ATT_THREADS;
-  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B, ROWA = 2 * DA;
+  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B;
   const int hd = heads * D;
   const int g = static_cast<int>(cluster_rank());
   const int hg = heads / groups;            // heads of this block
@@ -160,18 +160,8 @@ qout_attention_kernel(const bf16* __restrict__ h, const bf16* __restrict__ k,
             st + ATT_ROWS * HK * 2,
             wq + static_cast<int64_t>(head) * D * c + kc, c, D, tid, c - kc);
       } else {
-        // K then V, each as the panels A and B of HeadSplit
-        const int kv0 = (it - cpan) * AKV;
-        const int64_t off = static_cast<int64_t>(kv0) * hd + head * D;
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const bf16* src = (x == 0 ? kb : vb) + off;
-          const uint32_t dst = st + x * AKV * 2 * D;
-          load_tile_async<ROWA, AKV, NT>(dst, src, hd, nk - kv0, tid);
-          if constexpr (DB > 0)
-            load_tile_async<32, AKV, NT>(dst + AKV * ROWA, src + DA, hd,
-                                         nk - kv0, tid);
-        }
+        load_kv_tile_async<D, AKV, NT>(st, kb + head * D, vb + head * D, hd,
+                                       (it - cpan) * AKV, nk, tid);
       }
       if (++it == per_head) {
         it = 0;

@@ -297,12 +297,8 @@ streaming_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i = issued++;
     const int s = i % S_STAGES;
     if (i >= S_STAGES) mbar_wait(&empty[s], ((i / S_STAGES) - 1) & 1);
-    const int kv0 = kv_begin + i * SKV;
-    const uint32_t st = ring + s * STAGE;
-    const int64_t off = static_cast<int64_t>(kv0) * D;
-    load_tile_async<ROWB, SKV, SNT>(st, k + off, D, kv_end - kv0, tid);
-    load_tile_async<ROWB, SKV, SNT>(st + SKV * ROWB, v + off, D, kv_end - kv0,
-                                    tid);
+    load_kv_tile_async<D, SKV, SNT>(ring + s * STAGE, k, v, D,
+                                    kv_begin + i * SKV, kv_end, tid);
     cp_async_arrive(&full[s]);
   };
   while (issued < S_STAGES && issued < ntiles) issue_next();

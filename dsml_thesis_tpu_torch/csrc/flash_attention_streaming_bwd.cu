@@ -7,28 +7,35 @@
 // (_streaming_lse_kernel, _streaming_dq_kernel, _streaming_dkdv_kernel). Its
 // residuals are (q, k, v, o) and no row statistic, so the row log-sum-exp is
 // recomputed from q and k by a launch of its own, as there. Four launches:
-//   lse    a block per (head, 64 query rows) streams the K tiles under an
-//          online maximum / sum (fp32 probabilities) and writes
+//   lse    one warpgroup a (head, 64 query rows): each thread loads its rows
+//          of q straight into registers as the A operand of the score
+//          product, multiplied by scale * log2(e) in bf16 on the way, and
+//          writes that qs = bf16(q * c) back to device memory; 128-key K
+//          tiles stream through a ring of LSE_STAGES cp.async stages on
+//          mbarriers; S = qs K^T on wgmma; an online maximum with the finite
+//          mask (keys past Nk score -1e30 and weigh 0) and fp32 sums of the
+//          probabilities (hopper_tiles.cuh: softmax_scores, add_row_sums);
 //          lse2 = m + log2(max(l, 1e-30)) per row;
 //   delta  rowsum(do * o) from the saved output (attention_bwd.cuh);
-//   dk/dv  a block per (head, 64 key/value rows) loops over the query tiles;
-//   dq     a block per (head, 64 query rows) loops over the key/value tiles
-// (the two grids of attention_bwd.cuh with PRESCALED_Q: the scores are formed
-// from q times scale * log2(e) rounded to bf16, exactly as the forward and
-// the lse launch form them, so that p = exp2(s - lse2) sums to one). The TPU
-// kernels carry dq, dk and dv in scratch from one sequential grid step to
-// the next; here each output tile belongs to one block that loops, nothing
-// is summed with atomics, and equal inputs give equal bits. dk and dv are
-// summed in fp32 over all query rows and cast once.
+//   dk/dv, dq  hopper_bwd.cuh's grids, the packed backward's, on split heads
+//          (one head, row stride D) with the scores formed from qs (scale 1),
+//          exactly as the forward and the lse launch form them, so that
+//          p = exp2(s - lse2) sums to one; dk is taken against the unscaled q.
+// qs lives in dq's memory until the dq grid overwrites it: the lse launch
+// writes it, the dk/dv grid streams it beside q, and each block of the dq
+// grid reads its own 128 rows of it before it writes those rows of dq. No
+// output is summed with atomics, and equal inputs give equal bits. dk and dv
+// are summed in fp32 over all query rows and cast once.
 //
 // Where the TPU kernels form dP, dS and their products in fp32, P and dS are
 // rounded to bf16 here before the tensor-core products (as in
 // flash_attention_bwd.cu).
 //
 // Bound: operations (10 * Nq * Nk * D a head, plus 2 * Nq * Nk * D for the
-// log-sum-exp launch, against 2 * (4 Nq + 4 Nk) * D bytes). This version does
-// 16 (scores and dp are formed in both grids), loads tiles synchronously and
-// uses mma.sync. Head widths 32 and 64 in bf16, as flash_attention_bwd.cu.
+// log-sum-exp launch, against 2 * (4 Nq + 4 Nk) * D bytes), and at D = 32
+// the exp2 of every score, once in each of the three launches that form the
+// scores, on the special-function unit. Head widths 32 and 64 in bf16, as
+// flash_attention_bwd_packed.cu.
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_bwd_f32; first-stage
 // training under DSML_FLASH_STREAMING=1): a log-sum-exp launch of its own
@@ -39,116 +46,119 @@
 // against the stored q * c and divided by c = scale * log2(e) at the end, so
 // no fifth tile is kept: the two differ by one fp32 rounding of q * c, far
 // under the TF32 rounding of the operand itself.
-#include "attention_bwd.cuh"
 #include "attention_f32.cuh"
+#include "hopper_bwd.cuh"
 
 namespace {
 
+constexpr int LSE_ROWS = 64;     // query rows a block of the lse launch
+constexpr int LSE_NT = 128;      // its threads: one warpgroup
+constexpr int LSE_KV = 128;      // keys of a streamed K tile
+constexpr int LSE_STAGES = 3;
+
+__host__ __device__ constexpr int lse_wgmma_smem(int d) {
+  return 1024 + LSE_STAGES * LSE_KV * 2 * d + 2 * LSE_STAGES * 8;
+}
+
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(LSE_NT)
 streaming_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     float* __restrict__ lse, int nq, int nk, int q_tiles,
-                     float q_scale) {
-  constexpr int NTHREADS = 128;
-  constexpr int LDS = D + PAD;
-  __shared__ __align__(16) unsigned char smem_raw[2 * BT * LDS * sizeof(bf16)];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BT * LDS;
+                     bf16* __restrict__ qs, float* __restrict__ lse, int nq,
+                     int nk, int q_tiles, float q_scale) {
+  using namespace hopper;
+  constexpr int ROWB = 2 * D;
+  constexpr int STAGE = LSE_KV * ROWB;   // a K tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw, 1024);
+  const uint32_t ring = cvta(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + LSE_STAGES * STAGE);
+  uint64_t* empty = full + LSE_STAGES;
+
   const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BT;
+  const int q0 = (blockIdx.x % q_tiles) * LSE_ROWS;
+  const int ntiles = (nk + LSE_KV - 1) / LSE_KV;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int row0 = (tid >> 5) * 16;
-  const LaneOffsets lo(lane);
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // the thread's two rows
   k += bh * nk * D;
 
-  load_tile_scaled<D, NTHREADS>(sQ, q + (bh * nq + q0) * D, D, BT, nq - q0,
-                                tid, __float2bfloat16(q_scale));
-  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
-  for (int kv0 = 0; kv0 < nk; kv0 += BT) {
-    __syncthreads();  // the previous tile's readers are done; sQ is visible
-    load_tile<D, NTHREADS>(sK, k + static_cast<int64_t>(kv0) * D, D, BT,
-                           nk - kv0, tid);
-    __syncthreads();
-    float s[BT / 8][4];
-    rows_times_rows_t<D>(s, sQ, row0, sK, lo);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kv0 + nt * 8 + 2 * (lane & 3) + (j & 1);
-        if (key >= nk) s[nt][j] = -1e30f;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+  if (tid == 0) {
+    for (int s = 0; s < LSE_STAGES; ++s) {
+      mbar_init(&full[s], LSE_NT);
+      mbar_init(&empty[s], LSE_NT);
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    l0 *= exp2f(m0 - mx0);
-    l1 *= exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers exist before anyone waits on them
+
+  int issued = 0;
+  auto issue_next = [&]() {  // the keys of tile `issued` into its stage
+    const int i = issued++;
+    const int s = i % LSE_STAGES;
+    if (i >= LSE_STAGES) mbar_wait(&empty[s], ((i / LSE_STAGES) - 1) & 1);
+    const int kv0 = i * LSE_KV;
+    load_tile_async<ROWB, LSE_KV, LSE_NT>(
+        ring + s * STAGE, k + static_cast<int64_t>(kv0) * D, D, nk - kv0,
+        tid);
+    cp_async_arrive(&full[s]);
+  };
+  while (issued < LSE_STAGES && issued < ntiles) issue_next();
+
+  // qs = q times the factor in bf16, as the A fragment of k16 step s (rows
+  // r0 and r0 + 8, columns 16 s + 2 (lane % 4) + {0, 1} and + 8; rows past
+  // nq are zeros), and into qs for the rows that exist
+  uint32_t qa[D / 16][4];
+  {
+    const __nv_bfloat162 c2 = __float2bfloat162_rn(q_scale);
+    const int64_t row0 = bh * nq + q0 + r0;
+    const bool ok0 = q0 + r0 < nq, ok1 = q0 + r0 + 8 < nq;
 #pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      const int key = kv0 + nt * 8 + 2 * (lane & 3);
-      const bool ok0 = key < nk;
-      const bool ok1 = key + 1 < nk;
-      l0 += (ok0 ? exp2f(s[nt][0] - m0) : 0.f) +
-            (ok1 ? exp2f(s[nt][1] - m0) : 0.f);
-      l1 += (ok0 ? exp2f(s[nt][2] - m1) : 0.f) +
-            (ok1 ? exp2f(s[nt][3] - m1) : 0.f);
+    for (int s = 0; s < D / 16; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (e & 1) ? ok1 : ok0;
+        const int64_t at = (row0 + ((e & 1) ? 8 : 0)) * D + 16 * s +
+                           ((e & 2) ? 8 : 0) + 2 * (lane & 3);
+        __nv_bfloat162 x = __float2bfloat162_rn(0.f);
+        if (ok) x = *reinterpret_cast<const __nv_bfloat162*>(q + at);
+        x = __hmul2(x, c2);
+        if (ok) *reinterpret_cast<__nv_bfloat162*>(qs + at) = x;
+        qa[s][e] = *reinterpret_cast<uint32_t*>(&x);
+      }
     }
   }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % LSE_STAGES;
+    mbar_wait(&full[s], (t / LSE_STAGES) & 1);
+    fence_async_shared();
+    const uint32_t sK = ring + s * STAGE;
+    float sc[LSE_KV / 2];  // S = qs K^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs<LSE_KV, 0>(sc, qa[kk], desc_k<ROWB>(sK + 32 * kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // the K tile is read: release its stage before the softmax
+    mbar_arrive(&empty[s]);
+    if (issued < ntiles) issue_next();
+    float alpha0, alpha1;
+    softmax_scores<LSE_KV, true>(sc, m0, m1, alpha0, alpha1, t * LSE_KV, nk,
+                                 1.f, lane);
+    l0 *= alpha0;
+    l1 *= alpha1;
+    add_row_sums<LSE_KV>(sc, l0, l1);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
   if ((lane & 3) == 0) {
-    const int r0 = row0 + (lane >> 2);
-    const int r1 = r0 + 8;
     float* row_lse = lse + bh * nq + q0;
     if (q0 + r0 < nq) row_lse[r0] = m0 + log2f(fmaxf(l0, 1e-30f));
-    if (q0 + r1 < nq) row_lse[r1] = m1 + log2f(fmaxf(l1, 1e-30f));
+    if (q0 + r0 + 8 < nq) row_lse[r0 + 8] = m1 + log2f(fmaxf(l1, 1e-30f));
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-streaming_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int nq, int nk, int kv_tiles,
-                      float scale, float q_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / kv_tiles;
-  const int kv0 = (blockIdx.x % kv_tiles) * BT;
-  const int64_t q_off = bh * nq * D;
-  const int64_t kv_off = (bh * nk + kv0) * D;
-  bwd_dkdv_tile<D, true>(q + q_off, dout + q_off, D, k + kv_off, v + kv_off,
-                         dk + kv_off, dv + kv_off, D, lse + bh * nq,
-                         delta + bh * nq, nq, nk - kv0, scale, 1.f, smem_raw,
-                         q_scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-streaming_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int nq, int nk, int q_tiles, float scale, float q_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BT;
-  const int64_t q_off = (bh * nq + q0) * D;
-  const int64_t kv_off = bh * nk * D;
-  bwd_dq_tile<D, true>(q + q_off, dout + q_off, dq + q_off, D, k + kv_off,
-                       v + kv_off, D, lse + bh * nq + q0, delta + bh * nq + q0,
-                       nq - q0, nk, scale, 1.f, smem_raw, q_scale);
 }
 
 template <int D>
@@ -157,33 +167,19 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            bf16* dv, int bh, int nq, int nk, float scale, float q_scale,
            cudaStream_t stream) {
   if (bh < 1 || nq < 1 || nk < 1) return -1;
-  const int smem = bwd_smem_bytes<D, true>();
-  auto dkdv = streaming_dkdv_kernel<D>;
-  auto dqk = streaming_dq_kernel<D>;
+  auto kernel = streaming_lse_kernel<D>;
+  const int smem = lse_wgmma_smem(D);
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + BT - 1) / BT;
-  const int kv_tiles = (nk + BT - 1) / BT;
-  streaming_lse_kernel<D><<<bh * q_tiles, 128, 0, stream>>>(q, k, lse, nq, nk,
-                                                            q_tiles, q_scale);
+  const int q_tiles = (nq + LSE_ROWS - 1) / LSE_ROWS;
+  bf16* qs = dq;  // q * c until the dq grid writes dq over it
+  kernel<<<bh * q_tiles, LSE_NT, smem, stream>>>(q, k, qs, lse, nq, nk,
+                                                 q_tiles, q_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows = static_cast<int64_t>(bh) * nq;
-  bwd_delta_kernel<D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
-                        stream>>>(o, dout, delta, nq, 1, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<bh * kv_tiles, 128, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv,
-                                             nq, nk, kv_tiles, scale, q_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<bh * q_tiles, 128, smem, stream>>>(q, k, v, dout, lse, delta, dq, nq,
-                                           nk, q_tiles, scale, q_scale);
-  return static_cast<int>(cudaGetLastError());
+  return hbwd::launch<D, true>(q, qs, k, v, o, dout, lse, delta, dq, dk, dv,
+                               bh, nq, nk, 1, scale, 1.f, stream);
 }
 
 __global__ void __launch_bounds__(128)

@@ -1,14 +1,15 @@
 // Hopper building blocks of the redesigned attention kernels
-// (flash_attention_fproj.cu, flash_attention_bwd_packed.cu,
+// (flash_attention_fproj.cu, flash_attention_packed.cu,
 // flash_attention_qout.cu, the D = 32 / 64 path of
-// flash_attention_streaming.cu): shared-memory
+// flash_attention_streaming.cu, and hopper_bwd.cuh's backward grids with
+// the bf16 streaming backward's lse launch): shared-memory
 // tiles in the swizzled layouts wgmma reads, the wgmma descriptors and
 // instructions (bf16 in, fp32 accumulate), mbarriers, cp.async copies that
 // complete on an mbarrier, the cluster barrier and distributed
-// shared-memory loads, the online-softmax loop over a K / V ring that the
-// q/out-fused and streaming kernels share, and the cluster gather and output
-// projection that the fused-projection and q/out-fused kernels share. Raw
-// PTX, for sm_90a.
+// shared-memory loads, the K / V tile loader and the online-softmax loop
+// over a K / V ring that the packed, q/out-fused and streaming kernels
+// share, and the cluster gather and output projection that the
+// fused-projection and q/out-fused kernels share. Raw PTX, for sm_90a.
 //
 // Tiles. A tile of rows of ROWB bytes (32, 64 or 128: 16, 32 or 64 bf16
 // columns) is stored row after row with each 16-byte chunk of a row moved
@@ -464,6 +465,36 @@ template <int OFF, int N, int LEN>
 __device__ __forceinline__ float (&part(float (&d)[LEN]))[N / 2] {
   static_assert(OFF / 2 + N / 2 <= LEN, "accumulator part");
   return *reinterpret_cast<float(*)[N / 2]>(&d[OFF / 2]);
+}
+
+// ROWS rows of one head's D columns (row i at src + i * ld elements; rows at
+// or past valid_rows zeros) into the tile at dst: panel A of HeadSplit<D>,
+// then panel B (ROWS rows of 32 bytes) where D = 80.
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_head_async(uint32_t dst, const bf16* src,
+                                                int64_t ld, int valid_rows,
+                                                int t) {
+  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B;
+  load_tile_async<2 * DA, ROWS, NTHREADS>(dst, src, ld, valid_rows, t);
+  if constexpr (DB > 0)
+    load_tile_async<32, ROWS, NTHREADS>(dst + ROWS * 2 * DA, src + DA, ld,
+                                        valid_rows, t);
+}
+
+// The K / V tile of attend_tiles for keys kv0 .. kv0 + AKV - 1 (those at or
+// past kv_end zeros): one head's columns of K, then of V, each as the
+// panels of load_head_async. k and v point at the head's first column of
+// key 0; rows are ld elements apart (D on split heads, H*D on packed rows).
+template <int D, int AKV, int NTHREADS>
+__device__ __forceinline__ void load_kv_tile_async(uint32_t dst,
+                                                   const bf16* k,
+                                                   const bf16* v, int64_t ld,
+                                                   int kv0, int kv_end,
+                                                   int t) {
+  const int64_t off = static_cast<int64_t>(kv0) * ld;
+  load_head_async<D, AKV, NTHREADS>(dst, k + off, ld, kv_end - kv0, t);
+  load_head_async<D, AKV, NTHREADS>(dst + AKV * 2 * D, v + off, ld,
+                                    kv_end - kv0, t);
 }
 
 // ------------------------------------------------------ online softmax ---

@@ -20,9 +20,11 @@ versions, and the wrappers that choose between them by where the tensor lies.
 ``flash_attention_packed`` q [B, Nq, H*D], k / v [B, Nk, H*D] -> [B, Nq, H*D]
     kernel ``csrc/flash_attention_packed.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_packed``
-    (``flash_attention_packed``). Bound by operations; one block per (batch,
-    head, 64-row tile) addresses its head inside the packed rows, so no
-    head-split copy exists. ``packed_multi_head_attention`` is its dispatch.
+    (``flash_attention_packed``). Bound by operations; one warpgroup per
+    (batch, 64-row tile, head) addresses its head inside the packed rows, so
+    no head-split copy exists; K / V tiles through a ``cp.async`` ring on
+    mbarriers, S and P V on ``wgmma``. Head widths 32, 64 and 80.
+    ``packed_multi_head_attention`` is its dispatch.
 
 ``flash_attention_qout``   h [B, N, C], k / v [B, Nk, H*D] + wq, wo, bo
     -> [B, N, C]
@@ -69,9 +71,9 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernels of ``dsml_thesis_tpu/ops/attention.py:flash_attention_streaming_bwd``
     (``_streaming_lse_kernel``, ``_streaming_dq_kernel``,
     ``_streaming_dkdv_kernel``). The residuals carry no row statistic: a
-    launch of its own recomputes the row log-sum-exp from q and k, then
-    delta, a dk / dv grid and a dq grid as above. Head widths 32 and 64 in
-    bf16, 512 in fp32.
+    launch of its own (on ``wgmma``) recomputes the row log-sum-exp from q
+    and k, then delta and, in bf16, the packed backward's dk / dv and dq
+    grids on one head. Head widths 32 and 64 in bf16, 512 in fp32.
 
 fp32. The split-head forward, the streaming forward and both their backward
 kernels also take fp32 tensors at head width 512 (``F32_HEAD_DIMS``): the
@@ -118,7 +120,7 @@ from ._launch import (LAUNCHES, check_cuda_operand, current_stream,  # noqa: F40
 FLASH_HEAD_DIMS = (32, 64, 512)        # instantiations in flash_attention.cu
 FPROJ_HEAD_DIMS = (32, 64)             # ... in flash_attention_fproj.cu
 FPROJ_CHANNEL_MULTIPLE = 32            # depth step of its projection kernel
-PACKED_HEAD_DIMS = (32, 64)            # ... in flash_attention_packed.cu
+PACKED_HEAD_DIMS = (32, 64, 80)        # ... in flash_attention_packed.cu
 BWD_HEAD_DIMS = (32, 64)               # ... in both flash_attention_bwd*.cu
 STREAMING_HEAD_DIMS = (32, 64, 512)    # ... in flash_attention_streaming.cu
 STREAMING_BWD_HEAD_DIMS = (32, 64)     # ... in flash_attention_streaming_bwd.cu

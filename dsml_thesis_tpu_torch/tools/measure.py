@@ -31,9 +31,13 @@
            [16, 256, 640] x 20, the packed backward (delta, dk / dv grid,
            dq grid) at [8, 1024, 10 x 32], [8, 256, 20 x 32],
            [8, 4096, 5 x 32], the q/out-fused op at [8, 4096, 160] and
-           [16, 4096, 160] x 5, and the streaming forward (the split
+           [16, 4096, 160] x 5, the streaming forward (the split
            kernel, and the combine kernel where the K / V stream is cut)
-           at [8, 10, 1024, 32], [8, 20, 256, 32] and [1, 2, 100, 5000, 32]
+           at [8, 10, 1024, 32], [8, 20, 256, 32] and [1, 2, 100, 5000, 32],
+           the packed forward at [16, 4096, 5 x 32], [8, 4096, 5 x 32],
+           [8, 4096, 2 x 80] and [8, 1024, 10 x 32], and the streaming
+           backward (lse, delta, dk / dv grid, dq grid) at [8, 10, 1024, 32]
+           and [8, 20, 256, 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -183,10 +187,11 @@ _FAMILIES = (
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
     ("streaming_fwd_kernel", "attention: streaming"),
+    ("streaming_wgmma_kernel", "attention: streaming"),
     ("streaming_combine_kernel", "attention: streaming"),
     ("streaming_lse_kernel", "attention backward: streaming log-sum-exp"),
-    ("streaming_dkdv_kernel", "attention backward: dk / dv grid"),
-    ("streaming_dq_kernel", "attention backward: dq grid"),
+    ("hbwd::dkdv_kernel", "attention backward: dk / dv grid"),
+    ("hbwd::dq_kernel", "attention backward: dq grid"),
     ("conv_stats_kernel", "conv + statistics kernel"),
     ("conv_stats_finish_kernel", "conv + statistics kernel"),
     ("packed_attention_kernel", "attention: packed"),
@@ -243,8 +248,8 @@ def _device_kernels(prof) -> dict:
 
 
 def split(smi: str, calls: int = 10):
-    """Device ms of each kernel a call of rows 1, 8, 6 and 4 launches, from
-    ``calls`` warm calls under torch.profiler."""
+    """Device ms of each kernel a call of rows 1, 3, 4, 5, 6 and 8
+    launches, from ``calls`` warm calls under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -275,7 +280,26 @@ def split(smi: str, calls: int = 10):
         q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
         return lambda: A.flash_attention_streaming(q, k, v)
 
-    cases = [("flash_attention_qout", [8, 4096, 160, 5],
+    def packed(b, n, heads, d):
+        q, k, v = (rnd(b, n, heads * d) for _ in range(3))
+        return lambda: A.flash_attention_packed(q, k, v, heads)
+
+    def streaming_bwd(b, h, n, d):
+        q, k, v, do = (rnd(b, h, n, d) for _ in range(4))
+        out = A.flash_attention_streaming(q, k, v)
+        return lambda: A.flash_attention_streaming_bwd(q, k, v, out, do)
+
+    cases = [("flash_attention_packed", [16, 4096, 5, 32],
+              packed(16, 4096, 5, 32)),
+             ("flash_attention_packed", [8, 4096, 5, 32],
+              packed(8, 4096, 5, 32)),
+             ("flash_attention_packed", [8, 1024, 10, 32],
+              packed(8, 1024, 10, 32)),
+             ("flash_attention_streaming_bwd", [8, 10, 1024, 1024, 32],
+              streaming_bwd(8, 10, 1024, 32)),
+             ("flash_attention_streaming_bwd", [8, 20, 256, 256, 32],
+              streaming_bwd(8, 20, 256, 32)),
+             ("flash_attention_qout", [8, 4096, 160, 5],
               qout(8, 4096, 160, 5)),
              ("flash_attention_qout", [16, 4096, 160, 5],
               qout(16, 4096, 160, 5)),
@@ -297,6 +321,9 @@ def split(smi: str, calls: int = 10):
               packed_bwd(8, 256, 20, 32)),
              ("flash_attention_bwd_packed", [8, 4096, 5, 32],
               packed_bwd(8, 4096, 5, 32))]
+    if 80 in A.PACKED_HEAD_DIMS:   # the -fullattn-dh64 level-0 heads
+        cases.insert(2, ("flash_attention_packed", [8, 4096, 2, 80],
+                         packed(8, 4096, 2, 80)))
     with torch.no_grad():
         for name, shape, fn in cases:
             for _ in range(3):

@@ -9,20 +9,26 @@ to a copy of ``csrc/`` under ``_build/variants/<name>/`` (an empty old text
 replaces the whole file by the file at the path, relative to the
 repository and inside it, that new text names: an earlier design unpacked
 under ``_ab/``). Every variant's
-``flash_attention_fproj.cu``, ``flash_attention_bwd_packed.cu``,
-``flash_attention_qout.cu`` and ``flash_attention_streaming.cu`` are
-compiled (all ``nvcc`` processes started together; ptxas's "Performance
+``flash_attention_fproj.cu``, ``flash_attention_packed.cu``,
+``flash_attention_bwd_packed.cu``, ``flash_attention_qout.cu``,
+``flash_attention_streaming.cu`` and ``flash_attention_streaming_bwd.cu``
+are compiled (all ``nvcc`` processes started together; ptxas's "Performance
 Loss" lines are printed) and linked into a library of their own; a name
 that starts with ``c_`` is compiled only. Then, for the fused-projection op
 at [16, 1024, 320] x 10, [8, 1024, 320] x 10, [16, 256, 640] x 20 and
-[3, 200, 320] x 10, the packed backward at [8, 1024, 10 x 32],
+[3, 200, 320] x 10, the packed forward at [16, 4096, 5 x 32],
+[8, 4096, 5 x 32], [8, 4096, 2 x 80], [8, 1024, 10 x 32], [8, 256, 20 x 32]
+and [2, 333, 77, 3 x 80], the packed backward at [8, 1024, 10 x 32],
 [8, 256, 20 x 32], [8, 4096, 5 x 32] and [2, 1000, 3 x 64], the q/out-fused
-op at [8, 4096, 160] x 5, [16, 4096, 160] x 5 and [2, 1000, 128] x 2 and the
+op at [8, 4096, 160] x 5, [16, 4096, 160] x 5 and [2, 1000, 128] x 2, the
 streaming forward at [8, 10, 1024, 32], [8, 20, 256, 32] and
-[2, 3, 333, 77, 64], every variant's C entry is held against the plain
-version (relative error to the maximum) and timed by CUDA events, 20
-calls, in three rounds of the variants in turns (a, b, b, a); the median is
-printed. Needs a CUDA device and nvcc.
+[2, 3, 333, 77, 64] and the streaming backward at [8, 10, 1024, 32],
+[8, 20, 256, 32] and [2, 3, 333, 77, 64], every variant's C entry is held
+against the plain version (relative error to the maximum) and timed by CUDA
+events, 20 calls, in three rounds of the variants in turns (a, b, b, a); the
+median is printed ("not taken" where a variant's entry returns -1 for the
+shape, as an earlier design does for a head width it lacks). Needs a CUDA
+device and nvcc.
 """
 from __future__ import annotations
 
@@ -39,10 +45,13 @@ from ..ops import _build
 from ..ops import attention as A
 
 ROOT = os.path.realpath(os.path.dirname(_build.PKG_DIR))
-SOURCES = ("flash_attention_fproj.cu", "flash_attention_bwd_packed.cu",
-           "flash_attention_qout.cu", "flash_attention_streaming.cu")
-ENTRIES = ("dsml_flash_attention_fproj", "dsml_flash_attention_bwd_packed",
-           "dsml_flash_attention_qout", "dsml_flash_attention_streaming")
+SOURCES = ("flash_attention_fproj.cu", "flash_attention_packed.cu",
+           "flash_attention_bwd_packed.cu", "flash_attention_qout.cu",
+           "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu")
+ENTRIES = ("dsml_flash_attention_fproj", "dsml_flash_attention_packed",
+           "dsml_flash_attention_bwd_packed", "dsml_flash_attention_qout",
+           "dsml_flash_attention_streaming",
+           "dsml_flash_attention_streaming_bwd")
 
 
 def build(variants: dict) -> dict:
@@ -120,6 +129,16 @@ def cases() -> dict:
             n, c, heads, d, d ** -0.5, stream())
         return call, lambda: rel(out, ref)
 
+    def packed(b, nq, nk, heads, d):
+        q, k, v = rnd(b, nq, heads * d), rnd(b, nk, heads * d), rnd(
+            b, nk, heads * d)
+        ref = A.packed_reference(q, k, v, heads)
+        out = torch.empty_like(q)
+        call = lambda lib: lib.dsml_flash_attention_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b,
+            nq, nk, heads, d, d ** -0.5, stream())
+        return call, lambda: rel(out, ref)
+
     def packed_bwd(b, n, heads, d):
         q, k, v, do = (rnd(b, n, heads * d) for _ in range(4))
         scale = d ** -0.5
@@ -162,7 +181,34 @@ def cases() -> dict:
             factor, stream())
         return call, lambda: rel(out, ref)
 
-    return {"qout [8,4096,160] x 5": qout(8, 4096, 160, 5),
+    def streaming_bwd(b, h, nq, nk, d):
+        q, do = rnd(b, h, nq, d), rnd(b, h, nq, d)
+        k, v = rnd(b, h, nk, d), rnd(b, h, nk, d)
+        scale = d ** -0.5
+        o = A._launch_streaming_forward(q, k, v, scale)
+        ref = A.streaming_bwd_reference(q, k, v, o, do, scale=scale)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        f32 = dict(dtype=torch.float32, device="cuda")
+        lse, delta = torch.empty(b * h * nq, **f32), torch.empty(b * h * nq,
+                                                                 **f32)
+        call = lambda lib: lib.dsml_flash_attention_streaming_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), b * h, nq, nk, d, scale,
+            A._folded_factor(scale, q.dtype), stream())
+        return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
+
+    return {"packed [16,4096,5x32]": packed(16, 4096, 4096, 5, 32),
+            "packed [8,4096,5x32]": packed(8, 4096, 4096, 5, 32),
+            "packed [8,4096,2x80]": packed(8, 4096, 4096, 2, 80),
+            "packed [8,1024,10x32]": packed(8, 1024, 1024, 10, 32),
+            "packed [8,256,20x32]": packed(8, 256, 256, 20, 32),
+            "packed [2,333,77,3x80]": packed(2, 333, 77, 3, 80),
+            "streaming_bwd [8,10,1024,32]": streaming_bwd(8, 10, 1024, 1024,
+                                                          32),
+            "streaming_bwd [8,20,256,32]": streaming_bwd(8, 20, 256, 256, 32),
+            "streaming_bwd [2,3,333,77,64]": streaming_bwd(2, 3, 333, 77, 64),
+            "qout [8,4096,160] x 5": qout(8, 4096, 160, 5),
             "qout [16,4096,160] x 5": qout(16, 4096, 160, 5),
             "qout [2,1000,128] x 2": qout(2, 1000, 128, 2),
             "streaming [8,10,1024,32]": streaming(8, 10, 1024, 1024, 32),
@@ -198,17 +244,22 @@ def main():
     libs = build(json.loads(sys.argv[1]))
     names = list(libs)
     for case, (call, err) in cases().items():
-        res = {}
+        res, taking = {}, []
         for name in names:
-            if call(libs[name]) != 0:
+            code = call(libs[name])
+            if code == -1:   # a shape this variant's entry does not take
+                res[name] = "not taken"
+                continue
+            if code != 0:
                 raise RuntimeError(f"{name}: launch failed on {case}")
             torch.cuda.synchronize()
             res[name] = {"rel_err": err()}
-        times = {name: [] for name in names}
+            taking.append(name)
+        times = {name: [] for name in taking}
         for _ in range(3):
-            for name in names + names[::-1]:
+            for name in taking + taking[::-1]:
                 times[name].append(event_ms(lambda: call(libs[name])))
-        for name in names:
+        for name in taking:
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
         print(json.dumps({"case": case, **res}), flush=True)
 
