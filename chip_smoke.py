@@ -16,8 +16,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            cores, the larger); the fp32 instantiations (first-stage
            training: the D = 512 attention, GroupNorm, channel statistics,
            conv + statistics) are held to fp32 plain versions with TF32 off;
-           every kernel but the split-head forward must also give the same
-           bits from two launches (the backward kernels also through
+           every kernel but the split-head forward at D = 512 must also give
+           the same bits from two launches (the backward kernels also through
            autograd)
   model    mead-256-ldm-f4.yaml, its -fullattn twin and -fullattn-dh64 at
            full width and depth, random weights from a seed: one UNet call
@@ -25,10 +25,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            calls through the plain versions, under each flag set of the
            serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
-           frames, DDIM-50, guidance 2.0, in eight runs:
+           frames, DDIM-50, guidance 2.0, in nine runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
+             fullattn-dh64-split  -fullattn-dh64, DSML_ATTN_PACKED=0 (every
+                             self-attention through the split-head kernel,
+                             D = 80 and 64), one batch
              fullattn-flags  -fullattn, DSML_ATTN_FPROJ_PARTIAL=1 and
                              DSML_PALLAS_GN=1, one batch
              headline-stats  headline config, DSML_PALLAS_GN=stats, one batch
@@ -40,7 +43,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (seed, batch index) reproduces a batch bit for bit
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
            real shapes (256 px, audio [17, 768]), batch 8, full width and
-           depth, fp32 parameters with bf16 compute, in six runs:
+           depth, fp32 parameters with bf16 compute, in nine runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
                              with --resume for one more step
@@ -50,10 +53,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
              train-streaming headline, DSML_ATTN_PACKED=0 and
                              DSML_FLASH_STREAMING=1, 2 steps
              train-epilogue  headline, DSML_GN_EPILOGUE=res, 2 steps
+             train-fullattn-dh64   -fullattn-dh64 (level-0 heads of 80), no
+                             flag, 2 steps
+             train-dh64-split      -fullattn-dh64, DSML_ATTN_PACKED=0, 2 steps
+             train-dh64-streaming  -fullattn-dh64, DSML_ATTN_PACKED=0 and
+                             DSML_FLASH_STREAMING=1, 2 steps
            each checks: finite losses, parameters that moved, launch counts
-           against those counted from the model's own blocks, equal loss bits
-           from a second run with the same seed, and loss and a handful of
-           gradients on the kernel path against the plain path on the card;
+           against those counted from the model's own blocks, the backward
+           kernel's calls by head width against the model's self-attentions,
+           equal loss bits from a second run with the same seed, and loss and
+           a handful of gradients on the kernel path against the plain path
+           on the card;
            then first-stage training (fp32, the AttnBlock at D = 512) of
            configs/autoencoder/*.yaml at full width, batch 16, 128 px,
            SyntheticDataset images, LPIPS files written from seed 0,
@@ -245,19 +255,24 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
 
 
 def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
+    """The split-head forward; at bf16 D <= 80 (the packed kernel's grid on
+    one head) also the same bits from a second launch."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
     q, k, v = (_rand(gen, b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
     esize, peak = _width(dtype)
-    return _case(
-        (b, h, nq, nk, d), timed,
-        lambda: A.flash_attention(q, k, v, scale=scale),
+    run = lambda: A.flash_attention(q, k, v, scale=scale)
+    case = _case(
+        (b, h, nq, nk, d), timed, run,
         lambda: A.attention_reference(q, k, v, scale=scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
         peak, dtype=str(dtype).split(".")[1])
+    if dtype == torch.bfloat16 and d <= 80:
+        case = _repeatable(case, run)
+    return case
 
 
 def _fproj_case(gen, b, n, c, heads, timed):
@@ -601,6 +616,18 @@ def phase_kernels():
         _flash_case(gen, 2, 1, 1000, 1000, 512, False),   # ragged N
         _flash_case(gen, 2, 5, 333, 77, 32, False),       # composed branch
         _flash_case(gen, 2, 3, 200, 200, 64, False),
+        # bf16 D = 32 / 80: the UNet under DSML_ATTN_PACKED=0 (train-split,
+        # train-dh64-split, fullattn-dh64-split), the packed kernel's grid
+        _flash_case(gen, 8, 10, 1024, 1024, 32, True),
+        _flash_case(gen, 8, 20, 256, 256, 32, True),
+        _flash_case(gen, 8, 2, 4096, 4096, 80, True),     # -fullattn-dh64
+        _flash_case(gen, 8, 5, 1024, 1024, 64, True),     # its levels 1, 2
+        _flash_case(gen, 8, 10, 256, 256, 64, True),
+        _flash_case(gen, 2, 1, 150, 150, 80, False),      # one head of 80
+        _flash_case(gen, 2, 3, 300, 300, 80, False),      # 3 heads of 80
+        _flash_case(gen, 2, 2, 333, 77, 80, False),       # Nk != Nq
+        _flash_case(gen, 2, 2, 200, 129, 80, False),      # Nk = 128 + 1
+        _flash_case(gen, 2, 2, 100, 50, 80, False),       # Nk < 64
         _flash_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
         _flash_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
         _flash_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
@@ -621,6 +648,8 @@ def phase_kernels():
         _packed_case(gen, 8, 1024, 1024, 10, 32, True),   # training step
         _packed_case(gen, 8, 256, 256, 20, 32, True),
         _packed_case(gen, 8, 4096, 4096, 2, 80, True),    # -fullattn-dh64
+        _packed_case(gen, 8, 1024, 1024, 5, 64, True),    # its levels 1, 2
+        _packed_case(gen, 8, 256, 256, 10, 64, True),
         _packed_case(gen, 2, 1000, 1000, 5, 32, False),   # ragged N
         _packed_case(gen, 2, 333, 77, 10, 32, False),     # cross: Nk != Nq
         _packed_case(gen, 2, 200, 200, 3, 64, False),     # 64-wide heads
@@ -693,6 +722,15 @@ def phase_kernels():
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
         _flash_bwd_case(gen, 2, 3, 200, 200, 64, False),     # 64-wide heads
+        _flash_bwd_case(gen, 8, 2, 4096, 4096, 80, True),    # train-dh64-split
+        _flash_bwd_case(gen, 8, 5, 1024, 1024, 64, True),    # its levels 1, 2
+        _flash_bwd_case(gen, 8, 10, 256, 256, 64, True),
+        _flash_bwd_case(gen, 2, 1, 150, 150, 80, False),     # one head of 80
+        _flash_bwd_case(gen, 2, 3, 300, 300, 80, False),     # 3 heads of 80
+        _flash_bwd_case(gen, 2, 2, 333, 77, 80, False),      # Nk != Nq
+        _flash_bwd_case(gen, 2, 2, 200, 129, 80, False),     # Nk = 128 + 1
+        _flash_bwd_case(gen, 2, 2, 100, 50, 80, False),      # Nk < 64
+        _flash_bwd_case(gen, 2, 2, 1000, 333, 80, False),    # tiles + tails
     ]
     packed_bwd = [
         _packed_bwd_case(gen, 8, 1024, 1024, 10, 32, True),  # training step
@@ -702,6 +740,15 @@ def phase_kernels():
         _packed_bwd_case(gen, 2, 333, 77, 10, 32, False),    # Nk != Nq
         _packed_bwd_case(gen, 2, 200, 200, 3, 64, False),    # 64-wide heads
         _packed_bwd_case(gen, 2, 1000, 1000, 3, 64, False),  # ragged, D = 64
+        _packed_bwd_case(gen, 8, 4096, 4096, 2, 80, True),   # -fullattn-dh64
+        _packed_bwd_case(gen, 8, 1024, 1024, 5, 64, True),   # its levels 1, 2
+        _packed_bwd_case(gen, 8, 256, 256, 10, 64, True),
+        _packed_bwd_case(gen, 2, 150, 150, 1, 80, False),    # one head of 80
+        _packed_bwd_case(gen, 2, 300, 300, 3, 80, False),    # H*D % 32 == 16
+        _packed_bwd_case(gen, 2, 333, 77, 2, 80, False),     # Nk != Nq
+        _packed_bwd_case(gen, 2, 200, 129, 2, 80, False),    # Nk = 128 + 1
+        _packed_bwd_case(gen, 2, 100, 50, 2, 80, False),     # Nk < 64
+        _packed_bwd_case(gen, 2, 1000, 333, 2, 80, False),   # tiles + tails
     ]
     streaming = [
         _streaming_case(gen, 8, 1, 4096, 4096, 512, True),   # first stage
@@ -713,6 +760,15 @@ def phase_kernels():
         _streaming_case(gen, 1, 2, 100, 5000, 32, False),    # the same, D = 32
         _streaming_case(gen, 2, 2, 1000, 333, 64, False),    # Nq % 128 != 0
         _streaming_case(gen, 1, 1, 64, 2000, 512, False),    # 32 ways, D = 512
+        _streaming_case(gen, 8, 2, 4096, 4096, 80, True),    # -dh64 level 0
+        _streaming_case(gen, 8, 5, 1024, 1024, 64, True),    # levels 1, 2
+        _streaming_case(gen, 8, 10, 256, 256, 64, True),
+        _streaming_case(gen, 2, 1, 150, 150, 80, False),     # one head of 80
+        _streaming_case(gen, 2, 3, 300, 300, 80, False),     # 3 heads of 80
+        _streaming_case(gen, 2, 2, 333, 77, 80, False),      # Nk != Nq
+        _streaming_case(gen, 2, 2, 200, 129, 80, False),     # Nk = 128 + 1
+        _streaming_case(gen, 2, 2, 100, 50, 80, False),      # Nk < 64
+        _streaming_case(gen, 1, 2, 100, 5000, 80, False),    # K/V cut 40 ways
         _streaming_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
         _streaming_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
         _streaming_case(gen, 1, 1, 64, 2000, 512, False, f32),     # 32 ways
@@ -728,6 +784,15 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 5, 129, 129, 32, False),  # 128 rows + 1
         _streaming_bwd_case(gen, 2, 5, 1000, 40, 32, False),  # Nk < a tile
         _streaming_bwd_case(gen, 1, 2, 100, 5000, 32, False),  # long K
+        _streaming_bwd_case(gen, 8, 2, 4096, 4096, 80, True),  # -dh64 level 0
+        _streaming_bwd_case(gen, 8, 5, 1024, 1024, 64, True),  # levels 1, 2
+        _streaming_bwd_case(gen, 8, 10, 256, 256, 64, True),
+        _streaming_bwd_case(gen, 2, 1, 150, 150, 80, False),   # one head of 80
+        _streaming_bwd_case(gen, 2, 3, 300, 300, 80, False),   # 3 heads of 80
+        _streaming_bwd_case(gen, 2, 2, 333, 77, 80, False),    # Nk != Nq
+        _streaming_bwd_case(gen, 2, 2, 200, 129, 80, False),   # Nk = 128 + 1
+        _streaming_bwd_case(gen, 2, 2, 100, 50, 80, False),    # Nk < 64
+        _streaming_bwd_case(gen, 2, 2, 1000, 333, 80, False),  # tiles + tails
     ]
     conv = [   # b, H, W, Cin, Cout, K, input norm, skip
         _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),
@@ -862,24 +927,30 @@ def count_fused_convs(net, mode):
 
 def expected_launches(ldm, env, unet_calls, encodes, decodes):
     """Launches of every kernel for a number of UNet calls, first-stage
-    encodes and decodes under a flag set, from the model's own blocks."""
+    encodes and decodes under a flag set, from the model's own blocks. Under
+    DSML_ATTN_PACKED=0 every UNet self-attention splits its heads and goes
+    to the split-head forward (or the streaming one)."""
     short, long = count_attentions(ldm.unet)
     fs = ldm.first_stage
     gn_mode = env.get("DSML_PALLAS_GN", "0")
     epilogue = env.get("DSML_GN_EPILOGUE", "0")
     partial = env.get("DSML_ATTN_FPROJ_PARTIAL", "0") == "1"
     streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
+    packed = env.get("DSML_ATTN_PACKED", "1") == "1"
     parts = ((unet_calls, ldm.unet), (encodes, fs.encoder),
              (decodes, fs.decoder))
     norms = sum(n * count_norms(net) for n, net in parts)
     # first stage: 3 attention blocks an encode, 4 a decode
-    first_stage = 3 * encodes + 4 * decodes
+    split_head = 3 * encodes + 4 * decodes
+    if not packed:
+        split_head += unet_calls * (short + long)
     return {
-        "flash_attention": 0 if streaming else first_stage,
-        "flash_attention_streaming": first_stage if streaming else 0,
-        "flash_attention_fproj": unet_calls * short,
-        "flash_attention_packed": 0 if partial else unet_calls * long,
-        "flash_attention_qout": unet_calls * long if partial else 0,
+        "flash_attention": 0 if streaming else split_head,
+        "flash_attention_streaming": split_head if streaming else 0,
+        "flash_attention_fproj": unet_calls * short if packed else 0,
+        "flash_attention_packed": (unet_calls * long
+                                   if packed and not partial else 0),
+        "flash_attention_qout": unet_calls * long if packed and partial else 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_packed": 0,
         "flash_attention_streaming_bwd": 0,
         "group_norm_silu": norms if gn_mode == "1" else 0,
@@ -1088,26 +1159,67 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     GroupNorm kernel runs forward only: its backward differentiates the
     plain version, as in the JAX package."""
     short, long = count_attentions(ldm.unet)
-    packed = env.get("DSML_ATTN_PACKED", "1") == "1"
-    streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
-    # the split-head kernels: forward (first stage, and the UNet when its
-    # attention is not packed) and backward (the UNet alone: the first stage
-    # is frozen)
-    fwd, bwd = (("flash_attention_streaming", "flash_attention_streaming_bwd")
-                if streaming else ("flash_attention", "flash_attention_bwd"))
     step = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
-    step.update({
-        "flash_attention_fproj": 0, "flash_attention_qout": 0,   # eval only
-        fwd: 9 + (0 if packed else short + long),
-        "flash_attention_packed": short + long if packed else 0,
-        "flash_attention_bwd_packed": short + long if packed else 0,
-        bwd: 0 if packed else short + long,
-    })
+    # training mode has no fused branch: the packed kernels take every
+    # self-attention (or, under DSML_ATTN_PACKED=0, the split-head forward
+    # that expected_launches counts), and the matching backward kernel runs
+    # once for each (the UNet alone: the first stage is frozen)
+    step.update({"flash_attention_fproj": 0, "flash_attention_qout": 0})
+    bwd = backward_kernel(env)
+    if bwd == "flash_attention_bwd_packed":
+        step["flash_attention_packed"] = short + long
+    step[bwd] = short + long
     evals = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
-    if not packed:   # no fused branch: every self-attention splits its heads
-        evals.update({fwd: 9 + short + long, "flash_attention_fproj": 0,
-                      "flash_attention_packed": 0})
     return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
+
+
+def backward_kernel(env):
+    """The attention backward kernel a UNet training step runs under a flag
+    set."""
+    if env.get("DSML_ATTN_PACKED", "1") == "1":
+        return "flash_attention_bwd_packed"
+    if env.get("DSML_FLASH_STREAMING", "auto") == "1":
+        return "flash_attention_streaming_bwd"
+    return "flash_attention_bwd"
+
+
+def count_head_widths(unet):
+    """{head width: self-attentions} of one UNet call, from its blocks."""
+    from dsml_thesis_tpu_torch.models.unet import SpatialTransformer
+
+    widths = {}
+    for m in unet.modules():
+        if isinstance(m, SpatialTransformer):
+            d = m.block_0.attn1.dim_head
+            widths[d] = widths.get(d, 0) + m.depth
+    return widths
+
+
+@contextlib.contextmanager
+def backward_head_widths():
+    """Counts, inside the block, the calls of the three attention backward
+    wrappers by head width ({kernel: {width: calls}}); the wrappers run
+    unchanged (the autograd Functions look them up at each backward)."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    seen = {}
+
+    def spy(name, width):
+        wrapped = getattr(A, name)
+
+        def call(*args):
+            per, d = seen.setdefault(name, {}), width(*args)
+            per[d] = per.get(d, 0) + 1
+            return wrapped(*args)
+        return mock.patch.object(A, name, call)
+
+    with spy("flash_attention_bwd_packed",
+             lambda q, *rest: q.shape[-1] // rest[5]), \
+            spy("flash_attention_bwd", lambda q, *_: q.shape[-1]), \
+            spy("flash_attention_streaming_bwd", lambda q, *_: q.shape[-1]):
+        yield seen
 
 
 def _train_losses(logdir):
@@ -1203,10 +1315,14 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
 
     with flags(**env):
         A.reset_launches()   # counts below are of this run alone
-        trainer, wall = run(f"{name}-a", steps)
+        with backward_head_widths() as bwd_widths:
+            trainer, wall = run(f"{name}-a", steps)
         launches = dict(A.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         state = trainer._state
+        bwd_widths_expected = {backward_kernel(env): {
+            d: steps * n
+            for d, n in count_head_widths(trainer.ldm.unet).items()}}
         losses, vals = _train_losses(trainer.logdir)
         moved = sum(not torch.equal(p, e)
                     for p, e in zip(state.params, state.ema_params))
@@ -1246,6 +1362,7 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         and "val_loss_ema" in vals[0],
         "parameters_moved": moved > 0,
         "launches": launches == expect,
+        "backward_head_widths": bwd_widths == bwd_widths_expected,
         "same_seed_same_loss_bits": losses == twin_losses,
         "checkpoint_written": ckpt_bytes > 0,
         "kernel_path_agrees_with_plain_path": grads_ok,
@@ -1261,6 +1378,7 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
           "losses": losses, "val": vals[0] if vals else None,
           "tensors_moved": moved, "launches": launches,
           "launches_expected": expect, "launches_per_step": per_step,
+          "backward_launches_by_head_width": bwd_widths,
           "warm_step_ms": step_ms, "img_per_s": 8e3 / step_ms,
           "peak_memory_bytes": peak, "checkpoint_bytes": ckpt_bytes,
           "run_wall_seconds": round(wall, 3), "gradients": grads})
@@ -1558,6 +1676,7 @@ def kernels_line(cases, launches_by_run):
 RUNS = (
     ("fullattn", CONFIG_FULLATTN, {}, 16),
     ("fullattn-dh64", CONFIG_DH64, {}, 8),
+    ("fullattn-dh64-split", CONFIG_DH64, {"DSML_ATTN_PACKED": "0"}, 8),
     ("fullattn-flags", CONFIG_FULLATTN,
      {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"}, 8),
     ("headline-stats", CONFIG, {"DSML_PALLAS_GN": "stats"}, 8),
@@ -1575,6 +1694,10 @@ TRAIN_RUNS = (
     ("train-streaming", CONFIG,
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
     ("train-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "res"}, 2),
+    ("train-fullattn-dh64", CONFIG_DH64, {}, 2),
+    ("train-dh64-split", CONFIG_DH64, {"DSML_ATTN_PACKED": "0"}, 2),
+    ("train-dh64-streaming", CONFIG_DH64,
+     {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
 )
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (

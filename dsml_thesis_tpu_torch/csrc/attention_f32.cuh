@@ -22,7 +22,7 @@
 //     each), 8 warps: two per 16-row group, each accumulating 256 of the 512
 //     output columns (128 registers a thread), both forming the group's
 //     scores (1.5x the products of the function, as the bf16 design).
-//   * backward: the three-launch structure of attention_bwd.cuh (delta, a
+//   * backward: the three-launch structure of hopper_bwd.cuh (delta, a
 //     grid over key tiles writing dk / dv once, a grid over query tiles
 //     writing dq once; no atomics, equal inputs give equal bits), with D cut
 //     over the 8 warps of a block: warp w owns depth columns 64w .. 64w+63.

@@ -7,16 +7,26 @@
 // (flash_attention). That kernel keeps one head's whole K and V in fast
 // memory and takes the softmax in a single pass. Here a block has at most
 // 227 KB of shared memory and K alone is 4 MB at the first stage's shape
-// (N = 4096, D = 512), so K / V stream through shared memory in tiles of BN
-// rows under an online softmax (running row max and row sum in fp32).
+// (N = 4096, D = 512), so K / V stream through shared memory in tiles under
+// an online softmax (running row max and row sum in fp32).
 //
-// Bound at the first stage's shape: operations (4 * N * N * D a head against
-// 4 * N * D * 2 bytes). What limits this kernel is registers: the fp32 output
-// of a 64 x 512 tile is 128 KB. The design splits D over DSPLIT = 2 warps per
-// 16-row group, so a thread holds 128 accumulators; both warps recompute the
-// group's scores (1.5x the operations of the function). K / V tiles are
-// loaded synchronously and single-buffered; overlapping the loads (cp.async
-// or TMA) and wgmma are later work.
+// bf16 at D = 32 / 64 / 80 (the UNet's heads under DSML_ATTN_PACKED=0; 80 is
+// the level-0 head of mead-256-ldm-f4-fullattn-dh64.yaml): the packed
+// forward's grid (hopper_fwd.cuh) on one head of row stride D, one
+// warpgroup a (head, 64-row q-tile), 128-key K / V tiles through a cp.async
+// ring on mbarriers, S and P V on wgmma. Its log-sum-exp,
+// m * scale * log2(e) + log2(l), is the domain in which the backward
+// (flash_attention_bwd.cu, hopper_bwd.cuh) recomputes p. Bound: operations
+// (4 * N * N * D a head against 4 * N * D * 2 bytes), and at D = 32 the exp2
+// of every score on the special-function unit as much.
+//
+// bf16 at D = 512 (the first stage's AttnBlock): what limits the kernel is
+// registers, the fp32 output of a 64 x 512 tile being 128 KB. The design
+// splits D over DSPLIT = 2 warps per 16-row group, so a thread holds 128
+// accumulators; both warps recompute the group's scores (1.5x the
+// operations of the function). K / V tiles are loaded synchronously and
+// single-buffered, and the products are mma.sync (mma_tiles.cuh:attend_rows).
+// 4 KB rows fit no column-panel split of hopper_tiles.cuh.
 //
 // fp32 at D = 512 (dsml_flash_attention_f32; the first stage's AttnBlock in
 // first-stage training): the TF32 design of attention_f32.cuh, 64 query rows
@@ -24,14 +34,22 @@
 // log-sum-exp. Bound at [16, 1, 1024, 512]: operations on the TF32 tensor
 // cores (4 N^2 D a head against 4 * 4 N D bytes).
 #include "attention_f32.cuh"
+#include "hopper_fwd.cuh"
 #include "mma_tiles.cuh"
 
-template <int D, int DSPLIT, int BN>
-__global__ void __launch_bounds__(128 * DSPLIT)
-flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int nq, int nk, int q_tiles,
-                       float scale_log2) {
+namespace {
+
+constexpr int WIDE = 512;        // the head width of the mma.sync kernel
+constexpr int WIDE_SPLIT = 2;    // warps a 16-row group splits D over
+constexpr int WIDE_BN = 64;      // key / value rows of its tiles
+
+__global__ void __launch_bounds__(128 * WIDE_SPLIT)
+flash_attention_kernel_512(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int nq, int nk,
+                           int q_tiles, float scale_log2) {
+  constexpr int D = WIDE, DSPLIT = WIDE_SPLIT, BN = WIDE_BN;
   constexpr int NTHREADS = 128 * DSPLIT;
   constexpr int DO = D / DSPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -79,26 +97,41 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int DSPLIT, int BN>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int bh, int nq, int nk, float scale,
-                  cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<D, DSPLIT, BN>;
-  const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(bf16));
+int launch_512(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int nq, int nk, float scale,
+               cudaStream_t stream) {
+  if (bh < 1 || nq < 1 || nk < 1) return -1;
+  const int smem =
+      (BM + 2 * WIDE_BN) * (WIDE + PAD) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_kernel_512,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (nq + BM - 1) / BM;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  kernel<<<bh * q_tiles, 128 * DSPLIT, smem, stream>>>(
+  flash_attention_kernel_512<<<bh * q_tiles, 128 * WIDE_SPLIT, smem,
+                               stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), nq, nk, q_tiles, scale_log2);
+      static_cast<float*>(lse), nq, nk, q_tiles,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Returns cudaGetLastError() of the launch (0 = launched), or -1 for a head
-// width this file has no instantiation for.
+// D = 32 / 64 / 80: hopper_fwd.cuh's grid on split heads (one head of row
+// stride D); the blocks an SM it states as the packed forward's kernel does
+template <int D>
+__global__ void __launch_bounds__(hfwd::NT, hfwd::min_blocks(D))
+flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int nq, int nk, int heads,
+                       int q_tiles, float scale_log2) {
+  hfwd::attend_heads<D>(q, k, v, o, lse, nq, nk, heads, q_tiles, scale_log2);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() of the launch (0 = launched), or -1 for a shape
+// this file does not take (a head width other than 32, 64, 80, 512).
 extern "C" int dsml_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int bh,
                                     int nq, int nk, int d, float scale,
@@ -106,11 +139,16 @@ extern "C" int dsml_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32, 1, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
+      return hfwd::launch<32>(flash_attention_kernel<32>, q, k, v, o, lse, bh,
+                              nq, nk, 1, scale, s);
     case 64:
-      return launch<64, 1, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
-    case 512:
-      return launch<512, 2, 64>(q, k, v, o, lse, bh, nq, nk, scale, s);
+      return hfwd::launch<64>(flash_attention_kernel<64>, q, k, v, o, lse, bh,
+                              nq, nk, 1, scale, s);
+    case 80:
+      return hfwd::launch<80>(flash_attention_kernel<80>, q, k, v, o, lse, bh,
+                              nq, nk, 1, scale, s);
+    case WIDE:
+      return launch_512(q, k, v, o, lse, bh, nq, nk, scale, s);
     default:
       return -1;
   }

@@ -7,116 +7,57 @@
 // [block_q, Nk] score matrix in fast memory, recomputes a row's softmax in
 // one pass and carries dk / dv in the output buffer from one q-block of the
 // grid to the next. Here nothing carries over between blocks, so three
-// launches share the work (attention_bwd.cuh): row dots delta = rowsum(do o),
-// then a grid over (head, 64 key/value rows) that loops over the query tiles
-// and writes dk / dv once, then a grid over (head, 64 query rows) that loops
-// over the key/value tiles and writes dq once. The row statistics come from
-// the forward kernel (saved log-sum-exp), not from a second softmax pass.
+// launches share the work: row dots delta = rowsum(do o), then a grid over
+// (head, 128 key/value rows) that streams the query tiles and writes dk / dv
+// once, then a grid over (head, 128 query rows) that streams the key/value
+// tiles and writes dq once. The row statistics come from the forward kernel
+// (saved log-sum-exp), not from a second softmax pass.
 //
+// bf16 at D = 32 / 64 / 80: the packed backward's grids (hopper_bwd.cuh:
+// wgmma, cp.async rings on mbarriers; 80-wide heads as 64 + 16 column
+// panels) on split heads, which are the packed layout with one head of row
+// stride D; the scores (q k^T) * scale * log2(e) in fp32, as the forward
+// (flash_attention.cu, on hopper_fwd.cuh) formed them for its log-sum-exp.
 // Bound: operations (10 * Nq * Nk * D a head against 2 * (4 Nq + 4 Nk) * D
-// bytes). This version does 14 * Nq * Nk * D (the scores and dp are formed in
-// both grids), loads tiles synchronously and single-buffered, and uses
-// mma.sync; fusing the two grids' recomputation, cp.async / TMA and wgmma are
-// later work. Head widths 32 and 64 in bf16: at D = 512 this design's dk and
-// dv fragments alone would be 512 registers a thread.
+// bytes); the grids execute 14 (the scores and dp are formed in both).
 //
 // fp32 at D = 512 (dsml_flash_attention_bwd_f32; first-stage training): the
 // TF32 design of attention_f32.cuh, the same three launches with D cut over
 // the eight warps of a block (64 columns of dk / dv, or of dq, a warp), 32
 // owned rows a block against streamed tiles of 16. It does 14 N^2 D
 // operations a head for the function's 10.
-#include "attention_bwd.cuh"
 #include "attention_f32.cuh"
-
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int nq, int nk, int kv_tiles,
-                      float scale, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / kv_tiles;
-  const int kv0 = (blockIdx.x % kv_tiles) * BT;
-  const int64_t q_off = bh * nq * D;
-  const int64_t kv_off = (bh * nk + kv0) * D;
-  bwd_dkdv_tile<D>(q + q_off, dout + q_off, D, k + kv_off, v + kv_off,
-                   dk + kv_off, dv + kv_off, D, lse + bh * nq, delta + bh * nq,
-                   nq, nk - kv0, scale, scale_log2, smem_raw);
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int nq, int nk, int q_tiles, float scale,
-                    float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BT;
-  const int64_t q_off = (bh * nq + q0) * D;
-  const int64_t kv_off = bh * nk * D;
-  bwd_dq_tile<D>(q + q_off, dout + q_off, dq + q_off, D, k + kv_off,
-                 v + kv_off, D, lse + bh * nq + q0, delta + bh * nq + q0,
-                 nq - q0, nk, scale, scale_log2, smem_raw);
-}
-
-template <int D>
-static int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                  const bf16* dout, const float* lse, float* delta, bf16* dq,
-                  bf16* dk, bf16* dv, int bh, int nq, int nk, float scale,
-                  cudaStream_t stream) {
-  const int smem = bwd_smem_bytes<D>();
-  auto dkdv = flash_bwd_dkdv_kernel<D>;
-  auto dqk = flash_bwd_dq_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const int64_t rows = static_cast<int64_t>(bh) * nq;
-  bwd_delta_kernel<D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
-                        stream>>>(o, dout, delta, nq, 1, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int kv_tiles = (nk + BT - 1) / BT;
-  dkdv<<<bh * kv_tiles, 128, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv,
-                                             nq, nk, kv_tiles, scale,
-                                             scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + BT - 1) / BT;
-  dqk<<<bh * q_tiles, 128, smem, stream>>>(q, k, v, dout, lse, delta, dq, nq,
-                                           nk, q_tiles, scale, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
+#include "hopper_bwd.cuh"
 
 // delta is [BH, Nq] fp32 scratch. Returns cudaGetLastError() of the first
-// launch that failed (0 = all launched), or -1 for a head width this file
-// has no instantiation for.
+// launch that failed (0 = all launched), or -1 for a shape this file does
+// not take (a head width other than 32, 64, 80).
 extern "C" int dsml_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
                                         void* delta, void* dq, void* dk,
                                         void* dv, int bh, int nq, int nk,
                                         int d, float scale, void* stream) {
+  if (bh < 1 || nq < 1 || nk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto m = [](void* p) { return static_cast<bf16*>(p); };
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const float scale_log2 = scale * 1.4426950408889634f;
   switch (d) {
     case 32:
-      return launch<32>(b(q), b(k), b(v), b(o), b(dout), l, dl, m(dq), m(dk),
-                        m(dv), bh, nq, nk, scale, s);
+      return hbwd::launch<32, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), bh, nq, nk, 1,
+                                     scale, scale_log2, s);
     case 64:
-      return launch<64>(b(q), b(k), b(v), b(o), b(dout), l, dl, m(dq), m(dk),
-                        m(dv), bh, nq, nk, scale, s);
+      return hbwd::launch<64, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), bh, nq, nk, 1,
+                                     scale, scale_log2, s);
+    case 80:
+      return hbwd::launch<80, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), bh, nq, nk, 1,
+                                     scale, scale_log2, s);
     default:
       return -1;
   }

@@ -15,9 +15,11 @@
 // head, 128 key/value rows) that streams the query tiles and writes dk / dv
 // once; a grid over (batch, head, 128 query rows) that streams the
 // key/value tiles and writes dq once. Those are hopper_bwd.cuh's grids,
-// which the streaming backward (flash_attention_streaming_bwd.cu) launches
-// too; here with the scores (q k^T) * scale * log2(e) in fp32, as the packed
-// forward kernel forms them.
+// which the split-head and streaming backwards (flash_attention_bwd.cu,
+// flash_attention_streaming_bwd.cu) launch too; here with the scores
+// (q k^T) * scale * log2(e) in fp32, as the packed forward kernel forms them.
+// Head widths 32, 64 and 80 (the level-0 heads of
+// mead-256-ldm-f4-fullattn-dh64.yaml: 64 + 16 column panels).
 //
 // Bound on this card: operations (0.22 ms at [8, 4096, 5 x 32] at 989
 // TFLOP/s); at D = 32 each score also costs an exp2 in each grid (671 M at
@@ -25,13 +27,14 @@
 #include "hopper_bwd.cuh"
 
 // delta is [B, H, Nq] fp32 scratch. Returns cudaGetLastError() of the first
-// launch that failed (0 = all launched), or -1 for a head width this file
-// has no instantiation for.
+// launch that failed (0 = all launched), or -1 for a shape this file does
+// not take (a head width other than 32, 64, 80).
 extern "C" int dsml_flash_attention_bwd_packed(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int b, int nq, int nk, int heads, int d, float scale,
     void* stream) {
+  if (b < 1 || nq < 1 || nk < 1 || heads < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto m = [](void* p) { return static_cast<bf16*>(p); };
@@ -45,6 +48,10 @@ extern "C" int dsml_flash_attention_bwd_packed(
                                      heads, scale, scale_log2, s);
     case 64:
       return hbwd::launch<64, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
+                                     dl, m(dq), m(dk), m(dv), b, nq, nk,
+                                     heads, scale, scale_log2, s);
+    case 80:
+      return hbwd::launch<80, false>(c(q), c(q), c(k), c(v), c(o), c(dout), l,
                                      dl, m(dq), m(dk), m(dv), b, nq, nk,
                                      heads, scale, scale_log2, s);
     default:

@@ -33,17 +33,19 @@
 // bytes), and at D = 32 / 64 the exp2 of every score on the special-function
 // unit (16 a cycle an SM) more than the tensor cores.
 //
-// bf16 at D = 32 / 64 (streaming_wgmma_kernel, hopper_tiles.cuh): one
+// bf16 at D = 32 / 64 / 80 (streaming_wgmma_kernel, hopper_tiles.cuh): one
 // warpgroup (64 query rows) a (B*H, q-tile, split). Each thread
 // loads its rows of q straight into registers as the A fragment of the
 // score product, multiplied by the factor in bf16 on the way. The split's
-// keys stream in 128-key K / V tiles through a ring of S_STAGES cp.async
-// stages completing on mbarriers; hopper::attend_tiles runs S = q K^T and
-// O += P V on wgmma with P packed to bf16 in registers, exp2 by ex2.approx,
-// and takes the denominator as the TPU kernel does, from the cast
-// probabilities: a product of P with an all-ones bf16 tile on the tensor
-// cores (the ones column of V), which also keeps that sum off the FMA
-// units.
+// keys stream in 128-key K / V tiles (80-wide heads as 64 + 16 column
+// panels, hopper::HeadSplit) through a ring of cp.async stages completing
+// on mbarriers (hopper::kv_stages: two at D = 80, 82 KB, two blocks an SM);
+// hopper::attend_tiles runs S = q K^T and O += P V on wgmma with P packed
+// to bf16 in registers, exp2 by ex2.approx, and takes the denominator as
+// the TPU kernel does, from the cast probabilities: a product of P with an
+// all-ones bf16 tile on the tensor cores (the ones column of V), which also
+// keeps that sum off the FMA units. That product reduces over the keys
+// (N = 8 columns of ones), so the head width does not enter it.
 //
 // bf16 at D = 512 (streaming_fwd_kernel): D is split over two warps per
 // 16-row group (a thread holds 128 accumulators) and both recompute the
@@ -250,8 +252,14 @@ streaming_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int SROWS = 64;           // query rows a block
 constexpr int SNT = 128;            // threads a block: one warpgroup
 constexpr int SKV = 128;            // key / value rows a streamed tile
-constexpr int S_STAGES = 3;
 constexpr int SPLIT_KEYS = 64;      // a split's keys are a multiple of this
+
+// shared memory of a block: alignment slack, the ring, the ones tile and
+// the ring's barriers
+__host__ __device__ constexpr int s_smem(int d) {
+  return 1024 + hopper::kv_stages(d) * 2 * SKV * 2 * d + 1024 +
+         2 * hopper::kv_stages(d) * 8;
+}
 
 template <int D>
 __global__ void __launch_bounds__(SNT)
@@ -261,8 +269,8 @@ streaming_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        int nq, int nk, int q_tiles, int keys_per_split,
                        float q_scale) {
   using namespace hopper;
-  constexpr int ROWB = 2 * D;
-  constexpr int STAGE = 2 * SKV * ROWB;   // a K and a V tile
+  constexpr int S_STAGES = kv_stages(D);
+  constexpr int STAGE = 2 * SKV * 2 * D;   // a K and a V tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_smem(smem_raw, 1024);
   const uint32_t ring = cvta(base);
@@ -455,7 +463,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
   const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
   auto kernel = streaming_wgmma_kernel<D>;
-  const int smem = 1024 + S_STAGES * 2 * SKV * 2 * D + 1024 + 2 * S_STAGES * 8;
+  const int smem = s_smem(D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -600,6 +608,9 @@ extern "C" int dsml_flash_attention_streaming(const void* q, const void* k,
                               q_scale, s);
     case 64:
       return launch_wgmma<64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
+                              q_scale, s);
+    case 80:
+      return launch_wgmma<80>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
                               q_scale, s);
     case 512:
       return launch<512, 2, 64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,

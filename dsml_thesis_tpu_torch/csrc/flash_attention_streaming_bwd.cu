@@ -11,12 +11,13 @@
 //          of q straight into registers as the A operand of the score
 //          product, multiplied by scale * log2(e) in bf16 on the way, and
 //          writes that qs = bf16(q * c) back to device memory; 128-key K
-//          tiles stream through a ring of LSE_STAGES cp.async stages on
+//          tiles (the column panels of hopper_tiles.cuh:HeadSplit, 64 + 16
+//          at D = 80) stream through a ring of LSE_STAGES cp.async stages on
 //          mbarriers; S = qs K^T on wgmma; an online maximum with the finite
 //          mask (keys past Nk score -1e30 and weigh 0) and fp32 sums of the
 //          probabilities (hopper_tiles.cuh: softmax_scores, add_row_sums);
 //          lse2 = m + log2(max(l, 1e-30)) per row;
-//   delta  rowsum(do * o) from the saved output (attention_bwd.cuh);
+//   delta  rowsum(do * o) from the saved output (hopper_bwd.cuh);
 //   dk/dv, dq  hopper_bwd.cuh's grids, the packed backward's, on split heads
 //          (one head, row stride D) with the scores formed from qs (scale 1),
 //          exactly as the forward and the lse launch form them, so that
@@ -34,8 +35,8 @@
 // Bound: operations (10 * Nq * Nk * D a head, plus 2 * Nq * Nk * D for the
 // log-sum-exp launch, against 2 * (4 Nq + 4 Nk) * D bytes), and at D = 32
 // the exp2 of every score, once in each of the three launches that form the
-// scores, on the special-function unit. Head widths 32 and 64 in bf16, as
-// flash_attention_bwd_packed.cu.
+// scores, on the special-function unit. Head widths 32, 64 and 80 in bf16,
+// as flash_attention_bwd_packed.cu.
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_bwd_f32; first-stage
 // training under DSML_FLASH_STREAMING=1): a log-sum-exp launch of its own
@@ -66,8 +67,8 @@ streaming_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ qs, float* __restrict__ lse, int nq,
                      int nk, int q_tiles, float q_scale) {
   using namespace hopper;
-  constexpr int ROWB = 2 * D;
-  constexpr int STAGE = LSE_KV * ROWB;   // a K tile
+  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B;
+  constexpr int STAGE = LSE_KV * 2 * D;   // a K tile: panels A and B
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_smem(smem_raw, 1024);
   const uint32_t ring = cvta(base);
@@ -97,7 +98,7 @@ streaming_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = i % LSE_STAGES;
     if (i >= LSE_STAGES) mbar_wait(&empty[s], ((i / LSE_STAGES) - 1) & 1);
     const int kv0 = i * LSE_KV;
-    load_tile_async<ROWB, LSE_KV, LSE_NT>(
+    load_head_async<D, LSE_KV, LSE_NT>(
         ring + s * STAGE, k + static_cast<int64_t>(kv0) * D, D, nk - kv0,
         tid);
     cp_async_arrive(&full[s]);
@@ -133,12 +134,15 @@ streaming_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = t % LSE_STAGES;
     mbar_wait(&full[s], (t / LSE_STAGES) & 1);
     fence_async_shared();
-    const uint32_t sK = ring + s * STAGE;
+    const uint32_t ka = ring + s * STAGE, kb = ka + LSE_KV * 2 * DA;
     float sc[LSE_KV / 2];  // S = qs K^T
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_rs<LSE_KV, 0>(sc, qa[kk], desc_k<ROWB>(sK + 32 * kk), kk > 0);
+    for (int kk = 0; kk < DA / 16; ++kk)
+      wgmma_rs<LSE_KV, 0>(sc, qa[kk], desc_k<2 * DA>(ka + 32 * kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DB / 16; ++kk)
+      wgmma_rs<LSE_KV, 0>(sc, qa[DA / 16 + kk], desc_k<32>(kb + 32 * kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -275,7 +279,8 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. Returns
 // cudaGetLastError() of the first launch that failed (0 = all launched), or
-// -1 for a head width this file has no instantiation for.
+// -1 for a shape this file does not take (a head width other than 32, 64,
+// 80).
 extern "C" int dsml_flash_attention_streaming_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
@@ -291,6 +296,9 @@ extern "C" int dsml_flash_attention_streaming_bwd(
                         m(dv), bh, nq, nk, scale, q_scale, s);
     case 64:
       return launch<64>(c(q), c(k), c(v), c(o), c(dout), l, dl, m(dq), m(dk),
+                        m(dv), bh, nq, nk, scale, q_scale, s);
+    case 80:
+      return launch<80>(c(q), c(k), c(v), c(o), c(dout), l, dl, m(dq), m(dk),
                         m(dv), bh, nq, nk, scale, q_scale, s);
     default:
       return -1;

@@ -1,30 +1,38 @@
 // The Hopper grids of the attention backward, shared by the packed backward
-// (flash_attention_bwd_packed.cu) and the streaming backward at bf16
-// D = 32 / 64 (flash_attention_streaming_bwd.cu). With s the score of a
-// (query, key) pair in the scaled base-2 domain and lse2 its row's
-// log-sum-exp there:
+// (flash_attention_bwd_packed.cu), the split-head backward
+// (flash_attention_bwd.cu) and the streaming backward
+// (flash_attention_streaming_bwd.cu) in bf16 at D = 32 / 64 / 80. With s
+// the score of a (query, key) pair in the scaled base-2 domain and lse2 its
+// row's log-sum-exp there:
 //   p  = exp2(s - lse2)                 fp32
 //   dp = do v^T,  ds = p (dp - delta),  delta = rowsum(do o)
 //   dv = p^T do,  dk = scale ds^T q,  dq = scale ds k
 // P and dS are cast to bf16 before their products, every product
 // accumulates in fp32, and dk and dv are summed over all query rows in fp32
 // and cast once. Three launches, no atomics (equal inputs give equal bits):
-// delta (attention_bwd.cuh:bwd_delta_kernel); a grid over (batch, head, 128
-// key/value rows) that streams the query tiles and writes dk / dv once; a
-// grid over (batch, head, 128 query rows) that streams the key/value tiles
-// and writes dq once.
+// delta (bwd_delta_kernel); a grid over (batch, head, 128 key/value rows)
+// that streams the query tiles and writes dk / dv once; a grid over (batch,
+// head, 128 query rows) that streams the key/value tiles and writes dq once.
 //
 // Layout: rows of `heads` heads of D columns, a head addressed by base
 // pointer + h * D and the row stride heads * D. Split heads [BH, N, D] are
-// heads = 1 with B = BH, so both callers run the same instantiations.
+// heads = 1 with B = BH, so every caller runs the same instantiations. In
+// shared memory a tile of rows is the column panels of
+// hopper_tiles.cuh:HeadSplit (load_head_async): at D = 32 / 64 one panel
+// swizzled by the width of its rows; at D = 80 a 128-byte panel of 64
+// columns, then a 32-byte panel of 16. A product over D (the scores, dP)
+// takes 4 k16 steps on the first panel and 1 on the second; a product whose
+// columns are D (dV, dK, dq) is an N = 64 product on the first panel and an
+// N = 16 one on the second into the two parts of the accumulator.
 //
 // Score rounding. The packed backward forms s = (q k^T) * scale * log2(e)
 // in fp32 (scale_log2 = scale * log2(e)), as its forward kernel did. The
 // streaming backward forms it from qs = bf16(q * bf16(scale * log2(e))), as
 // its forward and its lse launch do, with scale_log2 = 1; dk is still taken
 // against the unscaled q. PRESCALED gives the dk/dv grid qs as a tile of
-// its own beside q in each stage (+4 KB a stage at D = 32, +8 KB at 64); the
-// dq grid reads q only for the scores, so it is handed qs in q's place.
+// its own beside q in each stage (+4 KB a stage at D = 32, +8 KB at 64, +10 KB
+// at 80); the dq grid reads q only for the scores, so it is handed qs in q's
+// place.
 //
 // Design (hopper_tiles.cuh): a block is two warpgroups, each owning 64 of
 // the block's 128 rows, whose K and V (or q and do) stay in shared memory.
@@ -37,7 +45,11 @@
 // and dS^T packed to bf16 in registers as the A operand; in the dq grid
 // S = q K^T, dP = do V^T and dq += dS K alike. exp2 is the special-function
 // unit's alone (exp2_fast), and the dk/dv grid fits two blocks an SM at
-// D = 32 (at most 128 registers a thread).
+// D = 32 (at most 128 registers a thread). At D = 80 the dk and dv
+// accumulators are 40 fp32 registers a thread each; with the scores, dP and
+// their bf16 packings a thread holds some 180, so both grids run one block
+// an SM (as at D = 64), and shared memory is no limit: 104 KB for the dk/dv
+// grid (134 KB with the pre-scaled q), 101 KB for the dq grid.
 //
 // Bound on this card: operations. The function is 10 Nq Nk H D operations a
 // batch element against 2 (4 Nq + 4 Nk) H D bytes; with the scores and dP
@@ -46,10 +58,40 @@
 // cores.
 #pragma once
 
-#include "attention_bwd.cuh"  // bwd_delta_kernel
 #include "hopper_tiles.cuh"
 
 namespace {
+
+// delta[(b * heads + h) * nq + i] = sum_d o[b, i, h, d] * do[b, i, h, d] on
+// rows of stride heads * D (heads = 1 addresses split heads [BH, N, D]).
+template <int D>
+__global__ void __launch_bounds__(256)
+bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                 float* __restrict__ delta, int nq, int heads, int64_t total) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const int i = static_cast<int>(idx % nq);
+  const int64_t bh = idx / nq;
+  const int h = static_cast<int>(bh % heads);
+  const int64_t b = bh / heads;
+  const int64_t off = ((b * nq + i) * heads + h) * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 8) {
+    const uint4 va = *reinterpret_cast<const uint4*>(o + off + c);
+    const uint4 vb = *reinterpret_cast<const uint4*>(dout + off + c);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&va);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&vb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 fa = __bfloat1622float2(pa[j]);
+      const float2 fb = __bfloat1622float2(pb[j]);
+      acc += fa.x * fb.x + fa.y * fb.y;
+    }
+  }
+  delta[idx] = acc;
+}
+
 namespace hbwd {
 
 using namespace hopper;
@@ -65,9 +107,8 @@ __host__ __device__ constexpr int round_up(int x, int m) {
 
 template <int D, bool PRESCALED>
 struct Layout {
-  static constexpr int ROWB = 2 * D;                 // bytes of a tile row
-  static constexpr int OWN_TILE = OWN * ROWB;
-  static constexpr int STR_TILE = STR * ROWB;
+  static constexpr int OWN_TILE = OWN * 2 * D;       // both panels
+  static constexpr int STR_TILE = STR * 2 * D;
   // dk/dv grid: a stage holds q, do, [qs,] lse, delta; dq grid: K, V
   static constexpr int Q_TILES = PRESCALED ? 3 : 2;
   static constexpr int STAGE_DKDV =
@@ -78,6 +119,49 @@ struct Layout {
     return 1024 + 2 * OWN_TILE + STAGES * stage + BARS * 8;
   }
 };
+
+// The 64 rows from row r0 (a multiple of 8) of a tile of `rows` rows at
+// `tile`, as the addresses of their rows in the two panels of HeadSplit<D>.
+template <int D>
+struct Rows64 {
+  uint32_t a, b;
+  __device__ __forceinline__ Rows64(uint32_t tile, int rows, int r0)
+      : a(tile + r0 * 2 * HeadSplit<D>::A),
+        b(tile + rows * 2 * HeadSplit<D>::A + r0 * 32) {}
+};
+
+// acc[64 x 64] = x y^T, the reduction over the D columns of two 64-row
+// blocks in shared memory (both K-major): the k16 steps of panel A, then of
+// panel B.
+template <int D>
+__device__ __forceinline__ void rows_times_rows_t(float (&acc)[32], Rows64<D> x,
+                                                  Rows64<D> y) {
+  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B;
+#pragma unroll
+  for (int kk = 0; kk < DA / 16; ++kk)
+    wgmma_ss<64, 0>(acc, desc_k<2 * DA>(x.a + 32 * kk),
+                    desc_k<2 * DA>(y.a + 32 * kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DB / 16; ++kk)
+    wgmma_ss<64, 0>(acc, desc_k<32>(x.b + 32 * kk), desc_k<32>(y.b + 32 * kk));
+}
+
+// acc[64 x D] += A y, A [64 x 64] in registers (its four k16 steps, P^T or
+// dS^T or dS packed to bf16) and y the 64 rows of a tile (MN-major: its rows
+// are the reduction): N = 64 (or D) on panel A, N = 16 on panel B.
+template <int D>
+__device__ __forceinline__ void frag_times_rows(float (&acc)[D / 2],
+                                                const uint32_t (&a)[4][4],
+                                                Rows64<D> y) {
+  constexpr int DA = HeadSplit<D>::A, DB = HeadSplit<D>::B;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wgmma_rs<DA, 1>(part<0, DA>(acc), a[t],
+                    desc_mn<2 * DA>(y.a + t * 16 * 2 * DA));
+    if constexpr (DB > 0)
+      wgmma_rs<DB, 1>(part<DA, DB>(acc), a[t], desc_mn<32>(y.b + t * 16 * 32));
+  }
+}
 
 // Epilogue of both grids: the warpgroup's [64 x D] accumulator times mul,
 // cast to bf16, into rows below valid of a tensor of row stride ld; g
@@ -111,7 +195,6 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
             bf16* __restrict__ dv, int nq, int nk, int heads, int kv_tiles,
             float scale, float scale_log2) {
   using L = Layout<D, PRESCALED>;
-  constexpr int ROWB = L::ROWB;
   constexpr int STAGE = L::STAGE_DKDV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_smem(smem_raw, 1024);
@@ -146,8 +229,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
   }
   __syncthreads();  // the barriers exist before anyone waits on them
 
-  load_tile_async<ROWB, OWN, NT>(sK, k + kv_off, ld, kv_valid, tid);
-  load_tile_async<ROWB, OWN, NT>(sV, v + kv_off, ld, kv_valid, tid);
+  load_head_async<D, OWN, NT>(sK, k + kv_off, ld, kv_valid, tid);
+  load_head_async<D, OWN, NT>(sV, v + kv_off, ld, kv_valid, tid);
   cp_async_arrive(own);
 
   const int q_tiles = (nq + STR - 1) / STR;
@@ -156,12 +239,12 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
     if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
     const uint32_t st = ring + s * STAGE;
     const int q0 = j * STR;
-    load_tile_async<ROWB, STR, NT>(st, gq + q0 * ld, ld, nq - q0, tid);
-    load_tile_async<ROWB, STR, NT>(st + L::STR_TILE, gdo + q0 * ld, ld,
-                                   nq - q0, tid);
+    load_head_async<D, STR, NT>(st, gq + q0 * ld, ld, nq - q0, tid);
+    load_head_async<D, STR, NT>(st + L::STR_TILE, gdo + q0 * ld, ld, nq - q0,
+                                tid);
     if constexpr (PRESCALED)
-      load_tile_async<ROWB, STR, NT>(st + 2 * L::STR_TILE, gqs + q0 * ld, ld,
-                                     nq - q0, tid);
+      load_head_async<D, STR, NT>(st + 2 * L::STR_TILE, gqs + q0 * ld, ld,
+                                  nq - q0, tid);
     if (tid < 2 * STR) {  // lse then delta, one fp32 a thread
       const int i = tid % STR;
       const bool ok = q0 + i < nq;
@@ -174,7 +257,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
 
   const int wg = tid >> 7;
   const int lane = tid & 31;
-  const uint32_t myK = sK + wg * 64 * ROWB, myV = sV + wg * 64 * ROWB;
+  const Rows64<D> myK(sK, OWN, wg * 64), myV(sV, OWN, wg * 64);
   float dkacc[D / 2], dvacc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
@@ -194,14 +277,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
     // S^T = K q^T and dP^T = V do^T: [64 key rows] x [64 query rows]
     float st[32], dpt[32];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(st, desc_k<ROWB>(myK + 32 * kk),
-                      desc_k<ROWB>(sS + 32 * kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dpt, desc_k<ROWB>(myV + 32 * kk),
-                      desc_k<ROWB>(sdO + 32 * kk), kk > 0);
+    rows_times_rows_t<D>(st, myK, Rows64<D>(sS, STR, 0));
+    rows_times_rows_t<D>(dpt, myV, Rows64<D>(sdO, STR, 0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -238,12 +315,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qs,
 
     // dV += P^T do, dK += dS^T q: the query rows are the reduction
     wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dvacc, pa[t], desc_mn<ROWB>(sdO + t * 16 * ROWB));
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dkacc, da[t], desc_mn<ROWB>(sQ + t * 16 * ROWB));
+    frag_times_rows<D>(dvacc, pa, Rows64<D>(sdO, STR, 0));
+    frag_times_rows<D>(dkacc, da, Rows64<D>(sQ, STR, 0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dvacc);
@@ -270,7 +343,6 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
           bf16* dq, int nq, int nk, int heads, int q_tiles, float scale,
           float scale_log2) {
   using L = Layout<D, false>;
-  constexpr int ROWB = L::ROWB;
   constexpr int STAGE = L::STAGE_DQ;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align_smem(smem_raw, 1024);
@@ -302,8 +374,8 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
   }
   __syncthreads();  // the barriers exist before anyone waits on them
 
-  load_tile_async<ROWB, OWN, NT>(sQ, q + q_off, ld, q_valid, tid);
-  load_tile_async<ROWB, OWN, NT>(sdO, dout + q_off, ld, q_valid, tid);
+  load_head_async<D, OWN, NT>(sQ, q + q_off, ld, q_valid, tid);
+  load_head_async<D, OWN, NT>(sdO, dout + q_off, ld, q_valid, tid);
   cp_async_arrive(own);
 
   const int kv_tiles = (nk + STR - 1) / STR;
@@ -312,9 +384,9 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
     if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
     const uint32_t st = ring + s * STAGE;
     const int kv0 = j * STR;
-    load_tile_async<ROWB, STR, NT>(st, gk + kv0 * ld, ld, nk - kv0, tid);
-    load_tile_async<ROWB, STR, NT>(st + L::STR_TILE, gv + kv0 * ld, ld,
-                                   nk - kv0, tid);
+    load_head_async<D, STR, NT>(st, gk + kv0 * ld, ld, nk - kv0, tid);
+    load_head_async<D, STR, NT>(st + L::STR_TILE, gv + kv0 * ld, ld, nk - kv0,
+                                tid);
     cp_async_arrive(&full[s]);
   };
   for (int j = 0; j < STAGES - 1 && j < kv_tiles; ++j) issue(j);
@@ -322,7 +394,7 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
   const int wg = tid >> 7;
   const int wt = tid & 127;
   const int lane = tid & 31;
-  const uint32_t myQ = sQ + wg * 64 * ROWB, mydO = sdO + wg * 64 * ROWB;
+  const Rows64<D> myQ(sQ, OWN, wg * 64), mydO(sdO, OWN, wg * 64);
   // the thread's two query rows and their statistics
   const int r0 = wg * 64 + (wt >> 5) * 16 + (lane >> 2), r1 = r0 + 8;
   const int64_t row_stat = bh * nq + q0;
@@ -345,14 +417,8 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
     // S = q K^T and dP = do V^T: [64 query rows] x [64 key rows]
     float sc[32], dp[32];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(sc, desc_k<ROWB>(myQ + 32 * kk),
-                      desc_k<ROWB>(sK + 32 * kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dp, desc_k<ROWB>(mydO + 32 * kk),
-                      desc_k<ROWB>(sV + 32 * kk), kk > 0);
+    rows_times_rows_t<D>(sc, myQ, Rows64<D>(sK, STR, 0));
+    rows_times_rows_t<D>(dp, mydO, Rows64<D>(sV, STR, 0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -380,9 +446,7 @@ dq_kernel(const bf16* q, const bf16* __restrict__ k,
 
     // dq += dS K: the key rows are the reduction
     wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_rs<D, 1>(dqacc, da[t], desc_mn<ROWB>(sK + t * 16 * ROWB));
+    frag_times_rows<D>(dqacc, da, Rows64<D>(sK, STR, 0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dqacc);

@@ -461,6 +461,13 @@ struct HeadSplit {
   static constexpr int A = D < 64 ? D : 64;
   static constexpr int B = D - A;
 };
+
+// Stages of a K / V ring that feeds attend_tiles, by head width: two at
+// D = 80, where a third would leave room for one block an SM instead of two
+// (the packed forward 0.2511 against 0.3898 ms, the streaming forward
+// 0.2789 against 0.4396 ms, at 2 heads of 80 and 4096 rows, batch 8,
+// tools/variants.py, H100 SXM at 700 W); three otherwise.
+__host__ __device__ constexpr int kv_stages(int d) { return d == 80 ? 2 : 3; }
 template <int OFF, int N, int LEN>
 __device__ __forceinline__ float (&part(float (&d)[LEN]))[N / 2] {
   static_assert(OFF / 2 + N / 2 <= LEN, "accumulator part");

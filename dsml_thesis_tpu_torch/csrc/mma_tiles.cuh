@@ -1,6 +1,7 @@
-// Shared device code of the mma.sync attention kernels: bf16 tensor-core
-// tiles (mma.sync m16n8k16, fp32 accumulate), shared-memory tile loads and
-// the online-softmax attention core they are built from.
+// Shared device code of the mma.sync kernels (the bf16 D = 512 attention of
+// flash_attention.cu and flash_attention_streaming.cu, and conv_stats.cuh):
+// bf16 tensor-core tiles (mma.sync m16n8k16, fp32 accumulate), shared-memory
+// tile loads and the online-softmax attention core of the D = 512 forward.
 //
 // Conventions
 //   * Every shared-memory tile is row-major with PAD extra bf16 per row. The
@@ -21,7 +22,6 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int PAD = 8;    // bf16 elements of row padding in shared memory
 constexpr int BM = 64;    // query rows per block
-constexpr int ABN = 128;  // key / value rows per tile of the packed kernels
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

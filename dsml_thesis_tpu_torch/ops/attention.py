@@ -4,9 +4,11 @@ versions, and the wrappers that choose between them by where the tensor lies.
 ``flash_attention``        q [B, H, Nq, D], k / v [B, H, Nk, D] -> [B, H, Nq, D]
     kernel ``csrc/flash_attention.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel`` (``flash_attention``).
-    Bound by operations at the first stage's shape (N = 4096, D = 512); the
-    kernel streams K / V tiles through shared memory under an online softmax
-    and splits D over two warps to fit the fp32 output in registers.
+    Bound by operations. Head widths 32, 64 and 80 run the packed kernel's
+    grid on one head (``csrc/hopper_fwd.cuh``); at the first stage's
+    D = 512 the kernel streams K / V tiles through shared memory under an
+    online softmax and splits D over two warps to fit the fp32 output in
+    registers.
 
 ``flash_attention_fproj``  h [B, N, C] + projection weights -> [B, N, C]
     kernels ``csrc/flash_attention_fproj.cu``; replaces the TPU kernel
@@ -37,8 +39,8 @@ versions, and the wrappers that choose between them by where the tensor lies.
 ``flash_attention_bwd``    (q, k, v, o, lse, do) on split heads -> (dq, dk, dv)
     kernels ``csrc/flash_attention_bwd.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_bwd_kernel``
-    (``flash_attention_bwd``). Bound by operations; head widths 32 and 64 in
-    bf16, 512 in fp32.
+    (``flash_attention_bwd``). Bound by operations; head widths 32, 64 and
+    80 in bf16 (the packed backward's grids on one head), 512 in fp32.
 
 ``flash_attention_bwd_packed``  the same on packed rows
     kernels ``csrc/flash_attention_bwd_packed.cu``; replaces the TPU kernel
@@ -46,7 +48,7 @@ versions, and the wrappers that choose between them by where the tensor lies.
     (``flash_attention_bwd_packed``). Bound by operations; dq, dk, dv are
     written in place in the packed layout; 128 owned rows a block, streamed
     tiles through a ``cp.async`` ring on mbarriers, every product on
-    ``wgmma``.
+    ``wgmma`` (``csrc/hopper_bwd.cuh``). Head widths 32, 64 and 80.
 
     Both backward kernels read the row log-sum-exp the forward kernel saved
     (the TPU kernels recompute a whole row's softmax, which needs a head's
@@ -59,7 +61,7 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernel ``csrc/flash_attention_streaming.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_streaming``
     (``flash_attention_streaming``). Bound by operations; any Nq / Nk, head
-    widths 32, 64 and 512. The K / V stream of a query tile is cut over
+    widths 32, 64, 80 and 512. The K / V stream of a query tile is cut over
     several blocks when the call has few query tiles (``streaming_splits``),
     and the splits are combined in index order. q is scaled by
     scale * log2(e) in its own type before the score product and the
@@ -73,7 +75,7 @@ versions, and the wrappers that choose between them by where the tensor lies.
     ``_streaming_dkdv_kernel``). The residuals carry no row statistic: a
     launch of its own (on ``wgmma``) recomputes the row log-sum-exp from q
     and k, then delta and, in bf16, the packed backward's dk / dv and dq
-    grids on one head. Head widths 32 and 64 in bf16, 512 in fp32.
+    grids on one head. Head widths 32, 64 and 80 in bf16, 512 in fp32.
 
 fp32. The split-head forward, the streaming forward and both their backward
 kernels also take fp32 tensors at head width 512 (``F32_HEAD_DIMS``): the
@@ -117,13 +119,13 @@ from ..flags import env_mode, refuse_unported
 from ._launch import (LAUNCHES, check_cuda_operand, current_stream,  # noqa: F401
                       raise_on_error, reset_launches)
 
-FLASH_HEAD_DIMS = (32, 64, 512)        # instantiations in flash_attention.cu
+FLASH_HEAD_DIMS = (32, 64, 80, 512)    # bf16 instantiations in flash_attention.cu
 FPROJ_HEAD_DIMS = (32, 64)             # ... in flash_attention_fproj.cu
 FPROJ_CHANNEL_MULTIPLE = 32            # depth step of its projection kernel
 PACKED_HEAD_DIMS = (32, 64, 80)        # ... in flash_attention_packed.cu
-BWD_HEAD_DIMS = (32, 64)               # ... in both flash_attention_bwd*.cu
-STREAMING_HEAD_DIMS = (32, 64, 512)    # ... in flash_attention_streaming.cu
-STREAMING_BWD_HEAD_DIMS = (32, 64)     # ... in flash_attention_streaming_bwd.cu
+BWD_HEAD_DIMS = (32, 64, 80)           # ... in both flash_attention_bwd*.cu
+STREAMING_HEAD_DIMS = (32, 64, 80, 512)  # ... in flash_attention_streaming.cu
+STREAMING_BWD_HEAD_DIMS = (32, 64, 80)   # ... in flash_attention_streaming_bwd.cu
 # fp32 instantiations (TF32 products) of the four kernels above that the
 # first stage's attention block runs in first-stage training
 F32_HEAD_DIMS = (512,)
@@ -179,6 +181,31 @@ def streaming_splits(bh: int, nq: int, nk: int) -> int:
     want = min(max(1, STREAMING_TARGET_BLOCKS // (bh * q_tiles)), kv_tiles)
     per_split = -(-kv_tiles // want)
     return -(-kv_tiles // per_split)
+
+
+def _split_head_dims(dtype: torch.dtype, bf16_dims) -> tuple:
+    """The head widths a split-head kernel has instantiations for in
+    ``dtype``: ``bf16_dims`` in bf16, ``F32_HEAD_DIMS`` in fp32, none
+    otherwise."""
+    if dtype == torch.float32:
+        return F32_HEAD_DIMS
+    return bf16_dims if dtype == torch.bfloat16 else ()
+
+
+def flash_kernel_takes(head_dim: int, dtype: torch.dtype,
+                       backward: bool = False) -> bool:
+    """Whether the split-head CUDA kernel (``backward``: its backward kernel)
+    takes this head width and type."""
+    dims = BWD_HEAD_DIMS if backward else FLASH_HEAD_DIMS
+    return head_dim in _split_head_dims(dtype, dims)
+
+
+def streaming_kernel_takes(head_dim: int, dtype: torch.dtype,
+                           backward: bool = False) -> bool:
+    """Whether the streaming CUDA kernel (``backward``: its backward kernels)
+    takes this head width and type."""
+    dims = STREAMING_BWD_HEAD_DIMS if backward else STREAMING_HEAD_DIMS
+    return head_dim in _split_head_dims(dtype, dims)
 
 
 # --------------------------------------------------------------------------
@@ -351,7 +378,7 @@ def _entry(name: str, t: torch.Tensor, bf16_dims, what: str) -> str:
     width: ``name`` for bf16 at ``bf16_dims``, ``name + "_f32"`` for fp32 at
     ``F32_HEAD_DIMS``; anything else raises (before any build)."""
     d = t.shape[-1]
-    dims = F32_HEAD_DIMS if t.dtype == torch.float32 else bf16_dims
+    dims = _split_head_dims(t.dtype, bf16_dims)
     if d not in dims:
         raise ValueError(f"{what}: head width {d} not in {dims} for {t.dtype}")
     return name + ("_f32" if t.dtype == torch.float32 else "")
@@ -662,6 +689,12 @@ def packed_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and head_dim in PACKED_HEAD_DIMS
 
 
+def packed_bwd_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the packed backward CUDA kernels take this head width and
+    type."""
+    return dtype == torch.bfloat16 and head_dim in BWD_HEAD_DIMS
+
+
 def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     """Check, launch and count the packed forward kernel; ``want_lse`` as in
     ``_launch_flash_forward`` ([B*H*Nq] fp32)."""
@@ -701,9 +734,9 @@ def flash_attention_bwd_packed(q: torch.Tensor, k: torch.Tensor,
     check_cuda_operand("lse", lse, q, (torch.float32,))
     b, nq, hd = q.shape
     d = hd // heads
-    if d not in BWD_HEAD_DIMS:
+    if not packed_bwd_kernel_takes(d, q.dtype):
         raise ValueError(f"flash_attention_packed backward: head width {d} "
-                         f"not in {BWD_HEAD_DIMS}")
+                         f"not in {BWD_HEAD_DIMS} for bf16")
     from . import _build
 
     lib = _build.load()

@@ -35,9 +35,13 @@
            kernel, and the combine kernel where the K / V stream is cut)
            at [8, 10, 1024, 32], [8, 20, 256, 32] and [1, 2, 100, 5000, 32],
            the packed forward at [16, 4096, 5 x 32], [8, 4096, 5 x 32],
-           [8, 4096, 2 x 80] and [8, 1024, 10 x 32], and the streaming
-           backward (lse, delta, dk / dv grid, dq grid) at [8, 10, 1024, 32]
-           and [8, 20, 256, 32]
+           [8, 4096, 2 x 80] and [8, 1024, 10 x 32], the streaming
+           backward (lse, delta, dk / dv grid, dq grid) at [8, 10, 1024, 32],
+           [8, 20, 256, 32] and [8, 2, 4096, 80], the packed backward at
+           [8, 4096, 2 x 80], the streaming forward at [8, 2, 4096, 80], and
+           the split-head forward (the packed forward's grid on one head)
+           and backward (the packed backward's grids on one head) at
+           [8, 10, 1024, 32], [8, 20, 256, 32] and [8, 2, 4096, 80]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -195,8 +199,6 @@ _FAMILIES = (
     ("conv_stats_kernel", "conv + statistics kernel"),
     ("conv_stats_finish_kernel", "conv + statistics kernel"),
     ("packed_attention_kernel", "attention: packed"),
-    ("bwd_dkdv_kernel", "attention backward: dk / dv grid"),
-    ("bwd_dq_kernel", "attention backward: dq grid"),
     ("bwd_delta_kernel", "attention backward: delta"),
     ("multi_tensor", "optimizer / EMA (foreach)"),
     ("qout_attention_kernel", "attention: qout (q proj + attention + to_out)"),
@@ -248,8 +250,8 @@ def _device_kernels(prof) -> dict:
 
 
 def split(smi: str, calls: int = 10):
-    """Device ms of each kernel a call of rows 1, 3, 4, 5, 6 and 8
-    launches, from ``calls`` warm calls under torch.profiler."""
+    """Device ms of each kernel a call of rows 1-8 launches, from ``calls``
+    warm calls under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -289,6 +291,16 @@ def split(smi: str, calls: int = 10):
         out = A.flash_attention_streaming(q, k, v)
         return lambda: A.flash_attention_streaming_bwd(q, k, v, out, do)
 
+    def flash(b, h, n, d):
+        q, k, v = (rnd(b, h, n, d) for _ in range(3))
+        return lambda: A.flash_attention(q, k, v)
+
+    def flash_bwd(b, h, n, d):
+        q, k, v, do = (rnd(b, h, n, d) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = A._launch_flash_forward(q, k, v, scale, True)
+        return lambda: A.flash_attention_bwd(q, k, v, out, lse, do, scale)
+
     cases = [("flash_attention_packed", [16, 4096, 5, 32],
               packed(16, 4096, 5, 32)),
              ("flash_attention_packed", [8, 4096, 5, 32],
@@ -320,10 +332,28 @@ def split(smi: str, calls: int = 10):
              ("flash_attention_bwd_packed", [8, 256, 20, 32],
               packed_bwd(8, 256, 20, 32)),
              ("flash_attention_bwd_packed", [8, 4096, 5, 32],
-              packed_bwd(8, 4096, 5, 32))]
-    if 80 in A.PACKED_HEAD_DIMS:   # the -fullattn-dh64 level-0 heads
-        cases.insert(2, ("flash_attention_packed", [8, 4096, 2, 80],
-                         packed(8, 4096, 2, 80)))
+              packed_bwd(8, 4096, 5, 32)),
+             # the -fullattn-dh64 level-0 heads, 2 of 80
+             ("flash_attention_packed", [8, 4096, 2, 80],
+              packed(8, 4096, 2, 80)),
+             ("flash_attention_bwd_packed", [8, 4096, 2, 80],
+              packed_bwd(8, 4096, 2, 80)),
+             ("flash_attention_streaming", [8, 2, 4096, 4096, 80],
+              streaming(8, 2, 4096, 4096, 80)),
+             ("flash_attention_streaming_bwd", [8, 2, 4096, 4096, 80],
+              streaming_bwd(8, 2, 4096, 80)),
+             # the split-head route (DSML_ATTN_PACKED=0)
+             ("flash_attention", [8, 10, 1024, 1024, 32],
+              flash(8, 10, 1024, 32)),
+             ("flash_attention", [8, 20, 256, 256, 32], flash(8, 20, 256, 32)),
+             ("flash_attention", [8, 2, 4096, 4096, 80],
+              flash(8, 2, 4096, 80)),
+             ("flash_attention_bwd", [8, 10, 1024, 1024, 32],
+              flash_bwd(8, 10, 1024, 32)),
+             ("flash_attention_bwd", [8, 20, 256, 256, 32],
+              flash_bwd(8, 20, 256, 32)),
+             ("flash_attention_bwd", [8, 2, 4096, 4096, 80],
+              flash_bwd(8, 2, 4096, 80))]
     with torch.no_grad():
         for name, shape, fn in cases:
             for _ in range(3):

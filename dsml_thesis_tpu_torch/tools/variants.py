@@ -8,27 +8,25 @@ Each variant is a list of [file, old text, new text] substitutions applied
 to a copy of ``csrc/`` under ``_build/variants/<name>/`` (an empty old text
 replaces the whole file by the file at the path, relative to the
 repository and inside it, that new text names: an earlier design unpacked
-under ``_ab/``). Every variant's
-``flash_attention_fproj.cu``, ``flash_attention_packed.cu``,
-``flash_attention_bwd_packed.cu``, ``flash_attention_qout.cu``,
-``flash_attention_streaming.cu`` and ``flash_attention_streaming_bwd.cu``
-are compiled (all ``nvcc`` processes started together; ptxas's "Performance
-Loss" lines are printed) and linked into a library of their own; a name
-that starts with ``c_`` is compiled only. Then, for the fused-projection op
-at [16, 1024, 320] x 10, [8, 1024, 320] x 10, [16, 256, 640] x 20 and
-[3, 200, 320] x 10, the packed forward at [16, 4096, 5 x 32],
+under ``_ab/``). Every variant's ``SOURCES`` (the attention kernels' entry
+files) are compiled (all ``nvcc`` processes started together; ptxas's
+"Performance Loss" lines are printed) and linked into a library of their
+own; a name that starts with ``c_`` is compiled only. Then, for the
+fused-projection op at [16, 1024, 320] x 10, [8, 1024, 320] x 10, [16, 256,
+640] x 20 and [3, 200, 320] x 10, the packed forward at [16, 4096, 5 x 32],
 [8, 4096, 5 x 32], [8, 4096, 2 x 80], [8, 1024, 10 x 32], [8, 256, 20 x 32]
-and [2, 333, 77, 3 x 80], the packed backward at [8, 1024, 10 x 32],
-[8, 256, 20 x 32], [8, 4096, 5 x 32] and [2, 1000, 3 x 64], the q/out-fused
-op at [8, 4096, 160] x 5, [16, 4096, 160] x 5 and [2, 1000, 128] x 2, the
-streaming forward at [8, 10, 1024, 32], [8, 20, 256, 32] and
-[2, 3, 333, 77, 64] and the streaming backward at [8, 10, 1024, 32],
-[8, 20, 256, 32] and [2, 3, 333, 77, 64], every variant's C entry is held
-against the plain version (relative error to the maximum) and timed by CUDA
-events, 20 calls, in three rounds of the variants in turns (a, b, b, a); the
-median is printed ("not taken" where a variant's entry returns -1 for the
-shape, as an earlier design does for a head width it lacks). Needs a CUDA
-device and nvcc.
+and [2, 333, 77, 3 x 80], the packed backward at [8, 1024, 10 x 32], [8,
+256, 20 x 32], [8, 4096, 5 x 32], [8, 4096, 2 x 80] and [2, 1000, 3 x 64],
+the q/out-fused op at [8, 4096, 160] x 5, [16, 4096, 160] x 5 and [2, 1000,
+128] x 2, the streaming forward and backward at [8, 10, 1024, 32], [8, 20,
+256, 32], [8, 2, 4096, 80] and [2, 3, 333, 77, 64], and the split-head
+forward and backward at [8, 10, 1024, 32], [8, 20, 256, 32], [8, 2, 4096,
+80] and [2, 3, 333, 77, 80], every variant's C entry is held against the
+plain version (relative error to the maximum) and timed by CUDA events, 20
+calls, in three rounds of the variants in turns (a, b, b, a); the median is
+printed ("not taken" where a variant's entry returns -1 for the shape, as an
+earlier design does for a head width it lacks). Needs a CUDA device and
+nvcc.
 """
 from __future__ import annotations
 
@@ -45,10 +43,12 @@ from ..ops import _build
 from ..ops import attention as A
 
 ROOT = os.path.realpath(os.path.dirname(_build.PKG_DIR))
-SOURCES = ("flash_attention_fproj.cu", "flash_attention_packed.cu",
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_fproj.cu", "flash_attention_packed.cu",
            "flash_attention_bwd_packed.cu", "flash_attention_qout.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu")
-ENTRIES = ("dsml_flash_attention_fproj", "dsml_flash_attention_packed",
+ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_bwd",
+           "dsml_flash_attention_fproj", "dsml_flash_attention_packed",
            "dsml_flash_attention_bwd_packed", "dsml_flash_attention_qout",
            "dsml_flash_attention_streaming",
            "dsml_flash_attention_streaming_bwd")
@@ -139,6 +139,30 @@ def cases() -> dict:
             nq, nk, heads, d, d ** -0.5, stream())
         return call, lambda: rel(out, ref)
 
+    def flash(b, h, nq, nk, d):
+        q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
+        ref = A.attention_reference(q, k, v)
+        out = torch.empty_like(q)
+        call = lambda lib: lib.dsml_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            b * h, nq, nk, d, d ** -0.5, stream())
+        return call, lambda: rel(out, ref)
+
+    def flash_bwd(b, h, nq, nk, d):
+        q, do = rnd(b, h, nq, d), rnd(b, h, nq, d)
+        k, v = rnd(b, h, nk, d), rnd(b, h, nk, d)
+        scale = d ** -0.5
+        o, lse = A._launch_flash_forward(q, k, v, scale, True)
+        ref = A.flash_attention_bwd_reference(q, k, v, do, scale=scale)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty_like(lse)
+        call = lambda lib: lib.dsml_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), b * h, nq, nk, d, scale,
+            stream())
+        return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
+
     def packed_bwd(b, n, heads, d):
         q, k, v, do = (rnd(b, n, heads * d) for _ in range(4))
         scale = d ** -0.5
@@ -208,6 +232,17 @@ def cases() -> dict:
                                                           32),
             "streaming_bwd [8,20,256,32]": streaming_bwd(8, 20, 256, 256, 32),
             "streaming_bwd [2,3,333,77,64]": streaming_bwd(2, 3, 333, 77, 64),
+            "streaming_bwd [8,2,4096,80]": streaming_bwd(8, 2, 4096, 4096, 80),
+            "streaming [8,2,4096,80]": streaming(8, 2, 4096, 4096, 80),
+            "flash [8,10,1024,32]": flash(8, 10, 1024, 1024, 32),
+            "flash [8,20,256,32]": flash(8, 20, 256, 256, 32),
+            "flash [8,2,4096,80]": flash(8, 2, 4096, 4096, 80),
+            "flash [2,3,333,77,80]": flash(2, 3, 333, 77, 80),
+            "flash_bwd [8,10,1024,32]": flash_bwd(8, 10, 1024, 1024, 32),
+            "flash_bwd [8,20,256,32]": flash_bwd(8, 20, 256, 256, 32),
+            "flash_bwd [8,2,4096,80]": flash_bwd(8, 2, 4096, 4096, 80),
+            "flash_bwd [2,3,333,77,80]": flash_bwd(2, 3, 333, 77, 80),
+            "bwd_packed [8,4096,2x80]": packed_bwd(8, 4096, 2, 80),
             "qout [8,4096,160] x 5": qout(8, 4096, 160, 5),
             "qout [16,4096,160] x 5": qout(16, 4096, 160, 5),
             "qout [2,1000,128] x 2": qout(2, 1000, 128, 2),

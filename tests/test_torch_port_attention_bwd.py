@@ -150,7 +150,7 @@ def test_function_takes_a_non_contiguous_upstream_gradient():
 
 
 def test_backward_kernels_refuse_what_they_do_not_take():
-    assert tatt.BWD_HEAD_DIMS == (32, 64)
+    assert tatt.BWD_HEAD_DIMS == (32, 64, 80)
     assert "flash_attention_bwd" in tatt.LAUNCHES
     assert "flash_attention_bwd_packed" in tatt.LAUNCHES
     with pytest.raises(ValueError):
