@@ -15,17 +15,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
            attention and conv kernels, or 67 TFLOP/s fp32 outside the tensor
            cores, the larger); the fp32 instantiations (first-stage
            training: the D = 512 attention, GroupNorm, channel statistics,
-           conv + statistics) are held to fp32 plain versions with TF32 off;
-           every kernel but the split-head forward at D = 512 must also give
-           the same bits from two launches (the backward kernels also through
-           autograd)
-  model    mead-256-ldm-f4.yaml, its -fullattn twin and -fullattn-dh64 at
-           full width and depth, random weights from a seed: one UNet call
-           and one first-stage decode through the kernels against the same
-           calls through the plain versions, under each flag set of the
-           serve runs
+           conv + statistics; mead-128-ldm-f4's UNet: the D = 32 attention of
+           rows 1, 2, 3, 7, 8) are held to fp32 plain versions with TF32 off;
+           every kernel must also give the same bits from two launches (the
+           backward kernels also through autograd)
+  model    mead-256-ldm-f4.yaml, its -fullattn twin, -fullattn-dh64 and
+           mead-128-ldm-f4.yaml at full width and depth, random weights from a
+           seed: one UNet call and one first-stage decode at the config's
+           latent size through the kernels against the same calls through the
+           plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
-           frames, DDIM-50, guidance 2.0, in nine runs:
+           frames at the config's frame size, DDIM-50, guidance 2.0, in
+           eleven runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
@@ -39,11 +40,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
              headline-streaming     DSML_FLASH_STREAMING=1, one batch
              headline-epilogue-res  DSML_GN_EPILOGUE=res, one batch
              headline-epilogue      DSML_GN_EPILOGUE=1, one batch
+             mead128         mead-128-ldm-f4 (fp32 UNet, 128 px), no flag:
+                             every self-attention through row 1 in fp32
+             mead128-split   mead-128-ldm-f4, DSML_ATTN_PACKED=0 (row 2 in
+                             fp32 at D = 32), one batch
            each checks shapes, finiteness, range, launch counts, and that
            (seed, batch index) reproduces a batch bit for bit
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
-           real shapes (256 px, audio [17, 768]), batch 8, full width and
-           depth, fp32 parameters with bf16 compute, in nine runs:
+           real shapes (the config's frame size, audio [17, 768]) and the
+           YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
+           32 at 128 px in fp32 for mead-128), full width and depth, in
+           eleven runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
                              with --resume for one more step
@@ -58,6 +65,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              train-dh64-split      -fullattn-dh64, DSML_ATTN_PACKED=0, 2 steps
              train-dh64-streaming  -fullattn-dh64, DSML_ATTN_PACKED=0 and
                              DSML_FLASH_STREAMING=1, 2 steps
+             train-mead128   mead-128-ldm-f4, no flag (rows 3 + 8 in fp32 at
+                             D = 32), 2 steps
+             train-mead128-split   mead-128-ldm-f4, DSML_ATTN_PACKED=0 (rows
+                             2 + 7 in fp32 at D = 32), 2 steps
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, the backward
            kernel's calls by head width against the model's self-attentions,
@@ -79,7 +90,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ae-kl-epilogue-res  kl-f4, DSML_GN_EPILOGUE=res, 2 steps
            each checks the same, plus a d_weight above zero and moved
            discriminator parameters
-then the line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+then the line {"kernels": [...]} (a row per kernel, and a sub-row per fp32
+D = 32 instantiation) and, last, {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
 """
@@ -106,6 +118,9 @@ CONFIG_DIR = os.path.join(HERE, "configs", "latent-diffusion")
 CONFIG = os.path.join(CONFIG_DIR, "mead-256-ldm-f4.yaml")
 CONFIG_FULLATTN = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn.yaml")
 CONFIG_DH64 = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn-dh64.yaml")
+# the reference's own talking-face model: fp32 UNet (no dtype), 128 px, 32 x 32
+# latents, self-attention at every level (32-wide heads), batch 32 in training
+CONFIG_128 = os.path.join(CONFIG_DIR, "mead-128-ldm-f4.yaml")
 CONFIG_VQ = os.path.join(HERE, "configs", "autoencoder", "vqgan-f4.yaml")
 CONFIG_KL = os.path.join(HERE, "configs", "autoencoder", "kl-f4.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -211,6 +226,10 @@ def _width(dtype):
                                                                 PEAK_BF16_FLOPS)
 
 
+def _dtype_name(dtype):
+    return str(dtype).split(".")[1]
+
+
 def _compare(out, ref):
     out, ref = out.float(), ref.float()
     if not bool(torch.isfinite(out).all()):
@@ -255,8 +274,7 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
 
 
 def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
-    """The split-head forward; at bf16 D <= 80 (the packed kernel's grid on
-    one head) also the same bits from a second launch."""
+    """The split-head forward, and the same bits from a second launch."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
@@ -264,27 +282,26 @@ def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     scale = d ** -0.5
     esize, peak = _width(dtype)
     run = lambda: A.flash_attention(q, k, v, scale=scale)
-    case = _case(
+    return _repeatable(_case(
         (b, h, nq, nk, d), timed, run,
         lambda: A.attention_reference(q, k, v, scale=scale),
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
-        peak, dtype=str(dtype).split(".")[1])
-    if dtype == torch.bfloat16 and d <= 80:
-        case = _repeatable(case, run)
-    return case
+        peak, dtype=_dtype_name(dtype), head_dim=d), run)
 
 
-def _fproj_case(gen, b, n, c, heads, timed):
+def _fproj_case(gen, b, n, c, heads, timed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
     hd = c  # the UNet's self-attention keeps heads * head_dim == channels
     d = hd // heads
-    h = _rand(gen, b, n, c)
-    wq, wk, wv = (_rand(gen, hd, c, scale=c ** -0.5) for _ in range(3))
-    wo = _rand(gen, c, hd, scale=hd ** -0.5)
-    bo = _rand(gen, c, scale=0.1)
+    h = _rand(gen, b, n, c, dtype=dtype)
+    wq, wk, wv = (_rand(gen, hd, c, scale=c ** -0.5, dtype=dtype)
+                  for _ in range(3))
+    wo = _rand(gen, c, hd, scale=hd ** -0.5, dtype=dtype)
+    bo = _rand(gen, c, scale=0.1, dtype=dtype)
+    esize, peak = _width(dtype)
     scale = d ** -0.5
     args = (h, wq, wk, wv, wo, bo, heads)
 
@@ -299,18 +316,19 @@ def _fproj_case(gen, b, n, c, heads, timed):
     return _repeatable(_case(
         (b, n, c, heads), timed, run,
         lambda: A.fproj_reference(*args, scale=scale), library,
-        2 * (2 * b * n * c + 4 * c * hd + c),
-        2 * b * n * c * hd * 4 + 4 * b * n * n * hd, PEAK_BF16_FLOPS,
-        iters=20), run)
+        esize * (2 * b * n * c + 4 * c * hd + c),
+        2 * b * n * c * hd * 4 + 4 * b * n * n * hd, peak,
+        iters=20, dtype=_dtype_name(dtype), head_dim=d), run)
 
 
-def _packed_case(gen, b, nq, nk, heads, d, timed):
+def _packed_case(gen, b, nq, nk, heads, d, timed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
     hd = heads * d
-    q, k, v = (_rand(gen, b, n, hd) for n in (nq, nk, nk))
+    q, k, v = (_rand(gen, b, n, hd, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
+    esize, peak = _width(dtype)
     sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
     run = lambda: A.flash_attention_packed(q, k, v, heads, scale=scale)
     return _repeatable(_case(
@@ -318,13 +336,12 @@ def _packed_case(gen, b, nq, nk, heads, d, timed):
         lambda: A.packed_reference(q, k, v, heads, scale=scale),
         lambda: F.scaled_dot_product_attention(sp(q), sp(k), sp(v),
                                                scale=scale),
-        2 * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, PEAK_BF16_FLOPS),
-        run)
+        esize * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, peak,
+        dtype=_dtype_name(dtype), head_dim=d), run)
 
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
               plain, sdpa_inputs, scale, lse_bytes=4):
-    esize, peak = _width(q.dtype)
     """An attention backward kernel on the forward kernel's own output and
     row log-sum-exp (``forward`` returns both; the streaming pair has no
     saved log-sum-exp, ``lse_bytes=0``): (dq, dk, dv) against the plain
@@ -335,6 +352,7 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     ``scaled_dot_product_attention`` through autograd."""
     import torch.nn.functional as F
 
+    esize, peak = _width(q.dtype)
     b_h, nq, nk, d = shape[-4:]
     out, lse = forward()
     sq, sk, sv, sdo = (t.detach().requires_grad_(t is not sdpa_inputs[3])
@@ -344,7 +362,7 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
         shape, timed, lambda: backward(out, lse), lambda: plain(out),
         lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True),
         esize * b_h * (4 * nq + 4 * nk) * d + lse_bytes * b_h * nq,
-        10 * b_h * nq * nk * d, peak, dtype=str(q.dtype).split(".")[1])
+        10 * b_h * nq * nk * d, peak, dtype=_dtype_name(q.dtype), head_dim=d)
     first, again = backward(out, lse), backward(out, lse)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     auto = torch.autograd.grad(through_autograd(*leaves), leaves, do)
@@ -395,7 +413,7 @@ def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
         peak, kv_splits=A.streaming_splits(b * h, nq, nk),
-        dtype=str(dtype).split(".")[1]), run)
+        dtype=_dtype_name(dtype), head_dim=d), run)
 
 
 def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
@@ -413,11 +431,11 @@ def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         (q, k, v, do), scale, lse_bytes=0)
 
 
-def _packed_bwd_case(gen, b, nq, nk, heads, d, timed):
+def _packed_bwd_case(gen, b, nq, nk, heads, d, timed, dtype=torch.bfloat16):
     from dsml_thesis_tpu_torch.ops import attention as A
 
     hd = heads * d
-    q, k, v, do = (_rand(gen, b, n, hd) for n in (nq, nk, nk, nq))
+    q, k, v, do = (_rand(gen, b, n, hd, dtype=dtype) for n in (nq, nk, nk, nq))
     scale = d ** -0.5
     sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
     return _bwd_case(
@@ -457,7 +475,7 @@ def _qout_case(gen, b, n, nk, c, heads, timed, hd=None):
         lambda: A.qout_reference(*args, scale=scale), library,
         2 * (2 * b * n * c + 2 * b * nk * hd + 2 * c * hd + c),
         2 * b * n * c * hd * 2 + 4 * b * n * nk * hd, PEAK_BF16_FLOPS,
-        head_dim=d), run)
+        dtype="bfloat16", head_dim=d), run)
 
 
 def _gn_input(gen, b, n, c, mean=0.5, std=2.0, dtype=torch.bfloat16):
@@ -465,10 +483,6 @@ def _gn_input(gen, b, n, c, mean=0.5, std=2.0, dtype=torch.bfloat16):
     gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
     return x.to(dtype), gamma, beta
-
-
-def _dtype_name(dtype):
-    return str(dtype).split(".")[1]
 
 
 def _gn_case(gen, b, n, c, eps, silu, timed, mean=0.5, std=2.0,
@@ -606,8 +620,10 @@ def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
 def phase_kernels():
     """Each kernel against its plain version, at the serving path's shapes
     (batch 8, and 16 after the guidance pair is tiled; F = 2 frames a clip)
-    plus ragged and other-head-width cases. The first timed case of a kernel
-    is the one its entry in the "kernels" line reports."""
+    and the training path's, plus ragged and other-head-width cases. The
+    first timed case of a kernel is the one its entry in the "kernels" line
+    reports; its fp32 D = 32 sub-row (``F32_NARROW``) reports the first
+    timed case at that type and width."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32 = torch.float32   # the fp32 instantiations: first-stage training
     flash = [
@@ -632,6 +648,14 @@ def phase_kernels():
         _flash_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
         _flash_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
         _flash_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
+        # fp32 D = 32: mead-128-ldm-f4's UNet under DSML_ATTN_PACKED=0,
+        # training batch 32 (the packed fp32 forward's grid on one head)
+        _flash_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        _flash_case(gen, 32, 10, 256, 256, 32, True, f32),
+        _flash_case(gen, 32, 20, 64, 64, 32, True, f32),
+        _flash_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
+        _flash_case(gen, 2, 3, 200, 129, 32, False, f32),      # Nk = 128 + 1
+        _flash_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
     ]
     fproj = [
         _fproj_case(gen, 16, 1024, 320, 10, True),   # 2B after the pair tiles
@@ -641,6 +665,13 @@ def phase_kernels():
         _fproj_case(gen, 2, 100, 128, 2, False),     # 64-wide heads
         _fproj_case(gen, 2, 300, 160, 5, False),     # H*D not a multiple of 64
         _fproj_case(gen, 16, 250, 640, 20, False),   # widest, clusters, ragged
+        # fp32 D = 32: mead-128-ldm-f4 served (8 clips x the guidance pair)
+        _fproj_case(gen, 16, 1024, 160, 5, True, f32),
+        _fproj_case(gen, 16, 256, 320, 10, True, f32),
+        _fproj_case(gen, 16, 64, 640, 20, True, f32),
+        _fproj_case(gen, 3, 200, 160, 5, False, f32),     # ragged N
+        _fproj_case(gen, 2, 100, 640, 20, False, f32),    # ragged, widest
+        _fproj_case(gen, 2, 70, 96, 3, False, f32),       # H*D % 64 != 0
     ]
     packed = [
         _packed_case(gen, 16, 4096, 4096, 5, 32, True),   # -fullattn, 64x64
@@ -659,6 +690,13 @@ def phase_kernels():
         _packed_case(gen, 2, 64, 64, 5, 32, False),       # one q-tile exactly
         _packed_case(gen, 2, 200, 129, 5, 32, False),     # Nk = 128 + 1
         _packed_case(gen, 2, 100, 50, 3, 64, False),      # Nk < one K tile
+        # fp32 D = 32: mead-128-ldm-f4 in training, batch 32
+        _packed_case(gen, 32, 1024, 1024, 5, 32, True, f32),
+        _packed_case(gen, 32, 256, 256, 10, 32, True, f32),
+        _packed_case(gen, 32, 64, 64, 20, 32, True, f32),
+        _packed_case(gen, 2, 1000, 1000, 5, 32, False, f32),   # ragged N
+        _packed_case(gen, 2, 333, 77, 10, 32, False, f32),     # Nk != Nq
+        _packed_case(gen, 2, 200, 129, 5, 32, False, f32),     # Nk = 128 + 1
     ]
     qout = [
         _qout_case(gen, 16, 4096, 4096, 160, 5, True),
@@ -731,6 +769,12 @@ def phase_kernels():
         _flash_bwd_case(gen, 2, 2, 200, 129, 80, False),     # Nk = 128 + 1
         _flash_bwd_case(gen, 2, 2, 100, 50, 80, False),      # Nk < 64
         _flash_bwd_case(gen, 2, 2, 1000, 333, 80, False),    # tiles + tails
+        # fp32 D = 32: mead-128-ldm-f4 in training under DSML_ATTN_PACKED=0
+        _flash_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        _flash_bwd_case(gen, 32, 10, 256, 256, 32, True, f32),
+        _flash_bwd_case(gen, 32, 20, 64, 64, 32, True, f32),
+        _flash_bwd_case(gen, 2, 5, 333, 77, 32, False, f32),    # Nk != Nq
+        _flash_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tiles + tails
     ]
     packed_bwd = [
         _packed_bwd_case(gen, 8, 1024, 1024, 10, 32, True),  # training step
@@ -749,6 +793,13 @@ def phase_kernels():
         _packed_bwd_case(gen, 2, 200, 129, 2, 80, False),    # Nk = 128 + 1
         _packed_bwd_case(gen, 2, 100, 50, 2, 80, False),     # Nk < 64
         _packed_bwd_case(gen, 2, 1000, 333, 2, 80, False),   # tiles + tails
+        # fp32 D = 32: mead-128-ldm-f4 in training, batch 32
+        _packed_bwd_case(gen, 32, 1024, 1024, 5, 32, True, f32),
+        _packed_bwd_case(gen, 32, 256, 256, 10, 32, True, f32),
+        _packed_bwd_case(gen, 32, 64, 64, 20, 32, True, f32),
+        _packed_bwd_case(gen, 2, 1000, 1000, 5, 32, False, f32),  # ragged N
+        _packed_bwd_case(gen, 2, 333, 77, 10, 32, False, f32),    # Nk != Nq
+        _packed_bwd_case(gen, 2, 100, 50, 3, 32, False, f32),     # Nk < 64
     ]
     streaming = [
         _streaming_case(gen, 8, 1, 4096, 4096, 512, True),   # first stage
@@ -876,23 +927,36 @@ def count_norms(module):
     return sum(isinstance(m, GroupNormSiLU) for m in module.modules())
 
 
-def count_attentions(unet):
-    """(self-attentions the fused-projection op takes, longer ones) of a UNet
-    call at 64 x 64 latents: the code's own routing rule on its own blocks."""
+def self_attentions(unet, latent):
+    """[(tokens, head width)] of every self-attention of a UNet call at
+    ``latent`` x ``latent`` latents (the config's ``image_size``), from its
+    own blocks."""
     from dsml_thesis_tpu_torch.models.unet import SpatialTransformer
-    from dsml_thesis_tpu_torch.ops.attention import fproj_one_q_block
 
-    short = long = 0
     ds = {unet.model_channels * m: 2 ** i
           for i, m in enumerate(unet.channel_mult)}
-    for m in unet.modules():
-        if isinstance(m, SpatialTransformer):
-            n = (64 // ds[m.proj_in.in_channels]) ** 2
-            if fproj_one_q_block(n):
-                short += m.depth
-            else:
-                long += m.depth
-    return short, long
+    return [((latent // ds[m.proj_in.in_channels]) ** 2,
+             m.block_0.attn1.dim_head)
+            for m in unet.modules() if isinstance(m, SpatialTransformer)
+            for _ in range(m.depth)]
+
+
+def count_attentions(unet, latent):
+    """(self-attentions the fused-projection op takes, longer ones) of a UNet
+    call: the code's own routing rule on its own blocks."""
+    from dsml_thesis_tpu_torch.ops.attention import fproj_one_q_block
+
+    short = sum(fproj_one_q_block(n) for n, _ in self_attentions(unet, latent))
+    return short, len(self_attentions(unet, latent)) - short
+
+
+def count_auto_streams(unet, latent):
+    """Self-attentions of a UNet call that the split-head dispatch sends to
+    the streaming kernel under ``DSML_FLASH_STREAMING=auto`` (none in the
+    shipped configs; a sequence shorter than 8 tokens in a tiny model)."""
+    from dsml_thesis_tpu_torch.ops.attention import streaming_auto
+
+    return sum(streaming_auto(n, n, d) for n, d in self_attentions(unet, latent))
 
 
 def count_fused_convs(net, mode):
@@ -930,23 +994,29 @@ def expected_launches(ldm, env, unet_calls, encodes, decodes):
     encodes and decodes under a flag set, from the model's own blocks. Under
     DSML_ATTN_PACKED=0 every UNet self-attention splits its heads and goes
     to the split-head forward (or the streaming one)."""
-    short, long = count_attentions(ldm.unet)
+    short, long = count_attentions(ldm.unet, ldm.image_size)
     fs = ldm.first_stage
     gn_mode = env.get("DSML_PALLAS_GN", "0")
     epilogue = env.get("DSML_GN_EPILOGUE", "0")
     partial = env.get("DSML_ATTN_FPROJ_PARTIAL", "0") == "1"
-    streaming = env.get("DSML_FLASH_STREAMING", "auto") == "1"
+    stream_mode = env.get("DSML_FLASH_STREAMING", "auto")
+    streaming = stream_mode == "1"
     packed = env.get("DSML_ATTN_PACKED", "1") == "1"
     parts = ((unet_calls, ldm.unet), (encodes, fs.encoder),
              (decodes, fs.decoder))
     norms = sum(n * count_norms(net) for n, net in parts)
-    # first stage: 3 attention blocks an encode, 4 a decode
-    split_head = 3 * encodes + 4 * decodes
+    # first stage: its attention blocks (3 an encode, 4 a decode at
+    # num_res_blocks 2)
+    split_head = (encodes * count_attn_blocks(fs.encoder)
+                  + decodes * count_attn_blocks(fs.decoder))
+    auto = 0
     if not packed:
         split_head += unet_calls * (short + long)
+        if stream_mode == "auto":
+            auto = unet_calls * count_auto_streams(ldm.unet, ldm.image_size)
     return {
-        "flash_attention": 0 if streaming else split_head,
-        "flash_attention_streaming": split_head if streaming else 0,
+        "flash_attention": 0 if streaming else split_head - auto,
+        "flash_attention_streaming": split_head if streaming else auto,
         "flash_attention_fproj": unet_calls * short if packed else 0,
         "flash_attention_packed": (unet_calls * long
                                    if packed and not partial else 0),
@@ -994,16 +1064,19 @@ def phase_model(name, ldm, env):
     through its kernels under a flag set and once with every kernel's plain
     version put in its place (patched in here, for this comparison only; the
     GroupNorm flag unset selects its plain ops), on the same inputs: one
-    guidance-pair UNet call at batch 8 and one first-stage decode. A whole
-    bf16 model compounds the kernels' rounding differences through its
-    layers: tolerance 5e-2 of the output's maximum."""
+    guidance-pair UNet call at batch 8 and one first-stage decode, at the
+    config's latent size. A whole bf16 model compounds the kernels' rounding
+    differences through its layers (an fp32 one its TF32 products):
+    tolerance 5e-2 of the output's maximum."""
     from dsml_thesis_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    x, cc, ctx = r(8, 64, 64, 3), r(8, 64, 64, 6), r(16, 1, 1024)
+    lat, ch = ldm.image_size, ldm.channels
+    x, ctx = r(8, lat, lat, ch), r(16, 1, ldm.unet.context_dim)
+    cc = r(8, lat, lat, ldm.unet.conv_in.in_channels - ch)
     t = torch.full((8,), 500, device="cuda")
-    z = r(2, 64, 64, 3)
+    z = r(2, lat, lat, ch)
 
     def run():
         with torch.no_grad():
@@ -1044,7 +1117,8 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
 
-    batch, steps, guidance, size, window = 8, 50, 2.0, 256, 8
+    batch, steps, guidance, window = 8, 50, 2.0, 8
+    size = image_size(cfg)
     device = torch.device("cuda")
     ddim = make_ddim_schedule(ldm.schedule, steps, eta=0.0)
     pipeline = make_video_pipeline(ldm, ddim, window, guidance_scale=guidance)
@@ -1130,13 +1204,22 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
     return launches
 
 
-SYNTHETIC_SPEC = {
-    "image": [[256, 256, 3], "float32"],
-    "masked_image": [[256, 256, 3], "float32"],
-    "identity": [[256, 256, 3], "float32"],
-    "class_label": [[], "int32"],
-    "audio": [[17, 768], "float32"],
-}
+def image_size(cfg):
+    """The frame size of a latent-diffusion config: its first stage's."""
+    return cfg["model"]["params"]["first_stage_config"]["params"][
+        "ddconfig"]["resolution"]
+
+
+def synthetic_spec(cfg):
+    """SyntheticDataset's fields at a config's real shapes."""
+    size = image_size(cfg)
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    frame = [[size, size, 3], "float32"]
+    return {"image": frame, "masked_image": frame, "identity": frame,
+            "class_label": [[], "int32"],
+            "audio": [[c2["seq_len"], c2["subspace_dim"]], "float32"]}
+
+
 # parameters whose gradients the kernel path and the plain path are held to
 GRAD_PROBES = (
     "unet.conv_in.weight",
@@ -1158,7 +1241,7 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     packed kernels (or the split-head ones under DSML_ATTN_PACKED=0). The
     GroupNorm kernel runs forward only: its backward differentiates the
     plain version, as in the JAX package."""
-    short, long = count_attentions(ldm.unet)
+    short, long = count_attentions(ldm.unet, ldm.image_size)
     step = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
     # training mode has no fused branch: the packed kernels take every
     # self-attention (or, under DSML_ATTN_PACKED=0, the split-head forward
@@ -1169,6 +1252,12 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     if bwd == "flash_attention_bwd_packed":
         step["flash_attention_packed"] = short + long
     step[bwd] = short + long
+    if bwd == "flash_attention_bwd" and env.get("DSML_FLASH_STREAMING",
+                                                "auto") == "auto":
+        # what the auto dispatch streams
+        auto = count_auto_streams(ldm.unet, ldm.image_size)
+        step[bwd] -= auto
+        step["flash_attention_streaming_bwd"] = auto
     evals = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
     return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
 
@@ -1288,19 +1377,30 @@ def _train_torch():
 
 
 def phase_train(name, config, env, steps, smi, tmp, resume=False):
-    """One train run through scripts/train_torch.py's main(). Returns the
-    launch counts of the run (steps + one validation batch)."""
+    """One train run through scripts/train_torch.py's main() at the YAML's
+    own batch size. Returns the launch counts of the run (steps + one
+    validation batch)."""
+    from dsml_thesis_tpu_torch.config import load_config
     from dsml_thesis_tpu_torch.ops import attention as A
 
     train_torch = _train_torch()
+    cfg = load_config([config])
+    batch = cfg["data"]["params"]["batch_size"]
+    spec = synthetic_spec(cfg)
     node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
-            "params": {"spec": SYNTHETIC_SPEC, "length": 64}}
+            "params": {"spec": spec, "length": 64}}
     val = {"target": node["target"],
-           "params": {"spec": SYNTHETIC_SPEC, "length": 8, "seed": 1000}}
+           "params": {"spec": spec, "length": batch, "seed": 1000}}
     # key=value overrides replace the YAML's MEAD dataset nodes whole (JSON is
-    # YAML's flow form); batch_size 8 is the YAML's own
+    # YAML's flow form)
     data = [f"data.params.train={json.dumps(node)}",
             f"data.params.validation={json.dumps(val)}"]
+    # mead-128-ldm-f4's image logger (every 5,000 steps) is not ported (the
+    # trainer refuses it, ROADMAP.md queue A item 6); it would not fire in a
+    # run this short
+    if cfg.get("lightning", {}).get("callbacks", {}).get("image_logger"):
+        data.append("lightning.callbacks.image_logger.params."
+                    "batch_frequency=0")
 
     def run(tag, n_steps):
         argv = ["--base", config, "-t", "--max-steps", str(n_steps),
@@ -1313,7 +1413,14 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         torch.cuda.synchronize()
         return trainer, time.monotonic() - t0
 
-    with flags(**env):
+    # an fp32 UNet (mead-128-ldm-f4) runs cuDNN's fp32 convolutions, whose
+    # default weight-gradient algorithms sum in no fixed order, as in
+    # first-stage training: two runs from one seed part after the first
+    # update unless cuDNN is held to its deterministic algorithms
+    fp32 = cfg["model"]["params"]["unet_config"]["params"].get(
+        "dtype") in (None, "float32")
+    with flags(**env), (deterministic_cudnn() if fp32
+                        else contextlib.nullcontext()):
         A.reset_launches()   # counts below are of this run alone
         with backward_head_widths() as bwd_widths:
             trainer, wall = run(f"{name}-a", steps)
@@ -1327,8 +1434,8 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         moved = sum(not torch.equal(p, e)
                     for p, e in zip(state.params, state.ema_params))
         # warm steps, timed on the trained model: CUDA events around whole steps
-        batch = trainer._to_device(next(iter(trainer.train_data)))
-        step_ms = time_ms(lambda: trainer._train_step(state, batch, 0), 4, 1)
+        xb = trainer._to_device(next(iter(trainer.train_data)))
+        step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 4, 1)
         ckpt = os.path.join(trainer.logdir, "checkpoints", "last", "state.pt")
         ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
         resumed_step = None
@@ -1343,7 +1450,7 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         # as soon as they have been read, so that the script's peak use of
         # the temporary directory is one run's
         shutil.rmtree(os.path.join(tmp, f"{name}-a"))
-        del trainer, state, batch
+        del trainer, state, xb
         torch.cuda.empty_cache()
         twin, _ = run(f"{name}-b", steps)
         twin_losses, _ = _train_losses(twin.logdir)
@@ -1374,12 +1481,13 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
             and bool(np.isfinite(resumed_losses[-1])))
     emit({"phase": "train", "run": name,
           "config": os.path.relpath(config, HERE), "flags": env, "card": smi,
-          "batch": 8, "optimizer_steps": steps, "checks": checks,
+          "batch": batch, "cudnn_deterministic": fp32,
+          "optimizer_steps": steps, "checks": checks,
           "losses": losses, "val": vals[0] if vals else None,
           "tensors_moved": moved, "launches": launches,
           "launches_expected": expect, "launches_per_step": per_step,
           "backward_launches_by_head_width": bwd_widths,
-          "warm_step_ms": step_ms, "img_per_s": 8e3 / step_ms,
+          "warm_step_ms": step_ms, "img_per_s": batch * 1e3 / step_ms,
           "peak_memory_bytes": peak, "checkpoint_bytes": ckpt_bytes,
           "run_wall_seconds": round(wall, 3), "gradients": grads})
     if not all(checks.values()):
@@ -1648,27 +1756,54 @@ KERNELS = {
 }
 
 
+# the fp32 D = 32 instantiations (mead-128-ldm-f4's UNet): kernel -> the run
+# that is their path; each is a sub-row of the "kernels" line
+F32_NARROW = {
+    "flash_attention_fproj": "mead128",
+    "flash_attention": "mead128-split",
+    "flash_attention_packed": "train-mead128",
+    "flash_attention_bwd": "train-mead128-split",
+    "flash_attention_bwd_packed": "train-mead128",
+}
+
+
+def _is_f32_narrow(case):
+    return case.get("dtype") == "float32" and case.get("head_dim") == 32
+
+
 def kernels_line(cases, launches_by_run):
+    """A row for each kernel (its first timed case, its launches in the run
+    that is its path) and a sub-row for each fp32 D = 32 instantiation (its
+    cases alone, its launches in its own run)."""
     rows = []
-    for name, (source, replaces, run) in KERNELS.items():
-        timed = [c for c in cases[name] if "ms" in c]
+    subrows = [(name, run, "float32, head width 32")
+               for name, run in F32_NARROW.items()]
+    for name, run, variant in [(n, r, None) for n, (_, _, r) in KERNELS.items()
+                               ] + subrows:
+        source, replaces, _ = KERNELS[name]
+        mine = [c for c in cases[name]
+                if variant is None or _is_f32_narrow(c)]
+        timed = [c for c in mine if "ms" in c]
         first = timed[0]
         launches = launches_by_run[run][name]
         if launches < 1:
             fail(f"kernel {name} was launched no time in run {run}")
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"dsml_thesis_tpu_torch/csrc/{source}",
             "replaces": f"dsml_thesis_tpu/ops/{replaces}",
             "launches": launches, "launches_in_run": run,
             "launches_by_run": {r: l.get(name, 0)
                                 for r, l in launches_by_run.items()},
-            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
             "shape": first["shape"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "other_shapes": timed[1:],
-        })
+        }
+        if variant is not None:
+            row["variant"] = variant
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -1684,6 +1819,8 @@ RUNS = (
     ("headline-streaming", CONFIG, {"DSML_FLASH_STREAMING": "1"}, 8),
     ("headline-epilogue-res", CONFIG, {"DSML_GN_EPILOGUE": "res"}, 8),
     ("headline-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "1"}, 8),
+    ("mead128", CONFIG_128, {}, 8),
+    ("mead128-split", CONFIG_128, {"DSML_ATTN_PACKED": "0"}, 8),
 )
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (
@@ -1698,6 +1835,8 @@ TRAIN_RUNS = (
     ("train-dh64-split", CONFIG_DH64, {"DSML_ATTN_PACKED": "0"}, 2),
     ("train-dh64-streaming", CONFIG_DH64,
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
+    ("train-mead128", CONFIG_128, {}, 2),
+    ("train-mead128-split", CONFIG_128, {"DSML_ATTN_PACKED": "0"}, 2),
 )
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (
@@ -1725,7 +1864,8 @@ def main():
               "card and has no CPU mode", file=sys.stderr)
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
-    for config in (CONFIG, CONFIG_FULLATTN, CONFIG_DH64, CONFIG_VQ, CONFIG_KL):
+    for config in (CONFIG, CONFIG_FULLATTN, CONFIG_DH64, CONFIG_128, CONFIG_VQ,
+                   CONFIG_KL):
         if not os.path.exists(config):
             print(f"chip_smoke: {config} is missing: run from a checkout",
                   file=sys.stderr)

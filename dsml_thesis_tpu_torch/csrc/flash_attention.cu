@@ -33,7 +33,12 @@
 // a block against K / V tiles of 16 rows, the same output and row
 // log-sum-exp. Bound at [16, 1, 1024, 512]: operations on the TF32 tensor
 // cores (4 N^2 D a head against 4 * 4 N D bytes).
+//
+// fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
+// DSML_ATTN_PACKED=0): the packed fp32 forward's grid
+// (attention_f32_narrow.cuh) on one head of row stride 32.
 #include "attention_f32.cuh"
+#include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
 #include "mma_tiles.cuh"
 
@@ -180,15 +185,32 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_fwd_rows(o + row_base * D, nq - q0, acc, 1.f / l0, 1.f / l1);
 }
 
+__global__ void __launch_bounds__(f32narrow::NT)
+flash_fwd_f32_narrow_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int64_t ldq, int64_t ldkv,
+                            int64_t ldo, int nq, int nk, int heads,
+                            int q_tiles, float scale_log2) {
+  f32narrow::fwd_block(q, k, v, o, lse, ldq, ldkv, ldo, nq, nk, heads,
+                       q_tiles, scale_log2);
+}
+
 }  // namespace
 
-// The fp32 instantiation (d = 512 only): the same contract as
+// The fp32 instantiations (d = 512 and 32): the same contract as
 // dsml_flash_attention on fp32 tensors.
 extern "C" int dsml_flash_attention_f32(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int bh, int nq, int nk, int d,
                                         float scale, void* stream) {
   using namespace f32attn;
+  if (d == f32narrow::D)
+    return f32narrow::launch_fwd(
+        flash_fwd_f32_narrow_kernel, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), static_cast<float*>(lse), bh, nq, nk, 1, d, d,
+        d, scale, static_cast<cudaStream_t>(stream));
   if (d != D || bh < 1 || nq < 1 || nk < 1) return -1;
   const int smem = fwd_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(

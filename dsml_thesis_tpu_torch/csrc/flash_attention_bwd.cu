@@ -26,8 +26,46 @@
 // the eight warps of a block (64 columns of dk / dv, or of dq, a warp), 32
 // owned rows a block against streamed tiles of 16. It does 14 N^2 D
 // operations a head for the function's 10.
+//
+// fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
+// DSML_ATTN_PACKED=0): the packed fp32 backward's three launches
+// (attention_f32_narrow.cuh) on one head of row stride 32.
 #include "attention_f32.cuh"
+#include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(f32narrow::NT)
+flash_bwd_dkdv_f32_narrow_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dk,
+                                 float* __restrict__ dv, int64_t ld, int nq,
+                                 int nk, int heads, int kv_tiles,
+                                 float scale_log2, float scale) {
+  f32narrow::dkdv_block(q, k, v, dout, lse, delta, dk, dv, ld, nq, nk, heads,
+                        kv_tiles, scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(f32narrow::NT)
+flash_bwd_dq_f32_narrow_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dq, int64_t ld, int nq,
+                               int nk, int heads, int q_tiles,
+                               float scale_log2, float scale) {
+  f32narrow::dq_block(q, k, v, dout, lse, delta, dq, ld, nq, nk, heads,
+                      q_tiles, scale_log2, scale);
+}
+
+}  // namespace
 
 // delta is [BH, Nq] fp32 scratch. Returns cudaGetLastError() of the first
 // launch that failed (0 = all launched), or -1 for a shape this file does
@@ -63,7 +101,7 @@ extern "C" int dsml_flash_attention_bwd(const void* q, const void* k,
   }
 }
 
-// The fp32 instantiation (d = 512 only): the same contract as
+// The fp32 instantiations (d = 512 and 32): the same contract as
 // dsml_flash_attention_bwd on fp32 tensors.
 extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
                                             const void* v, const void* o,
@@ -71,9 +109,14 @@ extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
                                             void* delta, void* dq, void* dk,
                                             void* dv, int bh, int nq, int nk,
                                             int d, float scale, void* stream) {
-  if (d != f32attn::D) return -1;
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
+  if (d == f32narrow::D)
+    return f32narrow::launch_bwd(
+        flash_bwd_dkdv_f32_narrow_kernel, flash_bwd_dq_f32_narrow_kernel,
+        c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk),
+        m(dv), bh, nq, nk, 1, scale, static_cast<cudaStream_t>(stream));
+  if (d != f32attn::D) return -1;
   return f32attn::launch_bwd_f32(
       c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk), m(dv),
       bh, nq, nk, scale * 1.4426950408889634f, 1.f, scale, scale,

@@ -24,7 +24,46 @@
 // Bound on this card: operations (0.22 ms at [8, 4096, 5 x 32] at 989
 // TFLOP/s); at D = 32 each score also costs an exp2 in each grid (671 M at
 // that shape, 0.18 ms a grid on the special-function units alone).
+//
+// fp32 at D = 32 (dsml_flash_attention_bwd_packed_f32; mead-128-ldm-f4.yaml's
+// fp32 UNet in training): attention_f32_narrow.cuh's three launches, TF32
+// products, 64 owned rows a block against streamed 64-row tiles, dk / dv and
+// dq written once in the packed layout. Bound at [32, 1024, 5 x 32]:
+// operations on the TF32 tensor cores.
+#include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(f32narrow::NT)
+packed_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int64_t ld, int nq, int nk, int heads,
+                           int kv_tiles, float scale_log2, float scale) {
+  f32narrow::dkdv_block(q, k, v, dout, lse, delta, dk, dv, ld, nq, nk, heads,
+                        kv_tiles, scale_log2, scale);
+}
+
+__global__ void __launch_bounds__(f32narrow::NT)
+packed_bwd_dq_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int64_t ld, int nq, int nk,
+                         int heads, int q_tiles, float scale_log2,
+                         float scale) {
+  f32narrow::dq_block(q, k, v, dout, lse, delta, dq, ld, nq, nk, heads,
+                      q_tiles, scale_log2, scale);
+}
+
+}  // namespace
 
 // delta is [B, H, Nq] fp32 scratch. Returns cudaGetLastError() of the first
 // launch that failed (0 = all launched), or -1 for a shape this file does
@@ -57,4 +96,19 @@ extern "C" int dsml_flash_attention_bwd_packed(
     default:
       return -1;
   }
+}
+
+// The fp32 instantiation (d = 32 only): the same contract on fp32 tensors.
+extern "C" int dsml_flash_attention_bwd_packed_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int b, int nq, int nk, int heads, int d, float scale,
+    void* stream) {
+  if (d != f32narrow::D) return -1;
+  auto c = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  return f32narrow::launch_bwd(
+      packed_bwd_dkdv_f32_kernel, packed_bwd_dq_f32_kernel, c(q), c(k), c(v),
+      c(o), c(dout), c(lse), m(delta), m(dq), m(dk), m(dv), b, nq, nk, heads,
+      scale, static_cast<cudaStream_t>(stream));
 }

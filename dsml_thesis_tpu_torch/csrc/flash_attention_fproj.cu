@@ -49,6 +49,22 @@
 //       copies between blocks and the cluster barrier grow with G), and so
 //       did issuing the next tile's scores before this tile's softmax
 //       (ptxas serialized every wgmma of that version, warning C7518).
+//
+// fp32 at D = 32 (dsml_flash_attention_fproj_f32; mead-128-ldm-f4.yaml, whose
+// UNet computes in fp32, serving): three launches on the TF32 tensor cores
+// (attention_f32_narrow.cuh), operands rounded to TF32 once where they are
+// stored, fp32 accumulation:
+//   (1) gemm_block writes q, k, v into the [B, N, 3*H*D] fp32 scratch (one
+//       grid plane a projection, 64 x 64 output tiles);
+//   (2) fwd_block attends each (batch, 64-row q-tile, head) and writes the
+//       normalised output over the q columns it read (a block reads only its
+//       own q rows and head, before it writes them);
+//   (3) gemm_block computes att @ Wo^T + bo from those columns.
+// The attention output reaches device memory once (the bf16 design keeps it
+// in shared memory across a cluster): at [16, 1024, 160] that is 10 MB
+// written and read against 14.1 GFLOP of products (3.4 of them the four
+// projections). Bound at that shape: operations, on the TF32 tensor cores.
+#include "attention_f32_narrow.cuh"
 #include "hopper_tiles.cuh"
 
 namespace {
@@ -410,6 +426,28 @@ int launch_attention(const bf16* qkv, const bf16* wo, const bf16* bo,
                          groups, q_tiles, scale * 1.4426950408889634f);
 }
 
+// ------------------------------------------------------------ fp32 ---
+__global__ void __launch_bounds__(f32narrow::NT)
+fproj_gemm_f32_kernel(const float* __restrict__ a,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ bias, float* __restrict__ c,
+                      int m, int n, int kdim, int64_t lda, int64_t ldc) {
+  f32narrow::gemm_block(a, w0, w1, w2, bias, c, m, n, kdim, lda, ldc);
+}
+
+// q and o are the same columns of the scratch (no __restrict__): each
+// block reads its q rows into registers before it writes its output there
+__global__ void __launch_bounds__(f32narrow::NT)
+fproj_attention_f32_kernel(const float* q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* o, float* lse,
+                           int64_t ldq, int64_t ldkv, int64_t ldo, int nq,
+                           int nk, int heads, int q_tiles, float scale_log2) {
+  f32narrow::fwd_block(q, k, v, o, lse, ldq, ldkv, ldo, nq, nk, heads,
+                       q_tiles, scale_log2);
+}
+
 }  // namespace
 
 // h [B, N, C]; wq / wk / wv [H*D, C]; wo [C, H*D]; bo [C]; qkv is scratch of
@@ -452,4 +490,35 @@ extern "C" int dsml_flash_attention_fproj(
   DSML_FPROJ_LAUNCH(64, 5)
 #undef DSML_FPROJ_LAUNCH
   return -1;
+}
+
+// The fp32 instantiation: the same contract on fp32 tensors (qkv scratch of
+// B * N * 3 * H * D fp32), C % 32 == 0 and D = 32 only.
+extern "C" int dsml_flash_attention_fproj_f32(
+    const void* h, const void* wq, const void* wk, const void* wv,
+    const void* wo, const void* bo, void* qkv, void* out, int b, int n, int c,
+    int heads, int d, float scale, void* stream) {
+  if (c % 32 != 0 || d != f32narrow::D || b < 1 || n < 1 || heads < 1)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  float* buf = static_cast<float*>(qkv);
+  const int hd = heads * d;
+  const int m = b * n;
+  constexpr int T = f32narrow::TILE;
+  fproj_gemm_f32_kernel<<<dim3((m + T - 1) / T, (hd + T - 1) / T, 3),
+                          f32narrow::NT, 0, s>>>(
+      cf(h), cf(wq), cf(wk), cf(wv), nullptr, buf, m, hd, c, c, 3 * hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t ld = 3 * static_cast<int64_t>(hd);
+  const int code = f32narrow::launch_fwd(
+      fproj_attention_f32_kernel, buf, buf + hd, buf + 2 * hd, buf, nullptr, b,
+      n, n, heads, ld, ld, ld, scale, s);
+  if (code != 0) return code;
+  fproj_gemm_f32_kernel<<<dim3((m + T - 1) / T, (c + T - 1) / T, 1),
+                          f32narrow::NT, 0, s>>>(
+      buf, cf(wo), cf(wo), cf(wo), cf(bo), static_cast<float*>(out), m, c, hd,
+      ld, c);
+  return static_cast<int>(cudaGetLastError());
 }

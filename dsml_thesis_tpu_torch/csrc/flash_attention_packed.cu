@@ -29,6 +29,13 @@
 // Bound at that shape: operations (4 * N * N * H * D a batch element against
 // 4 * N * H * D * 2 bytes: 0.17 ms at 989 TFLOP/s), and at D = 32 the exp2
 // of every score on the special-function unit (16 a cycle an SM) as much.
+//
+// fp32 at D = 32 (dsml_flash_attention_packed_f32; mead-128-ldm-f4.yaml, whose
+// UNet computes in fp32, in training): attention_f32_narrow.cuh's forward,
+// TF32 products, one 4-warp block a (batch, 64-row q-tile, head), the same
+// row log-sum-exp. Bound at [32, 1024, 5 x 32]: operations on the TF32
+// tensor cores (4 N^2 H D a batch element against 4 * 4 N H D bytes).
+#include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
 
 namespace {
@@ -40,6 +47,17 @@ packed_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ lse, int nq, int nk, int heads,
                         int q_tiles, float scale_log2) {
   hfwd::attend_heads<D>(q, k, v, o, lse, nq, nk, heads, q_tiles, scale_log2);
+}
+
+__global__ void __launch_bounds__(f32narrow::NT)
+packed_attention_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int64_t ldq, int64_t ldkv,
+                            int64_t ldo, int nq, int nk, int heads,
+                            int q_tiles, float scale_log2) {
+  f32narrow::fwd_block(q, k, v, o, lse, ldq, ldkv, ldo, nq, nk, heads,
+                       q_tiles, scale_log2);
 }
 
 }  // namespace
@@ -64,4 +82,19 @@ extern "C" int dsml_flash_attention_packed(const void* q, const void* k,
     default:
       return -1;
   }
+}
+
+// The fp32 instantiation (d = 32 only): the same contract on fp32 tensors.
+extern "C" int dsml_flash_attention_packed_f32(const void* q, const void* k,
+                                               const void* v, void* o,
+                                               void* lse, int b, int nq,
+                                               int nk, int heads, int d,
+                                               float scale, void* stream) {
+  if (d != f32narrow::D) return -1;
+  const int64_t ld = static_cast<int64_t>(heads) * d;
+  return f32narrow::launch_fwd(
+      packed_attention_f32_kernel, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), b, nq, nk, heads, ld,
+      ld, ld, scale, static_cast<cudaStream_t>(stream));
 }

@@ -29,7 +29,8 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
            "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
 HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_fwd.cuh",
-           "hopper_bwd.cuh", "attention_f32.cuh", "conv_stats.cuh")
+           "hopper_bwd.cuh", "attention_f32.cuh", "attention_f32_narrow.cuh",
+           "conv_stats.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes argument types of every C entry point of the library, in the order
@@ -48,11 +49,14 @@ SIGNATURES = {
     "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P],
     "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
 }
-# the fp32 instantiations (D = 512 attention, first-stage training's
-# GroupNorm and conv kernels) take the same arguments as their bf16 twins
+# the fp32 instantiations (D = 512 attention and first-stage training's
+# GroupNorm and conv kernels; D = 32 attention of the fp32 UNet) take the
+# same arguments as their bf16 twins
 SIGNATURES.update({
     name + "_f32": SIGNATURES[name]
     for name in ("dsml_flash_attention", "dsml_flash_attention_bwd",
+                 "dsml_flash_attention_fproj", "dsml_flash_attention_packed",
+                 "dsml_flash_attention_bwd_packed",
                  "dsml_flash_attention_streaming",
                  "dsml_flash_attention_streaming_bwd", "dsml_conv_stats",
                  "dsml_gn_channel_stats", "dsml_group_norm_silu")})

@@ -77,12 +77,15 @@ versions, and the wrappers that choose between them by where the tensor lies.
     and k, then delta and, in bf16, the packed backward's dk / dv and dq
     grids on one head. Head widths 32, 64 and 80 in bf16, 512 in fp32.
 
-fp32. The split-head forward, the streaming forward and both their backward
-kernels also take fp32 tensors at head width 512 (``F32_HEAD_DIMS``): the
-first stage's single-head attention block in first-stage training, which
-runs in fp32 as the JAX package's does. Those instantiations multiply on the
-tensor cores in TF32 (operands rounded once, fp32 accumulation and softmax;
-``csrc/attention_f32.cuh``); every other attention kernel takes bf16 only.
+fp32. Each kernel has its own fp32 head widths (``F32_HEAD_DIMS``): 512 for
+the split-head forward, the streaming forward and both their backward
+kernels (the first stage's single-head attention block in first-stage
+training, ``csrc/attention_f32.cuh``), and 32 for the split-head and packed
+forwards, their backward kernels and the fused-projection kernel (the UNet
+of ``mead-128-ldm-f4.yaml``, which sets no dtype, ``csrc/
+attention_f32_narrow.cuh``). Both run in fp32 as the JAX package's do, and
+multiply on the tensor cores in TF32 (operands rounded once, fp32
+accumulation and softmax). The q/out-fused kernel takes bf16 only.
 
 ``multi_head_attention`` is the split-head dispatch between
 ``flash_attention`` and ``flash_attention_streaming`` under
@@ -117,7 +120,7 @@ import torch.nn.functional as F
 
 from ..flags import env_mode, refuse_unported
 from ._launch import (LAUNCHES, check_cuda_operand, current_stream,  # noqa: F401
-                      raise_on_error, reset_launches)
+                      raise_on_error, reset_launches, typed_entry)
 
 FLASH_HEAD_DIMS = (32, 64, 80, 512)    # bf16 instantiations in flash_attention.cu
 FPROJ_HEAD_DIMS = (32, 64)             # ... in flash_attention_fproj.cu
@@ -126,9 +129,15 @@ PACKED_HEAD_DIMS = (32, 64, 80)        # ... in flash_attention_packed.cu
 BWD_HEAD_DIMS = (32, 64, 80)           # ... in both flash_attention_bwd*.cu
 STREAMING_HEAD_DIMS = (32, 64, 80, 512)  # ... in flash_attention_streaming.cu
 STREAMING_BWD_HEAD_DIMS = (32, 64, 80)   # ... in flash_attention_streaming_bwd.cu
-# fp32 instantiations (TF32 products) of the four kernels above that the
-# first stage's attention block runs in first-stage training
-F32_HEAD_DIMS = (512,)
+# fp32 instantiations (TF32 products), by kernel: D = 512 the first stage's
+# attention block in first-stage training, D = 32 the fp32 UNet of
+# mead-128-ldm-f4 (packed rows, split heads, the fused projections)
+F32_HEAD_DIMS = {
+    "flash_attention": (32, 512), "flash_attention_bwd": (32, 512),
+    "flash_attention_packed": (32,), "flash_attention_bwd_packed": (32,),
+    "flash_attention_fproj": (32,),
+    "flash_attention_streaming": (512,), "flash_attention_streaming_bwd": (512,),
+}
 STREAMING_TILE = 64                    # query / key rows of its tiles
 STREAMING_TARGET_BLOCKS = 264          # two blocks on each of 132 SMs
 LOG2E = 1.4426950408889634
@@ -183,29 +192,37 @@ def streaming_splits(bh: int, nq: int, nk: int) -> int:
     return -(-kv_tiles // per_split)
 
 
-def _split_head_dims(dtype: torch.dtype, bf16_dims) -> tuple:
-    """The head widths a split-head kernel has instantiations for in
-    ``dtype``: ``bf16_dims`` in bf16, ``F32_HEAD_DIMS`` in fp32, none
-    otherwise."""
-    if dtype == torch.float32:
-        return F32_HEAD_DIMS
-    return bf16_dims if dtype == torch.bfloat16 else ()
+_BF16_HEAD_DIMS = {
+    "flash_attention": FLASH_HEAD_DIMS, "flash_attention_bwd": BWD_HEAD_DIMS,
+    "flash_attention_packed": PACKED_HEAD_DIMS,
+    "flash_attention_bwd_packed": BWD_HEAD_DIMS,
+    "flash_attention_fproj": FPROJ_HEAD_DIMS,
+    "flash_attention_streaming": STREAMING_HEAD_DIMS,
+    "flash_attention_streaming_bwd": STREAMING_BWD_HEAD_DIMS,
+}
+
+
+def _head_dims(kernel: str, dtype: torch.dtype) -> tuple:
+    """The head widths ``kernel`` has instantiations for in ``dtype``."""
+    table = {torch.bfloat16: _BF16_HEAD_DIMS, torch.float32: F32_HEAD_DIMS}
+    return table[dtype][kernel] if dtype in table else ()
 
 
 def flash_kernel_takes(head_dim: int, dtype: torch.dtype,
                        backward: bool = False) -> bool:
     """Whether the split-head CUDA kernel (``backward``: its backward kernel)
     takes this head width and type."""
-    dims = BWD_HEAD_DIMS if backward else FLASH_HEAD_DIMS
-    return head_dim in _split_head_dims(dtype, dims)
+    kernel = "flash_attention_bwd" if backward else "flash_attention"
+    return head_dim in _head_dims(kernel, dtype)
 
 
 def streaming_kernel_takes(head_dim: int, dtype: torch.dtype,
                            backward: bool = False) -> bool:
     """Whether the streaming CUDA kernel (``backward``: its backward kernels)
     takes this head width and type."""
-    dims = STREAMING_BWD_HEAD_DIMS if backward else STREAMING_HEAD_DIMS
-    return head_dim in _split_head_dims(dtype, dims)
+    kernel = ("flash_attention_streaming_bwd" if backward
+              else "flash_attention_streaming")
+    return head_dim in _head_dims(kernel, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -373,15 +390,15 @@ def _check_split_head_shapes(q, k, v) -> None:
         raise ValueError(f"attention: unsupported device {q.device}")
 
 
-def _entry(name: str, t: torch.Tensor, bf16_dims, what: str) -> str:
-    """The name of a split-head kernel's C entry point for t's type and head
-    width: ``name`` for bf16 at ``bf16_dims``, ``name + "_f32"`` for fp32 at
-    ``F32_HEAD_DIMS``; anything else raises (before any build)."""
-    d = t.shape[-1]
-    dims = _split_head_dims(t.dtype, bf16_dims)
+def _entry(kernel: str, t: torch.Tensor, d: int) -> str:
+    """The name of a kernel's C entry point for t's type and the head width
+    d: ``dsml_`` + ``kernel`` for bf16, + ``_f32`` for fp32, where the kernel
+    has an instantiation at d; anything else raises (before any build)."""
+    dims = _head_dims(kernel, t.dtype)
     if d not in dims:
-        raise ValueError(f"{what}: head width {d} not in {dims} for {t.dtype}")
-    return name + ("_f32" if t.dtype == torch.float32 else "")
+        raise ValueError(f"{kernel}: head width {d} not in {dims} for "
+                         f"{t.dtype}")
+    return typed_entry("dsml_" + kernel, t)
 
 
 _SPLIT_HEAD_DTYPES = (torch.bfloat16, torch.float32)
@@ -397,8 +414,7 @@ def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     b, h, nq, d = q.shape
     from . import _build
 
-    entry = _entry("dsml_flash_attention", q, FLASH_HEAD_DIMS,
-                   "flash_attention")
+    entry = _entry("flash_attention", q, d)
     launch = getattr(_build.load(), entry)
     out = torch.empty_like(q)
     lse = (torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
@@ -427,8 +443,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, nq, d = q.shape
     from . import _build
 
-    entry = _entry("dsml_flash_attention_bwd", q, BWD_HEAD_DIMS,
-                   "flash_attention backward")
+    entry = _entry("flash_attention_bwd", q, d)
     launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
@@ -486,8 +501,7 @@ def _launch_streaming_forward(q, k, v, scale: float):
     nk = k.shape[2]
     from . import _build
 
-    entry = _entry("dsml_flash_attention_streaming", q, STREAMING_HEAD_DIMS,
-                   "flash_attention_streaming")
+    entry = _entry("flash_attention_streaming", q, d)
     launch = getattr(_build.load(), entry)
     out = torch.empty_like(q)
     splits = streaming_splits(b * h, nq, nk)
@@ -529,8 +543,7 @@ def flash_attention_streaming_bwd(q: torch.Tensor, k: torch.Tensor,
     b, h, nq, d = q.shape
     from . import _build
 
-    entry = _entry("dsml_flash_attention_streaming_bwd", q,
-                   STREAMING_BWD_HEAD_DIMS, "flash_attention_streaming backward")
+    entry = _entry("flash_attention_streaming_bwd", q, d)
     launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
@@ -623,7 +636,7 @@ def fproj_kernel_takes(c: int, head_dim: int, dtype: torch.dtype) -> bool:
     (channel width, head width, activation type). What it does not take goes
     through the composed branch of the caller, never through a plain version
     on the card."""
-    return (dtype == torch.bfloat16 and head_dim in FPROJ_HEAD_DIMS
+    return (head_dim in _head_dims("flash_attention_fproj", dtype)
             and c % FPROJ_CHANNEL_MULTIPLE == 0)
 
 
@@ -661,20 +674,20 @@ def _fproj_launch(h, wq, wk, wv, wo, bo, heads: int, scale: float):
     b, n, c = h.shape
     hd = wq.shape[0]
     d = hd // heads
-    for name, t in (("h", h), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
+    check_cuda_operand("h", h, h, _SPLIT_HEAD_DTYPES)
+    for name, t in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
                     ("bo", bo)):
-        check_cuda_operand(name, t, h)
-    if not fproj_kernel_takes(c, d, h.dtype):
-        raise ValueError(
-            f"flash_attention_fproj: C={c} must be a multiple of "
-            f"{FPROJ_CHANNEL_MULTIPLE} and the head width {d} one of "
-            f"{FPROJ_HEAD_DIMS}")
+        check_cuda_operand(name, t, h, (h.dtype,))
+    if c % FPROJ_CHANNEL_MULTIPLE:
+        raise ValueError(f"flash_attention_fproj: C={c} must be a multiple of "
+                         f"{FPROJ_CHANNEL_MULTIPLE}")
+    entry = _entry("flash_attention_fproj", h, d)
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), entry)
     qkv = torch.empty((b, n, 3 * hd), dtype=h.dtype, device=h.device)
     out = torch.empty_like(h)
-    code = lib.dsml_flash_attention_fproj(
+    code = launch(
         h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, c,
         heads, d, float(scale),
@@ -686,35 +699,33 @@ def _fproj_launch(h, wq, wk, wv, wo, bo, heads: int, scale: float):
 
 def packed_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the packed CUDA kernel takes this head width and type."""
-    return dtype == torch.bfloat16 and head_dim in PACKED_HEAD_DIMS
+    return head_dim in _head_dims("flash_attention_packed", dtype)
 
 
 def packed_bwd_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the packed backward CUDA kernels take this head width and
     type."""
-    return dtype == torch.bfloat16 and head_dim in BWD_HEAD_DIMS
+    return head_dim in _head_dims("flash_attention_bwd_packed", dtype)
 
 
 def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     """Check, launch and count the packed forward kernel; ``want_lse`` as in
     ``_launch_flash_forward`` ([B*H*Nq] fp32)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     b, nq, hd = q.shape
-    d = hd // heads
-    if d not in PACKED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_packed: head width {d} not in "
-                         f"{PACKED_HEAD_DIMS}")
+    entry = _entry("flash_attention_packed", q, hd // heads)
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), entry)
     out = torch.empty_like(q)
     lse = (torch.empty(b * heads * nq, dtype=torch.float32, device=q.device)
            if want_lse else None)
-    code = lib.dsml_flash_attention_packed(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, nq, k.shape[1], heads, d,
-        float(scale), current_stream(q))
+        None if lse is None else lse.data_ptr(), b, nq, k.shape[1], heads,
+        hd // heads, float(scale), current_stream(q))
     raise_on_error(code, "flash_attention_packed")
     LAUNCHES["flash_attention_packed"] += 1
     return out, lse
@@ -729,20 +740,19 @@ def flash_attention_bwd_packed(q: torch.Tensor, k: torch.Tensor,
     log-sum-exp -> (dq, dk, dv) in the packed layout. ``do`` is made
     contiguous here."""
     do = do.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        check_cuda_operand(name, t, q)
+    check_cuda_operand("q", q, q, _SPLIT_HEAD_DTYPES)
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        check_cuda_operand(name, t, q, (q.dtype,))
     check_cuda_operand("lse", lse, q, (torch.float32,))
     b, nq, hd = q.shape
     d = hd // heads
-    if not packed_bwd_kernel_takes(d, q.dtype):
-        raise ValueError(f"flash_attention_packed backward: head width {d} "
-                         f"not in {BWD_HEAD_DIMS} for bf16")
+    entry = _entry("flash_attention_bwd_packed", q, d)
     from . import _build
 
-    lib = _build.load()
+    launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    code = lib.dsml_flash_attention_bwd_packed(
+    code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, nq, k.shape[1], heads, d, float(scale),

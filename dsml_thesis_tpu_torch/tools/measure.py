@@ -11,14 +11,17 @@
            linears + q/out-fused kernel; and the two split-head kernels
            (DSML_FLASH_STREAMING=0 / 1) at the first stage's [8, 1, 4096, 512]
 --profile  one warm batch of a model config (default mead-256-ldm-f4; batch
-           8, DDIM-50, guidance 2.0, random weights) under the DSML_* flags
+           8 at the config's frame size, DDIM-50, guidance 2.0, random
+           weights) under the DSML_* flags
            of the environment: phase times from CUDA events, then one UNet
            call and one frame under torch.profiler: kernels launched a call,
            device time by kernel family and the device's idle share (traced,
            and estimated against the same frame's untraced wall time)
 --train    training steps of a model config on synthetic batches at the real
-           shapes (batch 8, 256 px, audio [17, 768]; fp32 parameters, bf16
-           compute) under the DSML_* flags of the environment, through the
+           shapes (the YAML's batch size and frame size: batch 8 at 256 px
+           for mead-256-*, 32 at 128 px for mead-128-ldm-f4; audio [17, 768];
+           fp32 parameters, the config's compute type) under the DSML_* flags
+           of the environment, through the
            port's own train step: ms a warm step by CUDA events and img/s,
            the step's parts (frozen encodes, forward, backward, AdamW + EMA)
            by events, peak memory, kernel launches a step, then one step
@@ -181,6 +184,15 @@ def gate(smi: str):
 
 
 _FAMILIES = (
+    # the fp32 D = 32 kernels (attention_f32_narrow.cuh): first, since the
+    # projection GEMM's name holds "gemm"
+    ("fproj_gemm_f32_kernel", "attention: fproj (fp32 D = 32: projections)"),
+    ("fproj_attention_f32_kernel", "attention: fproj (fp32 D = 32: attention)"),
+    ("packed_attention_f32_kernel", "attention: packed (fp32 D = 32)"),
+    ("flash_fwd_f32_narrow_kernel", "attention: flash_attention (fp32 D = 32)"),
+    ("dkdv_f32_narrow_kernel", "attention backward: dk / dv grid"),
+    ("dq_f32_narrow_kernel", "attention backward: dq grid"),
+    ("delta_f32_narrow_kernel", "attention backward: delta"),
     ("flash_fwd_f32_kernel", "attention: flash_attention (fp32)"),
     ("streaming_fwd_f32_kernel", "attention: streaming (fp32)"),
     ("streaming_lse_f32_kernel", "attention backward: streaming log-sum-exp"),
@@ -372,15 +384,22 @@ def split(smi: str, calls: int = 10):
                 flush=True)
 
 
+def _frame_size(cfg) -> int:
+    """The frame size of a latent-diffusion config: its first stage's."""
+    return cfg["model"]["params"]["first_stage_config"]["params"][
+        "ddconfig"]["resolution"]
+
+
 def profile(smi: str, frames: int, config: str):
     from torch.profiler import ProfilerActivity
 
     device = torch.device("cuda")
-    batch, steps, size, window = 8, 50, 256, 8
+    batch, steps, window = 8, 50, 8
     env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
     run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
            "batch": batch}
     cfg = load_config([config])
+    size = _frame_size(cfg)
     torch.manual_seed(0)
     ldm = build_model(cfg["model"])
     torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
@@ -409,7 +428,8 @@ def profile(smi: str, frames: int, config: str):
         lat = make_video_pipeline(ldm, ddim, window, guidance_scale=2.0,
                                   decode=False)
         chain_ms = event_ms(lambda: lat(mf, au, idn, lab, gen), 1) - enc_ms
-        z = r(batch, 64, 64, 3)
+        lat, ch = ldm.image_size, ldm.channels
+        z = r(batch, lat, lat, ch)
         dec_ms = event_ms(lambda: ldm.decode_first_stage(z), 3)
         torch.cuda.reset_peak_memory_stats()
         A.reset_launches()
@@ -425,9 +445,9 @@ def profile(smi: str, frames: int, config: str):
         "host_seconds_all": wall}), flush=True)
 
     # one guidance-pair UNet call under the profiler: kernels launched
-    x_t = r(batch, 64, 64, 3)
+    x_t = r(batch, lat, lat, ch)
     cond = {"crossattn": r(2 * batch, 1, ldm.unet.context_dim),
-            "concat": r(batch, 64, 64, 6)}
+            "concat": r(batch, lat, lat, ldm.unet.conv_in.in_channels - ch)}
     t = torch.full((batch,), 500, device=device)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
@@ -483,11 +503,12 @@ def train(smi: str, config: str, steps: int = 10):
                                         make_train_step)
 
     device = torch.device("cuda")
-    batch_size, size = 8, 256
     env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
-    run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
-           "batch": batch_size}
     cfg = load_config([config])
+    batch_size, size = cfg["data"]["params"]["batch_size"], _frame_size(cfg)
+    run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
+           "batch": batch_size, "size": size,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     torch.manual_seed(0)
     ldm = build_model(cfg["model"]).to(device)
     base_lr = batch_size * cfg["model"].get("base_learning_rate", 1e-6)

@@ -9,11 +9,13 @@ Usage:
   python scripts/serve_torch.py
       --config configs/latent-diffusion/mead-256-ldm-f4.yaml
       [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0]
-      [--size 256] [--port 8000 --max-wait-ms 50] [--device cuda]
+      [--size N] [--port 8000 --max-wait-ms 50] [--device cuda]
 
 ``--config`` is one of the MEAD talking-face YAMLs: the headline
-``mead-256-ldm-f4.yaml``, or ``mead-256-ldm-f4-fullattn.yaml`` with
-self-attention at every level, 64 x 64 (4096 tokens) included.
+``mead-256-ldm-f4.yaml``, ``mead-256-ldm-f4-fullattn.yaml`` with
+self-attention at every level, 64 x 64 (4096 tokens) included, or the
+reference's own ``mead-128-ldm-f4.yaml`` (128 px frames, an fp32 UNet).
+``--size`` defaults to the config's frame size (its first stage's).
 
 Environment flags, the JAX package's own (dsml_thesis_tpu_torch/flags.py):
   DSML_ATTN_PACKED=0         split-head attention instead of the packed kernel
@@ -61,7 +63,7 @@ def main():
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--scale", type=float, default=2.0)
-    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--size", type=int, default=None)
     ap.add_argument("--audio-window", type=int, default=8)
     ap.add_argument("--audio-seq", type=int, default=None)
     ap.add_argument("--host", default="0.0.0.0")
@@ -88,6 +90,8 @@ def main():
         ldm.load_state_dict(torch.load(args.ckpt, map_location="cpu"))
     ldm = cast_sampling_params(ldm).to(device).eval()
     c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    size = args.size or cfg["model"]["params"]["first_stage_config"][
+        "params"]["ddconfig"]["resolution"]
     audio_seq = args.audio_seq or (args.frames + args.audio_window)
 
     ddim = make_ddim_schedule(ldm.schedule, args.steps, eta=0.0)
@@ -97,9 +101,9 @@ def main():
     print(f"# serving {args.config} on {device} ({args.steps} DDIM steps, "
           f"cfg {args.scale})")
     clip_shapes = {
-        "masked_frames": (args.frames, args.size, args.size, 3),
+        "masked_frames": (args.frames, size, size, 3),
         "audio": (audio_seq, c2["subspace_dim"]),
-        "identity": (args.size, args.size, 3),
+        "identity": (size, size, 3),
         "class_label": (),
     }
     if not args.no_warmup:

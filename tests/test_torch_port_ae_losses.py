@@ -135,21 +135,22 @@ class _OnCard(torch.Tensor):
                                 "streaming-backward"])
 def test_fp32_wrappers_route_d512_and_refuse_other_widths(op, monkeypatch):
     """fp32 at D = 512 goes to the ``_f32`` entry point of each kernel (the
-    fp32 instantiations exist at the first stage's head width alone); on a
-    CUDA tensor of another fp32 head width the wrapper raises before the
-    library is built."""
+    fp32 instantiations of these four exist at the first stage's head width,
+    and the split-head pair's also at the fp32 UNet's 32); on a CUDA tensor
+    of another fp32 head width the wrapper raises before the library is
+    built."""
     from dsml_thesis_tpu_torch.ops import _build
 
-    name, dims = {"forward": ("dsml_flash_attention", tatt.FLASH_HEAD_DIMS),
-                  "backward": ("dsml_flash_attention_bwd", tatt.BWD_HEAD_DIMS),
-                  "streaming": ("dsml_flash_attention_streaming",
-                                tatt.STREAMING_HEAD_DIMS),
-                  "streaming-backward": ("dsml_flash_attention_streaming_bwd",
-                                         tatt.STREAMING_BWD_HEAD_DIMS)}[op]
-    assert tatt.F32_HEAD_DIMS == (512,)
+    kernel, f32 = {
+        "forward": ("flash_attention", (32, 512)),
+        "backward": ("flash_attention_bwd", (32, 512)),
+        "streaming": ("flash_attention_streaming", (512,)),
+        "streaming-backward": ("flash_attention_streaming_bwd", (512,))}[op]
+    name = "dsml_" + kernel
+    assert tatt.F32_HEAD_DIMS[kernel] == f32
     t = lambda d, dtype: torch.zeros(1, 1, 8, d, dtype=dtype)
-    assert tatt._entry(name, t(512, torch.float32), dims, op) == name + "_f32"
-    assert tatt._entry(name, t(64, torch.bfloat16), dims, op) == name
+    assert tatt._entry(kernel, t(512, torch.float32), 512) == name + "_f32"
+    assert tatt._entry(kernel, t(64, torch.bfloat16), 64) == name
 
     def no_build():
         raise AssertionError("the library was built for a refused shape")

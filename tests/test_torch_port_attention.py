@@ -142,7 +142,7 @@ def test_cpu_wrappers_count_no_launch_and_check_shapes():
 
 @pytest.mark.parametrize("c,d,dtype,takes", [
     (320, 32, torch.bfloat16, True), (640, 32, torch.bfloat16, True),
-    (128, 64, torch.bfloat16, True), (320, 32, torch.float32, False),
+    (128, 64, torch.bfloat16, True), (320, 32, torch.float32, True),
     (48, 16, torch.bfloat16, False), (336, 32, torch.bfloat16, False)])
 def test_fproj_kernel_takes(c, d, dtype, takes):
     assert tatt.fproj_kernel_takes(c, d, dtype) is takes
@@ -302,6 +302,6 @@ def test_qout_kernel_takes(c, hd, d, dtype, takes):
 
 @pytest.mark.parametrize("d,dtype,takes", [
     (32, torch.bfloat16, True), (64, torch.bfloat16, True),
-    (16, torch.bfloat16, False), (32, torch.float32, False)])
+    (16, torch.bfloat16, False), (32, torch.float32, True)])
 def test_packed_kernel_takes(d, dtype, takes):
     assert tatt.packed_kernel_takes(d, dtype) is takes

@@ -15,8 +15,9 @@ head-width rule) through every kernel a training step reaches, on the CPU.
   (packed; ``DSML_ATTN_PACKED=0``; and with ``DSML_FLASH_STREAMING=1``):
   every attention a UNet step of the four bf16 configs sends to a kernel is
   one whose forward and backward kernels both take it. ``mead-128-ldm-f4``
-  computes its UNet in fp32, at 32-wide heads, which no kernel of the port
-  takes: on the card its step raises (no fallback), which is held here too.
+  computes its UNet in fp32, at 32-wide heads: the packed and split-head
+  kernels take it (their fp32 D = 32 instantiations); the streaming kernels
+  do not, and on the card that route raises (no fallback), held here too.
 * One train step of a tiny two-conditioning MEAD model whose transformer has
   2 heads of 80, against the JAX step with its kernels in interpret mode
   (``DSML_FLASH_INTERPRET=1``): loss 1e-5, every gradient leaf 1e-4 of its
@@ -264,22 +265,37 @@ def test_every_training_attention_is_taken_forward_and_backward(
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_mead_128_computes_in_fp32_which_no_kernel_takes(route, monkeypatch):
     """mead-128-ldm-f4 sets no UNet dtype: its self-attentions (N = 1024,
-    256, 64 at 32-wide heads) run in fp32, as in the JAX package, whose
-    kernels take any type. The port's kernels take fp32 at D = 512 only, so
-    neither route's kernels admit them and the dispatch on the card raises
-    (ROADMAP.md queue C)."""
+    256, 64 at 32-wide heads) run in fp32, as in the JAX package. The packed
+    and split-head kernels and their backward kernels take fp32 at D = 32
+    (``csrc/attention_f32_narrow.cuh``), so a training step of either route
+    is admitted forward and backward; the streaming kernels take fp32 at
+    D = 512 only, so on the streaming route the dispatch on the card raises
+    (ROADMAP.md queue B: rows 4 and 5 at fp32 D = 32 are still to port)."""
     name = "mead-128-ldm-f4.yaml"
     calls, _ = _step_attentions(name, ROUTES[route], monkeypatch)
-    assert calls and {c[1] for c in calls} == {1024, 256, 64}
+    assert len(calls) == 16 and {c[1] for c in calls} == {1024, 256, 64}
     for op, nq, nk, d, dtype in calls:
         assert (op, d, dtype) == ("packed" if route == "packed" else "split",
                                   32, torch.float32)
-        assert not tatt.packed_kernel_takes(d, dtype)
-        assert not tatt.flash_kernel_takes(d, dtype)
-        assert not tatt.streaming_kernel_takes(d, dtype)
+        if route == "packed":
+            assert tatt.packed_kernel_takes(d, dtype)
+            assert tatt.packed_bwd_kernel_takes(d, dtype)
+        elif route == "split":
+            assert not tatt.streaming_auto(nq, nk, d)
+            assert tatt.flash_kernel_takes(d, dtype)
+            assert tatt.flash_kernel_takes(d, dtype, backward=True)
+        else:
+            assert not tatt.streaming_kernel_takes(d, dtype)
+            assert not tatt.streaming_kernel_takes(d, dtype, backward=True)
     q = torch.zeros(1, 1, 64, 32).as_subclass(_OnCard)
-    with pytest.raises(ValueError, match="head width 32"):
-        tatt._launch_flash_forward(q, q, q, 0.1, True)
+    if route == "streaming":
+        with pytest.raises(ValueError, match="head width 32"):
+            tatt._launch_streaming_forward(q, q, q, 0.1)
+        with pytest.raises(ValueError, match="head width 32"):
+            tatt.flash_attention_streaming_bwd(q, q, q, q, q, 0.1)
+    else:   # the entry points exist: the wrappers go on to build the library
+        assert tatt._entry("flash_attention", q, 32) \
+            == "dsml_flash_attention_f32"
 
 
 @pytest.mark.parametrize("d,dtype,fwd,bwd", [

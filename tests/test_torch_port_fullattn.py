@@ -320,7 +320,7 @@ def test_smoke_script_counts_the_real_models_blocks(real_fullattn):
     import chip_smoke
 
     _, ldm = real_fullattn
-    assert chip_smoke.count_attentions(ldm.unet) == (11, 5)
+    assert chip_smoke.count_attentions(ldm.unet, ldm.image_size) == (11, 5)
     assert chip_smoke.count_norms(ldm.unet) == 51
     expect = chip_smoke.expected_launches(
         ldm, {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"},

@@ -125,7 +125,7 @@ def test_smoke_script_counts_the_dh64_packed_launches():
     cfg = load_config([chip_smoke.CONFIG_DH64])
     with torch.device("meta"):
         ldm = build_model(cfg["model"])
-    assert chip_smoke.count_attentions(ldm.unet) == (11, 5)
+    assert chip_smoke.count_attentions(ldm.unet, ldm.image_size) == (11, 5)
     expect = chip_smoke.expected_launches(ldm, {}, unet_calls=100, encodes=2,
                                           decodes=2)
     assert expect["flash_attention_packed"] == 500
