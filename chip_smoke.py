@@ -16,7 +16,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            cores, the larger); the fp32 instantiations (first-stage
            training: the D = 512 attention, GroupNorm, channel statistics,
            conv + statistics; mead-128-ldm-f4's UNet: the D = 32 attention of
-           rows 1, 2, 3, 7, 8) are held to fp32 plain versions with TF32 off;
+           rows 1, 2, 3, 4, 5, 7, 8, and GroupNorm and conv + statistics at
+           its widths and image sizes) are held to fp32 plain versions with
+           TF32 off;
            every kernel must also give the same bits from two launches (the
            backward kernels also through autograd)
   model    mead-256-ldm-f4.yaml, its -fullattn twin, -fullattn-dh64 and
@@ -26,7 +28,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
            frames at the config's frame size, DDIM-50, guidance 2.0, in
-           eleven runs:
+           fourteen runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
@@ -44,13 +46,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              every self-attention through row 1 in fp32
              mead128-split   mead-128-ldm-f4, DSML_ATTN_PACKED=0 (row 2 in
                              fp32 at D = 32), one batch
+             mead128-streaming  mead-128-ldm-f4, DSML_ATTN_PACKED=0 and
+                             DSML_FLASH_STREAMING=1 (row 4 in fp32 at
+                             D = 32; the first stage's at D = 512), one batch
+             mead128-gn      mead-128-ldm-f4, DSML_PALLAS_GN=1 (row 9 at
+                             the fp32 UNet's widths), one batch
+             mead128-epilogue  mead-128-ldm-f4, DSML_GN_EPILOGUE=1 (row 11
+                             at its widths, the Cin = 9 stem and the 8 x 8
+                             level), one batch
            each checks shapes, finiteness, range, launch counts, and that
            (seed, batch index) reproduces a batch bit for bit
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
            real shapes (the config's frame size, audio [17, 768]) and the
            YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
            32 at 128 px in fp32 for mead-128), full width and depth, in
-           eleven runs:
+           thirteen runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
                              with --resume for one more step
@@ -69,6 +79,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              D = 32), 2 steps
              train-mead128-split   mead-128-ldm-f4, DSML_ATTN_PACKED=0 (rows
                              2 + 7 in fp32 at D = 32), 2 steps
+             train-mead128-streaming  mead-128-ldm-f4, DSML_ATTN_PACKED=0
+                             and DSML_FLASH_STREAMING=1 (rows 4 + 5 in fp32
+                             at D = 32), 2 steps
+             train-mead128-epilogue   mead-128-ldm-f4, DSML_GN_EPILOGUE=res
+                             (rows 3 + 8 in fp32, row 11 forward), 2 steps
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, the backward
            kernel's calls by head width against the model's self-attentions,
@@ -90,8 +105,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ae-kl-epilogue-res  kl-f4, DSML_GN_EPILOGUE=res, 2 steps
            each checks the same, plus a d_weight above zero and moved
            discriminator parameters
-then the line {"kernels": [...]} (a row per kernel, and a sub-row per fp32
-D = 32 instantiation) and, last, {"ok": true, "device": {...}}.
+then the line {"kernels": [...]} (a row per kernel, a sub-row per fp32
+D = 32 instantiation and one each for GroupNorm and conv + statistics at the
+fp32 UNet's shapes), the card's name and power limit, and, last,
+{"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
 """
@@ -490,14 +507,16 @@ def _gn_case(gen, b, n, c, eps, silu, timed, mean=0.5, std=2.0,
     """Whole-row GroupNorm(+SiLU); the same bits from a second call. A
     large-mean row (|mean| >> std) is held to finiteness only: there E[x^2] -
     E[x]^2 cancels in fp32 and the two summation orders legitimately
-    disagree. The library yardstick takes parameters of x's type."""
+    disagree. ``bf16_params``: gamma and beta cast to bf16, as a model cast
+    for sampling holds them (beside bf16 or fp32 x). The library yardstick
+    takes parameters of x's type."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import groupnorm as G
 
     x, gamma, beta = _gn_input(gen, b, n, c, mean, std, dtype)
     gx, bx = gamma.to(dtype), beta.to(dtype)
     if bf16_params:
-        gamma, beta = gx, bx
+        gamma, beta = gamma.bfloat16(), beta.bfloat16()
     kw = dict(num_groups=32, eps=eps, silu=silu)
 
     def library():
@@ -735,6 +754,14 @@ def phase_kernels():
         _gn_case(gen, 16, 1024, 512, 1e-6, False, True, dtype=f32),  # attn
         _gn_case(gen, 3, 1000, 160, 1e-6, True, False, dtype=f32),   # ragged
         _gn_case(gen, 2, 77, 2080, 1e-6, False, False, dtype=f32),   # 3 slabs
+        # fp32: mead-128-ldm-f4's UNet under DSML_PALLAS_GN=1, served (16;
+        # its parameters cast to bf16 for sampling)
+        _mead128(_gn_case(gen, 16, 1024, 160, 1e-5, True, True,
+                          bf16_params=True, dtype=f32)),
+        _mead128(_gn_case(gen, 16, 256, 960, 1e-5, True, True,
+                          bf16_params=True, dtype=f32)),
+        _mead128(_gn_case(gen, 16, 64, 1280, 1e-5, True, True,
+                          bf16_params=True, dtype=f32)),
     ]
     stats = [
         _stats_case(gen, 16, 4096, 160, True),
@@ -823,6 +850,16 @@ def phase_kernels():
         _streaming_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
         _streaming_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
         _streaming_case(gen, 1, 1, 64, 2000, 512, False, f32),     # 32 ways
+        # fp32 D = 32: mead-128-ldm-f4 under DSML_ATTN_PACKED=0
+        # DSML_FLASH_STREAMING=1, training batch 32, then served (16)
+        _streaming_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        _streaming_case(gen, 32, 10, 256, 256, 32, True, f32),
+        _streaming_case(gen, 32, 20, 64, 64, 32, True, f32),
+        _streaming_case(gen, 16, 5, 1024, 1024, 32, True, f32),
+        _streaming_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
+        _streaming_case(gen, 2, 3, 200, 129, 32, False, f32),      # 128 + 1
+        _streaming_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
+        _streaming_case(gen, 1, 2, 100, 5000, 32, False, f32),     # 40 ways
     ]
     streaming_bwd = [
         _streaming_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),  # vqgan
@@ -844,6 +881,17 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 2, 200, 129, 80, False),   # Nk = 128 + 1
         _streaming_bwd_case(gen, 2, 2, 100, 50, 80, False),    # Nk < 64
         _streaming_bwd_case(gen, 2, 2, 1000, 333, 80, False),  # tiles + tails
+        # fp32 D = 32: mead-128-ldm-f4 in training under DSML_ATTN_PACKED=0
+        # DSML_FLASH_STREAMING=1, batch 32
+        _streaming_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        _streaming_bwd_case(gen, 32, 10, 256, 256, 32, True, f32),
+        _streaming_bwd_case(gen, 32, 20, 64, 64, 32, True, f32),
+        _streaming_bwd_case(gen, 16, 5, 1024, 1024, 32, True, f32),
+        _streaming_bwd_case(gen, 2, 5, 333, 77, 32, False, f32),   # Nk != Nq
+        _streaming_bwd_case(gen, 2, 3, 200, 129, 32, False, f32),  # 128 + 1
+        _streaming_bwd_case(gen, 2, 2, 100, 50, 32, False, f32),   # Nk < 64
+        _streaming_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tails
+        _streaming_bwd_case(gen, 1, 2, 100, 5000, 32, False, f32),  # long K
     ]
     conv = [   # b, H, W, Cin, Cout, K, input norm, skip
         _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),
@@ -879,6 +927,17 @@ def phase_kernels():
         _conv_case(gen, 2, 20, 20, 9, 160, 3, False, False, False, dtype=f32),
         _conv_case(gen, 2, 9, 7, 3, 512, 3, False, False, False,
                    dtype=f32),                               # decoder stem
+        # fp32: mead-128-ldm-f4's UNet under DSML_GN_EPILOGUE=1, served (16)
+        _mead128(_conv_case(gen, 16, 32, 32, 160, 160, 3, True, True, True,
+                            dtype=f32)),                     # norm + skip
+        _mead128(_conv_case(gen, 16, 16, 16, 960, 320, 3, True, False, True,
+                            dtype=f32)),
+        _mead128(_conv_case(gen, 16, 8, 8, 1280, 640, 3, True, False, True,
+                            dtype=f32)),                     # 8-row tiles
+        _mead128(_conv_case(gen, 16, 32, 32, 9, 160, 3, False, False, True,
+                            dtype=f32)),                     # stem, Cin = 9
+        _mead128(_conv_case(gen, 16, 16, 16, 480, 320, 1, False, False, True,
+                            dtype=f32)),                     # 1x1 skip conv
     ]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,
@@ -1764,6 +1823,14 @@ F32_NARROW = {
     "flash_attention_packed": "train-mead128",
     "flash_attention_bwd": "train-mead128-split",
     "flash_attention_bwd_packed": "train-mead128",
+    "flash_attention_streaming": "train-mead128-streaming",
+    "flash_attention_streaming_bwd": "train-mead128-streaming",
+}
+# the fp32 cases at mead-128-ldm-f4's UNet shapes (``_mead128``): kernel ->
+# the run that is their path; a sub-row each
+F32_UNET = {
+    "group_norm_silu": "mead128-gn",
+    "conv_stats": "mead128-epilogue",
 }
 
 
@@ -1771,18 +1838,27 @@ def _is_f32_narrow(case):
     return case.get("dtype") == "float32" and case.get("head_dim") == 32
 
 
+def _mead128(case):
+    """Marks a case at mead-128-ldm-f4's fp32 UNet shapes."""
+    return dict(case, config="mead-128-ldm-f4")
+
+
 def kernels_line(cases, launches_by_run):
     """A row for each kernel (its first timed case, its launches in the run
-    that is its path) and a sub-row for each fp32 D = 32 instantiation (its
-    cases alone, its launches in its own run)."""
+    that is its path), a sub-row for each fp32 D = 32 instantiation and one
+    for each of GroupNorm and conv + statistics at the fp32 UNet's shapes
+    (their cases alone, their launches in their own run)."""
     rows = []
-    subrows = [(name, run, "float32, head width 32")
+    subrows = [(name, run, "float32, head width 32", _is_f32_narrow)
                for name, run in F32_NARROW.items()]
-    for name, run, variant in [(n, r, None) for n, (_, _, r) in KERNELS.items()
-                               ] + subrows:
+    subrows += [(name, run, "float32, mead-128-ldm-f4 UNet shapes",
+                 lambda c: c.get("config") == "mead-128-ldm-f4")
+                for name, run in F32_UNET.items()]
+    for name, run, variant, pick in [(n, r, None, None)
+                                     for n, (_, _, r) in KERNELS.items()
+                                     ] + subrows:
         source, replaces, _ = KERNELS[name]
-        mine = [c for c in cases[name]
-                if variant is None or _is_f32_narrow(c)]
+        mine = [c for c in cases[name] if variant is None or pick(c)]
         timed = [c for c in mine if "ms" in c]
         first = timed[0]
         launches = launches_by_run[run][name]
@@ -1821,6 +1897,10 @@ RUNS = (
     ("headline-epilogue", CONFIG, {"DSML_GN_EPILOGUE": "1"}, 8),
     ("mead128", CONFIG_128, {}, 8),
     ("mead128-split", CONFIG_128, {"DSML_ATTN_PACKED": "0"}, 8),
+    ("mead128-streaming", CONFIG_128,
+     {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 8),
+    ("mead128-gn", CONFIG_128, {"DSML_PALLAS_GN": "1"}, 8),
+    ("mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "1"}, 8),
 )
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (
@@ -1837,6 +1917,9 @@ TRAIN_RUNS = (
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
     ("train-mead128", CONFIG_128, {}, 2),
     ("train-mead128-split", CONFIG_128, {"DSML_ATTN_PACKED": "0"}, 2),
+    ("train-mead128-streaming", CONFIG_128,
+     {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
+    ("train-mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "res"}, 2),
 )
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (

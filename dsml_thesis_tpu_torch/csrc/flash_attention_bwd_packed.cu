@@ -44,9 +44,10 @@ packed_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ delta,
                            float* __restrict__ dk, float* __restrict__ dv,
                            int64_t ld, int nq, int nk, int heads,
-                           int kv_tiles, float scale_log2, float scale) {
+                           int kv_tiles, float scale_log2, float q_mul,
+                           float dk_mul) {
   f32narrow::dkdv_block(q, k, v, dout, lse, delta, dk, dv, ld, nq, nk, heads,
-                        kv_tiles, scale_log2, scale);
+                        kv_tiles, scale_log2, q_mul, dk_mul);
 }
 
 __global__ void __launch_bounds__(f32narrow::NT)
@@ -58,9 +59,9 @@ packed_bwd_dq_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          float* __restrict__ dq, int64_t ld, int nq, int nk,
                          int heads, int q_tiles, float scale_log2,
-                         float scale) {
+                         float q_mul, float scale) {
   f32narrow::dq_block(q, k, v, dout, lse, delta, dq, ld, nq, nk, heads,
-                      q_tiles, scale_log2, scale);
+                      q_tiles, scale_log2, q_mul, scale);
 }
 
 }  // namespace
@@ -110,5 +111,6 @@ extern "C" int dsml_flash_attention_bwd_packed_f32(
   return f32narrow::launch_bwd(
       packed_bwd_dkdv_f32_kernel, packed_bwd_dq_f32_kernel, c(q), c(k), c(v),
       c(o), c(dout), c(lse), m(delta), m(dq), m(dk), m(dv), b, nq, nk, heads,
-      scale, static_cast<cudaStream_t>(stream));
+      scale * 1.4426950408889634f, 1.f, scale, scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -58,7 +58,18 @@
 // -1e30 mask, the denominator the sum of the probabilities as "cast" to fp32,
 // which is the identity), the same splits in 64-key units and the same
 // combine launch writing fp32.
+//
+// fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
+// DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1): attention_f32_narrow.cuh's
+// forward grid (4 warps, 64 query rows of one head in registers, 64-key K / V
+// tiles through two cp.async stages, TF32 mma.sync) on split heads, with this
+// kernel's roundings in fp32 (stream_block): q times scale * log2(e) before
+// its TF32 rounding, the -1e30 mask, the denominator the sum of the
+// probabilities as used in P V; the same splits in 64-key units and the same
+// combine launch writing fp32. Bound at [32, 5, 1024, 32]: operations on the
+// TF32 tensor cores, and the exp2 of every score.
 #include "attention_f32.cuh"
+#include "attention_f32_narrow.cuh"
 #include "hopper_tiles.cuh"
 #include "mma_tiles.cuh"
 
@@ -550,6 +561,40 @@ streaming_fwd_f32_kernel(const float* __restrict__ q,
                  1.f);
 }
 
+__global__ void __launch_bounds__(f32narrow::NT)
+streaming_fwd_f32_narrow_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o,
+                                float* __restrict__ part_o,
+                                float* __restrict__ part_ml, int nq, int nk,
+                                int q_tiles, int keys_per_split,
+                                float q_scale) {
+  f32narrow::stream_block(q, k, v, o, part_o, part_ml, nq, nk, q_tiles,
+                          keys_per_split, q_scale);
+}
+
+int launch_f32_narrow(const void* q, const void* k, const void* v, void* o,
+                      void* part_o, void* part_ml, int bh, int nq, int nk,
+                      int splits, float q_scale, cudaStream_t stream) {
+  using f32narrow::ROWS;
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
+  const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
+  const int q_tiles = (nq + ROWS - 1) / ROWS;
+  streaming_fwd_f32_narrow_kernel<<<dim3(bh * q_tiles, splits), f32narrow::NT,
+                                    0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), nq, nk,
+      q_tiles, keys_per_split, q_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return launch_combine<float>(part_o, part_ml, o,
+                               static_cast<int64_t>(bh) * nq, f32narrow::D,
+                               splits, stream);
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* part_o, void* part_ml, int bh, int nq, int nk,
                int splits, float q_scale, cudaStream_t stream) {
@@ -578,16 +623,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// The fp32 instantiation (d = 512 only): the same contract as
+// The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming on fp32 tensors, q_scale = scale * log2(e)
 // in fp32.
 extern "C" int dsml_flash_attention_streaming_f32(
     const void* q, const void* k, const void* v, void* o, void* part_o,
     void* part_ml, int bh, int nq, int nk, int d, int splits, float q_scale,
     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == f32narrow::D)
+    return launch_f32_narrow(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
+                             q_scale, s);
   if (d != f32attn::D) return -1;
   return launch_f32(q, k, v, o, part_o, part_ml, bh, nq, nk, splits, q_scale,
-                    static_cast<cudaStream_t>(stream));
+                    s);
 }
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. splits cuts

@@ -47,7 +47,22 @@
 // against the stored q * c and divided by c = scale * log2(e) at the end, so
 // no fifth tile is kept: the two differ by one fp32 rounding of q * c, far
 // under the TF32 rounding of the operand itself.
+//
+// fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet in
+// training under DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1):
+// attention_f32_narrow.cuh's launches on split heads (row stride 32): an lse
+// launch (lse_block: 64 query rows of one head a block, q times scale *
+// log2(e) in fp32 then rounded to TF32 in registers, 64-key K tiles through
+// two cp.async stages, the -1e30 mask), then delta, the dk/dv grid and the
+// dq grid of the packed fp32 backward with q_mul = scale * log2(e) and
+// scale_log2 = 1. All four launches form their scores from the same operands,
+// tf32(q * c) and tf32(k): the lse launch and the dq grid with the same
+// instructions as the forward (q as the A operand), the dk/dv grid with k as
+// the A operand (the same products, summed inside the tensor-core step in
+// its own order). dk is taken against the pre-scaled q tile and multiplied
+// by scale / c at the end. No atomics: equal inputs give equal bits.
 #include "attention_f32.cuh"
+#include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
 
 namespace {
@@ -245,9 +260,65 @@ streaming_lse_f32_kernel(const float* __restrict__ q,
   }
 }
 
+__global__ void __launch_bounds__(f32narrow::NT)
+streaming_lse_f32_narrow_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                float* __restrict__ lse, int nq, int nk,
+                                int q_tiles, float q_scale) {
+  f32narrow::lse_block(q, k, lse, nq, nk, q_tiles, q_scale);
+}
+
+__global__ void __launch_bounds__(f32narrow::NT)
+streaming_bwd_dkdv_f32_narrow_kernel(const float* __restrict__ q,
+                                     const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     float* __restrict__ dk,
+                                     float* __restrict__ dv, int64_t ld,
+                                     int nq, int nk, int heads, int kv_tiles,
+                                     float scale_log2, float q_mul,
+                                     float dk_mul) {
+  f32narrow::dkdv_block(q, k, v, dout, lse, delta, dk, dv, ld, nq, nk, heads,
+                        kv_tiles, scale_log2, q_mul, dk_mul);
+}
+
+__global__ void __launch_bounds__(f32narrow::NT)
+streaming_bwd_dq_f32_narrow_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dq, int64_t ld, int nq,
+                                   int nk, int heads, int q_tiles,
+                                   float scale_log2, float q_mul,
+                                   float scale) {
+  f32narrow::dq_block(q, k, v, dout, lse, delta, dq, ld, nq, nk, heads,
+                      q_tiles, scale_log2, q_mul, scale);
+}
+
+int launch_f32_narrow(const float* q, const float* k, const float* v,
+                      const float* o, const float* dout, float* lse,
+                      float* delta, float* dq, float* dk, float* dv, int bh,
+                      int nq, int nk, float scale, float q_scale,
+                      cudaStream_t stream) {
+  using f32narrow::ROWS;
+  const int q_tiles = (nq + ROWS - 1) / ROWS;
+  streaming_lse_f32_narrow_kernel<<<bh * q_tiles, f32narrow::NT, 0, stream>>>(
+      q, k, lse, nq, nk, q_tiles, q_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return f32narrow::launch_bwd(
+      streaming_bwd_dkdv_f32_narrow_kernel, streaming_bwd_dq_f32_narrow_kernel,
+      q, k, v, o, dout, lse, delta, dq, dk, dv, bh, nq, nk, 1, 1.f, q_scale,
+      scale / q_scale, scale, stream);
+}
+
 }  // namespace
 
-// The fp32 instantiation (d = 512 only): the same contract as
+// The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming_bwd on fp32 tensors, q_scale = scale *
 // log2(e) in fp32.
 extern "C" int dsml_flash_attention_streaming_bwd_f32(
@@ -255,8 +326,17 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
     const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
     int bh, int nq, int nk, int d, float scale, float q_scale, void* stream) {
   using namespace f32attn;
-  if (d != D || bh < 1 || nq < 1 || nk < 1) return -1;
+  if (bh < 1 || nq < 1 || nk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == f32narrow::D)
+    return launch_f32_narrow(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(dout), static_cast<float*>(lse),
+        static_cast<float*>(delta), static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), bh, nq, nk, scale,
+        q_scale, s);
+  if (d != D) return -1;
   const int smem = lse_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       streaming_lse_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -40,7 +40,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -264,9 +263,7 @@ static int group_norm_silu(const void* x, const void* gamma, const void* beta,
                            void* partial, void* sums, void* y, int b, int n,
                            int c, int groups, int chunks, float eps, int silu,
                            int params_bf16, void* stream) {
-  constexpr bool BF16 = std::is_same<T, bf16>::value;
-  // bf16 parameters (a model cast for sampling) only beside bf16 activations
-  if (groups < 1 || c % groups != 0 || (params_bf16 && !BF16)) return -1;
+  if (groups < 1 || c % groups != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid;
   int rows_per_chunk;
@@ -275,13 +272,13 @@ static int group_norm_silu(const void* x, const void* gamma, const void* beta,
                          static_cast<float*>(sums), b, n, c, chunks, &grid,
                          &rows_per_chunk, s);
   if (err != 0) return err;
+  // bf16 parameters: a model cast for sampling, beside either activation
+  // type (an fp32 UNet's sampling casts its parameters too)
   auto kernel = silu ? gn_apply_kernel<T, false, true>
                      : gn_apply_kernel<T, false, false>;
-  if constexpr (BF16) {
-    if (params_bf16)
-      kernel = silu ? gn_apply_kernel<T, true, true>
-                    : gn_apply_kernel<T, true, false>;
-  }
+  if (params_bf16)
+    kernel = silu ? gn_apply_kernel<T, true, true>
+                  : gn_apply_kernel<T, true, false>;
   const float inv_count =
       1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
   kernel<<<grid, GN_THREADS, 2 * groups * sizeof(float), s>>>(
@@ -308,7 +305,7 @@ extern "C" int dsml_gn_channel_stats_f32(const void* x, void* partial,
 }
 
 // x, y [B, N, C] bf16 (the _f32 entry: fp32); gamma, beta [C], bf16 if
-// params_bf16 (bf16 entry only) else fp32; partial and sums as above
+// params_bf16 else fp32; partial and sums as above
 // (scratch). Also needs C % groups == 0.
 extern "C" int dsml_group_norm_silu(const void* x, const void* gamma,
                                     const void* beta, void* partial, void* sums,

@@ -61,7 +61,7 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernel ``csrc/flash_attention_streaming.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_streaming``
     (``flash_attention_streaming``). Bound by operations; any Nq / Nk, head
-    widths 32, 64, 80 and 512. The K / V stream of a query tile is cut over
+    widths 32, 64, 80 and 512 (fp32: 32 and 512). The K / V stream of a query tile is cut over
     several blocks when the call has few query tiles (``streaming_splits``),
     and the splits are combined in index order. q is scaled by
     scale * log2(e) in its own type before the score product and the
@@ -75,14 +75,16 @@ versions, and the wrappers that choose between them by where the tensor lies.
     ``_streaming_dkdv_kernel``). The residuals carry no row statistic: a
     launch of its own (on ``wgmma``) recomputes the row log-sum-exp from q
     and k, then delta and, in bf16, the packed backward's dk / dv and dq
-    grids on one head. Head widths 32, 64 and 80 in bf16, 512 in fp32.
+    grids on one head. Head widths 32, 64 and 80 in bf16, 32 and 512 in
+    fp32 (at 32 the narrow fp32 backward's grids on one head, with its own
+    log-sum-exp launch).
 
 fp32. Each kernel has its own fp32 head widths (``F32_HEAD_DIMS``): 512 for
 the split-head forward, the streaming forward and both their backward
 kernels (the first stage's single-head attention block in first-stage
-training, ``csrc/attention_f32.cuh``), and 32 for the split-head and packed
-forwards, their backward kernels and the fused-projection kernel (the UNet
-of ``mead-128-ldm-f4.yaml``, which sets no dtype, ``csrc/
+training, ``csrc/attention_f32.cuh``), and 32 for the split-head, packed and
+streaming forwards, their backward kernels and the fused-projection kernel
+(the UNet of ``mead-128-ldm-f4.yaml``, which sets no dtype, ``csrc/
 attention_f32_narrow.cuh``). Both run in fp32 as the JAX package's do, and
 multiply on the tensor cores in TF32 (operands rounded once, fp32
 accumulation and softmax). The q/out-fused kernel takes bf16 only.
@@ -131,12 +133,13 @@ STREAMING_HEAD_DIMS = (32, 64, 80, 512)  # ... in flash_attention_streaming.cu
 STREAMING_BWD_HEAD_DIMS = (32, 64, 80)   # ... in flash_attention_streaming_bwd.cu
 # fp32 instantiations (TF32 products), by kernel: D = 512 the first stage's
 # attention block in first-stage training, D = 32 the fp32 UNet of
-# mead-128-ldm-f4 (packed rows, split heads, the fused projections)
+# mead-128-ldm-f4 (packed rows, split heads, streaming, the fused projections)
 F32_HEAD_DIMS = {
     "flash_attention": (32, 512), "flash_attention_bwd": (32, 512),
     "flash_attention_packed": (32,), "flash_attention_bwd_packed": (32,),
     "flash_attention_fproj": (32,),
-    "flash_attention_streaming": (512,), "flash_attention_streaming_bwd": (512,),
+    "flash_attention_streaming": (32, 512),
+    "flash_attention_streaming_bwd": (32, 512),
 }
 STREAMING_TILE = 64                    # query / key rows of its tiles
 STREAMING_TARGET_BLOCKS = 264          # two blocks on each of 132 SMs

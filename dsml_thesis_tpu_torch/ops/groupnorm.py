@@ -19,9 +19,11 @@ kernel followed by a plain apply).
     fixed order (no atomics), so equal inputs give equal bits.
 
 Types. x is bf16 (the UNet; the first stage in sampling) or fp32 (the first
-stage in training, as the JAX package trains it); the output has x's type.
-gamma and beta are fp32 or x's own type (bf16 beside bf16 x: a model cast
-for sampling), on every device: another pairing raises ``TypeError``.
+stage in training, as the JAX package trains it; the UNet of
+mead-128-ldm-f4, which sets no dtype); the output has x's type. gamma and
+beta are fp32 or bf16 (a model cast for sampling, beside either type of x:
+the JAX kernel casts them to fp32 whatever their type), on every device:
+another type raises ``TypeError``.
 
 A wrapper takes its plain version (``group_norm_silu_reference``,
 ``gn_channel_stats_reference``) only for a tensor on the CPU; for a CUDA
@@ -47,6 +49,7 @@ from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
                       current_stream, raise_on_error, typed_entry)
 
 GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
+PARAM_DTYPES = (torch.float32, torch.bfloat16)   # of gamma / beta
 
 
 def _check_groups(c: int, num_groups: int) -> None:
@@ -56,14 +59,14 @@ def _check_groups(c: int, num_groups: int) -> None:
 
 def _check_params(x: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor) -> None:
-    """gamma / beta [C] of one type, fp32 or x's own, on every device."""
+    """gamma / beta [C] of one type, fp32 or bf16, on every device."""
     c = x.shape[-1]
     if gamma.shape != (c,) or beta.shape != (c,) or gamma.dtype != beta.dtype:
         raise ValueError(f"gamma{tuple(gamma.shape)} / beta{tuple(beta.shape)} "
                          f"must both be [{c}] of one type")
-    if gamma.dtype not in (torch.float32, x.dtype):
+    if gamma.dtype not in PARAM_DTYPES:
         raise TypeError(f"gamma / beta are {gamma.dtype} beside x of "
-                        f"{x.dtype}: fp32 or x's type only")
+                        f"{x.dtype}: fp32 or bf16 only")
 
 
 # --------------------------------------------------------------------------
@@ -218,7 +221,7 @@ def _whole_row_forward(x, gamma, beta, num_groups, eps, silu):
         raise ValueError(f"group_norm_silu_kernel: unsupported device {x.device}")
     check_cuda_operand("x", x, x, ACTIVATION_DTYPES)
     for name, t in (("gamma", gamma), ("beta", beta)):
-        check_cuda_operand(name, t, x, (torch.float32, x.dtype))
+        check_cuda_operand(name, t, x, PARAM_DTYPES)
     from . import _build
 
     launch = getattr(_build.load(), typed_entry("dsml_group_norm_silu", x))

@@ -190,6 +190,9 @@ _FAMILIES = (
     ("fproj_attention_f32_kernel", "attention: fproj (fp32 D = 32: attention)"),
     ("packed_attention_f32_kernel", "attention: packed (fp32 D = 32)"),
     ("flash_fwd_f32_narrow_kernel", "attention: flash_attention (fp32 D = 32)"),
+    ("streaming_fwd_f32_narrow_kernel", "attention: streaming (fp32 D = 32)"),
+    ("streaming_lse_f32_narrow_kernel",
+     "attention backward: streaming log-sum-exp"),
     ("dkdv_f32_narrow_kernel", "attention backward: dk / dv grid"),
     ("dq_f32_narrow_kernel", "attention backward: dq grid"),
     ("delta_f32_narrow_kernel", "attention backward: delta"),

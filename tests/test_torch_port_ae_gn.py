@@ -358,11 +358,11 @@ def test_a_card_tensor_picks_the_entry_point_of_its_type(op, dtype,
 
 
 MIXED = {
-    # x fp32 beside bf16 parameters (bf16 parameters go with bf16 x only)
+    # x fp32 beside fp16 parameters (parameters are fp32 or bf16)
     "gn-whole-row": lambda t: tgn.group_norm_silu_kernel(
-        t(2, 16, 64), t(64, dtype=torch.bfloat16), t(64, dtype=torch.bfloat16)),
+        t(2, 16, 64), t(64, dtype=torch.float16), t(64, dtype=torch.float16)),
     "gn-stats-mode": lambda t: tgn.group_norm_silu_stats_fused(
-        t(2, 16, 64), t(64, dtype=torch.bfloat16), t(64, dtype=torch.bfloat16)),
+        t(2, 16, 64), t(64, dtype=torch.float16), t(64, dtype=torch.float16)),
     "conv-w": lambda t: tcg.conv_stats(
         t(2, 4, 4, 32), t(3, 3, 32, 32, dtype=torch.bfloat16), t(2, 32)),
     "conv-skip": lambda t: tcg.conv_stats(
@@ -378,8 +378,8 @@ MIXED = {
 @pytest.mark.parametrize("case", list(MIXED))
 def test_a_mixed_type_call_raises(case, monkeypatch):
     """On the CPU and on the card alike, before anything is built: x, w and
-    skip of one type; gamma / beta fp32 or x's type; activations bf16 or
-    fp32 on the card."""
+    skip of one type; gamma / beta fp32 or bf16; activations bf16 or fp32 on
+    the card."""
     monkeypatch.setattr(_build, "load", _Library)
     devices = ["card"] if case == "channel-stats-fp16" else ["cpu", "card"]
     for where in devices:

@@ -136,7 +136,7 @@ class _OnCard(torch.Tensor):
 def test_fp32_wrappers_route_d512_and_refuse_other_widths(op, monkeypatch):
     """fp32 at D = 512 goes to the ``_f32`` entry point of each kernel (the
     fp32 instantiations of these four exist at the first stage's head width,
-    and the split-head pair's also at the fp32 UNet's 32); on a CUDA tensor
+    and also at the fp32 UNet's 32); on a CUDA tensor
     of another fp32 head width the wrapper raises before the library is
     built."""
     from dsml_thesis_tpu_torch.ops import _build
@@ -144,8 +144,8 @@ def test_fp32_wrappers_route_d512_and_refuse_other_widths(op, monkeypatch):
     kernel, f32 = {
         "forward": ("flash_attention", (32, 512)),
         "backward": ("flash_attention_bwd", (32, 512)),
-        "streaming": ("flash_attention_streaming", (512,)),
-        "streaming-backward": ("flash_attention_streaming_bwd", (512,))}[op]
+        "streaming": ("flash_attention_streaming", (32, 512)),
+        "streaming-backward": ("flash_attention_streaming_bwd", (32, 512))}[op]
     name = "dsml_" + kernel
     assert tatt.F32_HEAD_DIMS[kernel] == f32
     t = lambda d, dtype: torch.zeros(1, 1, 8, d, dtype=dtype)

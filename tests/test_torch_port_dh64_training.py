@@ -15,9 +15,9 @@ head-width rule) through every kernel a training step reaches, on the CPU.
   (packed; ``DSML_ATTN_PACKED=0``; and with ``DSML_FLASH_STREAMING=1``):
   every attention a UNet step of the four bf16 configs sends to a kernel is
   one whose forward and backward kernels both take it. ``mead-128-ldm-f4``
-  computes its UNet in fp32, at 32-wide heads: the packed and split-head
-  kernels take it (their fp32 D = 32 instantiations); the streaming kernels
-  do not, and on the card that route raises (no fallback), held here too.
+  computes its UNet in fp32, at 32-wide heads: the packed, split-head and
+  streaming kernels take it (their fp32 D = 32 instantiations), forward and
+  backward, and each route's wrapper picks the ``_f32`` entry point.
 * One train step of a tiny two-conditioning MEAD model whose transformer has
   2 heads of 80, against the JAX step with its kernels in interpret mode
   (``DSML_FLASH_INTERPRET=1``): loss 1e-5, every gradient leaf 1e-4 of its
@@ -265,12 +265,12 @@ def test_every_training_attention_is_taken_forward_and_backward(
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_mead_128_computes_in_fp32_which_no_kernel_takes(route, monkeypatch):
     """mead-128-ldm-f4 sets no UNet dtype: its self-attentions (N = 1024,
-    256, 64 at 32-wide heads) run in fp32, as in the JAX package. The packed
-    and split-head kernels and their backward kernels take fp32 at D = 32
-    (``csrc/attention_f32_narrow.cuh``), so a training step of either route
-    is admitted forward and backward; the streaming kernels take fp32 at
-    D = 512 only, so on the streaming route the dispatch on the card raises
-    (ROADMAP.md queue B: rows 4 and 5 at fp32 D = 32 are still to port)."""
+    256, 64 at 32-wide heads) run in fp32, as in the JAX package. The packed,
+    split-head and streaming kernels and their backward kernels take fp32 at
+    D = 32 (``csrc/attention_f32_narrow.cuh``), so a training step of every
+    route is admitted forward and backward, through the ``_f32`` entry
+    points. (The test's name is older than the streaming pair's fp32 D = 32
+    instantiation.)"""
     name = "mead-128-ldm-f4.yaml"
     calls, _ = _step_attentions(name, ROUTES[route], monkeypatch)
     assert len(calls) == 16 and {c[1] for c in calls} == {1024, 256, 64}
@@ -285,17 +285,17 @@ def test_mead_128_computes_in_fp32_which_no_kernel_takes(route, monkeypatch):
             assert tatt.flash_kernel_takes(d, dtype)
             assert tatt.flash_kernel_takes(d, dtype, backward=True)
         else:
-            assert not tatt.streaming_kernel_takes(d, dtype)
-            assert not tatt.streaming_kernel_takes(d, dtype, backward=True)
+            assert tatt.streaming_kernel_takes(d, dtype)
+            assert tatt.streaming_kernel_takes(d, dtype, backward=True)
+    # the entry points exist: the wrappers go on to build the library
     q = torch.zeros(1, 1, 64, 32).as_subclass(_OnCard)
-    if route == "streaming":
-        with pytest.raises(ValueError, match="head width 32"):
-            tatt._launch_streaming_forward(q, q, q, 0.1)
-        with pytest.raises(ValueError, match="head width 32"):
-            tatt.flash_attention_streaming_bwd(q, q, q, q, q, 0.1)
-    else:   # the entry points exist: the wrappers go on to build the library
-        assert tatt._entry("flash_attention", q, 32) \
-            == "dsml_flash_attention_f32"
+    kernels = {"packed": ("flash_attention_packed",
+                          "flash_attention_bwd_packed"),
+               "split": ("flash_attention", "flash_attention_bwd"),
+               "streaming": ("flash_attention_streaming",
+                             "flash_attention_streaming_bwd")}[route]
+    for kernel in kernels:
+        assert tatt._entry(kernel, q, 32) == f"dsml_{kernel}_f32"
 
 
 @pytest.mark.parametrize("d,dtype,fwd,bwd", [

@@ -160,7 +160,8 @@ def test_split_head_forward_and_backward_match_jax_kernels(shape):
 
 def test_fp32_head_width_32_predicates_and_entries():
     """The kernels of the fp32 UNet's path take fp32 at D = 32 and pick the
-    ``_f32`` entry point; the streaming pair does not (still to port)."""
+    ``_f32`` entry point, the streaming pair included; the q/out-fused kernel
+    takes bf16 only."""
     f32 = torch.float32
     assert tatt.fproj_kernel_takes(160, D, f32)
     assert tatt.fproj_kernel_takes(640, D, f32)
@@ -170,16 +171,17 @@ def test_fp32_head_width_32_predicates_and_entries():
         D, f32)
     assert tatt.flash_kernel_takes(D, f32)
     assert tatt.flash_kernel_takes(D, f32, backward=True)
-    assert not tatt.streaming_kernel_takes(D, f32)
-    assert not tatt.streaming_kernel_takes(D, f32, backward=True)
+    assert tatt.streaming_kernel_takes(D, f32)
+    assert tatt.streaming_kernel_takes(D, f32, backward=True)
     assert not tatt.qout_kernel_takes(160, 160, D, f32)
     t = torch.zeros(1, 8, 160, dtype=f32)
     for kernel in ("flash_attention_packed", "flash_attention_bwd_packed",
                    "flash_attention_fproj", "flash_attention",
-                   "flash_attention_bwd"):
+                   "flash_attention_bwd", "flash_attention_streaming",
+                   "flash_attention_streaming_bwd"):
         assert tatt._entry(kernel, t, D) == f"dsml_{kernel}_f32"
-    with pytest.raises(ValueError, match="head width 32"):
-        tatt._entry("flash_attention_streaming", t, D)
+    with pytest.raises(ValueError, match="head width 64"):
+        tatt._entry("flash_attention_streaming", t, 64)
 
 
 # --------------------------------------------------------------------------
@@ -307,32 +309,37 @@ def _route(monkeypatch, env):
         monkeypatch.setenv(k, v)
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
-def test_pipeline_latents_match_jax(tiny128, route, monkeypatch):
+def pipeline_latents_vs_jax(tiny128, monkeypatch, env, jax_env=None):
+    """The DDIM chain's latents of the tiny model under the flags ``env``
+    against the JAX package's under ``jax_env`` (default: the same flags),
+    1e-3."""
     _, jldm, params, tldm, inputs = tiny128
-    _route(monkeypatch, ROUTES[route])
+    _route(monkeypatch, env if jax_env is None else jax_env)
     want = _run_jax(jldm, params, inputs, decode=False)
+    _route(monkeypatch, env)
     tldm.eval()
     got = _run_torch(tldm, inputs, decode=False)
     assert np.isfinite(got).all() and np.abs(want).max() > 0.1
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
-def test_train_step_matches_jax(tiny128, route, monkeypatch):
-    """Loss, every gradient leaf and one AdamW + EMA step, the JAX side's
-    packed (rows 3 and 8) or split-head (rows 2 and 7) kernels in interpret
-    mode."""
+def train_step_vs_jax(tiny128, monkeypatch, env, jax_env=None):
+    """Loss, every gradient leaf and one AdamW + EMA step of the tiny model
+    under the flags ``env`` against the JAX step under ``jax_env`` (default:
+    the same flags), t and noise from the JAX side's own draws."""
     _, jldm, params, tldm, _ = tiny128
     tldm = copy.deepcopy(tldm)
     batch, rng, base_lr = _batch(31), jax.random.PRNGKey(22), 1e-4
-    _route(monkeypatch, ROUTES[route])
-    (want_loss, _), want_grads = jax.value_and_grad(
-        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True)(params)
+    _route(monkeypatch, env if jax_env is None else jax_env)
+    # jitted: one compile, where the eager gradient runs every interpret-mode
+    # kernel op by op (about 4x slower on the CPU)
+    (want_loss, _), want_grads = jax.jit(jax.value_and_grad(
+        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True))(params)
     tx = jts.make_optimizer(jldm, params, base_lr)
     jstate = jts.create_train_state(jldm, params, tx)
     jstate, want_m = jts.make_train_step(jldm, tx)(jstate, _jb(batch), rng)
 
+    _route(monkeypatch, env)
     t, noise = _jax_draws(rng)
     tldm.train()
     tldm.configure_trainable()
@@ -378,6 +385,19 @@ def test_train_step_matches_jax(tiny128, route, monkeypatch):
             assert (diff > 1e-5).mean() <= 1e-3, k
 
 
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_pipeline_latents_match_jax(tiny128, route, monkeypatch):
+    pipeline_latents_vs_jax(tiny128, monkeypatch, ROUTES[route])
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_train_step_matches_jax(tiny128, route, monkeypatch):
+    """Loss, every gradient leaf and one AdamW + EMA step, the JAX side's
+    packed (rows 3 and 8) or split-head (rows 2 and 7) kernels in interpret
+    mode."""
+    train_step_vs_jax(tiny128, monkeypatch, ROUTES[route])
+
+
 # --------------------------------------------------------------------------
 # chip_smoke.py's launch arithmetic of the mead-128 runs
 # --------------------------------------------------------------------------
@@ -408,17 +428,30 @@ def _wrapper_spy(monkeypatch):
     return calls
 
 
-SMOKE_RUNS = {name: env for name, config, env, _ in chip_smoke.RUNS
-              if config == chip_smoke.CONFIG_128}
-SMOKE_TRAIN_RUNS = {name: env for name, config, env, _ in chip_smoke.TRAIN_RUNS
-                    if config == chip_smoke.CONFIG_128}
+MEAD128_RUNS = {name: env for name, config, env, _ in chip_smoke.RUNS
+                if config == chip_smoke.CONFIG_128}
+MEAD128_TRAIN_RUNS = {name: env
+                      for name, config, env, _ in chip_smoke.TRAIN_RUNS
+                      if config == chip_smoke.CONFIG_128}
+# the runs of the packed and split-head routes, whose launches this file
+# checks (the streaming and GroupNorm-kernel routes:
+# test_torch_port_mead128_routes.py)
+SMOKE_RUNS = {n: MEAD128_RUNS[n] for n in ("mead128", "mead128-split")}
+SMOKE_TRAIN_RUNS = {n: MEAD128_TRAIN_RUNS[n]
+                    for n in ("train-mead128", "train-mead128-split")}
 
 
 def test_the_smoke_script_has_the_mead128_runs():
-    assert SMOKE_RUNS == {"mead128": {},
-                          "mead128-split": {"DSML_ATTN_PACKED": "0"}}
-    assert SMOKE_TRAIN_RUNS == {"train-mead128": {},
-                                "train-mead128-split": {"DSML_ATTN_PACKED": "0"}}
+    streaming = {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}
+    assert MEAD128_RUNS == {"mead128": {},
+                            "mead128-split": {"DSML_ATTN_PACKED": "0"},
+                            "mead128-streaming": streaming,
+                            "mead128-gn": {"DSML_PALLAS_GN": "1"},
+                            "mead128-epilogue": {"DSML_GN_EPILOGUE": "1"}}
+    assert MEAD128_TRAIN_RUNS == {
+        "train-mead128": {}, "train-mead128-split": {"DSML_ATTN_PACKED": "0"},
+        "train-mead128-streaming": streaming,
+        "train-mead128-epilogue": {"DSML_GN_EPILOGUE": "res"}}
 
 
 def _meta_tiny():
