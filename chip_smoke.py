@@ -116,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -529,7 +530,8 @@ def _gn_case(gen, b, n, c, eps, silu, timed, mean=0.5, std=2.0,
         (b, n, c), timed, run,
         lambda: G.group_norm_silu_reference(x, gamma, beta, **kw), library,
         2 * esize * b * n * c + 2 * 4 * c, 10 * b * n * c, PEAK_FP32_FLOPS,
-        eps=eps, silu=silu, dtype=_dtype_name(dtype))
+        eps=eps, silu=silu, dtype=_dtype_name(dtype),
+        cluster=G.gn_plan(n, c, dtype))
     if not torch.equal(run(), run()):
         case["rel_err"] = float("inf")
     if abs(mean) > 10 * std and case["rel_err"] != float("inf"):
@@ -570,7 +572,7 @@ def cudnn_tf32():
 
 
 def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
-               eps=1e-5, silu_in=True, dtype=torch.bfloat16):
+               eps=1e-5, silu_in=True, dtype=torch.bfloat16, groups=32):
     """conv_stats: y against the plain version's (in fp32 with TF32 off: the
     disagreement is the kernel's TF32 rounding); the statistics against the
     sums of the kernel's own stored y (a y that rounds the other way at a bf16
@@ -593,18 +595,21 @@ def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
         gamma = 1 + 0.1 * torch.randn(cin, generator=gen, device="cuda")
         beta = 0.1 * torch.randn(cin, generator=gen, device="cuda")
         kw = dict(in_stats=G.gn_channel_stats_reference(x.reshape(b, -1, cin)),
-                  gamma=gamma, beta=beta, num_groups=32, eps=eps,
+                  gamma=gamma, beta=beta, num_groups=groups, eps=eps,
                   silu_in=silu_in)
         gx, bx = gamma.to(dtype), beta.to(dtype)
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    # the kernel gets w as the UNet hands it over: a [K, K, Cin, Cout] view of
+    # a channels_last Conv2d weight, which the implicit GEMM reads uncopied
+    w = w_oihw.permute(2, 3, 1, 0)
     bias_x = bias.to(dtype)[:, :, None, None]
     res_nchw = None if res is None else res.permute(0, 3, 1, 2)
 
     def library():
         h = x_nchw
         if prologue:
-            h = F.group_norm(h, 32, gx, bx, eps)
+            h = F.group_norm(h, groups, gx, bx, eps)
             h = F.silu(h) if silu_in else h
         with cudnn_tf32():
             y = F.conv2d(h, w_oihw, padding=(ksize - 1) // 2) + bias_x
@@ -629,11 +634,46 @@ def _conv_case(gen, b, hh, ww, cin, cout, ksize, prologue, skip, timed,
         2 * b * hh * ww * ksize * ksize * cin * cout, peak,
         stats_from=stats_of, ksize=ksize, prologue=prologue, skip=skip,
         silu_in=silu_in if prologue else None, dtype=_dtype_name(dtype),
-        **extra)
+        plan=dataclasses.asdict(C.conv_plan(b, hh, ww, cin, cout, ksize, dtype,
+                                            prologue, groups)), **extra)
     first, again = run(), run()
     if not all(torch.equal(a, c) for a, c in zip(first, again)):
         case["rel_err"] = float("inf")
     return case
+
+
+# conv shapes of mead-128-ldm-f4's UNet under DSML_GN_EPILOGUE=1 besides
+# the five cases above, from a spy on the kernel's wrapper in one UNet call
+# of the model built on the meta device: (H = W, Cin, Cout, K, input norm,
+# skip); the first ones are the 8 x 8 level's
+MEAD128_CONVS_8X8 = [
+    (8, 320, 640, 3, False, False), (8, 640, 640, 1, False, True),
+    (8, 640, 640, 1, True, False), (8, 640, 640, 3, True, False),
+    (8, 640, 640, 3, True, True), (8, 960, 640, 3, False, False),
+    (8, 1280, 640, 3, True, False)]
+MEAD128_CONVS = MEAD128_CONVS_8X8[:-1] + [
+    (16, 160, 320, 3, False, False), (16, 320, 320, 1, False, True),
+    (16, 320, 320, 1, True, False), (16, 320, 320, 3, True, False),
+    (16, 320, 320, 3, True, True), (16, 480, 320, 3, False, False),
+    (16, 640, 320, 3, True, False), (16, 960, 320, 3, False, False),
+    (32, 160, 160, 1, False, True), (32, 160, 160, 1, True, False),
+    (32, 160, 160, 3, True, False), (32, 320, 160, 3, True, False),
+    (32, 480, 160, 3, False, False)]
+
+
+def gn_cluster_rows(c, dtype):
+    """The most rows of a batch row of c channels that the GroupNorm
+    kernel's cluster design takes."""
+    from dsml_thesis_tpu_torch.ops import groupnorm as G
+
+    n = 1
+    while G.gn_plan(2 * n, c, dtype):
+        n *= 2
+    lo, hi = n, 2 * n   # gn_plan(lo) > 0, gn_plan(hi) == 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if G.gn_plan(mid, c, dtype) else (lo, mid)
+    return lo
 
 
 def phase_kernels():
@@ -762,6 +802,12 @@ def phase_kernels():
                           bf16_params=True, dtype=f32)),
         _mead128(_gn_case(gen, 16, 64, 1280, 1e-5, True, True,
                           bf16_params=True, dtype=f32)),
+        # the largest row the cluster design takes at C = 160 in fp32, and
+        # one row more (the three passes)
+        _gn_case(gen, 2, gn_cluster_rows(160, f32), 160, 1e-5, True, False,
+                 dtype=f32),
+        _gn_case(gen, 2, gn_cluster_rows(160, f32) + 1, 160, 1e-5, True,
+                 False, dtype=f32),
     ]
     stats = [
         _stats_case(gen, 16, 4096, 160, True),
@@ -938,7 +984,20 @@ def phase_kernels():
                             dtype=f32)),                     # stem, Cin = 9
         _mead128(_conv_case(gen, 16, 16, 16, 480, 320, 1, False, False, True,
                             dtype=f32)),                     # 1x1 skip conv
+        # ragged: 105 pixels, three images of 35 in one 128-pixel tile, a
+        # k-tile of 40 channels, 48 outputs of a 64-wide tile, K split
+        _conv_case(gen, 3, 5, 7, 40, 48, 3, True, True, False, groups=8),
+        _conv_case(gen, 3, 5, 7, 40, 48, 3, True, True, False, groups=8,
+                   dtype=f32),
     ]
+    # every other shape mead-128-ldm-f4's UNet sends to the kernel under
+    # DSML_GN_EPILOGUE=1 at batch 16 (fp32), and its 8 x 8 level at the
+    # training batch of 32: (H, Cin, Cout, K, input norm, skip)
+    for b, shapes in ((16, MEAD128_CONVS), (32, MEAD128_CONVS_8X8)):
+        conv += [_mead128(_conv_case(gen, b, hh, hh, cin, cout, k, norm, res,
+                                     (b, hh, cin, cout) == (32, 8, 1280, 640),
+                                     dtype=f32))
+                 for hh, cin, cout, k, norm, res in shapes]
     cases = {"flash_attention": flash, "flash_attention_fproj": fproj,
              "flash_attention_packed": packed, "flash_attention_qout": qout,
              "flash_attention_bwd": flash_bwd,

@@ -8,21 +8,27 @@
 //      per (batch, channel) sum and sum of squares of y AS STORED, fp32, as
 //      sums [2, B, Cout].
 // T is bf16 (the UNet; the first stage in sampling: conv_stats.cu) or fp32
-// (first-stage training: conv_stats_f32.cu). One kernel template serves both;
-// the type decides the tensor-core step and what is rounded where:
-//   bf16  mma.sync m16n8k16, bf16 operands through ldmatrix, fp32
-//         accumulation; the normalised input is rounded to bf16 where it is
-//         stored in shared memory; y is rounded to bf16 once, and its sums
-//         are of the rounded values.
-//   fp32  mma.sync m16n8k8 in TF32 with fp32 accumulation (the card's TF32
-//         rate is 7.4x its fp32 rate outside the tensor cores): x (after the
-//         input norm, in fp32) and w are rounded to TF32 (cvt.rna, 10 of
-//         fp32's 23 mantissa bits) once each, where they are stored in shared
-//         memory. TF32 has no transposing ldmatrix, so fragments are 32-bit
-//         shared-memory loads, and rows are padded so that every fragment
-//         load hits 32 distinct banks (x rows by 4 words, weight rows by 8).
-//         Bias, skip, the sums and y stay fp32: y is the fp32 accumulator
-//         plus bias plus skip, stored as is. The plain version,
+// (first-stage training, mead-128-ldm-f4's UNet: conv_stats_f32.cu). Four
+// designs, chosen a call by ops/conv_gn.py:conv_plan and dispatched at the
+// end of this file: pixel patches on mma.sync (design 0, this file: the
+// stems, and the normed 3 x 3 convs of wide images) and the implicit GEMM on
+// wgmma over flattened pixels (designs 1-3, conv_igemm.cuh, with its note on
+// each). One kernel template a design serves both types; the type decides
+// the tensor-core step and what is rounded where, the same in every design:
+//   bf16  bf16 operands, fp32 accumulation (design 0: mma.sync m16n8k16
+//         through ldmatrix; 1-3: wgmma m64nNk16); the normalised input is
+//         rounded to bf16 where it is stored in shared memory; y is rounded
+//         to bf16 once, and its sums are of the rounded values.
+//   fp32  TF32 products with fp32 accumulation (design 0: mma.sync m16n8k8;
+//         1-3: wgmma m64nNk8; the card's TF32 rate is 7.4x its fp32 rate
+//         outside the tensor cores): x (after the input norm, in fp32) and w
+//         are rounded to TF32 (cvt.rna, 10 of fp32's 23 mantissa bits) once
+//         each, where they are stored in shared memory. (Design 0: TF32 has
+//         no transposing ldmatrix, so fragments are 32-bit shared-memory
+//         loads, and rows are padded so that every fragment load hits 32
+//         distinct banks: x rows by 4 words, weight rows by 8.) Bias, skip,
+//         the sums and y stay fp32: y is the fp32 accumulator plus bias
+//         plus skip, stored as is. The plain version,
 //         ops/conv_gn.py:conv_stats_reference, runs cuDNN under the caller's
 //         TF32 setting; held to it with TF32 off, the kernel differs by its
 //         operands' TF32 rounding alone.
@@ -33,7 +39,8 @@
 // in fast memory, the conv is K * K shifted [H*W, Cin] x [Cin, Cout]
 // products, and the statistics are column sums of the finished image. None
 // of that fits a block here (227 KB), and one block an image would leave the
-// card idle. Here the conv is an implicit GEMM on mma.sync: a block owns a
+// card idle. Design 0 (this file; w [K, K, Cin, Cout]) is an implicit GEMM
+// on mma.sync over pixel patches: a block owns a
 // 16 x 16 (or, for K = 1 and for images of up to 8 rows, 8 x 16) patch of
 // output pixels of one image and 64 output channels, a warp two patch rows,
 // and walks Cin in chunks of KC (32 in bf16, 16 in fp32). For a chunk it
@@ -60,14 +67,18 @@
 // x, w, skip and y once each) for every shape of the UNet and the first
 // stage; the 1 x 1 convs at small Cin and the stem are close to or on the
 // bytes side. Shared memory a block, K = 3, 16 x 16 patch: 67,392 bytes in
-// either type, plus 2 Cin floats with the norm. This first version loads
-// synchronously and single-buffered, re-reads the input patch once per 64
-// output channels and masks a last, partly empty channel tile (Cout = 160
-// wastes a sixth); cp.async / TMA pipelining, wgmma and a channel tile that
-// divides Cout are later work.
+// either type, plus 2 Cin floats with the norm. Design 0 loads synchronously
+// and single-buffered, re-reads the input patch once per 64 output channels
+// and masks a last, partly empty channel tile (Cout = 160 wastes a sixth),
+// but normalises each halo element once for all nine taps: at the first
+// stage's 64 x 64 and wider normed 3 x 3 convs that still beats the
+// wgmma designs (the A/B in PERF.md's kernel table), which is where the
+// plan keeps it, with the stems (Cin = 3 or 9, which 16-byte copies do not
+// take).
 #pragma once
 
 #include "attention_f32.cuh"
+#include "conv_igemm.cuh"
 #include "mma_tiles.cuh"
 
 // Internal linkage: each translation unit that includes this header (one a
@@ -515,18 +526,20 @@ int launch(const T* x, const T* w, const float* bias, const T* skip,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The C entry points' common body: the shape checks, then the instantiation
-// for (K, input norm, patch rows).
+// The C entry points' common body: the shape checks, then design 1 (the
+// implicit GEMM of conv_igemm.cuh; w [Cout, K, K, Cin]) or design 0 (pixel
+// patches, this file; w [K, K, Cin, Cout]) as the caller's plan says.
 template <typename T>
 int dispatch(const void* x, const void* w, const void* bias, const void* skip,
              const void* in_sum, const void* in_sq, const void* gamma,
              const void* beta, void* y, void* partial, void* sums, int b,
-             int hh, int ww, int cin, int cout, int ksize, int tile_rows,
-             int groups, float eps, int silu, void* stream) {
+             int hh, int ww, int cin, int cout, int ksize, int design,
+             int tile_rows, int block_n, int splits, int groups, float eps,
+             int silu, void* stream) {
   const bool gn = in_sum != nullptr;
   if (b < 1 || b > 65535 || hh < 1 || ww < 1 || cin < 1 || cout < 8 ||
       cout % 8 != 0 || (ksize != 1 && ksize != 3) ||
-      (tile_rows != 8 && !(tile_rows == 16 && ksize == 3)))
+      design < 0 || design > 3)
     return -1;
   if (gn && (in_sq == nullptr || gamma == nullptr || beta == nullptr ||
              groups < 1 || groups > MAX_GROUPS || cin % groups != 0))
@@ -537,6 +550,12 @@ int dispatch(const void* x, const void* w, const void* bias, const void* skip,
   T* yo = static_cast<T*>(y);
   float* pa = static_cast<float*>(partial);
   float* su = static_cast<float*>(sums);
+  if (design > 0)
+    return ig_dispatch<T>(ct(x), ct(w), cf(bias), ct(skip), cf(in_sum),
+                          cf(in_sq), cf(gamma), cf(beta), yo, pa, su, b, hh,
+                          ww, cin, cout, ksize, block_n, splits, groups, eps,
+                          silu, design >= 2 ? design - 1 : 0, s);
+  if (tile_rows != 8 && !(tile_rows == 16 && ksize == 3)) return -1;
 #define DSML_CONV_LAUNCH(KS, GN, TH)                                    \
   launch<T, KS, GN, TH>(ct(x), ct(w), cf(bias), ct(skip), cf(in_sum),   \
                         cf(in_sq), cf(gamma), cf(beta), yo, pa, su, b, hh, \

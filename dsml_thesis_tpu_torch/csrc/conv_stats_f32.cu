@@ -12,9 +12,11 @@ extern "C" int dsml_conv_stats_f32(const void* x, const void* w,
                                    const void* gamma, const void* beta,
                                    void* y, void* partial, void* sums, int b,
                                    int hh, int ww, int cin, int cout,
-                                   int ksize, int tile_rows, int groups,
+                                   int ksize, int design, int tile_rows,
+                                   int block_n, int splits, int groups,
                                    float eps, int silu, void* stream) {
   return conv::dispatch<float>(x, w, bias, skip, in_sum, in_sq, gamma, beta, y,
                                partial, sums, b, hh, ww, cin, cout, ksize,
-                               tile_rows, groups, eps, silu, stream);
+                               design, tile_rows, block_n, splits, groups,
+                               eps, silu, stream);
 }

@@ -36,12 +36,26 @@
 // from device memory; at the UNet's shapes (up to 63 MB a tensor) the second
 // read mostly finds x in the 50 MB L2 cache, at the first stage's fp32 shapes
 // (up to 134 MB) much of it does not.
+//
+// The whole-row op has a second design for small rows: the cluster
+// (gn_cluster_kernel, chosen by ops/groupnorm.py:gn_plan for rows of up to
+// 192 Ki elements that eight blocks' shared memory holds). One launch
+// instead of three, no scratch, x read once: a thread-block cluster of 8
+// serves one batch element, each block copies its rows into shared memory
+// (cp.async), sums them per channel, the blocks add the cluster's partial
+// sums in rank order through distributed shared memory, fold them into the
+// groups exactly as the apply kernel does and normalise their rows from
+// shared memory. Its phases run one after another in one block an SM, so at
+// the device it only matches the three passes at the rows it takes (0.0146
+// against 0.0166 ms at [16,1024,160] fp32, 0.0168 against 0.0150 at
+// [16,64,1280]) and loses past them (0.0291 against 0.0216 at [16,256,960];
+// tools/variants.py, H100 SXM at 700 W); its gain is the host's: one launch
+// and no allocation a call where the three passes issue three and two.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-
-typedef __nv_bfloat16 bf16;
+#include "hopper_tiles.cuh"
 
 constexpr int GN_THREADS = 256;
 
@@ -226,6 +240,164 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ sums,
   }
 }
 
+// The cluster design (see the note at the top): a cluster of `cluster`
+// blocks serves one batch element; block `rank` holds rows rank * rpb ..
+// (rpb = rows_per_block) of it in shared memory from one cp.async pass, sums
+// them per channel (row lanes in shared memory, added in lane order), the
+// blocks add the cluster's partial sums in rank order through distributed
+// shared memory (every block the same sums in the same order), fold them
+// into the groups' mean and rstd as gn_apply_kernel does, and each block
+// normalises its rows from shared memory and writes them.
+constexpr int GNC_THREADS = 512;  // threads of a cluster block
+
+template <typename T>
+__host__ __device__ constexpr int gn_cluster_smem(int rpb, int c, int groups) {
+  // rows, then fp32: partial [2][c], sums [2][c], per channel mean, rstd,
+  // gamma, beta [4][c], group mean and rstd [2][groups] (rounded up to 16
+  // bytes), row-lane sums [2][rl][c]
+  return rpb * c * static_cast<int>(sizeof(T)) +
+         4 * (8 * c + (2 * groups + 3) / 4 * 4 +
+              2 * (GNC_THREADS / (c / Vec<T>::N < GNC_THREADS
+                                      ? c / Vec<T>::N
+                                      : GNC_THREADS)) * c);
+}
+
+template <typename T, bool PARAMS_BF16, bool SILU>
+__global__ void __launch_bounds__(GNC_THREADS)
+gn_cluster_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
+                  const void* __restrict__ beta, T* __restrict__ y, int n,
+                  int c, int groups, int cluster, int rpb, float inv_count,
+                  float eps) {
+  constexpr int VEC = Vec<T>::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x % cluster;
+  const int b = blockIdx.x / cluster;
+  const int r0 = min(n, rank * rpb);
+  const int rows = min(n, r0 + rpb) - r0;
+  const int cvs = c / VEC;
+  const int nvec = rows * cvs;
+  T* sx = reinterpret_cast<T*>(smem);
+  float* part = reinterpret_cast<float*>(smem + static_cast<int64_t>(rpb) *
+                                                    c * sizeof(T));
+  float* tot = part + 2 * c;
+  float* chan = tot + 2 * c;  // mean, rstd, gamma, beta of each channel
+  float* g_stats = chan + 4 * c;
+  float* red = g_stats + (2 * groups + 3) / 4 * 4;
+  const int64_t base = (static_cast<int64_t>(b) * n + r0) * c;
+
+  for (int i = tid; i < nvec; i += GNC_THREADS)
+    hopper::cp_async16(hopper::cvta(sx + static_cast<int64_t>(i) * VEC),
+                       x + base + static_cast<int64_t>(i) * VEC, true);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+  for (int ch = tid; ch < c; ch += GNC_THREADS) {
+    chan[2 * c + ch] = param<PARAMS_BF16>(gamma, ch);
+    chan[3 * c + ch] = param<PARAMS_BF16>(beta, ch);
+  }
+  __syncthreads();
+
+  // a thread's column vector and row lane, in the sums and in the apply:
+  // cvb column vectors (VEC channels each) x rl row lanes (a thread walks
+  // several column vectors only where there are more of them than threads,
+  // and then rl = 1)
+  const int cvb = cvs < GNC_THREADS ? cvs : GNC_THREADS;
+  const int rl = GNC_THREADS / cvb;
+  const int lane = tid / cvb;
+  if (lane < rl) {
+    for (int cv = tid % cvb; cv < cvs; cv += cvb) {
+      float s[VEC], sq[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s[j] = sq[j] = 0.f;
+      for (int r = lane; r < rows; r += rl) {
+        float f[VEC];
+        Vec<T>::load(sx + static_cast<int64_t>(r) * c + cv * VEC, f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          s[j] += f[j];
+          sq[j] += f[j] * f[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4) {
+        *reinterpret_cast<float4*>(red + lane * c + cv * VEC + j) =
+            make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+        *reinterpret_cast<float4*>(red + (rl + lane) * c + cv * VEC + j) =
+            make_float4(sq[j], sq[j + 1], sq[j + 2], sq[j + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * c; i += GNC_THREADS) {
+    const float* src = red + (i / c) * rl * c + i % c;
+    float t = 0.f;
+    for (int l = 0; l < rl; ++l) t += src[l * c];
+    part[i] = t;
+  }
+  hopper::cluster_arrive();
+  hopper::cluster_wait();  // every block's partial sums are in
+  for (int i = tid; i < c / 2; i += GNC_THREADS) {  // float4s of [2][c]
+    const uint32_t addr = hopper::cvta(part + 4 * i);
+    uint4 u = hopper::ld_cluster16(hopper::map_rank(addr, 0));
+    float4 t = make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                           __uint_as_float(u.z), __uint_as_float(u.w));
+    for (int k = 1; k < cluster; ++k) {
+      u = hopper::ld_cluster16(hopper::map_rank(addr, k));
+      t.x += __uint_as_float(u.x);
+      t.y += __uint_as_float(u.y);
+      t.z += __uint_as_float(u.z);
+      t.w += __uint_as_float(u.w);
+    }
+    *reinterpret_cast<float4*>(tot + 4 * i) = t;
+  }
+  hopper::cluster_arrive();  // done reading the other blocks (waited at exit)
+  __syncthreads();
+  const int cg = c / groups;
+  for (int g = tid; g < groups; g += GNC_THREADS) {
+    float s = 0.f, q = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      s += tot[g * cg + j];
+      q += tot[c + g * cg + j];
+    }
+    const float mean = s * inv_count;
+    const float var = fmaxf(q * inv_count - mean * mean, 0.f);
+    g_stats[g] = mean;
+    g_stats[groups + g] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  for (int ch = tid; ch < c; ch += GNC_THREADS) {
+    chan[ch] = g_stats[ch / cg];
+    chan[c + ch] = g_stats[groups + ch / cg];
+  }
+  __syncthreads();
+
+  if (lane < rl) {
+    for (int cv = tid % cvb; cv < cvs; cv += cvb) {
+      float mean[VEC], rstd[VEC], ga[VEC], be[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int ch = cv * VEC + j;
+        mean[j] = chan[ch];
+        rstd[j] = chan[c + ch];
+        ga[j] = chan[2 * c + ch];
+        be[j] = chan[3 * c + ch];
+      }
+      for (int r = lane; r < rows; r += rl) {
+        const int64_t off = static_cast<int64_t>(r) * c + cv * VEC;
+        float f[VEC];
+        Vec<T>::load(sx + off, f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float t = (f[j] - mean[j]) * rstd[j] * ga[j] + be[j];
+          if (SILU) t = t / (1.f + expf(-t));
+          f[j] = t;
+        }
+        Vec<T>::store(y + base + off, f);
+      }
+    }
+  }
+  hopper::cluster_wait();
+}
+
 // The statistics pass: partial sums, then the fixed-order finish.
 template <typename T>
 static int launch_stats(const T* x, float* partial, float* sums, int b, int n,
@@ -261,10 +433,30 @@ static int channel_stats(const void* x, void* partial, void* sums, int b,
 template <typename T>
 static int group_norm_silu(const void* x, const void* gamma, const void* beta,
                            void* partial, void* sums, void* y, int b, int n,
-                           int c, int groups, int chunks, float eps, int silu,
-                           int params_bf16, void* stream) {
+                           int c, int groups, int chunks, int cluster,
+                           float eps, int silu, int params_bf16,
+                           void* stream) {
   if (groups < 1 || c % groups != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float inv_count =
+      1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
+  if (cluster > 0) {
+    const int rpb = (n + cluster - 1) / cluster;
+    const int smem = gn_cluster_smem<T>(rpb, c, groups);
+    if (cluster > 8 || b < 1 || c < Vec<T>::N || c % Vec<T>::N != 0 ||
+        smem > 232448 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0)
+      return -1;
+    auto kernel = silu ? gn_cluster_kernel<T, false, true>
+                       : gn_cluster_kernel<T, false, false>;
+    if (params_bf16)
+      kernel = silu ? gn_cluster_kernel<T, true, true>
+                    : gn_cluster_kernel<T, true, false>;
+    return hopper::launch_cluster_grid(
+        kernel, b * cluster, GNC_THREADS, smem, cluster, s,
+        static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), n, c,
+        groups, cluster, rpb, inv_count, eps);
+  }
   dim3 grid;
   int rows_per_chunk;
   int err = launch_stats(static_cast<const T*>(x),
@@ -279,8 +471,6 @@ static int group_norm_silu(const void* x, const void* gamma, const void* beta,
   if (params_bf16)
     kernel = silu ? gn_apply_kernel<T, true, true>
                   : gn_apply_kernel<T, true, false>;
-  const float inv_count =
-      1.f / (static_cast<float>(n) * static_cast<float>(c / groups));
   kernel<<<grid, GN_THREADS, 2 * groups * sizeof(float), s>>>(
       static_cast<const T*>(x), static_cast<const float*>(sums), gamma, beta,
       static_cast<T*>(y), b, n, c, groups, rows_per_chunk, inv_count, eps);
@@ -305,24 +495,27 @@ extern "C" int dsml_gn_channel_stats_f32(const void* x, void* partial,
 }
 
 // x, y [B, N, C] bf16 (the _f32 entry: fp32); gamma, beta [C], bf16 if
-// params_bf16 else fp32; partial and sums as above
+// params_bf16 else fp32. cluster > 0 (ops/groupnorm.py:gn_plan): the
+// cluster design, `cluster` blocks (at most 8) a batch row, partial and sums
+// unused; cluster = 0: the three passes, with partial and sums as above
 // (scratch). Also needs C % groups == 0.
 extern "C" int dsml_group_norm_silu(const void* x, const void* gamma,
                                     const void* beta, void* partial, void* sums,
                                     void* y, int b, int n, int c, int groups,
-                                    int chunks, float eps, int silu,
-                                    int params_bf16, void* stream) {
+                                    int chunks, int cluster, float eps,
+                                    int silu, int params_bf16, void* stream) {
   return group_norm_silu<bf16>(x, gamma, beta, partial, sums, y, b, n, c,
-                               groups, chunks, eps, silu, params_bf16, stream);
+                               groups, chunks, cluster, eps, silu, params_bf16,
+                               stream);
 }
 
 extern "C" int dsml_group_norm_silu_f32(const void* x, const void* gamma,
                                         const void* beta, void* partial,
                                         void* sums, void* y, int b, int n,
                                         int c, int groups, int chunks,
-                                        float eps, int silu, int params_bf16,
-                                        void* stream) {
+                                        int cluster, float eps, int silu,
+                                        int params_bf16, void* stream) {
   return group_norm_silu<float>(x, gamma, beta, partial, sums, y, b, n, c,
-                                groups, chunks, eps, silu, params_bf16,
-                                stream);
+                                groups, chunks, cluster, eps, silu,
+                                params_bf16, stream);
 }

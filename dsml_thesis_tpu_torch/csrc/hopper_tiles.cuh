@@ -882,18 +882,19 @@ inline int head_groups(int heads, int c, int max_groups, int unit) {
   return 1;
 }
 
-// Launches kernel(args...) on `blocks` blocks of ATT_THREADS threads with
+// Launches kernel(args...) on `blocks` blocks of `threads` threads with
 // smem bytes of dynamic shared memory, in clusters of `cluster` consecutive
 // blocks. Returns the CUDA error of the launch (0 = launched).
 template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
-                    int cluster, cudaStream_t stream, Args... args) {
+int launch_cluster_grid(void (*kernel)(Params...), int blocks, int threads,
+                        int smem, int cluster, cudaStream_t stream,
+                        Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(ATT_THREADS);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -906,6 +907,14 @@ int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same on blocks of ATT_THREADS threads.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int blocks, int smem,
+                    int cluster, cudaStream_t stream, Args... args) {
+  return launch_cluster_grid(kernel, blocks, ATT_THREADS, smem, cluster,
+                             stream, args...);
 }
 
 }  // namespace hopper

@@ -87,10 +87,14 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """NCHW conv computing in ``dtype``."""
+    """NCHW conv computing in ``dtype``. The weight lies in ``channels_last``
+    memory, [Cout, K, K, Cin] as ``conv_stats``' implicit GEMM reads it, so
+    that ``fused_conv`` hands it over without a copy."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0, dtype=None):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding)
+        self.weight = nn.Parameter(
+            self.weight.detach().contiguous(memory_format=torch.channels_last))
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -141,8 +145,10 @@ def fused_conv(conv, x, bias=None, skip=None, in_stats=None,
     input, run as one with their outputs side by side. ``bias`` replaces the
     conv's own with a per-batch one [B, Cout] fp32; with ``in_stats`` the
     input is normalized by ``norm`` from those statistics inside the op. The
-    weight is brought to the op's [K, K, Cin, Cout] layout here, one copy a
-    call."""
+    weight goes to the op as a [K, K, Cin, Cout] view of the channels_last
+    Conv2d weight: the implicit GEMM reads it as it lies (copies remain
+    where several convs are concatenated or the weight is cast to the
+    compute type, and in the pixel-patch design of the stems)."""
     convs = conv if isinstance(conv, (tuple, list)) else (conv,)
     dt = _compute_dtype(convs[0].compute_dtype, x, convs[0].weight)
     nhwc = lambda t: t.to(dt).permute(0, 2, 3, 1)

@@ -30,7 +30,7 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
 HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_fwd.cuh",
            "hopper_bwd.cuh", "attention_f32.cuh", "attention_f32_narrow.cuh",
-           "conv_stats.cuh")
+           "conv_stats.cuh", "conv_igemm.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes argument types of every C entry point of the library, in the order
@@ -45,9 +45,9 @@ SIGNATURES = {
     "dsml_flash_attention_qout": [_P] * 7 + [_I] * 6 + [_F, _P],
     "dsml_flash_attention_streaming": [_P] * 6 + [_I] * 5 + [_F, _P],
     "dsml_flash_attention_streaming_bwd": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
-    "dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
+    "dsml_conv_stats": [_P] * 11 + [_I] * 11 + [_F, _I, _P],
     "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P],
-    "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
+    "dsml_group_norm_silu": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
 }
 # the fp32 instantiations (D = 512 attention and first-stage training's
 # GroupNorm and conv kernels; D = 32 attention of the fp32 UNet) take the

@@ -13,9 +13,17 @@ and the apply that normalizes from such statistics.
     cast to x's type, and the per-channel sum and sum of squares of the values
     as stored. With ``in_stats`` the input is first GroupNorm(+SiLU)-normalized
     from those channel sums, and the zero border of the conv is applied after
-    that. Bound by operations; an implicit GEMM over 16 x 16 pixel patches.
-    The layouts are the JAX package's (NHWC, HWIO): a caller that holds
-    ``torch.nn.Conv2d`` weights permutes them once a call.
+    that. Bound by operations. Four designs, chosen a call by ``conv_plan``
+    from the A/B on the card: pixel patches on mma.sync (0: the stems, and
+    the normed 3 x 3 convs of images wider than 32 pixels), and the implicit
+    GEMM over flattened output pixels on wgmma (``conv_igemm.cuh``): A
+    straight from device memory (1: the 1 x 1 and unnormed convs), or, for a
+    normed 3 x 3 conv, from a strip of input rows normalised once a chunk
+    (2: one block an SM; 3: two). The public layouts are the JAX package's
+    (NHWC, HWIO); designs 1-3 read the weight as [Cout, K, K, Cin], which is
+    ``w.permute(3, 0, 1, 2)``: no copy where that view is contiguous (a
+    ``channels_last`` Conv2d weight, as the port's are), else one copy a
+    call.
 
 Types. x, w and skip are of one type, bf16 (the UNet; the first stage in
 sampling) or fp32 (first-stage training), on every device: a mixed call
@@ -46,6 +54,8 @@ reference: no TPU kernel stands behind that backward.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -55,9 +65,20 @@ from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
                       current_stream, raise_on_error, typed_entry)
 from .groupnorm import group_norm_silu_from_stats
 
-CONV_TILE_W = 16                   # output columns of a block (conv_stats.cu)
+CONV_TILE_W = 16                   # output columns of a design-0 block
 CONV_MIN_COUT = 32                 # narrower outputs take the plain conv
 CONV_MAX_GROUPS = 64               # groups of the input norm the kernel takes
+NUM_SMS = 132                      # of an H100 SXM
+SMEM_LIMIT = 232448                # bytes of shared memory a block may use
+SMEM_TWO_BLOCKS = 115712           # ... and of each of two blocks an SM
+# the implicit GEMM (conv_igemm.cuh): pixels a block, design 1's ring stages,
+# bytes of a tile row, the output-channel tiles, the most splits of K
+IG_BM, IG_STAGES, IG_ROWB = 128, 3, 128
+IG_BLOCK_N = (160, 128, 64)
+# the strip designs: (B tiles of the ring, A tiles), one block an SM (2) or
+# two (3) (conv_igemm.cuh:StripShape)
+IG_STRIP = {2: (4, 2), 3: (2, 1)}
+IG_MAX_SPLITS = 8
 
 group_norm_silu_apply = group_norm_silu_from_stats
 
@@ -104,20 +125,135 @@ def conv_stats_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def conv_tile_rows(hh: int, ksize: int) -> int:
-    """Output rows of a block's patch in the kernel: 16 for a 3x3 conv, 8 for
+    """Output rows of a block's patch in design 0: 16 for a 3x3 conv, 8 for
     a 1x1 conv (too little work a chunk for eight warps) and for an image of
     up to 8 rows (half of a 16-row block's warps would own no pixel)."""
     return 16 if ksize == 3 and hh > 8 else 8
 
 
+def ig_images(sl: int, hw: int, batch: int) -> int:
+    """Images that ``sl`` consecutive flattened pixels can touch
+    (``conv_igemm.cuh:ig_images``)."""
+    return min(batch, (sl - 2 + hw) // hw + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How the kernel runs one call: ``design`` 1-3 (implicit GEMM; 2 and 3
+    with the strip) with ``block_n`` output channels a block and K cut into
+    ``splits`` ranges, or design 0 (pixel patches) with ``tile_rows`` patch
+    rows; ``smem`` the bytes of shared memory a block, ``partial`` the shape
+    of the fp32 scratch of the statistics."""
+    design: int
+    tile_rows: int
+    block_n: int
+    splits: int
+    smem: int
+    partial: Tuple[int, ...]
+
+    def k_ranges(self, ksize: int, cin: int, kc: int):
+        """The k-tiles [start, stop) of each split, as the kernel cuts them:
+        design 1 cuts the k-tiles, designs 2 and 3 whole chunks of nine."""
+        chunks = -(-cin // kc)
+        if self.design >= 2:
+            return [(9 * (r * chunks // self.splits),
+                     9 * ((r + 1) * chunks // self.splits))
+                    for r in range(self.splits)]
+        total = ksize * ksize * chunks
+        return [(r * total // self.splits, (r + 1) * total // self.splits)
+                for r in range(self.splits)]
+
+
+def ig_k_chunk(dtype: torch.dtype) -> int:
+    """Channels of a k-tile of the implicit GEMM: a 128-byte row."""
+    return IG_ROWB // (2 if dtype == torch.bfloat16 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, hh: int, ww: int, cin: int, cout: int, ksize: int,
+              dtype: torch.dtype, norm: bool = False, num_groups: int = 32,
+              designs: Tuple[int, ...] = (0, 1, 2, 3)) -> ConvPlan:
+    """The design of one call, among ``designs``, as the A/B of the designs
+    on an H100 ranked them (``PERF.md``, kernel table):
+
+    * pixel patches (0) where 16-byte copies do not take Cin (the stems: not
+      a multiple of 8 bf16 or 4 fp32 channels);
+    * a 3 x 3 conv with the input norm on image rows of at most 32 pixels:
+      the strip, two blocks an SM (3) at the 8 x 8 level of a served batch
+      (at most 32 output tiles) and where the output tiles fill two blocks
+      on every SM and the smaller block fits, else one block an SM (2) where
+      the strip is normalised at most W x N tiles <= 64 times over; pixel
+      patches (0) for the rest, which normalise a halo tile once for all
+      nine taps;
+    * everything else: the implicit GEMM (1).
+
+    Designs 1-3 take the widest output-channel tile that divides Cout (else
+    64, masked) and split K in two until the blocks would pass the SMs'
+    (two blocks an SM in designs 1 and 3, one in 2), a split would hold
+    fewer than four k-tiles, or (2, 3) fewer than two chunks."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    hw = hh * ww
+    bn = next((n for n in IG_BLOCK_N if cout % n == 0), 64)
+    m_tiles = -(-b * hw // IG_BM)
+    n_tiles = -(-cout // bn)
+    chunks = -(-cin // ig_k_chunk(dtype))
+    gn_bytes = lambda rows: (ig_images(rows, hw, b) * 2 * num_groups * 4
+                             if norm else 0)
+    rows = IG_BM + 2 * ww + 2
+    strips = 2 * -(-rows * IG_ROWB // 1024) * 1024 + 1024 + gn_bytes(rows)
+    vec = cin % (16 // esize) == 0
+    smem = {0: None, 1: IG_STAGES * (IG_BM + bn) * IG_ROWB + 1024
+            + gn_bytes(IG_BM)}
+    for d, (stages, a_tiles) in IG_STRIP.items():
+        smem[d] = strips + (stages * bn + a_tiles * IG_BM) * IG_ROWB
+    takes = {0: True, 1: vec,
+             2: vec and ksize == 3 and smem[2] <= SMEM_LIMIT,
+             3: vec and ksize == 3 and smem[3] <= SMEM_TWO_BLOCKS}
+    if ksize == 3 and norm:
+        two = ((ww <= 8 and m_tiles * n_tiles <= 32)
+               or m_tiles * n_tiles >= 2 * NUM_SMS)
+        if ww <= 32 and ww * n_tiles <= 64:
+            order = (3, 2, 0, 1) if two else (2, 3, 0, 1)
+        elif ww <= 32 and two:
+            order = (3, 0, 2, 1)
+        else:
+            order = (0, 2, 3, 1)
+    else:
+        order = (1, 0, 2, 3)
+    design = next(d for d in order if d in designs and takes[d])
+    if design == 0:
+        rows0 = conv_tile_rows(hh, ksize)
+        halo = (rows0 + ksize - 1) * (CONV_TILE_W + ksize - 1)
+        kc, padx, s_size = (32, 8, 2) if esize == 2 else (16, 4, 4)
+        smem0 = (halo * (kc + padx) + ksize * ksize * kc * (64 + 8)) * s_size
+        if norm:
+            smem0 += 2 * -(-cin // 8) * 8 * 4
+        tiles = -(-hh // rows0) * -(-ww // CONV_TILE_W)
+        return ConvPlan(0, rows0, 0, 1, smem0, (b, tiles, 2, cout))
+    per_sm = 1 if design == 2 else 2
+    splits = 1
+    while (splits < IG_MAX_SPLITS
+           and m_tiles * n_tiles * splits * 2 <= per_sm * NUM_SMS
+           and ksize * ksize * chunks >= 4 * splits * 2
+           and (design == 1 or chunks >= 2 * splits * 2)):
+        splits *= 2
+    return ConvPlan(design, 0, bn, splits, smem[design],
+                    (m_tiles * splits, ig_images(IG_BM // splits, hw, b), 2,
+                     cout))
+
+
 def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
                        eps, silu_in):
-    """Check, launch and count the kernel."""
+    """Check, launch and count the kernel. w [K, K, Cin, Cout]; designs 1-3
+    read it as [Cout, K, K, Cin]."""
     b, hh, ww, cin = x.shape
     ksize, cout = w.shape[0], w.shape[-1]
     f32 = (torch.float32,)
+    plan = conv_plan(b, hh, ww, cin, cout, ksize, x.dtype,
+                     in_stats is not None, num_groups)
+    wk = (w.permute(3, 0, 1, 2) if plan.design else w).contiguous()
     check_cuda_operand("x", x, x, ACTIVATION_DTYPES)
-    check_cuda_operand("w", w, x, (x.dtype,))
+    check_cuda_operand("w", wk, x, (x.dtype,))
     check_cuda_operand("bias", bias, x, f32)
     if skip is not None:
         check_cuda_operand("skip", skip, x, (x.dtype,))
@@ -136,18 +272,15 @@ def _launch_conv_stats(x, w, bias, skip, in_stats, gamma, beta, num_groups,
     from . import _build
 
     launch = getattr(_build.load(), typed_entry("dsml_conv_stats", x))
-    rows = conv_tile_rows(hh, ksize)
-    tiles = -(-hh // rows) * -(-ww // CONV_TILE_W)
     y = torch.empty((b, hh, ww, cout), dtype=x.dtype, device=x.device)
-    partial = torch.empty((b, tiles, 2, cout), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty(plan.partial, dtype=torch.float32, device=x.device)
     sums = torch.empty((2, b, cout), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     code = launch(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(skip), *map(ptr, null),
-        y.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, hh, ww, cin,
-        cout, ksize, rows, num_groups, float(eps), int(silu_in),
-        current_stream(x))
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), ptr(skip),
+        *map(ptr, null), y.data_ptr(), partial.data_ptr(), sums.data_ptr(), b,
+        hh, ww, cin, cout, ksize, plan.design, plan.tile_rows, plan.block_n,
+        plan.splits, num_groups, float(eps), int(silu_in), current_stream(x))
     raise_on_error(code, "conv_stats")
     LAUNCHES["conv_stats"] += 1
     return y, sums[0], sums[1]
@@ -225,8 +358,8 @@ def conv_stats(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     s1, s2 = in_stats if in_stats is not None else (None, None)
     if in_stats is None:
         gamma = beta = None
-    return _ConvStats.apply(num_groups, eps, silu_in, x.contiguous(),
-                            w.contiguous(), bias.contiguous(),
+    return _ConvStats.apply(num_groups, eps, silu_in, x.contiguous(), w,
+                            bias.contiguous(),
                             None if skip is None else skip.contiguous(),
                             s1, s2, gamma, beta)
 

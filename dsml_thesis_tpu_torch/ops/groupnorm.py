@@ -7,9 +7,14 @@ kernel followed by a plain apply).
     kernel ``csrc/group_norm.cu`` (``dsml_group_norm_silu``, fp32:
     ``dsml_group_norm_silu_f32``); replaces the TPU kernel
     ``dsml_thesis_tpu/ops/groupnorm.py:_gn_kernel``
-    (``group_norm_silu_pallas``). Bound by bytes; statistics pass and apply
-    pass in one launch, reduced per channel so that C/G = 5 costs nothing.
-    Takes every row size (the TPU kernel's 8 MB limit is not carried over).
+    (``group_norm_silu_pallas``). Bound by bytes; reduced per channel so
+    that C/G = 5 costs nothing. A batch row of up to 192 Ki elements (the
+    fp32 rows of mead-128-ldm-f4's 8 x 8 and 32 x 32 levels) takes one
+    launch in a cluster of 8 blocks (``gn_plan``: read once into shared
+    memory, summed through distributed shared memory, normalised from shared
+    memory, no scratch); a larger one three (partial sums, a fixed-order
+    finish, the apply). Takes every row size (the TPU kernel's 8 MB limit is
+    not carried over).
 
 ``gn_channel_stats``        x [B, N, C] -> (sum, sum of squares), [B, C] fp32
     kernel ``csrc/group_norm.cu`` (``dsml_gn_channel_stats``, fp32:
@@ -40,6 +45,7 @@ are that backward's true counterpart: no TPU kernel stands behind it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -49,6 +55,10 @@ from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
                       current_stream, raise_on_error, typed_entry)
 
 GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
+GNC_THREADS = 512           # threads of a cluster block (group_norm.cu)
+GN_CLUSTER = 8              # blocks of a cluster a batch row, where it fits
+GN_CLUSTER_ELEMENTS = 196608   # the largest row the cluster takes
+SMEM_LIMIT = 232448         # bytes of shared memory a block may use
 PARAM_DTYPES = (torch.float32, torch.bfloat16)   # of gamma / beta
 
 
@@ -153,6 +163,28 @@ def gn_chunks(n: int, c: int) -> int:
     return (n + rows - 1) // rows
 
 
+def gn_cluster_smem(rows: int, c: int, dtype: torch.dtype,
+                    num_groups: int = 32) -> int:
+    """Bytes of shared memory of a cluster block that holds ``rows`` rows
+    (``group_norm.cu:gn_cluster_smem``)."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    cvs = c * esize // 16
+    lanes = GNC_THREADS // min(cvs, GNC_THREADS)
+    return rows * c * esize + 4 * (8 * c + -(-2 * num_groups // 4) * 4
+                                   + 2 * lanes * c)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n: int, c: int, dtype: torch.dtype, num_groups: int = 32) -> int:
+    """Blocks of the cluster that takes a batch row of n x c, or 0 for the
+    three passes: the cluster where the row fits eight blocks' shared memory
+    and holds at most ``GN_CLUSTER_ELEMENTS`` elements (past that the three
+    passes were the faster in the A/B on an H100: ``PERF.md``)."""
+    rows = -(-n // GN_CLUSTER)
+    fits = gn_cluster_smem(rows, c, dtype, num_groups) <= SMEM_LIMIT
+    return GN_CLUSTER if fits and n * c <= GN_CLUSTER_ELEMENTS else 0
+
+
 def _stats_scratch(x3: torch.Tensor, chunks: int):
     b, _, c = x3.shape
     f32 = dict(dtype=torch.float32, device=x3.device)
@@ -227,12 +259,16 @@ def _whole_row_forward(x, gamma, beta, num_groups, eps, silu):
     launch = getattr(_build.load(), typed_entry("dsml_group_norm_silu", x))
     x3 = x.reshape(b, -1, c)
     n = x3.shape[1]
+    cluster = gn_plan(n, c, x.dtype, num_groups)
     chunks = gn_chunks(n, c)
-    partial, sums = _stats_scratch(x3, chunks)
+    partial = sums = None
+    if not cluster:
+        partial, sums = _stats_scratch(x3, chunks)
+    ptr = lambda t: None if t is None else t.data_ptr()
     out = torch.empty_like(x)
     code = launch(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
-        sums.data_ptr(), out.data_ptr(), b, n, c, num_groups, chunks,
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(partial),
+        ptr(sums), out.data_ptr(), b, n, c, num_groups, chunks, cluster,
         float(eps), int(silu), int(gamma.dtype == torch.bfloat16),
         current_stream(x))
     raise_on_error(code, "group_norm_silu_kernel")

@@ -27,10 +27,30 @@ calls, in three rounds of the variants in turns (a, b, b, a); the median is
 printed ("not taken" where a variant's entry returns -1 for the shape, as an
 earlier design does for a head width it lacks). Needs a CUDA device and
 nvcc.
+
+    python -m dsml_thesis_tpu_torch.tools.variants --conv-gn [--only TEXT] \
+        '{"parent": [["conv_stats.cuh", "", "_ab/parent/.../conv_stats.cuh"],
+                     ...], "new": []}'
+
+``--conv-gn`` builds ``conv_stats.cu``, ``conv_stats_f32.cu`` and
+``group_norm.cu`` alone and times rows 11 and 9 instead: the conv + statistics
+op at its plan at mead-128-ldm-f4's, the headline config's and the first
+stage's shapes, each normed 3 x 3 shape also forced into each design
+(``design d``), and a few forced split counts; the whole-row GroupNorm at
+mead-128's, the headline's and the first stage's rows at its plan and forced
+into the cluster of 8 blocks and into the three passes (``cluster 0``).
+A variant whose ``conv_stats.cu`` / ``group_norm.cu`` declare no plan
+arguments (a parent tree before the plans came in) is called with the legacy
+arguments, at its own weight layout, and takes forced cases as "not taken".
+Each case also reports ``device_ms``, the summed device time of the kernels
+of a call under torch.profiler (host issue left out). ``--only`` times only
+the cases whose name holds the text. The fp32 references run with cuDNN's
+TF32 off.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -41,20 +61,35 @@ import torch
 
 from ..ops import _build
 from ..ops import attention as A
+from ..ops import conv_gn as C
+from ..ops import groupnorm as G
 
 ROOT = os.path.realpath(os.path.dirname(_build.PKG_DIR))
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
            "flash_attention_fproj.cu", "flash_attention_packed.cu",
            "flash_attention_bwd_packed.cu", "flash_attention_qout.cu",
-           "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu")
+           "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
+           "conv_stats.cu", "conv_stats_f32.cu", "group_norm.cu")
 ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_bwd",
            "dsml_flash_attention_fproj", "dsml_flash_attention_packed",
            "dsml_flash_attention_bwd_packed", "dsml_flash_attention_qout",
            "dsml_flash_attention_streaming",
-           "dsml_flash_attention_streaming_bwd")
+           "dsml_flash_attention_streaming_bwd", "dsml_conv_stats",
+           "dsml_conv_stats_f32", "dsml_group_norm_silu",
+           "dsml_group_norm_silu_f32")
+# the arguments of the conv + statistics and GroupNorm entries before their
+# plans (design / tile rows / channel tile / splits, and cluster blocks)
+# came in: a variant whose sources declare no plan is called this way
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LEGACY = {"dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
+          "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]}
+LEGACY.update({k + "_f32": v for k, v in list(LEGACY.items())})
+# what --conv-gn builds and times
+CONV_GN_SOURCES = SOURCES[-3:]
+CONV_GN_ENTRIES = ENTRIES[-4:]
 
 
-def build(variants: dict) -> dict:
+def build(variants: dict, sources=SOURCES, entries=ENTRIES) -> dict:
     """name -> loaded library of every variant not named ``c_*``."""
     root = os.path.join(_build.BUILD_DIR, "variants")
     procs = []
@@ -75,7 +110,7 @@ def build(variants: dict) -> dict:
             if old not in src:
                 raise ValueError(f"{name}: {old!r} not in {f}")
             open(path, "w").write(src.replace(old, new))
-        for src in SOURCES:
+        for src in sources:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-c",
                    os.path.join(d, src), "-o", os.path.join(d, src + ".o")]
             procs.append((name, src, subprocess.Popen(
@@ -96,11 +131,18 @@ def build(variants: dict) -> dict:
         d = os.path.join(root, name)
         lib_path = os.path.join(d, "lib.so")
         subprocess.run([_build._nvcc(), "-shared", "-o", lib_path,
-                        *(os.path.join(d, s + ".o") for s in SOURCES)],
+                        *(os.path.join(d, s + ".o") for s in sources)],
                        check=True)
         lib = ctypes.CDLL(lib_path)
-        for fn in ENTRIES:
-            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+        lib.legacy = set()
+        for fn in entries:
+            source = ("group_norm.cu" if "group_norm" in fn
+                      else "conv_stats.cu" if "conv" in fn else None)
+            marker = "int cluster" if "group_norm" in fn else "int design"
+            if source and marker not in open(os.path.join(d, source)).read():
+                lib.legacy.add(fn)
+            getattr(lib, fn).argtypes = (LEGACY[fn] if fn in lib.legacy
+                                         else _build.SIGNATURES[fn])
         libs[name] = lib
     return libs
 
@@ -222,6 +264,146 @@ def cases() -> dict:
             A._folded_factor(scale, q.dtype), stream())
         return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
 
+    def conv(b, hh, ww, cin, cout, k, norm, res, dtype, designs=None,
+             **force):
+        """conv_stats at its plan (``force`` overrides fields of it; a
+        legacy entry takes such a case as "not taken"), against the plain
+        version in fp32 with TF32 off."""
+        g = torch.Generator(device="cuda").manual_seed(1)
+        r = lambda *sh, sc=1.0: (torch.randn(*sh, generator=g, device="cuda")
+                                 * sc).to(dtype)
+        x = r(b, hh, ww, cin, sc=2.0) + 0.5
+        w = r(k, k, cin, cout, sc=(k * k * cin) ** -0.5)
+        bias = 0.5 * torch.randn(b, cout, generator=g, device="cuda")
+        skip = r(b, hh, ww, cout) if res else None
+        kw, stats = {}, [None] * 4
+        if norm:
+            gamma = 1 + 0.1 * torch.randn(cin, generator=g, device="cuda")
+            beta = 0.1 * torch.randn(cin, generator=g, device="cuda")
+            s1, s2 = G.gn_channel_stats_reference(x.reshape(b, -1, cin))
+            kw = dict(in_stats=(s1, s2), gamma=gamma, beta=beta)
+            stats = [s1.contiguous(), s2.contiguous(), gamma, beta]
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        ref = C.conv_stats_reference(x, w, bias, skip, **kw)[0]
+        torch.backends.cudnn.allow_tf32 = saved
+        try:
+            plan = C.conv_plan(b, hh, ww, cin, cout, k, dtype, norm,
+                               **({} if designs is None
+                                  else {"designs": designs}))
+        except StopIteration:   # no design of ``designs`` takes the shape
+            return (lambda lib: -1), (lambda: 0.0)
+        plan = dataclasses.replace(plan, **force)
+        if force and plan.design:
+            total = -(-b * hh * ww // C.IG_BM)
+            sl = C.IG_BM // plan.splits
+            plan = dataclasses.replace(plan, partial=(
+                total * plan.splits, C.ig_images(sl, hh * ww, b), 2, cout))
+        wk = (w.permute(3, 0, 1, 2) if plan.design else w).contiguous()
+        rows = C.conv_tile_rows(hh, k)
+        tiles = -(-hh // rows) * -(-ww // C.CONV_TILE_W)
+        y = torch.empty(b, hh, ww, cout, dtype=dtype, device="cuda")
+        part = torch.empty(max(plan.partial[0] * plan.partial[1] * 2 * cout,
+                               b * tiles * 2 * cout), device="cuda")
+        sums = torch.empty(2, b, cout, device="cuda")
+        ptr = lambda t: None if t is None else t.data_ptr()
+        entry = "dsml_conv_stats" + ("_f32" if dtype == torch.float32 else "")
+
+        def call(lib):
+            fn = getattr(lib, entry)
+            head = (x.data_ptr(), None, bias.data_ptr(), ptr(skip),
+                    *map(ptr, stats), y.data_ptr(), part.data_ptr(),
+                    sums.data_ptr(), b, hh, ww, cin, cout, k)
+            tail = (32, 1e-5, 1, stream())
+            if entry in lib.legacy:
+                if force or designs is not None:
+                    return -1
+                return fn(head[0], w.data_ptr(), *head[2:], rows, *tail)
+            return fn(head[0], wk.data_ptr(), *head[2:], plan.design,
+                      plan.tile_rows, plan.block_n, plan.splits, *tail)
+        return call, lambda: rel(y, ref)
+
+    def gn(b, n, c, dtype, **force):
+        """The whole-row GroupNorm + SiLU at its plan (``cluster`` forces
+        the cluster blocks, 0 the three passes)."""
+        g = torch.Generator(device="cuda").manual_seed(2)
+        x = (torch.randn(b, n, c, generator=g, device="cuda") * 2 + 0.5
+             ).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+        ref = G.group_norm_silu_reference(x, gamma, beta)
+        cluster = force.get("cluster", G.gn_plan(n, c, dtype))
+        chunks = G.gn_chunks(n, c)
+        part = torch.empty(b, chunks, 2, c, device="cuda")
+        sums = torch.empty(2, b, c, device="cuda")
+        y = torch.empty_like(x)
+        entry = "dsml_group_norm_silu" + ("_f32" if dtype == torch.float32
+                                          else "")
+
+        def call(lib):
+            fn = getattr(lib, entry)
+            head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    part.data_ptr(), sums.data_ptr(), y.data_ptr(), b, n, c,
+                    32, chunks)
+            tail = (1e-5, 1, 0, stream())
+            if entry in lib.legacy:
+                return -1 if force else fn(*head, *tail)
+            return fn(*head, cluster, *tail)
+        return call, lambda: rel(y, ref)
+
+    f32, b16 = torch.float32, torch.bfloat16
+    if CONV_GN_ONLY:
+        out, CONV_ARGS = {}, {}
+        for hh, cin, cout, k, norm, res in (
+                (8, 1280, 640, 3, True, False), (16, 960, 320, 3, True, False),
+                (32, 160, 160, 3, True, True), (16, 480, 320, 1, False, False),
+                (8, 640, 640, 3, True, True), (8, 960, 640, 3, False, False),
+                (8, 640, 640, 1, True, False), (16, 320, 320, 3, True, True)):
+            name = f"conv f32 [16,{hh},{hh},{cin}->{cout}] k{k}" + (
+                " norm" if norm else "") + (" skip" if res else "")
+            CONV_ARGS[name] = (16, hh, hh, cin, cout, k, norm, res, f32)
+            out[name] = conv(*CONV_ARGS[name])
+        for b, hh, cin, cout, k, norm, res, dt in (
+                (16, 64, 160, 160, 3, True, True, b16),
+                (16, 64, 160, 160, 3, False, False, b16),
+                (16, 32, 960, 320, 3, True, False, b16),
+                (16, 16, 1280, 640, 3, True, False, b16),
+                (8, 256, 128, 128, 3, True, True, b16),
+                (16, 64, 160, 160, 1, False, True, b16),
+                (16, 128, 128, 128, 3, True, False, f32),
+                (16, 64, 256, 256, 3, True, True, f32),
+                (16, 32, 512, 512, 3, True, False, f32),
+                (16, 64, 128, 256, 1, False, False, f32),
+                (16, 32, 512, 1536, 1, True, False, f32),
+                (16, 32, 512, 512, 1, False, True, f32),
+                (32, 8, 1280, 640, 3, True, False, f32)):
+            name = (f"conv {'f32' if dt == f32 else 'bf16'} "
+                    f"[{b},{hh},{hh},{cin}->{cout}] k{k}"
+                    + (" norm" if norm else "") + (" skip" if res else ""))
+            CONV_ARGS[name] = (b, hh, hh, cin, cout, k, norm, res, dt)
+            out[name] = conv(*CONV_ARGS[name])
+        for name in list(out):
+            if " k3" in name and "norm" in name:
+                for d in (0, 1, 2, 3):
+                    out[f"{name} design {d}"] = conv(*CONV_ARGS[name],
+                                                     designs=(d,))
+        out["conv f32 [16,8,8,1280->640] k3 (no norm)"] = conv(
+            16, 8, 8, 1280, 640, 3, False, False, f32)
+        for name, sp in (("conv f32 [16,8,8,1280->640] k3 norm", 8),
+                         ("conv f32 [16,16,16,960->320] k3 norm", 4),
+                         ("conv bf16 [16,16,16,1280->640] k3 norm", 2)):
+            out[f"{name} splits {sp}"] = conv(*CONV_ARGS[name], splits=sp)
+        for b, n, c, dt in ((16, 1024, 160, f32), (16, 256, 960, f32),
+                            (16, 64, 1280, f32), (16, 4096, 160, b16),
+                            (16, 1024, 640, b16), (16, 256, 1280, b16),
+                            (16, 4096, 480, b16), (16, 1024, 320, b16),
+                            (16, 1024, 512, f32), (16, 4096, 256, f32)):
+            name = f"gn {'f32' if dt == f32 else 'bf16'} [{b},{n},{c}]"
+            out[name] = gn(b, n, c, dt)
+            for cl in (8, 0):
+                out[name + f" cluster {cl}"] = gn(b, n, c, dt, cluster=cl)
+        return out
+
     return {"packed [16,4096,5x32]": packed(16, 4096, 4096, 5, 32),
             "packed [8,4096,5x32]": packed(8, 4096, 4096, 5, 32),
             "packed [8,4096,2x80]": packed(8, 4096, 4096, 2, 80),
@@ -272,13 +454,48 @@ def event_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time a call of ``fn``: every kernel it launches, summed, from
+    ``iters`` warm calls under torch.profiler (host issue left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+                for ev in prof.key_averages()
+                if ev.device_type.name == "CUDA" and "#" not in ev.key)
+    return total / 1e3 / iters
+
+
+# only the conv + statistics and GroupNorm cases (set by --conv-gn)
+CONV_GN_ONLY = False
+
+
 def main():
+    global CONV_GN_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
-    libs = build(json.loads(sys.argv[1]))
+    args = sys.argv[1:]
+    if "--conv-gn" in args:
+        args.remove("--conv-gn")
+        CONV_GN_ONLY = True
+    only = ""
+    if "--only" in args:   # time only the cases whose name holds this text
+        only = args.pop(args.index("--only") + 1)
+        args.remove("--only")
+    torch.backends.cudnn.allow_tf32 = False
+    libs = build(json.loads(args[0]),
+                 *((CONV_GN_SOURCES, CONV_GN_ENTRIES) if CONV_GN_ONLY else ()))
     names = list(libs)
     for case, (call, err) in cases().items():
+        if only not in case:
+            continue
         res, taking = {}, []
         for name in names:
             code = call(libs[name])
@@ -296,6 +513,8 @@ def main():
                 times[name].append(event_ms(lambda: call(libs[name])))
         for name in taking:
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
+            if CONV_GN_ONLY:
+                res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
         print(json.dumps({"case": case, **res}), flush=True)
 
 
