@@ -106,8 +106,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            each checks the same, plus a d_weight above zero and moved
            discriminator parameters
 then the line {"kernels": [...]} (a row per kernel, a sub-row per fp32
-D = 32 instantiation and one each for GroupNorm and conv + statistics at the
-fp32 UNet's shapes), the card's name and power limit, and, last,
+D = 32 and D = 512 instantiation and one each for GroupNorm and conv +
+statistics at the fp32 UNet's shapes), the card's name and power limit, and,
+last,
 {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -715,6 +716,8 @@ def phase_kernels():
         _flash_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
         _flash_case(gen, 2, 3, 200, 129, 32, False, f32),      # Nk = 128 + 1
         _flash_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
+        _flash_case(gen, 16, 20, 64, 64, 32, True, f32),       # served
+        _flash_case(gen, 12, 50, 60, 50, 32, False, f32),      # Nk < Nq < 64
     ]
     fproj = [
         _fproj_case(gen, 16, 1024, 320, 10, True),   # 2B after the pair tiles
@@ -829,6 +832,7 @@ def phase_kernels():
         _flash_bwd_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
         _flash_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged
         _flash_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
+        _flash_bwd_case(gen, 2, 1, 333, 333, 512, False, f32),     # 32 + 13
         _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
@@ -902,6 +906,8 @@ def phase_kernels():
         _streaming_case(gen, 32, 10, 256, 256, 32, True, f32),
         _streaming_case(gen, 32, 20, 64, 64, 32, True, f32),
         _streaming_case(gen, 16, 5, 1024, 1024, 32, True, f32),
+        _streaming_case(gen, 16, 20, 64, 64, 32, True, f32),       # served
+        _streaming_case(gen, 12, 50, 60, 50, 32, False, f32),      # Nk < Nq
         _streaming_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
         _streaming_case(gen, 2, 3, 200, 129, 32, False, f32),      # 128 + 1
         _streaming_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
@@ -911,6 +917,7 @@ def phase_kernels():
         _streaming_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),  # vqgan
         _streaming_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),  # ragged
         _streaming_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),     # Nk != Nq
+        _streaming_bwd_case(gen, 2, 1, 333, 333, 512, False, f32),    # 32 + 13
         _streaming_bwd_case(gen, 8, 10, 1024, 1024, 32, True),
         _streaming_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _streaming_bwd_case(gen, 2, 3, 333, 77, 64, False),  # ragged, D = 64
@@ -1885,6 +1892,14 @@ F32_NARROW = {
     "flash_attention_streaming": "train-mead128-streaming",
     "flash_attention_streaming_bwd": "train-mead128-streaming",
 }
+# the fp32 D = 512 instantiations (the first stage's attention block in
+# first-stage training): kernel -> the run that is their path; a sub-row each
+F32_WIDE = {
+    "flash_attention": "ae-vq",
+    "flash_attention_bwd": "ae-vq",
+    "flash_attention_streaming": "ae-vq-streaming",
+    "flash_attention_streaming_bwd": "ae-vq-streaming",
+}
 # the fp32 cases at mead-128-ldm-f4's UNet shapes (``_mead128``): kernel ->
 # the run that is their path; a sub-row each
 F32_UNET = {
@@ -1904,12 +1919,17 @@ def _mead128(case):
 
 def kernels_line(cases, launches_by_run):
     """A row for each kernel (its first timed case, its launches in the run
-    that is its path), a sub-row for each fp32 D = 32 instantiation and one
-    for each of GroupNorm and conv + statistics at the fp32 UNet's shapes
-    (their cases alone, their launches in their own run)."""
+    that is its path), a sub-row for each fp32 D = 32 and D = 512
+    instantiation and one for each of GroupNorm and conv + statistics at the
+    fp32 UNet's shapes (their cases alone, their launches in their own
+    run)."""
     rows = []
     subrows = [(name, run, "float32, head width 32", _is_f32_narrow)
                for name, run in F32_NARROW.items()]
+    subrows += [(name, run, "float32, head width 512",
+                 lambda c: c.get("dtype") == "float32"
+                 and c.get("head_dim") == 512)
+                for name, run in F32_WIDE.items()]
     subrows += [(name, run, "float32, mead-128-ldm-f4 UNet shapes",
                  lambda c: c.get("config") == "mead-128-ldm-f4")
                 for name, run in F32_UNET.items()]

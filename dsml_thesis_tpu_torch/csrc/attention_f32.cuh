@@ -66,9 +66,6 @@ constexpr float MASKED = -1e30f;   // the streaming kernels' masked score
 constexpr int fwd_smem_bytes() {
   return (FBM + 2 * FBN) * LDS * static_cast<int>(sizeof(uint32_t));
 }
-constexpr int lse_smem_bytes() {
-  return (FBM + FBN) * LDS * static_cast<int>(sizeof(uint32_t));
-}
 constexpr int bwd_smem_bytes() {
   return (2 * BIG + 2 * SMALL) * LDS * static_cast<int>(sizeof(uint32_t)) +
          NWARPS * PART * static_cast<int>(sizeof(uint32_t)) +
@@ -80,6 +77,23 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+// raw fp32 bits times mul, rounded to TF32
+__device__ __forceinline__ uint32_t tf32_mul(uint32_t raw, float mul) {
+  return to_tf32(__uint_as_float(raw) * mul);
+}
+
+// four 8 x 8 matrices of 16-bit pairs from shared memory (a 32-bit value a
+// thread each): a TF32 fragment of an 8 x 4-word block a matrix
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // c[16 x 8] += a[16 x 8] * b[8 x 8], TF32 operands, fp32 accumulate.

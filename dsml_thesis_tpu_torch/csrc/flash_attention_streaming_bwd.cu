@@ -40,13 +40,14 @@
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_bwd_f32; first-stage
 // training under DSML_FLASH_STREAMING=1): a log-sum-exp launch of its own
-// (64 query rows a block, key tiles of 16, TF32 products from q times
-// scale * log2(e) in fp32), then the three launches of flash_attention_bwd's
-// fp32 instantiation (attention_f32.cuh) with that pre-scaled q: the scores
-// of all four launches are formed from the same rounded operands. dk is taken
-// against the stored q * c and divided by c = scale * log2(e) at the end, so
-// no fifth tile is kept: the two differ by one fp32 rounding of q * c, far
-// under the TF32 rounding of the operand itself.
+// (64 query rows a block, key tiles of 16 through a cp.async ring, TF32
+// products from q times scale * log2(e) in fp32), then the three launches of
+// flash_attention_bwd's fp32 instantiation (attention_f32.cuh) with that
+// pre-scaled q: the scores of all four launches are formed from the same
+// rounded operands. dk is taken against the stored q * c and divided by
+// c = scale * log2(e) at the end, so no fifth tile is kept: the two differ by
+// one fp32 rounding of q * c, far under the TF32 rounding of the operand
+// itself.
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet in
 // training under DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1):
@@ -201,6 +202,21 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                                bh, nq, nk, 1, scale, 1.f, stream);
 }
 
+// The row log-sum-exp at D = 512: block (bh, 64-row q-tile) of 4 warps, q
+// times q_scale in fp32 rounded to TF32 in shared memory, 16-key K tiles
+// through two cp.async stages (rounded to TF32 in registers), fragments by
+// ldmatrix, each score's 512-long sum in four interleaved chains (added
+// (c0 + c1) + (c2 + c3)) so that a warp has four products in flight; keys
+// past nk at -1e30 with probability 0. lse = m + log2(max(l, 1e-30)) in
+// the base-2 domain. (The first design loaded each K tile synchronously
+// and summed in one chain: 1.06 against 0.33 ms at [16, 1, 1024, 512],
+// tools/variants.py --f32-attn, H100 SXM at 700 W.)
+constexpr int LSE_RING_STAGES = 2;
+constexpr int lse_f32_smem_bytes() {
+  return (f32attn::FBM + LSE_RING_STAGES * f32attn::FBN) * f32attn::LDS *
+         static_cast<int>(sizeof(uint32_t));
+}
+
 __global__ void __launch_bounds__(128)
 streaming_lse_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k, float* __restrict__ lse,
@@ -208,29 +224,77 @@ streaming_lse_f32_kernel(const float* __restrict__ q,
   using namespace f32attn;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* sQ = reinterpret_cast<uint32_t*>(smem_raw);
-  uint32_t* sK = sQ + FBM * LDS;
+  uint32_t* sK = sQ + FBM * LDS;   // [stage][FBN][LDS], raw fp32
   const int64_t bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * FBM;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int row0 = (tid >> 5) * 16;
   const int t = lane_t();
   k += bh * nk * D;
-
+  auto issue = [&](int kv0, int st) {
+    uint32_t* dst = sK + st * FBN * LDS;
+#pragma unroll
+    for (int x = 0; x < FBN * (D / 4) / 128; ++x) {
+      const int i = tid + 128 * x;
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool ok = kv0 + r < nk;
+      hopper::cp_async16(hopper::cvta(dst + r * LDS + c),
+                         ok ? k + static_cast<int64_t>(kv0 + r) * D + c : k,
+                         ok);
+    }
+    cp_commit();
+  };
+  issue(0, 0);
   load_tile_tf32<128>(sQ, q + (bh * nq + q0) * D, FBM, nq - q0, tid, q_scale);
+  // ldmatrix lane addresses: A (rows row0 .., matrices (rows + 8 (m % 2),
+  // columns + 4 (m / 2))) and B (matrices (rows + 8 (m / 2), columns +
+  // 4 (m % 2)): B0 / B1 of n8 tile 0, then of tile 1)
+  const uint32_t a_at =
+      hopper::cvta(sQ + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDS +
+                   (lane >> 4) * 4);
+  const uint32_t b_off =
+      (((lane >> 4) * 8 + (lane & 7)) * LDS + ((lane >> 3) & 1) * 4) * 4;
   float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
-  for (int kv0 = 0; kv0 < nk; kv0 += FBN) {
-    __syncthreads();  // the previous tile's readers are done; sQ is visible
-    load_tile_tf32<128>(sK, k + static_cast<int64_t>(kv0) * D, FBN, nk - kv0,
-                        tid);
-    __syncthreads();
+  const int tiles = (nk + FBN - 1) / FBN;
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % LSE_RING_STAGES;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // tile j (and sQ) visible; every warp done with j - 1
+    if (j + 1 < tiles) issue((j + 1) * FBN, (j + 1) % LSE_RING_STAGES);
+    const uint32_t b_at = hopper::cvta(sK + st * FBN * LDS) + b_off;
+    float c4[4][2][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        c4[c][nt][0] = c4[c][nt][1] = c4[c][nt][2] = c4[c][nt][3] = 0.f;
+#pragma unroll 2
+    for (int kb = 0; kb < D / 8; kb += 4) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, a_at + (kb + c) * 32);
+        ldsm_x4(b, b_at + (kb + c) * 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = tf32_mul(b[i], 1.f);
+        mma_tf32(c4[c][0], a, b[0], b[1]);
+        mma_tf32(c4[c][1], a, b[2], b[3]);
+      }
+    }
     float s[2][4];
-    scores_16x16(s, sQ, row0, sK);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = (c4[0][nt][e] + c4[1][nt][e]) +
+                   (c4[2][nt][e] + c4[3][nt][e]);
+    const int kv0 = j * FBN;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (kv0 + nt * 8 + 2 * t + (j & 1) >= nk) s[nt][j] = MASKED;
+      for (int e = 0; e < 4; ++e)
+        if (kv0 + nt * 8 + 2 * t + (e & 1) >= nk) s[nt][e] = MASKED;
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
@@ -337,7 +401,7 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
         static_cast<float*>(dk), static_cast<float*>(dv), bh, nq, nk, scale,
         q_scale, s);
   if (d != D) return -1;
-  const int smem = lse_smem_bytes();
+  const int smem = lse_f32_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       streaming_lse_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

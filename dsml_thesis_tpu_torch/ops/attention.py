@@ -486,12 +486,20 @@ class _FlashAttention(torch.autograd.Function):
         return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Exact-softmax attention. q [B, H, Nq, D], k / v [B, H, Nk, D]."""
+    """Exact-softmax attention. q [B, H, Nq, D], k / v [B, H, Nk, D]. A call
+    on the card that needs no gradient launches without the autograd
+    ``Function`` around it: the same launch, less host work a call."""
     _check_split_head_shapes(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.is_cuda and not _needs_grad(q, k, v):
+        return _launch_flash_forward(q, k, v, float(scale), False)[0]
     return _FlashAttention.apply(q, k, v, float(scale))
 
 
@@ -587,10 +595,13 @@ def flash_attention_streaming(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: Optional[float] = None
                               ) -> torch.Tensor:
     """Exact-softmax attention for sequences of any length. q [B, H, Nq, D],
-    k / v [B, H, Nk, D] -> [B, H, Nq, D]."""
+    k / v [B, H, Nk, D] -> [B, H, Nq, D]. Without a gradient to track, no
+    autograd ``Function`` (as ``flash_attention``)."""
     _check_split_head_shapes(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.is_cuda and not _needs_grad(q, k, v):
+        return _launch_streaming_forward(q, k, v, float(scale))
     return _StreamingAttention.apply(q, k, v, float(scale))
 
 

@@ -44,8 +44,30 @@ arguments (a parent tree before the plans came in) is called with the legacy
 arguments, at its own weight layout, and takes forced cases as "not taken".
 Each case also reports ``device_ms``, the summed device time of the kernels
 of a call under torch.profiler (host issue left out). ``--only`` times only
-the cases whose name holds the text. The fp32 references run with cuDNN's
-TF32 off.
+the cases whose name holds the text (or one of ``a|b``). The fp32
+references run with cuDNN's TF32 off.
+
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-attn [--only TEXT] \
+        '{"parent": [["attention_f32.cuh", "", "_ab/parent/.../attention_f32.cuh"],
+                     ...], "new": []}'
+
+``--f32-attn`` builds the four split-head and streaming attention sources
+alone and times their fp32 entries (rows 2, 4, 5 and 7 of PERF.md's kernel
+table), each case with ``device_ms`` and ``device_by_kernel`` (the lse,
+delta, dk/dv and dq launches) beside the event time: at D = 512 the
+forwards of rows 2 and 4 and the backwards of rows 7 and 5 at [16, 1, 1024,
+512] and [8, 1, 4096, 512] (the backwards also at a ragged [2, 1, 333, 333,
+512]); at D = 32 the forwards of rows 2 and 4 at ``F32_NARROW_SHAPES``.
+
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
+
+``--wrapper`` builds nothing of its own and times the same D = 32 forwards
+through the host path of this tree instead: each public wrapper
+(``flash_attention``, ``flash_attention_streaming``; ``wrapper``) against
+the same launch inside its autograd ``Function`` (``function``, the path
+every call took before the wrappers launched directly when no gradient is
+tracked), 200 calls a timing, host work included, with ``device_ms``
+beside. Both print the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -84,9 +106,24 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LEGACY = {"dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
           "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]}
 LEGACY.update({k + "_f32": v for k, v in list(LEGACY.items())})
+# an entry is legacy in a tree whose source lacks the marker of its plan
+MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
+           "dsml_group_norm_silu": ("group_norm.cu", "int cluster")}
 # what --conv-gn builds and times
 CONV_GN_SOURCES = SOURCES[-3:]
 CONV_GN_ENTRIES = ENTRIES[-4:]
+# what --f32-attn builds and times
+F32_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+               "flash_attention_streaming.cu",
+               "flash_attention_streaming_bwd.cu")
+F32_ENTRIES = ("dsml_flash_attention_f32", "dsml_flash_attention_bwd_f32",
+               "dsml_flash_attention_streaming_f32",
+               "dsml_flash_attention_streaming_bwd_f32")
+# [B, H, Nq, Nk, D] of the fp32 D = 32 forwards (mead-128-ldm-f4's UNet
+# levels in training and serving, and a ragged one)
+F32_NARROW_SHAPES = ((32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
+                     (32, 10, 256, 256, 32), (32, 5, 1024, 1024, 32),
+                     (2, 3, 77, 77, 32))
 
 
 def build(variants: dict, sources=SOURCES, entries=ENTRIES) -> dict:
@@ -136,10 +173,9 @@ def build(variants: dict, sources=SOURCES, entries=ENTRIES) -> dict:
         lib = ctypes.CDLL(lib_path)
         lib.legacy = set()
         for fn in entries:
-            source = ("group_norm.cu" if "group_norm" in fn
-                      else "conv_stats.cu" if "conv" in fn else None)
-            marker = "int cluster" if "group_norm" in fn else "int design"
-            if source and marker not in open(os.path.join(d, source)).read():
+            source, marker = MARKERS.get(fn.removesuffix("_f32"), (None, None))
+            if fn in LEGACY and marker not in open(
+                    os.path.join(d, source)).read():
                 lib.legacy.add(fn)
             getattr(lib, fn).argtypes = (LEGACY[fn] if fn in lib.legacy
                                          else _build.SIGNATURES[fn])
@@ -352,6 +388,8 @@ def cases() -> dict:
         return call, lambda: rel(y, ref)
 
     f32, b16 = torch.float32, torch.bfloat16
+    if F32_ONLY:
+        return f32_cases(rel, stream)
     if CONV_GN_ONLY:
         out, CONV_ARGS = {}, {}
         for hh, cin, cout, k, norm, res in (
@@ -441,6 +479,111 @@ def cases() -> dict:
             "bwd_packed [2,1000,3x64]": packed_bwd(2, 1000, 3, 64)}
 
 
+def f32_cases(rel, stream) -> dict:
+    """The fp32 attention cases of ``--f32-attn`` (see the module's note)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+
+    def fwd(kind, b, h, nq, nk, d):
+        """The split-head (``flash``) or streaming forward."""
+        q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
+        scale = d ** -0.5
+        streaming = kind == "streaming"
+        ref = (A.streaming_attention_reference if streaming
+               else A.attention_reference)(q, k, v, scale=scale)
+        splits = A.streaming_splits(b * h, nq, nk) if streaming else 1
+        out = torch.empty_like(q)
+        part_o = torch.empty((splits, b * h * nq, d), device="cuda")
+        part_ml = torch.empty((splits, 2, b * h * nq), device="cuda")
+        name = "dsml_flash_attention" + ("_streaming" if streaming else "")
+        name += "_f32"
+        head = ((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 part_o.data_ptr(), part_ml.data_ptr(), b * h, nq, nk, d,
+                 splits, A._folded_factor(scale, q.dtype)) if streaming else
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None, b * h, nq, nk, d, scale))
+
+        def call(lib):
+            return getattr(lib, name)(*head, stream())
+        call.operands = (q, k, v, part_o, part_ml)   # alive as long as call
+        return call, lambda: rel(out, ref)
+
+    def bwd(kind, b, h, nq, nk, d):
+        """The split-head (``flash_bwd``) or streaming backward, on this
+        tree's forward output."""
+        q, do = rnd(b, h, nq, d), rnd(b, h, nq, d)
+        k, v = rnd(b, h, nk, d), rnd(b, h, nk, d)
+        scale = d ** -0.5
+        streaming = kind == "streaming_bwd"
+        if streaming:
+            o = A._launch_streaming_forward(q, k, v, scale)
+            ref = A.streaming_bwd_reference(q, k, v, o, do, scale=scale)
+            lse = torch.empty(b * h * nq, device="cuda")
+        else:
+            o, lse = A._launch_flash_forward(q, k, v, scale, True)
+            ref = A.flash_attention_bwd_reference(q, k, v, do, scale=scale)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty(b * h * nq, device="cuda")
+        name = "dsml_flash_attention" + ("_streaming_bwd" if streaming
+                                         else "_bwd") + "_f32"
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *(g.data_ptr() for g in grads), b * h, nq, nk, d, scale,
+                *((A._folded_factor(scale, q.dtype),) if streaming else ()))
+
+        def call(lib):
+            return getattr(lib, name)(*head, stream())
+        call.operands = (q, k, v, o, do, lse, delta)
+        return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
+
+    out = {}
+    for shape in ((16, 1, 1024, 1024, 512), (8, 1, 4096, 4096, 512)):
+        tag = f"[{shape[0]},{shape[1]},{shape[2]},{shape[4]}]"
+        for kind in ("flash", "streaming"):
+            out[f"{kind} f32 {tag}"] = fwd(kind, *shape)
+        for kind in ("flash_bwd", "streaming_bwd"):
+            out[f"{kind} f32 {tag}"] = bwd(kind, *shape)
+    for kind in ("flash_bwd", "streaming_bwd"):
+        out[f"{kind} f32 [2,1,333,333,512]"] = bwd(kind, 2, 1, 333, 333, 512)
+    for shape in F32_NARROW_SHAPES:
+        for kind in ("flash", "streaming"):
+            out[f"{kind} f32 {_tag(shape)}"] = fwd(kind, *shape)
+    return out
+
+
+def _tag(shape) -> str:
+    b, h, nq, nk, d = shape
+    return f"[{b},{h},{nq},{d}]" if nq == nk else f"[{b},{h},{nq},{nk},{d}]"
+
+
+def wrapper_cases(rel) -> dict:
+    """The cases of ``--f32-attn --wrapper`` (see the module's note): a call
+    takes the host path ``wrapper`` or ``function`` in place of a library."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for shape in F32_NARROW_SHAPES:
+        b, h, nq, nk, d = shape
+        q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda")
+                   for n in (nq, nk, nk))
+        scale = d ** -0.5
+        for kind, wrapper, function, reference in (
+                ("flash", A.flash_attention, A._FlashAttention,
+                 A.attention_reference),
+                ("streaming", A.flash_attention_streaming,
+                 A._StreamingAttention, A.streaming_attention_reference)):
+            last = {}
+
+            def call(path, q=q, k=k, v=v, scale=scale, wrapper=wrapper,
+                     function=function, last=last):
+                last["out"] = (wrapper(q, k, v, scale) if path == "wrapper"
+                               else function.apply(q, k, v, scale))
+                return 0
+            ref = reference(q, k, v, scale=scale)
+            out[f"{kind} f32 {_tag(shape)}"] = (
+                call, lambda last=last, ref=ref: rel(last["out"], ref))
+    return out
+
+
 def event_ms(fn, iters: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
@@ -454,9 +597,10 @@ def event_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time a call of ``fn``: every kernel it launches, summed, from
-    ``iters`` warm calls under torch.profiler (host issue left out)."""
+def device_kernels_ms(fn, iters: int = 10) -> dict:
+    """Device ms a call of ``fn`` by kernel name, from ``iters`` warm calls
+    under torch.profiler (host issue left out): each kernel's mean over the
+    launches the profile kept (it can drop some), once a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -465,19 +609,40 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0))
-                for ev in prof.key_averages()
-                if ev.device_type.name == "CUDA" and "#" not in ev.key)
-    return total / 1e3 / iters
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and "#" not in ev.key:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            # the kernel's name without namespaces and arguments
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split(" ")[-1].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / max(ev.count, 1)
+    return out
 
 
-# only the conv + statistics and GroupNorm cases (set by --conv-gn)
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time a call of ``fn``: every kernel it launches (each once a
+    call), summed."""
+    return sum(device_kernels_ms(fn, iters).values())
+
+
+# only the conv + statistics and GroupNorm cases (set by --conv-gn), only
+# the fp32 attention cases (set by --f32-attn)
 CONV_GN_ONLY = False
+F32_ONLY = False
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
 
 
 def main():
-    global CONV_GN_ONLY
+    global CONV_GN_ONLY, F32_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -485,16 +650,32 @@ def main():
     if "--conv-gn" in args:
         args.remove("--conv-gn")
         CONV_GN_ONLY = True
+    if "--f32-attn" in args:
+        args.remove("--f32-attn")
+        F32_ONLY = True
+    wrapper = "--wrapper" in args
+    if wrapper:
+        args.remove("--wrapper")
+        if not F32_ONLY:
+            raise SystemExit("variants: --wrapper goes with --f32-attn")
     only = ""
-    if "--only" in args:   # time only the cases whose name holds this text
+    if "--only" in args:   # only the cases whose name holds one of a|b|..
         only = args.pop(args.index("--only") + 1)
         args.remove("--only")
     torch.backends.cudnn.allow_tf32 = False
-    libs = build(json.loads(args[0]),
-                 *((CONV_GN_SOURCES, CONV_GN_ENTRIES) if CONV_GN_ONLY else ()))
+    print(json.dumps({"card": card()}), flush=True)
+    if wrapper:   # the host paths stand in for libraries
+        libs = {"function": "function", "wrapper": "wrapper"}
+        rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+        todo, iters = wrapper_cases(rel), 200
+    else:
+        libs = build(json.loads(args[0]),
+                     *((CONV_GN_SOURCES, CONV_GN_ENTRIES) if CONV_GN_ONLY else
+                       (F32_SOURCES, F32_ENTRIES) if F32_ONLY else ()))
+        todo, iters = cases(), 20
     names = list(libs)
-    for case, (call, err) in cases().items():
-        if only not in case:
+    for case, (call, err) in todo.items():
+        if not any(o in case for o in only.split("|")):
             continue
         res, taking = {}, []
         for name in names:
@@ -510,11 +691,17 @@ def main():
         times = {name: [] for name in taking}
         for _ in range(3):
             for name in taking + taking[::-1]:
-                times[name].append(event_ms(lambda: call(libs[name])))
+                times[name].append(event_ms(lambda: call(libs[name]),
+                                            iters))
         for name in taking:
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
+            if F32_ONLY:   # and by kernel: lse, delta, dk/dv, dq launches
+                kernels = device_kernels_ms(lambda: call(libs[name]))
+                res[name]["device_ms"] = sum(kernels.values())
+                res[name]["device_by_kernel"] = {
+                    k: round(ms, 4) for k, ms in kernels.items()}
         print(json.dumps({"case": case, **res}), flush=True)
 
 

@@ -49,6 +49,7 @@ from dsml_thesis_tpu_torch.training.vqgan import (create_first_stage_state,
                                                   make_vqgan_train_step)
 from test_torch_port_ae_training import (LR, _config, _flat, _images,
                                          _metrics_close, _same_tree)
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -81,16 +82,45 @@ def jax_gn_interpret(monkeypatch):
                         functools.partial(jgn.group_norm_silu, interpret=True))
 
 
-def _vq_step(monkeypatch, env):
-    cfg = _config("vq")
-    jm, jl = jtrainer.build_vqgan(cfg["model"])
-    state, ae_tx, disc_tx = jvqgan.create_vqgan_state(
-        jm, jl, jax.random.PRNGKey(0), (2, 16, 16, 3), LR)
-    x = _images(11)
-    _set_flags(monkeypatch, "jax", env)
-    new, jmetrics = jax.jit(jvqgan.make_vqgan_train_step(
-        jm, jl, ae_tx, disc_tx))(state, {"image": jnp.asarray(x)})
+def _gradient_capture():
+    """An optax transformation that passes the gradients it is handed on
+    unchanged and keeps them as its state."""
+    import optax
 
+    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)
+    return optax.GradientTransformation(
+        lambda params: zeros(params), lambda g, state, params=None: (g, g))
+
+
+# flag -> the JAX VQGAN step under it: (config, state before, image, state
+# after, metrics); one compile a flag for the module's tests
+_JAX_VQ = {}
+
+
+def _jax_vq_step(monkeypatch, flag):
+    """One fused JAX VQGAN step under ``flag``, its autoencoder optimizer
+    Adam behind ``_gradient_capture``: the same update as Adam alone, with
+    the gradients Adam saw kept in ``ae_opt[0]`` of the new state."""
+    if flag not in _JAX_VQ:
+        import optax
+
+        cfg = _config("vq")
+        jm, jl = jtrainer.build_vqgan(cfg["model"])
+        state, ae_tx, disc_tx = jvqgan.create_vqgan_state(
+            jm, jl, jax.random.PRNGKey(0), (2, 16, 16, 3), LR)
+        tx = optax.chain(_gradient_capture(), ae_tx)
+        x = _images(11)
+        _set_flags(monkeypatch, "jax", FLAGS[flag])
+        new, jmetrics = jax.jit(jvqgan.make_vqgan_train_step(
+            jm, jl, tx, disc_tx))(state.replace(ae_opt=tx.init(
+                state.ae_params)), {"image": jnp.asarray(x)})
+        _JAX_VQ[flag] = (cfg, state, x, new, jmetrics)
+    return _JAX_VQ[flag]
+
+
+def _vq_step(monkeypatch, flag):
+    cfg, state, x, new, jmetrics = _jax_vq_step(monkeypatch, flag)
+    env = FLAGS[flag]
     _set_flags(monkeypatch, "torch", env)
     tm, tl = ttrainer.build_vqgan(cfg["model"])
     tm.load_state_dict(from_jax_tree(state.ae_params))
@@ -101,7 +131,8 @@ def _vq_step(monkeypatch, env):
                                 state.loss_params, new.loss_params, jmetrics)
 
 
-def _kl_step(monkeypatch, env):
+def _kl_step(monkeypatch, flag):
+    env = FLAGS[flag]
     cfg = _config("kl")
     jm, jl = jtrainer.build_kl_ae(cfg["model"])
     state, ae_tx, disc_tx = jkl.create_kl_ae_state(
@@ -133,23 +164,12 @@ def test_first_stage_step_matches_jax_under_the_flag(kind, flag, monkeypatch,
     own posterior noise)."""
     step = _vq_step if kind == "vq" else _kl_step
     (tm, tl, tmetrics), (before, ae_after, loss_before, loss_after,
-                          jmetrics) = step(
-        monkeypatch, FLAGS[flag])
+                          jmetrics) = step(monkeypatch, flag)
     assert float(tmetrics["train/d_weight"]) > 0
     _metrics_close(tmetrics, jmetrics)
     _same_tree(to_jax_tree(tm), ae_after, 1e-2 * LR, _flat(before))
     _same_tree(to_jax_tree(tl.discriminator), loss_after["discriminator"],
                1e-2 * LR, _flat(loss_before["discriminator"]))
-
-
-def _gradient_capture():
-    """An optax transformation that leaves the parameters where they are and
-    keeps the gradients it is handed as its state."""
-    import optax
-
-    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)
-    return optax.GradientTransformation(
-        lambda params: zeros(params), lambda g, state, params=None: (zeros(g), g))
 
 
 @pytest.mark.parametrize("flag", ["epilogue", "epilogue-res"])
@@ -162,17 +182,8 @@ def test_vq_generator_gradients_match_jax_under_the_epilogue(
     training tests hold them. ``_same_tree`` holds an element whose gradient
     sits a few Adam eps from zero to that gradient; this holds every
     gradient."""
-    cfg = _config("vq")
-    jm, jl = jtrainer.build_vqgan(cfg["model"])
-    state, _, disc_tx = jvqgan.create_vqgan_state(
-        jm, jl, jax.random.PRNGKey(0), (2, 16, 16, 3), LR)
-    x = _images(11)
-    capture = _gradient_capture()
-    _set_flags(monkeypatch, "jax", FLAGS[flag])
-    new, _ = jax.jit(jvqgan.make_vqgan_train_step(jm, jl, capture, disc_tx))(
-        state.replace(ae_opt=capture.init(state.ae_params)),
-        {"image": jnp.asarray(x)})
-    want = _flat(jax.tree_util.tree_map(np.asarray, new.ae_opt))
+    cfg, state, x, new, _ = _jax_vq_step(monkeypatch, flag)
+    want = _flat(jax.tree_util.tree_map(np.asarray, new.ae_opt[0]))
 
     _set_flags(monkeypatch, "torch", FLAGS[flag])
     tm, tl = ttrainer.build_vqgan(cfg["model"])

@@ -32,6 +32,7 @@ from dsml_thesis_tpu_torch.losses import (LPIPS, KLAutoencoderLoss,
 from dsml_thesis_tpu_torch.models.autoencoder import DiagonalGaussian
 from dsml_thesis_tpu_torch.models.quantize import VectorQuantizer
 from dsml_thesis_tpu_torch.ops import attention as tatt
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

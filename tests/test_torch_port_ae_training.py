@@ -41,6 +41,7 @@ from dsml_thesis_tpu_torch.training import vqgan_trainer as ttrainer
 from dsml_thesis_tpu_torch.training.kl_ae import make_kl_ae_train_step
 from dsml_thesis_tpu_torch.training.vqgan import (create_first_stage_state,
                                                   make_vqgan_train_step)
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3

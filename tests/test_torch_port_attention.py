@@ -14,6 +14,7 @@ import torch
 
 from dsml_thesis_tpu.ops import attention as jatt
 from dsml_thesis_tpu_torch.ops import attention as tatt
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 
 def _qkv(seed, b, h, nq, nk, d):

@@ -25,6 +25,7 @@ from dsml_thesis_tpu.ops import attention as jatt
 from dsml_thesis_tpu.ops import groupnorm as jgn
 from dsml_thesis_tpu_torch.ops import attention as tatt
 from dsml_thesis_tpu_torch.ops import groupnorm as tgn
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 # (batch, heads, Nq, Nk, D)
 SHAPES = [(2, 2, 64, 64, 32), (1, 3, 100, 100, 32), (2, 2, 70, 33, 32),

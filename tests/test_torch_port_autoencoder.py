@@ -14,6 +14,7 @@ from dsml_thesis_tpu_torch.models.autoencoder import DownsampleAE, VQModel
 from dsml_thesis_tpu_torch.models.quantize import (VectorQuantizer,
                                                    _nearest_code)
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 DDCONFIG = dict(double_z=False, z_channels=3, resolution=16, in_channels=3,
                 out_ch=3, ch=32, ch_mult=(1, 2), num_res_blocks=1,

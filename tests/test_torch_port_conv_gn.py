@@ -31,6 +31,7 @@ from dsml_thesis_tpu_torch.models import unet as tunet
 from dsml_thesis_tpu_torch.ops import conv_gn as tcg
 from dsml_thesis_tpu_torch.ops import groupnorm as tgn
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 # flag value on the port's side -> on the JAX side (its interpret-mode twin)
 JAX_MODE = {"res": "res-interpret", "1": "interpret"}

@@ -40,6 +40,7 @@ from dsml_thesis_tpu_torch.models import unet as tunet
 from dsml_thesis_tpu_torch.ops import conv_gn as tcg
 from dsml_thesis_tpu_torch.ops import groupnorm as tgn
 from dsml_thesis_tpu_torch.training import vqgan_trainer as tvt
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

@@ -49,6 +49,7 @@ from dsml_thesis_tpu_torch.ops import attention as tatt
 from test_ldm import TINY_MEAD_CFG
 from test_torch_port_pipeline import random_params
 from test_torch_port_training import (_batch, _jax_draws, _jb, _leaves, _tb)
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(ROOT, "configs", "latent-diffusion")
@@ -342,7 +343,7 @@ def tiny_dh80():
                 attention_resolutions=[1])
     cfg["model"]["params"]["cond_stage_config_1"]["params"]["p_uncond"] = 0.0
     jldm = jax_build_model(cfg["model"])
-    params = jldm.init_params(jax.random.PRNGKey(0), _jb(_batch(0)))
+    params = jax.jit(jldm.init_params)(jax.random.PRNGKey(0), _jb(_batch(0)))
     params = random_params(params, np.random.default_rng(1))
     tldm = build_model(cfg["model"])
     tldm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)),
@@ -362,8 +363,10 @@ def test_train_step_with_80_wide_heads_matches_jax(tiny_dh80, route,
     for k, v in ROUTES[route].items():
         monkeypatch.setenv(k, v)
     batch, rng = _batch(3), jax.random.PRNGKey(9)
-    (want_loss, _), want_grads = jax.value_and_grad(
-        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True)(params)
+    # jitted: one compile, where the eager gradient runs every interpret-mode
+    # kernel op by op
+    (want_loss, _), want_grads = jax.jit(jax.value_and_grad(
+        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True))(params)
     t, noise = _jax_draws(rng)
     tldm.configure_trainable()
     tldm.zero_grad(set_to_none=True)

@@ -12,6 +12,7 @@ from dsml_thesis_tpu_torch.convert import from_jax_tree
 from dsml_thesis_tpu_torch.diffusion.video import audio_windows
 from dsml_thesis_tpu_torch.models import encoders as tenc
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("labels", [[0, 3, 7, 3], [5]])

@@ -35,6 +35,7 @@ from dsml_thesis_tpu_torch.models import unet as tunet
 from dsml_thesis_tpu_torch.ops import attention as tatt
 from test_ldm import TINY_MEAD_CFG
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FULLATTN_YAML = os.path.join(ROOT, "configs", "latent-diffusion",
@@ -206,7 +207,8 @@ def pipelines():
         "audio": jnp.zeros((2, 5, 32)),
     }
     rng = np.random.default_rng(3)
-    params = random_params(jldm.init_params(jax.random.PRNGKey(0), batch), rng)
+    params = random_params(
+        jax.jit(jldm.init_params)(jax.random.PRNGKey(0), batch), rng)
     tldm = build_model(cfg["model"])
     tldm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)),
                          strict=True)

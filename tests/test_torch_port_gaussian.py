@@ -15,6 +15,7 @@ from dsml_thesis_tpu.diffusion import gaussian as jg
 from dsml_thesis_tpu.diffusion.schedules import make_schedule as jax_schedule
 from dsml_thesis_tpu_torch.diffusion import gaussian as tg
 from dsml_thesis_tpu_torch.diffusion.schedules import make_schedule
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 KW = dict(beta_schedule="linear", timesteps=100, linear_start=0.0015,
           linear_end=0.0205)

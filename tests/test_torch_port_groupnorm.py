@@ -18,6 +18,7 @@ import torch
 from dsml_thesis_tpu.ops import groupnorm as jgn
 from dsml_thesis_tpu_torch.ops import groupnorm as tgn
 from dsml_thesis_tpu_torch.ops._launch import LAUNCHES, reset_launches
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, shape, mean=1.0, std=3.0):

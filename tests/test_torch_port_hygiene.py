@@ -13,6 +13,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dsml_thesis_tpu_torch")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch on one thread for a module of the port's tests (every
+    ``test_torch_port_*`` module imports this fixture): their tensors are
+    tiny, and the suite runs several workers on the machine's cores at once,
+    so intra-op threads only add contention. Restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "dsml_thesis_tpu")
 
 

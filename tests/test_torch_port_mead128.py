@@ -56,7 +56,9 @@ from test_ldm import TINY_MEAD_CFG
 from test_torch_port_pipeline import (F, WINDOW, _run_jax, _run_torch,
                                       random_params)
 from test_torch_port_training import (B, _batch, _jax_draws, _jb, _leaves,
-                                      _noise_leaves, _tb)
+                                      _noise_leaves, _tb,
+                                      jax_step_with_grads)
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -280,7 +282,7 @@ def _tiny_cfg():
 def tiny128():
     cfg = _tiny_cfg()
     jldm = jax_build_model(cfg["model"])
-    params = jldm.init_params(jax.random.PRNGKey(0), _jb(_batch(0)))
+    params = jax.jit(jldm.init_params)(jax.random.PRNGKey(0), _jb(_batch(0)))
     params = random_params(params, np.random.default_rng(3))
     tldm = build_model(cfg["model"])
     tldm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params)),
@@ -331,16 +333,15 @@ def train_step_vs_jax(tiny128, monkeypatch, env, jax_env=None):
     tldm = copy.deepcopy(tldm)
     batch, rng, base_lr = _batch(31), jax.random.PRNGKey(22), 1e-4
     _route(monkeypatch, env if jax_env is None else jax_env)
-    # jitted: one compile, where the eager gradient runs every interpret-mode
-    # kernel op by op (about 4x slower on the CPU)
-    (want_loss, _), want_grads = jax.jit(jax.value_and_grad(
-        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True))(params)
-    tx = jts.make_optimizer(jldm, params, base_lr)
-    jstate = jts.create_train_state(jldm, params, tx)
-    jstate, want_m = jts.make_train_step(jldm, tx)(jstate, _jb(batch), rng)
+    # one jitted step (interpret-mode kernels compile once): its loss,
+    # gradients and new state, all at the step's own draws
+    jstate, want_m, want_grads = jax_step_with_grads(
+        jldm, params, jts.make_optimizer(jldm, params, base_lr), batch, rng)
+    want_loss = want_m["train/loss"]
+    draws = _jax_draws(jax.random.fold_in(rng, 0))
 
     _route(monkeypatch, env)
-    t, noise = _jax_draws(rng)
+    t, noise = draws
     tldm.train()
     tldm.configure_trainable()
     tldm.zero_grad(set_to_none=True)
@@ -358,8 +359,6 @@ def train_step_vs_jax(tiny128, monkeypatch, env, jax_env=None):
         np.testing.assert_allclose(
             g, want_l[k], rtol=0, err_msg=k,
             atol=max(1e-4 * np.abs(want_l[k]).max(), 1e-6 * top))
-
-    draws = _jax_draws(jax.random.fold_in(rng, 0))
 
     class Draws:
         supports_sample_weights = True

@@ -56,6 +56,7 @@ from test_torch_port_mead128 import (MEAD128_RUNS, MEAD128_TRAIN_RUNS,
                                      pipeline_latents_vs_jax, tiny128,
                                      train_step_vs_jax)
 from test_torch_port_training import B, _batch, _tb
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -336,9 +337,9 @@ def test_smoke_counts_of_the_real_yaml(run):
 
 
 def test_the_kernels_line_has_the_fp32_sub_rows():
-    """The ``kernels`` line's sub-rows of the streaming pair (fp32 D = 32)
-    and of GroupNorm and conv + statistics at the fp32 UNet's shapes read
-    their launches from the runs that are their paths."""
+    """The ``kernels`` line's sub-rows of the streaming pair (fp32 D = 32
+    and D = 512) and of GroupNorm and conv + statistics at the fp32 UNet's
+    shapes read their launches from the runs that are their paths."""
     assert chip_smoke.F32_NARROW["flash_attention_streaming"] \
         == "train-mead128-streaming"
     assert chip_smoke.F32_NARROW["flash_attention_streaming_bwd"] \
@@ -352,7 +353,8 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     cases = {name: [dict(timed, shape=[1], dtype="bfloat16"),
                     dict(timed, shape=[2], dtype="float32", head_dim=32),
                     chip_smoke._mead128(dict(timed, shape=[3],
-                                             dtype="float32"))]
+                                             dtype="float32")),
+                    dict(timed, shape=[4], dtype="float32", head_dim=512)]
              for name in chip_smoke.KERNELS}
     launches = {run: dict.fromkeys(chip_smoke.KERNELS, 1) for run in runs}
     launches["train-mead128-streaming"]["flash_attention_streaming_bwd"] = 32
@@ -363,7 +365,10 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     assert row["launches_in_run"] == "train-mead128-streaming"
     gn = sub[("group_norm_silu", "float32, mead-128-ldm-f4 UNet shapes")]
     assert gn["shape"] == [3] and gn["launches_in_run"] == "mead128-gn"
-    assert len(rows) == len(chip_smoke.KERNELS) + 9
+    wide = sub[("flash_attention_streaming_bwd", "float32, head width 512")]
+    assert wide["shape"] == [4]
+    assert wide["launches_in_run"] == "ae-vq-streaming"
+    assert len(rows) == len(chip_smoke.KERNELS) + 13
     for r in rows:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

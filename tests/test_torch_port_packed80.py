@@ -33,6 +33,7 @@ from dsml_thesis_tpu_torch.config import build_model, load_config
 from dsml_thesis_tpu_torch.flags import KERNEL_FLAGS
 from dsml_thesis_tpu_torch.models import unet as tunet
 from dsml_thesis_tpu_torch.ops import attention as tatt
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(ROOT, "configs", "latent-diffusion")

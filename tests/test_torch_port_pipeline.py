@@ -27,6 +27,7 @@ from dsml_thesis_tpu_torch.convert import from_jax_params
 from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
                                              make_video_pipeline)
 from test_ldm import TINY_MEAD_CFG
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 B, F, STEPS, WINDOW = 2, 2, 4, 2
 
@@ -59,7 +60,7 @@ def both():
         "class_label": jnp.array([1, 5]),
         "audio": jnp.zeros((2, 5, 32)),
     }
-    params = jldm.init_params(jax.random.PRNGKey(0), batch)
+    params = jax.jit(jldm.init_params)(jax.random.PRNGKey(0), batch)
     # the JAX init zeroes every block-final conv, which would hide most of
     # the network from a comparison: fill all weights from a numpy seed
     rng = np.random.default_rng(0)

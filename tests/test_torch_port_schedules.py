@@ -9,6 +9,7 @@ from dsml_thesis_tpu.diffusion import ddim as jddim
 from dsml_thesis_tpu.diffusion import schedules as jsch
 from dsml_thesis_tpu_torch.diffusion import ddim as tddim
 from dsml_thesis_tpu_torch.diffusion import schedules as tsch
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kind", ["linear", "cosine", "sqrt_linear", "sqrt"])

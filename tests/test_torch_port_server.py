@@ -17,6 +17,7 @@ from dsml_thesis_tpu_torch.server import (BadRequest, MicroBatcher, Overloaded,
                                           PipelineServer, batch_seed,
                                           make_pipeline_runner)
 from test_ldm import TINY_MEAD_CFG
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 F, WINDOW, BATCH = 2, 2, 4
 SHAPES = {"masked_frames": (F, 16, 16, 3), "audio": (F + WINDOW, 32),

@@ -21,8 +21,10 @@ from dsml_thesis_tpu.training import train_state as jts
 from dsml_thesis_tpu_torch.convert import to_jax_params
 from dsml_thesis_tpu_torch.training import train_state as tts
 from test_torch_port_pipeline import B, F, WINDOW, _run_jax, _run_torch
-from test_torch_port_training import (_batch, _jax_draws, _jb, _leaves,
-                                      _models, _noise_leaves, _tb)
+from test_torch_port_training import (_batch, _jax_draws, _leaves, _models,
+                                      _noise_leaves, _tb,
+                                      jax_step_with_grads)
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 # flag value on the port's side -> on the JAX side (its interpret-mode twin)
 JAX_MODE = {"res": "res-interpret", "1": "interpret"}
@@ -83,14 +85,13 @@ def test_train_step_matches_jax_under_each_flag(tiny_ldm, monkeypatch, name):
     tldm = copy.deepcopy(tldm)
     batch, rng, base_lr = _batch(30), jax.random.PRNGKey(21), 1e-4
     _set_flags(monkeypatch, "jax", FLAG_SETS[name])
-    (want_loss, _), want_grads = jax.value_and_grad(
-        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True)(params)
-    tx = jts.make_optimizer(jldm, params, base_lr)
-    jstate = jts.create_train_state(jldm, params, tx)
-    jstate, want_m = jts.make_train_step(jldm, tx)(jstate, _jb(batch), rng)
+    # one jitted step: its loss, gradients and new state at its own draws
+    jstate, want_m, want_grads = jax_step_with_grads(
+        jldm, params, jts.make_optimizer(jldm, params, base_lr), batch, rng)
+    want_loss = want_m["train/loss"]
 
     _set_flags(monkeypatch, "torch", FLAG_SETS[name])
-    t, noise = _jax_draws(rng)
+    t, noise = _jax_draws(jax.random.fold_in(rng, 0))
     tldm.configure_trainable()
     tldm.zero_grad(set_to_none=True)
     loss, _ = tldm.training_loss(_tb(batch), t=t, noise=noise)

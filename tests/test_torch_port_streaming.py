@@ -27,6 +27,7 @@ from dsml_thesis_tpu_torch.models import autoencoder as tae
 from dsml_thesis_tpu_torch.models import unet as tunet
 from dsml_thesis_tpu_torch.ops import attention as tatt
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 
 def _qkv(seed, b, h, nq, nk, d, extra=0):

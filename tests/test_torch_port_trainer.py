@@ -28,6 +28,7 @@ from dsml_thesis_tpu_torch.training.checkpointing import save_topk
 from dsml_thesis_tpu_torch.training.loggers import CsvBackend, build_logger
 from dsml_thesis_tpu_torch.training.trainer import Trainer
 from test_ldm import TINY_MEAD_CFG
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = {

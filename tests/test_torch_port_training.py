@@ -35,6 +35,7 @@ from dsml_thesis_tpu_torch.training import train_state as tts
 from dsml_thesis_tpu_torch.training.ema import ema_decay, ema_update
 from test_ldm import TINY_MEAD_CFG
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 B = 4
 SCHEDULER = {"target": "ldm.lr_scheduler.LambdaWarmUpCosineScheduler",
@@ -123,6 +124,24 @@ def _tb(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def jax_step_with_grads(jldm, params, tx, batch, rng):
+    """One jitted JAX train step with ``tx`` behind a transformation that
+    passes the gradients on unchanged and keeps them: (new state, metrics,
+    the gradients), the loss and gradients at the step's own draws
+    (``fold_in(rng, 0)``). One compile gives what a gradient and a step
+    would in two."""
+    import optax
+
+    keep = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, state, params=None: (g, g))
+    jtx = optax.chain(keep, tx)
+    state = jts.create_train_state(jldm, params, jtx)
+    state, metrics = jax.jit(jts.make_train_step(jldm, jtx))(
+        state, _jb(batch), rng)
+    return state, metrics, state.opt_state[0]
+
+
 def _jax_draws(rng, timesteps=100):
     """t and noise exactly as ``training_loss`` draws them from ``rng``."""
     k_t, k_noise, *_ = jax.random.split(rng, 5)
@@ -137,7 +156,7 @@ def _models(p_uncond):
     cfg["model"]["params"]["cond_stage_config_1"]["params"]["p_uncond"] = \
         p_uncond
     jldm = jax_build_model(cfg["model"])
-    params = jldm.init_params(jax.random.PRNGKey(0), _jb(_batch(0)))
+    params = jax.jit(jldm.init_params)(jax.random.PRNGKey(0), _jb(_batch(0)))
     # the JAX init zeroes every block-final conv: fill all weights
     params = random_params(params, np.random.default_rng(1))
     tldm = build_model(cfg["model"])
@@ -193,8 +212,8 @@ def test_training_loss_and_gradients_match_jax(both, interpret, monkeypatch):
         monkeypatch.setenv("DSML_FLASH_INTERPRET", "1")
     jldm, params, tldm = both
     batch, rng = _batch(2), jax.random.PRNGKey(5)
-    (want_loss, want_aux), want_grads = jax.value_and_grad(
-        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True)(params)
+    (want_loss, want_aux), want_grads = jax.jit(jax.value_and_grad(
+        lambda p: jldm.training_loss(p, _jb(batch), rng), has_aux=True))(params)
 
     t, noise = _jax_draws(rng)
     tldm.configure_trainable()
@@ -328,8 +347,8 @@ def test_train_steps_match_jax(both, grad_accum):
     # all noise are held to twice the summed learning rates; every other leaf
     # to 1e-5 in at least 999 of 1000 elements (a single weight of a healthy
     # leaf can have such a gradient), and to the loose bound in the rest
-    noise = _noise_leaves(jax.grad(
-        lambda p: jldm.training_loss(p, _jb(batches[0]), rng)[0])(params))
+    noise = _noise_leaves(jax.jit(jax.grad(
+        lambda p: jldm.training_loss(p, _jb(batches[0]), rng)[0]))(params))
     loose = dict(loose=noise, loose_atol=2 * sum(state.lr_at(n)
                                                  for n in range(3)))
     trainable = {k: v for k, v in jstate.params.items() if k != "first_stage"}

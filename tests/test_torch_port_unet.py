@@ -11,6 +11,7 @@ from dsml_thesis_tpu.models import unet as junet
 from dsml_thesis_tpu_torch.convert import from_jax_tree
 from dsml_thesis_tpu_torch.models import unet as tunet
 from test_torch_port_pipeline import random_params
+from test_torch_port_hygiene import one_torch_thread  # noqa: F401
 
 UNET_KW = dict(in_channels=9, model_channels=32, out_channels=3,
                num_res_blocks=1, attention_resolutions=(2, 1),
