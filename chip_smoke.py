@@ -157,6 +157,12 @@ REL_TOL = 2e-2
 # channel, taken in another order than torch.sum takes them: 1e-4 of the
 # largest sum is some tens of fp32 roundings, a dropped row is 1 / N of it.
 STATS_REL_TOL = 1e-4
+# The split-head forward's row log-sum-exp (base 2) is fp32 throughout: the
+# exp2 of the special-function unit (2 ulp) and sums of up to 4096 terms in
+# another order than torch.logsumexp keep it within some hundred fp32
+# roundings of the largest row; a wrong maximum or a dropped tile moves it by
+# whole units.
+LSE_REL_TOL = 1e-4
 TIME_LIMIT_S = 1150
 
 
@@ -307,6 +313,25 @@ def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
         peak, dtype=_dtype_name(dtype), head_dim=d), run)
+
+
+def _flash_lse_case(gen, b, h, nq, nk, d):
+    """The split-head forward's row log-sum-exp ([B*H*Nq]: log2 of the sum
+    of exp(score times scale)) against the plain one, and the same bits
+    again."""
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
+    scale = d ** -0.5
+    run = lambda: A._launch_flash_forward(q, k, v, scale, True)[1]
+
+    def plain():
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        return (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
+    case = _case((b, h, nq, nk, d), False, run, plain, None, 0, 0, 1,
+                 output="lse", tol=LSE_REL_TOL, dtype="bfloat16",
+                 head_dim=d)
+    return _repeatable(case, run)
 
 
 def _fproj_case(gen, b, n, c, heads, timed, dtype=torch.bfloat16):
@@ -690,6 +715,9 @@ def phase_kernels():
         _flash_case(gen, 8, 1, 4096, 4096, 512, True),    # decode, identity
         _flash_case(gen, 16, 1, 4096, 4096, 512, True),   # B*F masked frames
         _flash_case(gen, 2, 1, 1000, 1000, 512, False),   # ragged N
+        _flash_case(gen, 1, 2, 333, 77, 512, False),      # Nk = 64 + 13
+        _flash_lse_case(gen, 1, 2, 333, 77, 512),         # its lse
+        _flash_lse_case(gen, 2, 1, 1000, 1000, 512),
         _flash_case(gen, 2, 5, 333, 77, 32, False),       # composed branch
         _flash_case(gen, 2, 3, 200, 200, 64, False),
         # bf16 D = 32 / 80: the UNet under DSML_ATTN_PACKED=0 (train-split,
@@ -888,6 +916,7 @@ def phase_kernels():
         _streaming_case(gen, 1, 2, 100, 5000, 32, False),    # the same, D = 32
         _streaming_case(gen, 2, 2, 1000, 333, 64, False),    # Nq % 128 != 0
         _streaming_case(gen, 1, 1, 64, 2000, 512, False),    # 32 ways, D = 512
+        _streaming_case(gen, 2, 1, 1000, 333, 512, False),   # 6 ways, 333 keys
         _streaming_case(gen, 8, 2, 4096, 4096, 80, True),    # -dh64 level 0
         _streaming_case(gen, 8, 5, 1024, 1024, 64, True),    # levels 1, 2
         _streaming_case(gen, 8, 10, 256, 256, 64, True),
@@ -915,6 +944,7 @@ def phase_kernels():
     ]
     streaming_bwd = [
         _streaming_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),  # vqgan
+        _streaming_bwd_case(gen, 8, 1, 4096, 4096, 512, True, f32),   # 256 px
         _streaming_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),  # ragged
         _streaming_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),     # Nk != Nq
         _streaming_bwd_case(gen, 2, 1, 333, 333, 512, False, f32),    # 32 + 13

@@ -20,13 +20,12 @@
 // (4 * N * N * D a head against 4 * N * D * 2 bytes), and at D = 32 the exp2
 // of every score on the special-function unit as much.
 //
-// bf16 at D = 512 (the first stage's AttnBlock): what limits the kernel is
-// registers, the fp32 output of a 64 x 512 tile being 128 KB. The design
-// splits D over DSPLIT = 2 warps per 16-row group, so a thread holds 128
-// accumulators; both warps recompute the group's scores (1.5x the
-// operations of the function). K / V tiles are loaded synchronously and
-// single-buffered, and the products are mma.sync (mma_tiles.cuh:attend_rows).
-// 4 KB rows fit no column-panel split of hopper_tiles.cuh.
+// bf16 at D = 512 (the first stage's AttnBlock, one head of 512 over 4096
+// tokens at 256 px): hopper_wide.cuh's design, resident. Two warpgroups a
+// 64-row q-tile, each owning 256 output columns (the 64 x 512 fp32 tile is
+// 128 KB, more than one warpgroup's registers); the scores formed once from
+// the two halves of the depth; both products on wgmma; 64-key K / V tiles by
+// cp.async on mbarriers. Bound: operations, as above.
 //
 // fp32 at D = 512 (dsml_flash_attention_f32; the first stage's AttnBlock in
 // first-stage training): the TF32 design of attention_f32.cuh, 64 query rows
@@ -40,86 +39,19 @@
 #include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
-#include "mma_tiles.cuh"
+#include "hopper_wide.cuh"
 
 namespace {
 
-constexpr int WIDE = 512;        // the head width of the mma.sync kernel
-constexpr int WIDE_SPLIT = 2;    // warps a 16-row group splits D over
-constexpr int WIDE_BN = 64;      // key / value rows of its tiles
-
-__global__ void __launch_bounds__(128 * WIDE_SPLIT)
-flash_attention_kernel_512(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                           float* __restrict__ lse, int nq, int nk,
-                           int q_tiles, float scale_log2) {
-  constexpr int D = WIDE, DSPLIT = WIDE_SPLIT, BN = WIDE_BN;
-  constexpr int NTHREADS = 128 * DSPLIT;
-  constexpr int DO = D / DSPLIT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM * (D + PAD);
-  bf16* sV = sK + BN * (D + PAD);
-
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BM;
-  const int tid = threadIdx.x;
-  q += (static_cast<int64_t>(bh) * nq + q0) * D;
-  o += (static_cast<int64_t>(bh) * nq + q0) * D;
-  k += static_cast<int64_t>(bh) * nk * D;
-  v += static_cast<int64_t>(bh) * nk * D;
-
-  // the ragged last q-tile: rows past nq are zeros and are not written back
-  load_tile<D, NTHREADS>(sQ, q, D, BM, nq - q0, tid);
-
-  float acc[DO / 8][4];
-  float l0, l1, m0, m1;
-  attend_rows<D, DSPLIT, BN, NTHREADS>(sQ, D + PAD, k, v, D, nk, scale_log2,
-                                       sK, sV, acc, l0, l1, m0, m1);
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r0 = (warp / DSPLIT) * 16 + (lane >> 2);
-  const int r1 = r0 + 8;
-  const int col0 = (warp % DSPLIT) * DO + 2 * (lane & 3);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  if (lse != nullptr && warp % DSPLIT == 0 && (lane & 3) == 0) {
-    float* row_lse = lse + static_cast<int64_t>(bh) * nq + q0;
-    if (q0 + r0 < nq) row_lse[r0] = m0 + log2f(l0);
-    if (q0 + r1 < nq) row_lse[r1] = m1 + log2f(l1);
-  }
-#pragma unroll
-  for (int dt = 0; dt < DO / 8; ++dt) {
-    const int col = col0 + dt * 8;
-    if (q0 + r0 < nq)
-      *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r0) * D + col) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (q0 + r1 < nq)
-      *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r1) * D + col) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
-}
-
-int launch_512(const void* q, const void* k, const void* v, void* o,
-               void* lse, int bh, int nq, int nk, float scale,
-               cudaStream_t stream) {
-  if (bh < 1 || nq < 1 || nk < 1) return -1;
-  const int smem =
-      (BM + 2 * WIDE_BN) * (WIDE + PAD) * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel_512,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + BM - 1) / BM;
-  flash_attention_kernel_512<<<bh * q_tiles, 128 * WIDE_SPLIT, smem,
-                               stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), nq, nk, q_tiles,
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+// D = 512: hopper_wide.cuh's design, resident (keys of one split: all)
+__global__ void __launch_bounds__(hwide::NT, 1)
+flash_attention_kernel_wide(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o,
+                            float* __restrict__ lse, int nq, int nk,
+                            float scale_log2, int q_tiles) {
+  hwide::attend<false>(q, k, v, o, lse, nullptr, nullptr, nq, nk, q_tiles,
+                       nk, scale_log2);
 }
 
 // D = 32 / 64 / 80: hopper_fwd.cuh's grid on split heads (one head of row
@@ -152,8 +84,14 @@ extern "C" int dsml_flash_attention(const void* q, const void* k,
     case 80:
       return hfwd::launch<80>(flash_attention_kernel<80>, q, k, v, o, lse, bh,
                               nq, nk, 1, scale, s);
-    case WIDE:
-      return launch_512(q, k, v, o, lse, bh, nq, nk, scale, s);
+    case hwide::D:
+      if (bh < 1 || nq < 1 || nk < 1) return -1;
+      return hwide::launch(flash_attention_kernel_wide, bh, nq, 1, s,
+                           static_cast<const bf16*>(q),
+                           static_cast<const bf16*>(k),
+                           static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                           static_cast<float*>(lse), nq, nk,
+                           scale * 1.4426950408889634f);
     default:
       return -1;
   }

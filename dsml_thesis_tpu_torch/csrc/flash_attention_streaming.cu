@@ -47,10 +47,14 @@
 // keeps that sum off the FMA units. That product reduces over the keys
 // (N = 8 columns of ones), so the head width does not enter it.
 //
-// bf16 at D = 512 (streaming_fwd_kernel): D is split over two warps per
-// 16-row group (a thread holds 128 accumulators) and both recompute the
-// scores; tiles are loaded synchronously and single-buffered, and the
-// products are mma.sync.
+// bf16 at D = 512 (streaming_wide_kernel; the first stage's AttnBlock under
+// DSML_FLASH_STREAMING=1, and a 512 px image's under auto): hopper_wide.cuh's
+// design with this kernel's roundings (q scaled in bf16 once a block in
+// shared memory, the -1e30 mask, the denominator of the cast probabilities
+// summed in fp32), two warpgroups a 64-row q-tile each owning 256 output
+// columns, the scores formed once from the two halves of the depth, both
+// products on wgmma, 64-key K / V tiles of the split's keys by cp.async on
+// mbarriers; the same splits in 64-key units and the same combine launch.
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_f32; first-stage training
 // under DSML_FLASH_STREAMING=1): the TF32 design of attention_f32.cuh with
@@ -71,194 +75,11 @@
 #include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_tiles.cuh"
-#include "mma_tiles.cuh"
+#include "hopper_wide.cuh"
 
 namespace {
 
 constexpr float MASKED = -1e30f;
-
-template <int D, int DSPLIT, int BN>
-__global__ void __launch_bounds__(128 * DSPLIT)
-streaming_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ part_o, float* __restrict__ part_ml,
-                     int nq, int nk, int q_tiles, int tiles_per_split,
-                     float q_scale) {
-  constexpr int NTHREADS = 128 * DSPLIT;
-  constexpr int LDS = D + PAD;
-  constexpr int DO = D / DSPLIT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM * LDS;
-  bf16* sV = sK + BN * LDS;
-
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BM;
-  const int split = blockIdx.y;
-  const int kv_begin = split * tiles_per_split * BN;
-  const int kv_end = min(nk, kv_begin + tiles_per_split * BN);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int row0 = (warp / DSPLIT) * 16;
-  const int dcol0 = (warp % DSPLIT) * DO;
-  const LaneOffsets lo(lane);
-  q += (bh * nq + q0) * D;
-  k += bh * nk * D;
-  v += bh * nk * D;
-
-  // rows past nq are zeros and are not written back
-  load_tile_scaled<D, NTHREADS>(sQ, q, D, BM, nq - q0, tid,
-                                __float2bfloat16(q_scale));
-
-  float acc[DO / 8][4];
-#pragma unroll
-  for (int i = 0; i < DO / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BN) {
-    __syncthreads();  // the previous tile's readers are done; sQ is visible
-    load_tile<D, NTHREADS>(sK, k + static_cast<int64_t>(kv0) * D, D, BN,
-                           nk - kv0, tid);
-    load_tile<D, NTHREADS>(sV, v + static_cast<int64_t>(kv0) * D, D, BN,
-                           nk - kv0, tid);
-    __syncthreads();
-
-    // S = (q c) K^T for the warp's 16 rows and the tile's BN keys
-    float s[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sQ + (row0 + lo.a_row) * LDS + kk + lo.a_col);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sK + (nt * 8 + lo.b_row) * LDS + kk + lo.b_col);
-        mma_bf16(s[nt], a, b[0], b[1]);
-        mma_bf16(s[nt + 1], a, b[2], b[3]);
-      }
-    }
-
-    // mask the keys past nk with the finite score, new row maximum
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kv0 + nt * 8 + 2 * (lane & 3) + (j & 1);
-        if (key >= nk) s[nt][j] = MASKED;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = exp2f(m0 - mx0);
-    const float alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int i = 0; i < DO / 8; ++i) {
-      acc[i][0] *= alpha0;
-      acc[i][1] *= alpha0;
-      acc[i][2] *= alpha1;
-      acc[i][3] *= alpha1;
-    }
-
-    // P = exp2(S - max), explicitly 0 for a masked key, cast to bf16 as the
-    // A operand; the row sums add the cast values
-    uint32_t p[BN / 8][2];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const int key = kv0 + nt * 8 + 2 * (lane & 3);
-      const bool ok0 = key < nk;
-      const bool ok1 = key + 1 < nk;
-      const __nv_bfloat162 p01 = __floats2bfloat162_rn(
-          ok0 ? exp2f(s[nt][0] - m0) : 0.f, ok1 ? exp2f(s[nt][1] - m0) : 0.f);
-      const __nv_bfloat162 p23 = __floats2bfloat162_rn(
-          ok0 ? exp2f(s[nt][2] - m1) : 0.f, ok1 ? exp2f(s[nt][3] - m1) : 0.f);
-      const float2 f01 = __bfloat1622float2(p01);
-      const float2 f23 = __bfloat1622float2(p23);
-      l0 += f01.x + f01.y;
-      l1 += f23.x + f23.y;
-      p[nt][0] = *reinterpret_cast<const uint32_t*>(&p01);
-      p[nt][1] = *reinterpret_cast<const uint32_t*>(&p23);
-    }
-
-    // O += P V for the warp's D / DSPLIT columns
-#pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      const uint32_t a[4] = {p[2 * kt][0], p[2 * kt][1], p[2 * kt + 1][0],
-                             p[2 * kt + 1][1]};
-#pragma unroll
-      for (int dt = 0; dt < DO / 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, sV + (kt * 16 + lo.a_row) * LDS + dcol0 + dt * 8 + lo.a_col);
-        mma_bf16(acc[dt], a, b[0], b[1]);
-        mma_bf16(acc[dt + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  // each lane summed its own 2 of every 8 columns: finish the row sums
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-
-  const int r0 = row0 + (lane >> 2);
-  const int r1 = r0 + 8;
-  const int col0 = dcol0 + 2 * (lane & 3);
-  const int64_t row_base = bh * nq + q0;  // of this tile's first row
-  if (gridDim.y == 1) {
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-    o += row_base * D;
-#pragma unroll
-    for (int dt = 0; dt < DO / 8; ++dt) {
-      const int col = col0 + dt * 8;
-      if (q0 + r0 < nq)
-        *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r0) * D + col) =
-            pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-      if (q0 + r1 < nq)
-        *reinterpret_cast<uint32_t*>(o + static_cast<int64_t>(r1) * D + col) =
-            pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
-    return;
-  }
-  // part_o [splits, BH * Nq, D], part_ml [splits, 2, BH * Nq]
-  const int64_t rows = static_cast<int64_t>(gridDim.x / q_tiles) * nq;
-  part_o += (split * rows + row_base) * D;
-  part_ml += split * 2 * rows + row_base;
-  if (warp % DSPLIT == 0 && (lane & 3) == 0) {
-    if (q0 + r0 < nq) {
-      part_ml[r0] = m0;
-      part_ml[rows + r0] = l0;
-    }
-    if (q0 + r1 < nq) {
-      part_ml[r1] = m1;
-      part_ml[rows + r1] = l1;
-    }
-  }
-#pragma unroll
-  for (int dt = 0; dt < DO / 8; ++dt) {
-    const int col = col0 + dt * 8;
-    if (q0 + r0 < nq)
-      *reinterpret_cast<float2*>(part_o + static_cast<int64_t>(r0) * D + col) =
-          make_float2(acc[dt][0], acc[dt][1]);
-    if (q0 + r1 < nq)
-      *reinterpret_cast<float2*>(part_o + static_cast<int64_t>(r1) * D + col) =
-          make_float2(acc[dt][2], acc[dt][3]);
-  }
-}
 
 constexpr int SROWS = 64;           // query rows a block
 constexpr int SNT = 128;            // threads a block: one warpgroup
@@ -408,7 +229,7 @@ streaming_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  *reinterpret_cast<uint32_t*>(p) = hopper::pack2(a, b);
 }
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -491,28 +312,32 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                               stream);
 }
 
-template <int D, int DSPLIT, int BN>
-int launch(const void* q, const void* k, const void* v, void* o, void* part_o,
-           void* part_ml, int bh, int nq, int nk, int splits, float q_scale,
-           cudaStream_t stream) {
-  if (!splits_ok(bh, nq, nk, splits, BN, part_o, part_ml)) return -1;
-  const int kv_tiles = (nk + BN - 1) / BN;
-  const int tiles_per_split = (kv_tiles + splits - 1) / splits;
-  auto kernel = streaming_fwd_kernel<D, DSPLIT, BN>;
-  const int smem = (BM + 2 * BN) * (D + PAD) * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + BM - 1) / BM;
-  kernel<<<dim3(bh * q_tiles, splits), 128 * DSPLIT, smem, stream>>>(
+// D = 512: hopper_wide.cuh's design with this kernel's roundings
+__global__ void __launch_bounds__(hwide::NT, 1)
+streaming_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ part_o, float* __restrict__ part_ml,
+                      int nq, int nk, int keys_per_split, float q_scale,
+                      int q_tiles) {
+  hwide::attend<true>(q, k, v, o, nullptr, part_o, part_ml, nq, nk, q_tiles,
+                      keys_per_split, q_scale);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                void* part_o, void* part_ml, int bh, int nq, int nk,
+                int splits, float q_scale, cudaStream_t stream) {
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
+  const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
+  const int err = hwide::launch(
+      streaming_wide_kernel, bh, nq, splits, stream,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(part_o), static_cast<float*>(part_ml), nq, nk,
-      q_tiles, tiles_per_split, q_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+      keys_per_split, q_scale);
+  if (err != 0 || splits == 1) return err;
   return launch_combine<bf16>(part_o, part_ml, o,
-                              static_cast<int64_t>(bh) * nq, D, splits,
+                              static_cast<int64_t>(bh) * nq, hwide::D, splits,
                               stream);
 }
 
@@ -661,9 +486,9 @@ extern "C" int dsml_flash_attention_streaming(const void* q, const void* k,
     case 80:
       return launch_wgmma<80>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
                               q_scale, s);
-    case 512:
-      return launch<512, 2, 64>(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
-                                q_scale, s);
+    case hwide::D:
+      return launch_wide(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
+                         q_scale, s);
     default:
       return -1;
   }

@@ -29,8 +29,8 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
            "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
 HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_fwd.cuh",
-           "hopper_bwd.cuh", "attention_f32.cuh", "attention_f32_narrow.cuh",
-           "conv_stats.cuh", "conv_igemm.cuh")
+           "hopper_bwd.cuh", "hopper_wide.cuh", "attention_f32.cuh",
+           "attention_f32_narrow.cuh", "conv_stats.cuh", "conv_igemm.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes argument types of every C entry point of the library, in the order

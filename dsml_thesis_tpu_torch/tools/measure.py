@@ -205,7 +205,7 @@ _FAMILIES = (
     ("fproj_attention_kernel", "attention: fproj (attention + to_out)"),
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),
-    ("streaming_fwd_kernel", "attention: streaming"),
+    ("streaming_wide_kernel", "attention: streaming"),
     ("streaming_wgmma_kernel", "attention: streaming"),
     ("streaming_combine_kernel", "attention: streaming"),
     ("streaming_lse_kernel", "attention backward: streaming log-sum-exp"),

@@ -44,7 +44,9 @@ arguments (a parent tree before the plans came in) is called with the legacy
 arguments, at its own weight layout, and takes forced cases as "not taken".
 Each case also reports ``device_ms``, the summed device time of the kernels
 of a call under torch.profiler (host issue left out). ``--only`` times only
-the cases whose name holds the text (or one of ``a|b``). The fp32
+the cases whose name holds the text (or one of ``a|b``); ``--ptxas TEXT``
+(any mode that builds) prints ptxas's report (registers, spills) on each
+kernel whose mangled name holds TEXT. The fp32
 references run with cuDNN's TF32 off.
 
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn [--only TEXT] \
@@ -59,6 +61,19 @@ forwards of rows 2 and 4 and the backwards of rows 7 and 5 at [16, 1, 1024,
 512] and [8, 1, 4096, 512] (the backwards also at a ragged [2, 1, 333, 333,
 512]); at D = 32 the forwards of rows 2 and 4 at ``F32_NARROW_SHAPES``.
 
+    python -m dsml_thesis_tpu_torch.tools.variants --wide-attn [--only TEXT] \
+        '{"parent": [["flash_attention.cu", "", "_ab/parent/.../flash_attention.cu"],
+                     ...], "new": []}'
+
+``--wide-attn`` builds ``flash_attention.cu`` and
+``flash_attention_streaming.cu`` alone and times their bf16 forwards at
+D = 512 (rows 2 and 4 of PERF.md's kernel table, the first stage's
+AttnBlock), each case with ``device_ms`` and ``device_by_kernel`` (the
+streaming forward's combine launch apart): both rows at [8, 1, 4096, 512],
+[16, 1, 4096, 512] and the ragged [2, 1, 1000, 1000, 512] and [1, 2, 333,
+77, 512]; row 4 also at [1, 1, 64, 2000, 512] (32 splits of the keys) and
+[1, 1, 16384, 512] (a 512 px image, which streams under ``auto``).
+
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
 
 ``--wrapper`` builds nothing of its own and times the same D = 32 forwards
@@ -67,7 +82,7 @@ through the host path of this tree instead: each public wrapper
 the same launch inside its autograd ``Function`` (``function``, the path
 every call took before the wrappers launched directly when no gradient is
 tracked), 200 calls a timing, host work included, with ``device_ms``
-beside. Both print the card's name and power limit first.
+beside. Each mode prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -119,6 +134,16 @@ F32_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
 F32_ENTRIES = ("dsml_flash_attention_f32", "dsml_flash_attention_bwd_f32",
                "dsml_flash_attention_streaming_f32",
                "dsml_flash_attention_streaming_bwd_f32")
+# what --wide-attn builds and times
+WIDE_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
+WIDE_ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_streaming")
+# [B, H, Nq, Nk, D] of its cases: (shape, rows 2 and 4 or row 4 alone)
+WIDE_SHAPES = (((8, 1, 4096, 4096, 512), ("flash", "streaming")),
+               ((16, 1, 4096, 4096, 512), ("flash", "streaming")),
+               ((2, 1, 1000, 1000, 512), ("flash", "streaming")),
+               ((1, 2, 333, 77, 512), ("flash", "streaming")),
+               ((1, 1, 64, 2000, 512), ("streaming",)),
+               ((1, 1, 16384, 16384, 512), ("streaming",)))
 # [B, H, Nq, Nk, D] of the fp32 D = 32 forwards (mead-128-ldm-f4's UNet
 # levels in training and serving, and a ragged one)
 F32_NARROW_SHAPES = ((32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
@@ -126,8 +151,23 @@ F32_NARROW_SHAPES = ((32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
                      (2, 3, 77, 77, 32))
 
 
-def build(variants: dict, sources=SOURCES, entries=ENTRIES) -> dict:
-    """name -> loaded library of every variant not named ``c_*``."""
+def ptxas_report(out: str, text: str) -> list:
+    """ptxas's lines (registers, spills, stack) about the entry functions
+    whose mangled name holds ``text``."""
+    lines, keep = [], False
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            keep = text in ln
+        if keep:
+            lines.append(ln.strip())
+    return lines
+
+
+def build(variants: dict, sources=SOURCES, entries=ENTRIES,
+          ptxas: str = "") -> dict:
+    """name -> loaded library of every variant not named ``c_*``; with
+    ``ptxas``, ptxas's report on the entries whose name holds it is
+    printed."""
     root = os.path.join(_build.BUILD_DIR, "variants")
     procs = []
     for name, subs in variants.items():
@@ -157,7 +197,9 @@ def build(variants: dict, sources=SOURCES, entries=ENTRIES) -> dict:
         out, _ = proc.communicate()
         loss = [ln.strip() for ln in out.splitlines() if "Performance Loss" in ln]
         print(json.dumps({"variant": name, "source": src,
-                          "rc": proc.returncode, "performance_loss": loss}),
+                          "rc": proc.returncode, "performance_loss": loss,
+                          **({"ptxas": ptxas_report(out, ptxas)} if ptxas
+                             else {})}),
               flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed on {src}:\n{out}")
@@ -388,6 +430,10 @@ def cases() -> dict:
         return call, lambda: rel(y, ref)
 
     f32, b16 = torch.float32, torch.bfloat16
+    if WIDE_ONLY:
+        return {f"{kind} {_tag(shape)}": {"flash": flash,
+                                          "streaming": streaming}[kind](*shape)
+                for shape, kinds in WIDE_SHAPES for kind in kinds}
     if F32_ONLY:
         return f32_cases(rel, stream)
     if CONV_GN_ONLY:
@@ -628,9 +674,11 @@ def device_ms(fn, iters: int = 10) -> float:
 
 
 # only the conv + statistics and GroupNorm cases (set by --conv-gn), only
-# the fp32 attention cases (set by --f32-attn)
+# the fp32 attention cases (set by --f32-attn), only the bf16 D = 512
+# forwards (set by --wide-attn)
 CONV_GN_ONLY = False
 F32_ONLY = False
+WIDE_ONLY = False
 
 
 def card() -> str:
@@ -642,7 +690,7 @@ def card() -> str:
 
 
 def main():
-    global CONV_GN_ONLY, F32_ONLY
+    global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -653,6 +701,9 @@ def main():
     if "--f32-attn" in args:
         args.remove("--f32-attn")
         F32_ONLY = True
+    if "--wide-attn" in args:
+        args.remove("--wide-attn")
+        WIDE_ONLY = True
     wrapper = "--wrapper" in args
     if wrapper:
         args.remove("--wrapper")
@@ -662,6 +713,10 @@ def main():
     if "--only" in args:   # only the cases whose name holds one of a|b|..
         only = args.pop(args.index("--only") + 1)
         args.remove("--only")
+    ptxas = ""
+    if "--ptxas" in args:  # ptxas's report on the entries named with it
+        ptxas = args.pop(args.index("--ptxas") + 1)
+        args.remove("--ptxas")
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps({"card": card()}), flush=True)
     if wrapper:   # the host paths stand in for libraries
@@ -671,7 +726,9 @@ def main():
     else:
         libs = build(json.loads(args[0]),
                      *((CONV_GN_SOURCES, CONV_GN_ENTRIES) if CONV_GN_ONLY else
-                       (F32_SOURCES, F32_ENTRIES) if F32_ONLY else ()))
+                       (F32_SOURCES, F32_ENTRIES) if F32_ONLY else
+                       (WIDE_SOURCES, WIDE_ENTRIES) if WIDE_ONLY else
+                       (SOURCES, ENTRIES)), ptxas=ptxas)
         todo, iters = cases(), 20
     names = list(libs)
     for case, (call, err) in todo.items():
@@ -697,7 +754,7 @@ def main():
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
-            if F32_ONLY:   # and by kernel: lse, delta, dk/dv, dq launches
+            if F32_ONLY or WIDE_ONLY:   # and by kernel (lse, combine, ..)
                 kernels = device_kernels_ms(lambda: call(libs[name]))
                 res[name]["device_ms"] = sum(kernels.values())
                 res[name]["device_by_kernel"] = {
