@@ -573,8 +573,8 @@ def _stats_case(gen, b, n, c, timed, dtype=torch.bfloat16):
     x, _, _ = _gn_input(gen, b, n, c, dtype=dtype)
     f32 = torch.float32
     case = _case(
-        (b, n, c), timed, lambda: torch.stack(G.gn_channel_stats(x)),
-        lambda: torch.stack(G.gn_channel_stats_reference(x)),
+        (b, n, c), timed, lambda: G.gn_channel_stats(x),
+        lambda: G.gn_channel_stats_reference(x),
         lambda: (x.sum(1, dtype=f32), x.square().sum(1, dtype=f32)),
         x.element_size() * b * n * c + 2 * 4 * b * c, 3 * b * n * c,
         PEAK_FP32_FLOPS, tol=STATS_REL_TOL, dtype=_dtype_name(dtype))
@@ -762,6 +762,7 @@ def phase_kernels():
         _fproj_case(gen, 3, 200, 160, 5, False, f32),     # ragged N
         _fproj_case(gen, 2, 100, 640, 20, False, f32),    # ragged, widest
         _fproj_case(gen, 2, 70, 96, 3, False, f32),       # H*D % 64 != 0
+        _fproj_case(gen, 1, 1024, 160, 5, True, f32),     # one clip's frame
     ]
     packed = [
         _packed_case(gen, 16, 4096, 4096, 5, 32, True),   # -fullattn, 64x64
@@ -851,6 +852,11 @@ def phase_kernels():
         _stats_case(gen, 16, 4096, 256, True, f32),
         _stats_case(gen, 16, 1024, 512, True, f32),
         _stats_case(gen, 3, 1000, 160, False, f32),
+        _stats_case(gen, 1, 4096, 160, True),          # the smallest grid
+        # fp32: mead-128-ldm-f4's UNet under DSML_PALLAS_GN=stats, served
+        _mead128(_stats_case(gen, 16, 1024, 160, True, f32)),
+        _mead128(_stats_case(gen, 16, 256, 960, True, f32)),
+        _mead128(_stats_case(gen, 16, 64, 1280, True, f32)),
     ]
     # shapes as [B, B*H, Nq, Nk, D]; training at batch 8
     # the first timed case of rows 5 and 7 is first-stage training's (their
@@ -1934,6 +1940,7 @@ F32_WIDE = {
 # the run that is their path; a sub-row each
 F32_UNET = {
     "group_norm_silu": "mead128-gn",
+    "gn_channel_stats": "mead128-stats",
     "conv_stats": "mead128-epilogue",
 }
 
@@ -2010,6 +2017,7 @@ RUNS = (
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 8),
     ("mead128-gn", CONFIG_128, {"DSML_PALLAS_GN": "1"}, 8),
     ("mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "1"}, 8),
+    ("mead128-stats", CONFIG_128, {"DSML_PALLAS_GN": "stats"}, 8),
 )
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (

@@ -4,8 +4,6 @@
 // instantiations:
 //   flash_attention_packed.cu     forward + row log-sum-exp, packed rows
 //   flash_attention.cu            the same on split heads (heads = 1)
-//   flash_attention_fproj.cu      the q / k / v and output projections
-//                                 (gemm_block) around the same forward
 //   flash_attention_bwd_packed.cu delta, dk/dv grid, dq grid, packed rows
 //   flash_attention_bwd.cu        the same on split heads (heads = 1)
 //   flash_attention_streaming.cu  the streaming forward on split heads
@@ -14,14 +12,13 @@
 //                                 the backward's grids on split heads
 //
 // Rows: a head h of batch b is addressed by base pointer + h * 32 with a row
-// stride ld (H * 32 on packed rows, 32 on split heads, 3 H * 32 in the fused
-// projection's q / k / v scratch), so no head-split copy exists.
+// stride ld (H * 32 on packed rows, 32 on split heads), so no head-split
+// copy exists.
 //
 // Products on the tensor cores in TF32 (mma.sync m16n8k8, fp32 accumulate;
 // attention_f32.cuh's fragment helpers): every operand is rounded to TF32
 // (cvt.rna) once, where it is stored in shared memory or loaded into the
-// registers it is used from (q, k, v, do, h, the weights) or formed there (p,
-// ds). Softmax statistics, exponentials, delta and every sum are fp32.
+// registers it is used from (q, k, v, do) or formed there (p, ds). Softmax statistics, exponentials, delta and every sum are fp32.
 //
 // What shapes the design: a fp32 row of 32 is 128 bytes, so one warp holds a
 // 16-row slab of a head as four TF32 A fragments (16 registers) and a whole
@@ -673,79 +670,6 @@ int launch_bwd(DkdvKernel dkdv, DqKernel dqk, const float* q, const float* k,
       q, k, v, dout, lse, delta, dq, ld, nq, nk, heads, q_tiles, scale_log2,
       q_mul, dq_mul);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------ the fused projections ---
-
-// Block (64-row tile, 64-column tile, z) of c = a w_z^T (+ bias): a [m, kdim]
-// at row stride lda, w_z [n, kdim] (torch.nn.Linear's [out, in]), c at row
-// stride ldc, columns z * n .. of it; kdim % 32 == 0 and n % 2 == 0. 2 x 2
-// warps of 32 x 32, 32-channel stages through two cp.async buffers.
-__device__ __forceinline__ void gemm_block(const float* a, const float* w0,
-                                           const float* w1, const float* w2,
-                                           const float* bias, float* c,
-                                           int m, int n, int kdim,
-                                           int64_t lda, int64_t ldc) {
-  __shared__ __align__(16) Smem2 sm;
-  const int z = blockIdx.z;
-  const float* w = z == 0 ? w0 : (z == 1 ? w1 : w2);
-  const int m0 = blockIdx.x * TILE, n0 = blockIdx.y * TILE;
-  a += m0 * lda;
-  w += static_cast<int64_t>(n0) * kdim;
-  c += m0 * ldc + static_cast<int64_t>(z) * n + n0;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) zero_16x32(acc[i]);
-  const int steps = kdim / D;
-  issue_tile(sm.t[0][0], a, lda, m - m0);
-  issue_tile(sm.t[0][1], w, kdim, n - n0);
-  cp_async_commit();
-  for (int j = 0; j < steps; ++j) {
-    const int st = j & 1;
-    cp_async_wait_all();
-    round_tile(sm.t[st][0]);
-    round_tile(sm.t[st][1]);
-    __syncthreads();
-    if (j + 1 < steps) {
-      issue_tile(sm.t[st ^ 1][0], a + (j + 1) * D, lda, m - m0);
-      issue_tile(sm.t[st ^ 1][1], w + (j + 1) * D, kdim, n - n0);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 8) {
-      uint32_t fa[2][4];
-      frag_a(fa[0], sm.t[st][0], LD, wm, kk);
-      frag_a(fa[1], sm.t[st][0], LD, wm + 16, kk);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        uint32_t b0, b1;
-        frag_b_nk(b0, b1, sm.t[st][1], LD, wn + nt * 8, kk);
-        mma_tf32(acc[0][nt], fa[0], b0, b1);
-        mma_tf32(acc[1][nt], fa[1], b0, b1);
-      }
-    }
-  }
-  const int t = lane_t();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r = wm + mt * 16 + lane_g();
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = wn + nt * 8 + 2 * t;
-      if (n0 + col >= n) continue;
-      const float b0 = bias != nullptr ? bias[n0 + col] : 0.f;
-      const float b1 = bias != nullptr ? bias[n0 + col + 1] : 0.f;
-      if (m0 + r < m)
-        *reinterpret_cast<float2*>(c + r * ldc + col) =
-            make_float2(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
-      if (m0 + r + 8 < m)
-        *reinterpret_cast<float2*>(c + (r + 8) * ldc + col) =
-            make_float2(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
-    }
-  }
 }
 
 }  // namespace f32narrow

@@ -22,8 +22,20 @@
 // The design reduces per channel, never per group: C/G is 5 at C = 160, so a
 // group is 10 bytes of each 320-byte row, while channels-last rows read as
 // 16 bytes a thread (VEC = 8 bf16 or 4 fp32 channels) coalesce whatever C/G
-// is. A block is cvb x rl threads: cvb = min(C / VEC, 256) column vectors,
-// rl = 256 / cvb row lanes; a thread keeps its VEC channels for all its rows.
+// is.
+//
+// The statistics op is one launch (gn_stats_cluster_kernel): a
+// thread-block cluster of k blocks (up to 16, ops/groupnorm.py:stats_plan:
+// B x k within the 132 SMs) takes a batch row; each block streams its
+// contiguous rows with eight independent 16-byte loads in flight a thread
+// (512 threads: C / VEC column vectors x row lanes), adds its row lanes in
+// lane order in shared memory, and the ranks add the cluster's partial sums
+// in rank order through distributed shared memory and write sums
+// [2, B, C] once. No scratch, no second launch, no atomics.
+//
+// The whole-row op's three passes, a block cvb x rl threads (cvb =
+// min(C / VEC, 256) column vectors, rl = 256 / cvb row lanes; a thread keeps
+// its VEC channels for all its rows):
 //   partial  grid (chunks, B, slabs): sums of a chunk of rows, reduced over
 //            the row lanes in shared memory, to partial [B, chunks, 2, C];
 //   finish   one thread per (batch, channel): adds the chunks' partial sums
@@ -398,7 +410,8 @@ gn_cluster_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
   hopper::cluster_wait();
 }
 
-// The statistics pass: partial sums, then the fixed-order finish.
+// The whole-row op's statistics pass: partial sums, then the fixed-order
+// finish.
 template <typename T>
 static int launch_stats(const T* x, float* partial, float* sums, int b, int n,
                         int c, int chunks, dim3* grid, int* rows_per_chunk,
@@ -420,14 +433,177 @@ static int launch_stats(const T* x, float* partial, float* sums, int b, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- channel statistics ---
+// The statistics op (row 10) in one launch: `cluster` blocks of a
+// thread-block cluster a batch row (ops/groupnorm.py:stats_plan), each over
+// its contiguous rows with ST_LOADS independent 16-byte loads in flight a
+// thread; the ranks add the cluster's partial sums in rank order through
+// distributed shared memory and write the result once (see the note at the
+// top).
+constexpr int ST_THREADS = 512;
+constexpr int ST_LOADS = 8;
+
+// 16 bytes of x into sums and sums of squares of its VEC channels
+__device__ __forceinline__ void stats_add(uint4 v, float (&s)[8],
+                                          float (&q)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    s[2 * i] += t.x;
+    q[2 * i] = fmaf(t.x, t.x, q[2 * i]);
+    s[2 * i + 1] += t.y;
+    q[2 * i + 1] = fmaf(t.y, t.y, q[2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void stats_add(uint4 v, float (&s)[4],
+                                          float (&q)[4]) {
+  const float f[4] = {__uint_as_float(v.x), __uint_as_float(v.y),
+                      __uint_as_float(v.z), __uint_as_float(v.w)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] += f[j];
+    q[j] = fmaf(f[j], f[j], q[j]);
+  }
+}
+
+// Shared-memory floats of a statistics block: row-lane sums [2][rl][c],
+// then the block's partial sums [2][c].
+__host__ __device__ constexpr int stats_lanes(int cvs) {
+  return cvs < ST_THREADS ? ST_THREADS / cvs : 1;
+}
 template <typename T>
-static int channel_stats(const void* x, void* partial, void* sums, int b,
-                         int n, int c, int chunks, void* stream) {
-  dim3 grid;
-  int rows_per_chunk;
-  return launch_stats(static_cast<const T*>(x), static_cast<float*>(partial),
-                      static_cast<float*>(sums), b, n, c, chunks, &grid,
-                      &rows_per_chunk, static_cast<cudaStream_t>(stream));
+__host__ __device__ constexpr int stats_smem(int c) {
+  return 4 * (2 * stats_lanes(c / Vec<T>::N) * c + 2 * c);
+}
+
+// The block's per-channel sums over rows [r0, r1) of the batch row at xb
+// into part [2][c] (shared memory), in a fixed order: a thread adds its
+// rows in order (a column vector of VEC channels, every rl-th row), then the
+// row lanes are added in lane order. Ends with part visible to the block.
+template <typename T>
+__device__ __forceinline__ void block_stats(const T* __restrict__ xb, int r0,
+                                            int r1, int c, float* red,
+                                            float* part) {
+  constexpr int VEC = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int cvs = c / VEC;
+  const int cvb = cvs < ST_THREADS ? cvs : ST_THREADS;
+  const int rl = stats_lanes(cvs);
+  const int lane = tid / cvb;
+  if (lane < rl) {
+    for (int cv = tid % cvb; cv < cvs; cv += cvb) {
+      float s[VEC], q[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+      const T* p = xb + cv * VEC;
+      int r = r0 + lane;
+      for (; r + (ST_LOADS - 1) * rl < r1; r += ST_LOADS * rl) {
+        uint4 v[ST_LOADS];
+#pragma unroll
+        for (int u = 0; u < ST_LOADS; ++u)
+          v[u] = *reinterpret_cast<const uint4*>(
+              p + static_cast<int64_t>(r + u * rl) * c);
+#pragma unroll
+        for (int u = 0; u < ST_LOADS; ++u) stats_add(v[u], s, q);
+      }
+      for (; r < r1; r += rl)
+        stats_add(*reinterpret_cast<const uint4*>(
+                      p + static_cast<int64_t>(r) * c),
+                  s, q);
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4) {
+        *reinterpret_cast<float4*>(red + lane * c + cv * VEC + j) =
+            make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+        *reinterpret_cast<float4*>(red + (rl + lane) * c + cv * VEC + j) =
+            make_float4(q[j], q[j + 1], q[j + 2], q[j + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * c; i += ST_THREADS) {
+    const float* src = red + (i / c) * rl * c + i % c;
+    float t = 0.f;
+    for (int l = 0; l < rl; ++l) t += src[l * c];
+    part[i] = t;
+  }
+  __syncthreads();
+}
+
+// Design 0: block rank of cluster b takes rows rank * rpb .. (rpb = rows a
+// block); rank r then adds float4 i = r, r + cluster * ST_THREADS, .. of
+// every rank's [2][c] partial sums in rank order and writes it to sums.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+gn_stats_cluster_kernel(const T* __restrict__ x, float* __restrict__ sums,
+                        int batch, int n, int c, int cluster, int rpb) {
+  extern __shared__ __align__(16) float st_smem[];
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x % cluster;
+  const int b = blockIdx.x / cluster;
+  const int r0 = min(n, rank * rpb);
+  float* part = st_smem;
+  block_stats<T>(x + static_cast<int64_t>(b) * n * c, r0, min(n, r0 + rpb), c,
+                 part + 2 * c, part);
+  hopper::cluster_arrive();
+  hopper::cluster_wait();  // every rank's partial sums are in
+  for (int i = rank * ST_THREADS + tid; i < c / 2; i += cluster * ST_THREADS) {
+    const uint32_t addr = hopper::cvta(part + 4 * i);
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < cluster; ++k) {
+      const uint4 u = hopper::ld_cluster16(hopper::map_rank(addr, k));
+      t.x += __uint_as_float(u.x);
+      t.y += __uint_as_float(u.y);
+      t.z += __uint_as_float(u.z);
+      t.w += __uint_as_float(u.w);
+    }
+    const int which = 4 * i / c, ch = 4 * i % c;
+    *reinterpret_cast<float4*>(
+        sums + (static_cast<int64_t>(which) * batch + b) * c + ch) = t;
+  }
+  hopper::cluster_arrive();
+  hopper::cluster_wait();  // no block leaves while another may read it
+}
+
+// One launch of gn_stats_cluster_kernel: `blocks` blocks (1-16) of a
+// cluster a batch row. The kernel's attributes (dynamic shared memory up to
+// the limit, clusters past 8 blocks) are set once a process.
+template <typename T>
+static int channel_stats(const void* x, void* sums, int b, int n, int c,
+                         int blocks, void* stream) {
+  if (b < 1 || n < 1 || c < Vec<T>::N || c % Vec<T>::N != 0 || blocks < 1 ||
+      blocks > 16 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(sums) % 16 != 0)
+    return -1;
+  const int smem = stats_smem<T>(c);
+  if (smem > 232448) return -1;
+  static const int set = [] {
+    int err = static_cast<int>(cudaFuncSetAttribute(
+        gn_stats_cluster_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 232448));
+    if (err == 0)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          gn_stats_cluster_kernel<T>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+    return err;
+  }();
+  if (set != 0) return set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b * blocks));
+  cfg.blockDim = dim3(ST_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_stats_cluster_kernel<T>, static_cast<const T*>(x),
+      static_cast<float*>(sums), b, n, c, blocks, (n + blocks - 1) / blocks);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
@@ -477,21 +653,20 @@ static int group_norm_silu(const void* x, const void* gamma, const void* beta,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [B, N, C] bf16 (the _f32 entry: fp32); partial is scratch of
-// B * chunks * 2 * C floats; sums [2, B, C] floats (sum, then sum of
-// squares). Needs C % VEC == 0 (VEC = 8 bf16, 4 fp32) and
-// 1 <= chunks <= N. Returns cudaGetLastError() of the launches (0 =
-// launched), -1 for a shape this file does not take.
-extern "C" int dsml_gn_channel_stats(const void* x, void* partial, void* sums,
-                                     int b, int n, int c, int chunks,
-                                     void* stream) {
-  return channel_stats<bf16>(x, partial, sums, b, n, c, chunks, stream);
+// x [B, N, C] bf16 (the _f32 entry: fp32); sums [2, B, C] floats (sum, then
+// sum of squares); `blocks` blocks (1-16) of a cluster a batch row
+// (ops/groupnorm.py:stats_plan). Needs C % VEC == 0 (VEC = 8 bf16, 4
+// fp32). Returns cudaGetLastError() of the launch (0 = launched), -1 for a
+// shape this file does not take.
+extern "C" int dsml_gn_channel_stats(const void* x, void* sums, int b, int n,
+                                     int c, int blocks, void* stream) {
+  return channel_stats<bf16>(x, sums, b, n, c, blocks, stream);
 }
 
-extern "C" int dsml_gn_channel_stats_f32(const void* x, void* partial,
-                                         void* sums, int b, int n, int c,
-                                         int chunks, void* stream) {
-  return channel_stats<float>(x, partial, sums, b, n, c, chunks, stream);
+extern "C" int dsml_gn_channel_stats_f32(const void* x, void* sums, int b,
+                                         int n, int c, int blocks,
+                                         void* stream) {
+  return channel_stats<float>(x, sums, b, n, c, blocks, stream);
 }
 
 // x, y [B, N, C] bf16 (the _f32 entry: fp32); gamma, beta [C], bf16 if

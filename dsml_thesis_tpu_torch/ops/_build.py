@@ -28,8 +28,9 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_packed.cu",
            "flash_attention_streaming.cu", "flash_attention_streaming_bwd.cu",
            "group_norm.cu", "conv_stats.cu", "conv_stats_f32.cu")
-HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_fwd.cuh",
-           "hopper_bwd.cuh", "hopper_wide.cuh", "attention_f32.cuh",
+HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_tf32.cuh",
+           "hopper_fwd.cuh", "hopper_bwd.cuh", "hopper_wide.cuh",
+           "attention_f32.cuh",
            "attention_f32_narrow.cuh", "conv_stats.cuh", "conv_igemm.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,7 +47,7 @@ SIGNATURES = {
     "dsml_flash_attention_streaming": [_P] * 6 + [_I] * 5 + [_F, _P],
     "dsml_flash_attention_streaming_bwd": [_P] * 10 + [_I] * 4 + [_F, _F, _P],
     "dsml_conv_stats": [_P] * 11 + [_I] * 11 + [_F, _I, _P],
-    "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P],
+    "dsml_gn_channel_stats": [_P] * 2 + [_I] * 4 + [_P],
     "dsml_group_norm_silu": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
 }
 # the fp32 instantiations (D = 512 attention and first-stage training's

@@ -14,10 +14,13 @@ versions, and the wrappers that choose between them by where the tensor lies.
     kernels ``csrc/flash_attention_fproj.cu``; replaces the TPU kernel
     ``dsml_thesis_tpu/ops/attention.py:_flash_kernel_packed_fproj``
     (``flash_attention_fproj``). Bound by operations; q, k, v go once through
-    a bf16 scratch (a ``wgmma`` GEMM), the attention output and the head
-    split stay in shared memory: the head-group blocks of a q-tile form a
-    thread-block cluster and read each other's outputs for the output
-    projection.
+    a scratch (a ``wgmma`` GEMM; in fp32 v transposed per head, the layout
+    TF32 ``wgmma`` reads), the attention output and the head split stay in
+    shared memory: the head-group blocks of a q-tile form a thread-block
+    cluster and read each other's outputs for the output projection. fp32
+    (D = 32) runs every product on TF32 ``wgmma`` (``fproj_f32_plan``). A
+    call with no gradient to track launches without the autograd
+    ``Function``.
 
 ``flash_attention_packed`` q [B, Nq, H*D], k / v [B, Nk, H*D] -> [B, Nq, H*D]
     kernel ``csrc/flash_attention_packed.cu``; replaces the TPU kernel
@@ -115,7 +118,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -679,8 +682,103 @@ def flash_attention_fproj(h: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         return fproj_reference(h, wq, wk, wv, wo, bo, heads, scale=scale)
     if h.device.type != "cuda":
         raise ValueError(f"flash_attention_fproj: unsupported device {h.device}")
+    if not _needs_grad(h, wq, wk, wv, wo, bo):
+        return _fproj_launch(h, wq, wk, wv, wo, bo, heads, float(scale))
     return _KernelForward.apply(_fproj_launch, fproj_reference, heads,
                                 float(scale), h, wq, wk, wv, wo, bo)
+
+
+# the fp32 D = 32 design's plan (flash_attention_fproj.cu: F_KEYS,
+# F_ONE_WG_ROWS, F_FILL, F_MAX_GROUPS, F_MAX_COLS, F_STAGES, F_OUT_STAGES,
+# f_attend_smem, f_plan)
+F32_FPROJ_KEYS = 64            # keys of a streamed K / V tile
+F32_FPROJ_ONE_WG_ROWS = 64     # N up to which a block is one warpgroup
+F32_FPROJ_FILL = 64            # blocks a grid should have
+F32_FPROJ_MAX_GROUPS = 16      # head-group blocks of a cluster, at most
+F32_FPROJ_MAX_COLS = 160       # output columns of a pass, at most
+F32_FPROJ_STAGES = 4           # K / V tiles of the ring
+F32_FPROJ_OUT_STAGES = 4       # attention and Wo panels of the out ring
+
+
+def fproj_f32_pass_cols(cg: int) -> int:
+    """Output columns of a pass of the fp32 attention launch over a block's
+    cg columns (``f_pass_cols``)."""
+    return next(w for w in range(F32_FPROJ_MAX_COLS, 0, -32) if cg % w == 0)
+
+
+def fproj_f32_smem(wgs: int, hg: int, cols: int) -> int:
+    """Shared memory of the fp32 attention launch (``f_attend_smem``): the
+    q / attention panels of hg heads, then the larger of the K / V ring and
+    the output projection's ring."""
+    rows = 64 * wgs
+    return (1024 + hg * rows * 128
+            + max(F32_FPROJ_STAGES * 2 * F32_FPROJ_KEYS * 128,
+                  F32_FPROJ_OUT_STAGES * (rows + cols) * 128)
+            + (2 * F32_FPROJ_STAGES + 1) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def fproj_f32_plan(b: int, n: int, c: int, heads: int
+                   ) -> Tuple[int, int, int]:
+    """(warpgroups a block, head-group blocks a cluster, output columns a
+    pass) of the fp32 D = 32 fused-projection kernel
+    (``dsml_flash_attention_fproj_f32``; ``f_plan``), or (0, 0, 0) where
+    nothing fits. Candidates: two warpgroups (a 128-row q-tile) only past
+    ``F32_FPROJ_ONE_WG_ROWS`` tokens, then one; head groups up to
+    ``F32_FPROJ_MAX_GROUPS`` that divide the heads and leave each block one
+    pass of a multiple of 32 columns, at most ``F32_FPROJ_MAX_COLS``, within
+    the shared memory. The first whose grid has ``F32_FPROJ_FILL`` blocks,
+    else the one with the most blocks; where no grouping leaves one pass,
+    one warpgroup, the fewest groups that fit, several passes."""
+    best = (0, 0, 0)
+    for wgs in ((2, 1) if n > F32_FPROJ_ONE_WG_ROWS else (1,)):
+        for g in range(1, F32_FPROJ_MAX_GROUPS + 1):
+            cg = c // g
+            if (heads % g or c % (32 * g) or cg > F32_FPROJ_MAX_COLS
+                    or fproj_f32_smem(wgs, heads // g, cg)
+                    > SHARED_MEMORY_PER_BLOCK):
+                continue
+            blocks = b * -(-n // (64 * wgs)) * g
+            if blocks >= F32_FPROJ_FILL:
+                return wgs, g, cg
+            if blocks > best[0]:
+                best = (blocks, wgs, g)
+    if best[0]:
+        return best[1], best[2], c // best[2]
+    for g in range(1, F32_FPROJ_MAX_GROUPS + 1):
+        if (not heads % g and not c % (32 * g)
+                and fproj_f32_smem(1, heads // g, fproj_f32_pass_cols(c // g))
+                <= SHARED_MEMORY_PER_BLOCK):
+            return 1, g, fproj_f32_pass_cols(c // g)
+    return 0, 0, 0
+
+
+F32_FPROJ_QKV_FILL = 192       # blocks the projection launch should have
+
+
+def fproj_f32_qkv_cols(b: int, n: int, hd: int) -> int:
+    """Output columns of a block of the fp32 projection launch
+    (``f_qkv_cols``): the widest multiple of 32 up to ``F32_FPROJ_MAX_COLS``
+    that divides H*D and gives ``F32_FPROJ_QKV_FILL`` blocks (row tiles of
+    64 up to 64 tokens, else 128, per batch element), else 32."""
+    rows = 64 if n <= 64 else 128
+    tiles = b * -(-n // rows)
+    for w in range(F32_FPROJ_MAX_COLS, 31, -32):
+        if hd % w == 0 and tiles * (3 * hd // w) >= F32_FPROJ_QKV_FILL:
+            return w
+    return 32
+
+
+def fproj_scratch_shape(b: int, n: int, c: int, hd: int,
+                        dtype: torch.dtype) -> tuple:
+    """The scratch of the fused-projection kernel: q / k / v, [B, N, 3 H*D],
+    in bf16; in fp32 B * H*D * (2 N + npad) + C * H*D floats (q and k
+    [B, N, H*D], v^T [B, H, 32, npad] with N rounded up to the key tile, Wo
+    rounded to TF32)."""
+    if dtype == torch.float32:
+        npad = -(-n // F32_FPROJ_KEYS) * F32_FPROJ_KEYS
+        return (b * hd * (2 * n + npad) + c * hd,)
+    return (b, n, 3 * hd)
 
 
 def _fproj_launch(h, wq, wk, wv, wo, bo, heads: int, scale: float):
@@ -699,7 +797,8 @@ def _fproj_launch(h, wq, wk, wv, wo, bo, heads: int, scale: float):
     from . import _build
 
     launch = getattr(_build.load(), entry)
-    qkv = torch.empty((b, n, 3 * hd), dtype=h.dtype, device=h.device)
+    qkv = torch.empty(fproj_scratch_shape(b, n, c, hd, h.dtype),
+                      dtype=h.dtype, device=h.device)
     out = torch.empty_like(h)
     code = launch(
         h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),

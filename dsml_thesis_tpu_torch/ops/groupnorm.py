@@ -20,7 +20,8 @@ kernel followed by a plain apply).
     kernel ``csrc/group_norm.cu`` (``dsml_gn_channel_stats``, fp32:
     ``dsml_gn_channel_stats_f32``); replaces the TPU kernel
     ``dsml_thesis_tpu/ops/groupnorm.py:_gn_stats_kernel``
-    (``_gn_channel_stats_pallas``). Bound by bytes; one read of x, sums in a
+    (``_gn_channel_stats_pallas``). Bound by bytes; one read of x in one
+    launch (a thread-block cluster a batch row, ``stats_plan``), sums in a
     fixed order (no atomics), so equal inputs give equal bits.
 
 Types. x is bf16 (the UNet; the first stage in sampling) or fp32 (the first
@@ -54,11 +55,13 @@ from ..flags import env_mode
 from ._launch import (ACTIVATION_DTYPES, LAUNCHES, check_cuda_operand,
                       current_stream, raise_on_error, typed_entry)
 
-GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the kernels reduces
+GN_CHUNK_ELEMENTS = 16384   # elements of x a block of the three passes reduces
 GNC_THREADS = 512           # threads of a cluster block (group_norm.cu)
 GN_CLUSTER = 8              # blocks of a cluster a batch row, where it fits
 GN_CLUSTER_ELEMENTS = 196608   # the largest row the cluster takes
 SMEM_LIMIT = 232448         # bytes of shared memory a block may use
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+STATS_MAX_CLUSTER = 16      # blocks of a statistics cluster, at most
 PARAM_DTYPES = (torch.float32, torch.bfloat16)   # of gamma / beta
 
 
@@ -157,8 +160,8 @@ class _ReferenceBackward(torch.autograd.Function):
 
 
 def gn_chunks(n: int, c: int) -> int:
-    """Blocks a batch row of n x c elements is cut into by both kernels (also
-    the number of partial sums a channel has)."""
+    """Blocks a batch row of n x c elements is cut into by the whole-row
+    kernel's three passes (also the number of partial sums a channel has)."""
     rows = max(1, GN_CHUNK_ELEMENTS // c)
     return (n + rows - 1) // rows
 
@@ -191,8 +194,21 @@ def _stats_scratch(x3: torch.Tensor, chunks: int):
     return torch.empty((b, chunks, 2, c), **f32), torch.empty((2, b, c), **f32)
 
 
+@functools.lru_cache(maxsize=None)
+def stats_plan(b: int, n: int, c: int) -> int:
+    """Blocks of the statistics kernel's cluster a batch row of x [b, n, c]
+    (``group_norm.cu:channel_stats``): the most, a power of two up to
+    ``STATS_MAX_CLUSTER``, that keep b x blocks within the card's ``SMS``
+    and leave no block without a row."""
+    k = STATS_MAX_CLUSTER
+    while k > 1 and (b * k > SMS or k > n):
+        k //= 2
+    return k
+
+
 def gn_channel_stats(x3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x3 [B, N, C] -> (ch_sum, ch_sq), each [B, C] fp32, in one read of x."""
+    """x3 [B, N, C] -> (ch_sum, ch_sq), each [B, C] fp32, in one read of x
+    and one launch."""
     if x3.dim() != 3:
         raise ValueError(f"x must be [B, N, C], got {tuple(x3.shape)}")
     if x3.device.type == "cpu":
@@ -204,13 +220,12 @@ def gn_channel_stats(x3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     from . import _build
 
     launch = getattr(_build.load(), typed_entry("dsml_gn_channel_stats", x3))
-    chunks = gn_chunks(n, c)
-    partial, sums = _stats_scratch(x3, chunks)
-    code = launch(x3.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, n, c,
-                  chunks, current_stream(x3))
+    sums = torch.empty((2, b, c), dtype=torch.float32, device=x3.device)
+    code = launch(x3.data_ptr(), sums.data_ptr(), b, n, c,
+                  stats_plan(b, n, c), current_stream(x3))
     raise_on_error(code, "gn_channel_stats")
     LAUNCHES["gn_channel_stats"] += 1
-    return sums[0], sums[1]
+    return tuple(sums.unbind(0))
 
 
 def group_norm_silu_stats_fused(x: torch.Tensor, gamma: torch.Tensor,

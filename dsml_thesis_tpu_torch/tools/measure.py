@@ -184,10 +184,11 @@ def gate(smi: str):
 
 
 _FAMILIES = (
-    # the fp32 D = 32 kernels (attention_f32_narrow.cuh): first, since the
-    # projection GEMM's name holds "gemm"
-    ("fproj_gemm_f32_kernel", "attention: fproj (fp32 D = 32: projections)"),
-    ("fproj_attention_f32_kernel", "attention: fproj (fp32 D = 32: attention)"),
+    # the fp32 D = 32 kernels (flash_attention_fproj.cu's TF32 wgmma pair,
+    # attention_f32_narrow.cuh)
+    ("fproj_qkv_tf32_kernel", "attention: fproj (fp32 D = 32: projections)"),
+    ("fproj_attend_tf32_kernel",
+     "attention: fproj (fp32 D = 32: attention + to_out)"),
     ("packed_attention_f32_kernel", "attention: packed (fp32 D = 32)"),
     ("flash_fwd_f32_narrow_kernel", "attention: flash_attention (fp32 D = 32)"),
     ("streaming_fwd_f32_narrow_kernel", "attention: streaming (fp32 D = 32)"),
@@ -217,6 +218,7 @@ _FAMILIES = (
     ("bwd_delta_kernel", "attention backward: delta"),
     ("multi_tensor", "optimizer / EMA (foreach)"),
     ("qout_attention_kernel", "attention: qout (q proj + attention + to_out)"),
+    ("gn_stats_cluster_kernel", "GroupNorm kernels: statistics"),
     ("gn_partial_kernel", "GroupNorm kernels: statistics"),
     ("gn_finish_kernel", "GroupNorm kernels: statistics"),
     ("gn_apply_kernel", "GroupNorm kernels: apply"),

@@ -74,6 +74,36 @@ streaming forward's combine launch apart): both rows at [8, 1, 4096, 512],
 77, 512]; row 4 also at [1, 1, 64, 2000, 512] (32 splits of the keys) and
 [1, 1, 16384, 512] (a 512 px image, which streams under ``auto``).
 
+    python -m dsml_thesis_tpu_torch.tools.variants --gn-stats [--only TEXT] \
+        '{"parent": [["group_norm.cu", "", "_ab/parent/.../group_norm.cu"]],
+          "new": []}'
+
+``--gn-stats`` builds ``group_norm.cu`` alone and times the channel
+statistics (row 10 of PERF.md's kernel table) at every timed shape of
+``chip_smoke.py``'s kernels phase (bf16 [16, 4096, 160], [16, 1024, 640],
+[16, 256, 1280], [8, 65536, 128]; fp32 [16, 16384, 128], [16, 4096, 256],
+[16, 1024, 512]), mead-128-ldm-f4's fp32 UNet rows ([16, 1024, 160],
+[16, 256, 960], [16, 64, 1280]), the smallest grid [1, 4096, 160] and the
+ragged [3, 1000, 160], at ``stats_plan`` (a tree whose entry takes no
+cluster size, the parent's two launches, is called with its own
+arguments), with ``device_ms`` and ``device_by_kernel``; the sums are held
+against the plain version, and a second call must give the same bits.
+
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-fproj [--only TEXT] \
+        '{"parent": [["flash_attention_fproj.cu", "",
+                      "_ab/parent/.../flash_attention_fproj.cu"], ...],
+          "new": []}'
+
+``--f32-fproj`` builds ``flash_attention_fproj.cu`` alone and times its
+fp32 D = 32 entry (row 1 at mead-128-ldm-f4's fp32 UNet) at [16, 1024, 160]
+x 5, [16, 256, 320] x 10, [16, 64, 640] x 20, [1, 1024, 160] x 5 and the
+ragged [3, 200, 160] x 5 and [2, 100, 640] x 20, with ``device_ms`` and
+``device_by_kernel`` (the projection launch and the attention launch); the
+scratch is large enough for either tree's layout, and a second call must
+give the same bits. Design switches of the kept source (``F_FILL``,
+``F_QKV_FILL``, ``F_STAGES``, ``F_OUT_STAGES``, ``F_ONE_WG_ROWS``) are text
+substitutions.
+
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
 
 ``--wrapper`` builds nothing of its own and times the same D = 32 forwards
@@ -119,11 +149,14 @@ ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_bwd",
 # came in: a variant whose sources declare no plan is called this way
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LEGACY = {"dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
-          "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P]}
+          "dsml_group_norm_silu": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
+          # (x, partial, sums, b, n, c, chunks, stream): two launches
+          "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P]}
 LEGACY.update({k + "_f32": v for k, v in list(LEGACY.items())})
 # an entry is legacy in a tree whose source lacks the marker of its plan
 MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
-           "dsml_group_norm_silu": ("group_norm.cu", "int cluster")}
+           "dsml_group_norm_silu": ("group_norm.cu", "int cluster"),
+           "dsml_gn_channel_stats": ("group_norm.cu", "int blocks")}
 # what --conv-gn builds and times
 CONV_GN_SOURCES = SOURCES[-3:]
 CONV_GN_ENTRIES = ENTRIES[-4:]
@@ -137,6 +170,19 @@ F32_ENTRIES = ("dsml_flash_attention_f32", "dsml_flash_attention_bwd_f32",
 # what --wide-attn builds and times
 WIDE_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
 WIDE_ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_streaming")
+# what --gn-stats and --f32-fproj build and time
+GN_STATS_SOURCES = ("group_norm.cu",)
+GN_STATS_ENTRIES = ("dsml_gn_channel_stats", "dsml_gn_channel_stats_f32")
+GN_STATS_SHAPES = (((16, 4096, 160), "bf16"), ((16, 1024, 640), "bf16"),
+                   ((16, 256, 1280), "bf16"), ((8, 65536, 128), "bf16"),
+                   ((16, 16384, 128), "f32"), ((16, 4096, 256), "f32"),
+                   ((16, 1024, 512), "f32"), ((16, 1024, 160), "f32"),
+                   ((16, 256, 960), "f32"), ((16, 64, 1280), "f32"),
+                   ((1, 4096, 160), "bf16"), ((3, 1000, 160), "bf16"))
+F32_FPROJ_SOURCES = ("flash_attention_fproj.cu",)
+F32_FPROJ_ENTRIES = ("dsml_flash_attention_fproj_f32",)
+F32_FPROJ_SHAPES = ((16, 1024, 160, 5), (16, 256, 320, 10), (16, 64, 640, 20),
+                    (1, 1024, 160, 5), (3, 200, 160, 5), (2, 100, 640, 20))
 # [B, H, Nq, Nk, D] of its cases: (shape, rows 2 and 4 or row 4 alone)
 WIDE_SHAPES = (((8, 1, 4096, 4096, 512), ("flash", "streaming")),
                ((16, 1, 4096, 4096, 512), ("flash", "streaming")),
@@ -430,6 +476,10 @@ def cases() -> dict:
         return call, lambda: rel(y, ref)
 
     f32, b16 = torch.float32, torch.bfloat16
+    if GN_STATS_ONLY:
+        return stats_cases(rel, stream)
+    if F32_FPROJ_ONLY:
+        return fproj_f32_cases(rel, stream)
     if WIDE_ONLY:
         return {f"{kind} {_tag(shape)}": {"flash": flash,
                                           "streaming": streaming}[kind](*shape)
@@ -597,6 +647,79 @@ def f32_cases(rel, stream) -> dict:
     return out
 
 
+def stats_cases(rel, stream) -> dict:
+    """The channel statistics cases of ``--gn-stats`` (see the module's
+    note): the sums against the plain version, and the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for (b, n, c), tname in GN_STATS_SHAPES:
+        dtype = torch.float32 if tname == "f32" else torch.bfloat16
+        x = (torch.randn(b, n, c, generator=gen, device="cuda") * 2 + 0.5
+             ).to(dtype)
+        ref = torch.stack(G.gn_channel_stats_reference(x))
+        entry = "dsml_gn_channel_stats" + ("_f32" if tname == "f32" else "")
+        chunks = G.gn_chunks(n, c)
+        partial = torch.empty(b * chunks * 2 * c, device="cuda")
+        sums = torch.empty(2, b, c, device="cuda")
+        blocks = G.stats_plan(b, n, c)
+        last = {}
+
+        def call(lib, x=x, sums=sums, blocks=blocks, entry=entry,
+                 chunks=chunks, partial=partial, last=last, b=b, n=n, c=c):
+            fn = getattr(lib, entry)
+            last["lib"] = lib
+            if entry in lib.legacy:
+                return fn(x.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+                          b, n, c, chunks, stream())
+            return fn(x.data_ptr(), sums.data_ptr(), b, n, c, blocks,
+                      stream())
+
+        def err(sums=sums, ref=ref, call=call, last=last):
+            first = sums.clone()
+            call(last["lib"])
+            torch.cuda.synchronize()
+            if not torch.equal(first, sums):
+                return float("inf")
+            return max(rel(sums[i], ref[i]) for i in range(2))
+        out[f"stats {tname} [{b},{n},{c}]"] = (call, err)
+    return out
+
+
+def fproj_f32_cases(rel, stream) -> dict:
+    """The fp32 D = 32 fused-projection cases of ``--f32-fproj`` (see the
+    module's note): against the plain version, and the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for b, n, c, heads in F32_FPROJ_SHAPES:
+        hd = c
+        h = torch.randn(b, n, c, generator=gen, device="cuda")
+        wq, wk, wv = (torch.randn(hd, c, generator=gen, device="cuda")
+                      * c ** -0.5 for _ in range(3))
+        wo = torch.randn(c, hd, generator=gen, device="cuda") * hd ** -0.5
+        bo = torch.randn(c, generator=gen, device="cuda") * 0.1
+        ref = A.fproj_reference(h, wq, wk, wv, wo, bo, heads)
+        scratch = torch.empty(max(b * n * 3 * hd, A.fproj_scratch_shape(
+            b, n, c, hd, torch.float32)[0]), device="cuda")
+        res = torch.empty_like(h)
+        last = {}
+
+        def call(lib, h=h, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo, res=res,
+                 scratch=scratch, b=b, n=n, c=c, heads=heads, last=last):
+            last["lib"] = lib
+            return lib.dsml_flash_attention_fproj_f32(
+                h.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(),
+                res.data_ptr(), b, n, c, heads, 32, 32 ** -0.5, stream())
+
+        def err(res=res, ref=ref, call=call, last=last):
+            first = res.clone()
+            call(last["lib"])
+            torch.cuda.synchronize()
+            return rel(res, ref) if torch.equal(first, res) else float("inf")
+        out[f"fproj f32 [{b},{n},{c}] x {heads}"] = (call, err)
+    return out
+
+
 def _tag(shape) -> str:
     b, h, nq, nk, d = shape
     return f"[{b},{h},{nq},{d}]" if nq == nk else f"[{b},{h},{nq},{nk},{d}]"
@@ -646,7 +769,8 @@ def event_ms(fn, iters: int = 20) -> float:
 def device_kernels_ms(fn, iters: int = 10) -> dict:
     """Device ms a call of ``fn`` by kernel name, from ``iters`` warm calls
     under torch.profiler (host issue left out): each kernel's mean over the
-    launches the profile kept (it can drop some), once a call."""
+    launches the profile kept (it can drop some), times its launches a call
+    (the kept launches over ``iters``, rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -660,10 +784,16 @@ def device_kernels_ms(fn, iters: int = 10) -> dict:
         if ev.device_type.name == "CUDA" and "#" not in ev.key:
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-            # the kernel's name without namespaces and arguments
+            # the kernel's name without namespaces, arguments and return
+            # type (template arguments kept)
             name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split(" ")[-1].split("::")[-1]
-            out[name] = out.get(name, 0.0) + us / 1e3 / max(ev.count, 1)
+            name, _, targs = name.split("(")[0].partition("<")
+            name = name.split(" ")[-1].split("::")[-1] + (
+                "<" + targs if targs else "")
+            # launches a call: a kernel can run more than once a call
+            per_call = max(1, round(ev.count / iters))
+            out[name] = out.get(name, 0.0) + (
+                us / 1e3 / max(ev.count, 1) * per_call)
     return out
 
 
@@ -679,6 +809,8 @@ def device_ms(fn, iters: int = 10) -> float:
 CONV_GN_ONLY = False
 F32_ONLY = False
 WIDE_ONLY = False
+GN_STATS_ONLY = False     # set by --gn-stats
+F32_FPROJ_ONLY = False    # set by --f32-fproj
 
 
 def card() -> str:
@@ -690,7 +822,7 @@ def card() -> str:
 
 
 def main():
-    global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY
+    global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY, GN_STATS_ONLY, F32_FPROJ_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -704,6 +836,12 @@ def main():
     if "--wide-attn" in args:
         args.remove("--wide-attn")
         WIDE_ONLY = True
+    if "--gn-stats" in args:
+        args.remove("--gn-stats")
+        GN_STATS_ONLY = True
+    if "--f32-fproj" in args:
+        args.remove("--f32-fproj")
+        F32_FPROJ_ONLY = True
     wrapper = "--wrapper" in args
     if wrapper:
         args.remove("--wrapper")
@@ -728,6 +866,9 @@ def main():
                      *((CONV_GN_SOURCES, CONV_GN_ENTRIES) if CONV_GN_ONLY else
                        (F32_SOURCES, F32_ENTRIES) if F32_ONLY else
                        (WIDE_SOURCES, WIDE_ENTRIES) if WIDE_ONLY else
+                       (GN_STATS_SOURCES, GN_STATS_ENTRIES) if GN_STATS_ONLY
+                       else (F32_FPROJ_SOURCES, F32_FPROJ_ENTRIES)
+                       if F32_FPROJ_ONLY else
                        (SOURCES, ENTRIES)), ptxas=ptxas)
         todo, iters = cases(), 20
     names = list(libs)
@@ -754,7 +895,8 @@ def main():
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
-            if F32_ONLY or WIDE_ONLY:   # and by kernel (lse, combine, ..)
+            if F32_ONLY or WIDE_ONLY or GN_STATS_ONLY or F32_FPROJ_ONLY:
+                # and by kernel (lse, combine, the two launches, ..)
                 kernels = device_kernels_ms(lambda: call(libs[name]))
                 res[name]["device_ms"] = sum(kernels.values())
                 res[name]["device_by_kernel"] = {

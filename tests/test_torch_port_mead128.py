@@ -446,7 +446,8 @@ def test_the_smoke_script_has_the_mead128_runs():
                             "mead128-split": {"DSML_ATTN_PACKED": "0"},
                             "mead128-streaming": streaming,
                             "mead128-gn": {"DSML_PALLAS_GN": "1"},
-                            "mead128-epilogue": {"DSML_GN_EPILOGUE": "1"}}
+                            "mead128-epilogue": {"DSML_GN_EPILOGUE": "1"},
+                            "mead128-stats": {"DSML_PALLAS_GN": "stats"}}
     assert MEAD128_TRAIN_RUNS == {
         "train-mead128": {}, "train-mead128-split": {"DSML_ATTN_PACKED": "0"},
         "train-mead128-streaming": streaming,

@@ -338,13 +338,15 @@ def test_smoke_counts_of_the_real_yaml(run):
 
 def test_the_kernels_line_has_the_fp32_sub_rows():
     """The ``kernels`` line's sub-rows of the streaming pair (fp32 D = 32
-    and D = 512) and of GroupNorm and conv + statistics at the fp32 UNet's
-    shapes read their launches from the runs that are their paths."""
+    and D = 512) and of GroupNorm, the channel statistics and conv +
+    statistics at the fp32 UNet's shapes read their launches from the runs
+    that are their paths."""
     assert chip_smoke.F32_NARROW["flash_attention_streaming"] \
         == "train-mead128-streaming"
     assert chip_smoke.F32_NARROW["flash_attention_streaming_bwd"] \
         == "train-mead128-streaming"
     assert chip_smoke.F32_UNET == {"group_norm_silu": "mead128-gn",
+                                   "gn_channel_stats": "mead128-stats",
                                    "conv_stats": "mead128-epilogue"}
     timed = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
              "bound_by": "operations", "library_ms": 1.5, "max_abs_err": 0.0}
@@ -368,7 +370,10 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     wide = sub[("flash_attention_streaming_bwd", "float32, head width 512")]
     assert wide["shape"] == [4]
     assert wide["launches_in_run"] == "ae-vq-streaming"
-    assert len(rows) == len(chip_smoke.KERNELS) + 13
+    stats = sub[("gn_channel_stats", "float32, mead-128-ldm-f4 UNet shapes")]
+    assert stats["shape"] == [3]
+    assert stats["launches_in_run"] == "mead128-stats"
+    assert len(rows) == len(chip_smoke.KERNELS) + 14
     for r in rows:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
