@@ -315,13 +315,13 @@ def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         peak, dtype=_dtype_name(dtype), head_dim=d), run)
 
 
-def _flash_lse_case(gen, b, h, nq, nk, d):
+def _flash_lse_case(gen, b, h, nq, nk, d, dtype=torch.bfloat16):
     """The split-head forward's row log-sum-exp ([B*H*Nq]: log2 of the sum
     of exp(score times scale)) against the plain one, and the same bits
     again."""
     from dsml_thesis_tpu_torch.ops import attention as A
 
-    q, k, v = (_rand(gen, b, h, n, d) for n in (nq, nk, nk))
+    q, k, v = (_rand(gen, b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
     run = lambda: A._launch_flash_forward(q, k, v, scale, True)[1]
 
@@ -329,7 +329,7 @@ def _flash_lse_case(gen, b, h, nq, nk, d):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         return (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
     case = _case((b, h, nq, nk, d), False, run, plain, None, 0, 0, 1,
-                 output="lse", tol=LSE_REL_TOL, dtype="bfloat16",
+                 output="lse", tol=LSE_REL_TOL, dtype=_dtype_name(dtype),
                  head_dim=d)
     return _repeatable(case, run)
 
@@ -733,9 +733,18 @@ def phase_kernels():
         _flash_case(gen, 2, 2, 200, 129, 80, False),      # Nk = 128 + 1
         _flash_case(gen, 2, 2, 100, 50, 80, False),       # Nk < 64
         _flash_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
+        # mead-128-ldm-f4's frozen first stage: train-mead128's encodes
+        # (batch 32), mead128's identity encode and decodes (batch 8)
+        _flash_case(gen, 32, 1, 1024, 1024, 512, True, f32),
+        _flash_case(gen, 8, 1, 1024, 1024, 512, True, f32),
         _flash_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
         _flash_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
         _flash_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
+        _flash_case(gen, 2, 1, 100, 65, 512, False, f32),      # Nk = 64 + 1
+        _flash_case(gen, 1, 2, 70, 9, 512, False, f32),        # Nk < 64
+        _flash_lse_case(gen, 1, 2, 333, 77, 512, f32),         # its lse
+        _flash_lse_case(gen, 2, 1, 1000, 1000, 512, f32),
+        _flash_lse_case(gen, 32, 1, 1024, 1024, 512, f32),     # row 7 reads
         # fp32 D = 32: mead-128-ldm-f4's UNet under DSML_ATTN_PACKED=0,
         # training batch 32 (the packed fp32 forward's grid on one head)
         _flash_case(gen, 32, 5, 1024, 1024, 32, True, f32),
@@ -933,8 +942,16 @@ def phase_kernels():
         _streaming_case(gen, 2, 2, 100, 50, 80, False),      # Nk < 64
         _streaming_case(gen, 1, 2, 100, 5000, 80, False),    # K/V cut 40 ways
         _streaming_case(gen, 16, 1, 1024, 1024, 512, True, f32),   # vqgan-f4
+        # mead-128-ldm-f4's frozen first stage under DSML_FLASH_STREAMING=1:
+        # training encodes (batch 32), served decodes (batch 8: 2 splits)
+        _streaming_case(gen, 32, 1, 1024, 1024, 512, True, f32),
+        _streaming_case(gen, 8, 1, 1024, 1024, 512, True, f32),
+        _streaming_case(gen, 8, 1, 4096, 4096, 512, True, f32),    # 256 px
         _streaming_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged N
         _streaming_case(gen, 1, 1, 64, 2000, 512, False, f32),     # 32 ways
+        _streaming_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
+        _streaming_case(gen, 2, 1, 100, 65, 512, False, f32),      # Nk = 64 + 1
+        _streaming_case(gen, 1, 2, 70, 9, 512, False, f32),        # Nk < 64
         # fp32 D = 32: mead-128-ldm-f4 under DSML_ATTN_PACKED=0
         # DSML_FLASH_STREAMING=1, training batch 32, then served (16)
         _streaming_case(gen, 32, 5, 1024, 1024, 32, True, f32),

@@ -1,12 +1,12 @@
 // fp32 attention at head width 512: the first stage's single-head AttnBlock
 // (one head as wide as the channels) in first-stage training, where the
-// model runs in fp32. Device code of the four fp32 instantiations:
-//   flash_attention.cu            forward + row log-sum-exp (flash_fwd_f32)
-//   flash_attention_streaming.cu  the streaming forward's roundings (same
-//                                 kernel, STREAMING = true)
+// model runs in fp32. Device code of the two fp32 backward instantiations
+// (the forwards are hopper_wide_f32.cuh's):
 //   flash_attention_bwd.cu        delta, dk/dv grid, dq grid
 //   flash_attention_streaming_bwd.cu  the same with the log-sum-exp launch
-//                                 and q pre-scaled (PRESCALED = true)
+//                                 (64 query rows a block against 16-row
+//                                 K tiles) and q pre-scaled
+//                                 (PRESCALED = true)
 //
 // Products on the tensor cores in TF32 (mma.sync m16n8k8, fp32 accumulate):
 // every operand is rounded to TF32 (cvt.rna) once, where it is stored in
@@ -18,10 +18,6 @@
 //
 // What shapes the design is shared memory, not registers: one fp32 row of
 // 512 is 2 KB, so a 64-row tile is 132 KB of the block's 227 KB.
-//   * forward: 64 query rows a block (132 KB), K / V tiles of 16 rows (33 KB
-//     each), 8 warps: two per 16-row group, each accumulating 256 of the 512
-//     output columns (128 registers a thread), both forming the group's
-//     scores (1.5x the products of the function, as the bf16 design).
 //   * backward: the three-launch structure of hopper_bwd.cuh (delta, a
 //     grid over key tiles writing dk / dv once, a grid over query tiles
 //     writing dq once; no atomics, equal inputs give equal bits), with D cut
@@ -38,11 +34,10 @@
 // Fragments (lane = 4 g + t): A [16 x 8] holds (g, t), (g + 8, t),
 // (g, t + 4), (g + 8, t + 4); B [8 x 8] holds (t, g), (t + 4, g); C [16 x 8]
 // holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). Where a product's
-// A operand is a C fragment (p in the forward) or is read from a score tile,
-// the depth index is permuted inside each 8 (logical t -> 2t, t + 4 ->
-// 2t + 1) on both operands, which leaves the sum unchanged and lets p stay in
-// the registers it was formed in. Rows are padded by 4 words: every fragment
-// load of a 516-word row stride hits 32 distinct banks.
+// A operand is read from a score tile (p or ds), the depth index is
+// permuted inside each 8 (logical t -> 2t, t + 4 -> 2t + 1) on both
+// operands, which leaves the sum unchanged. Rows are padded by 4 words:
+// every fragment load of a 516-word row stride hits 32 distinct banks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,18 +49,14 @@ namespace f32attn {
 constexpr int D = 512;         // the one head width of the fp32 kernels
 constexpr int PADW = 4;        // words of row padding in shared memory
 constexpr int LDS = D + PADW;  // row stride of a [rows][D] tile, in words
-constexpr int FBM = 64;        // forward: query rows a block
-constexpr int FBN = 16;        // forward: key rows a tile
-constexpr int FDSPLIT = 2;     // forward: warps sharing a 16-row group
+constexpr int FBM = 64;        // lse launch: query rows a block
+constexpr int FBN = 16;        // lse launch: key rows a tile
 constexpr int BIG = 32;        // backward: rows a block owns
 constexpr int SMALL = 16;      // backward: rows of a streamed tile
 constexpr int NWARPS = 8;      // backward: warps a block, 64 depth columns each
 constexpr int PART = 2 * BIG * SMALL;  // words of one warp's partial S and dP
 constexpr float MASKED = -1e30f;   // the streaming kernels' masked score
 
-constexpr int fwd_smem_bytes() {
-  return (FBM + 2 * FBN) * LDS * static_cast<int>(sizeof(uint32_t));
-}
 constexpr int bwd_smem_bytes() {
   return (2 * BIG + 2 * SMALL) * LDS * static_cast<int>(sizeof(uint32_t)) +
          NWARPS * PART * static_cast<int>(sizeof(uint32_t)) +
@@ -168,25 +159,6 @@ __device__ __forceinline__ void load_tile_tf32(uint32_t* s, const float* g,
   }
 }
 
-// s[16 x 16] = A[rows r0 .., D] B[16 rows, D]^T of two [.][LDS] tiles.
-__device__ __forceinline__ void scores_16x16(float (&s)[2][4],
-                                             const uint32_t* sA, int r0,
-                                             const uint32_t* sB) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 8
-  for (int kk = 0; kk < D; kk += 8) {
-    uint32_t a[4];
-    frag_a(a, sA, LDS, r0, kk);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      uint32_t b0, b1;
-      frag_b_nk(b0, b1, sB, LDS, nt * 8, kk);
-      mma_tf32(s[nt], a, b0, b1);
-    }
-  }
-}
-
 // Reduce a per-lane partial over the four lanes of a row (t = 0 .. 3).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -195,135 +167,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Forward of one block: 64 query rows of one head against the keys
-// [kv_begin, kv_end). Resident (STREAMING = false): q as given, scores times
-// mul = scale * log2(e), keys past nk at -inf. STREAMING: q times mul =
-// scale * log2(e) in fp32 before the product, keys past nk at the finite
-// -1e30 with probability 0. On return acc holds the warp's unnormalised
-// output (256 columns from dcol0), l0 / l1 the row sums (of the fp32
-// probabilities: the streaming kernel's cast to v's type is the identity in
-// fp32) and m0 / m1 the row maxima, in the base-2 domain.
-template <bool STREAMING>
-__device__ __forceinline__ void fwd_rows(const float* q, const float* k,
-                                         const float* v, int valid_q, int nk,
-                                         int kv_begin, int kv_end, float mul,
-                                         uint32_t* smem,
-                                         float (&acc)[D / FDSPLIT / 8][4],
-                                         float& m0, float& m1, float& l0,
-                                         float& l1) {
-  constexpr int NT = 128 * FDSPLIT;
-  constexpr int DO = D / FDSPLIT;
-  uint32_t* sQ = smem;
-  uint32_t* sK = sQ + FBM * LDS;
-  uint32_t* sV = sK + FBN * LDS;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int t = lane_t();
-  const int row0 = (warp / FDSPLIT) * 16;
-  const int dcol0 = (warp % FDSPLIT) * DO;
-
-  load_tile_tf32<NT>(sQ, q, FBM, valid_q, tid, STREAMING ? mul : 1.f);
-#pragma unroll
-  for (int i = 0; i < DO / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  m0 = m1 = STREAMING ? MASKED : -INFINITY;
-  l0 = l1 = 0.f;
-
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += FBN) {
-    __syncthreads();  // the previous tile's readers are done; sQ is visible
-    load_tile_tf32<NT>(sK, k + static_cast<int64_t>(kv0) * D, FBN, nk - kv0,
-                       tid);
-    load_tile_tf32<NT>(sV, v + static_cast<int64_t>(kv0) * D, FBN, nk - kv0,
-                       tid);
-    __syncthreads();
-
-    float s[2][4];
-    scores_16x16(s, sQ, row0, sK);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = kv0 + nt * 8 + 2 * t + (j & 1) < nk;
-        if (STREAMING)
-          s[nt][j] = ok ? s[nt][j] : MASKED;
-        else
-          s[nt][j] = ok ? s[nt][j] * mul : -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float alpha0 = exp2f(m0 - mx0);
-    const float alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int i = 0; i < DO / 8; ++i) {
-      acc[i][0] *= alpha0;
-      acc[i][1] *= alpha0;
-      acc[i][2] *= alpha1;
-      acc[i][3] *= alpha1;
-    }
-
-    // p = exp2(s - max) (0 for a masked key), summed in fp32; as the A
-    // operand of p V it stays in the C fragment's registers
-    uint32_t pa[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = kv0 + nt * 8 + 2 * t + (j & 1) < nk;
-        p[j] = ok ? exp2f(s[nt][j] - (j < 2 ? m0 : m1)) : 0.f;
-      }
-      l0 += p[0] + p[1];
-      l1 += p[2] + p[3];
-      pa[nt][0] = to_tf32(p[0]);
-      pa[nt][1] = to_tf32(p[2]);
-      pa[nt][2] = to_tf32(p[1]);
-      pa[nt][3] = to_tf32(p[3]);
-    }
-#pragma unroll
-    for (int kt = 0; kt < 2; ++kt) {
-#pragma unroll
-      for (int dt = 0; dt < DO / 8; ++dt) {
-        uint32_t b0, b1;
-        frag_b_kn_perm(b0, b1, sV, LDS, kt * 8, dcol0 + dt * 8);
-        mma_tf32(acc[dt], pa[kt], b0, b1);
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-}
-
-// Write the warp's forward output fragment (rows g and g + 8 of its group,
-// its 256 columns) times inv0 / inv1 to rows below valid_rows of a
-// [rows][D] fp32 tensor.
-__device__ __forceinline__ void store_fwd_rows(float* o, int valid_rows,
-                                               const float (&acc)[D / FDSPLIT /
-                                                                  8][4],
-                                               float inv0, float inv1) {
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (warp / FDSPLIT) * 16 + lane_g();
-  const int r1 = r0 + 8;
-  const int col0 = (warp % FDSPLIT) * (D / FDSPLIT) + 2 * lane_t();
-#pragma unroll
-  for (int dt = 0; dt < D / FDSPLIT / 8; ++dt) {
-    const int col = col0 + dt * 8;
-    if (r0 < valid_rows)
-      *reinterpret_cast<float2*>(o + static_cast<int64_t>(r0) * D + col) =
-          make_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r1 < valid_rows)
-      *reinterpret_cast<float2*>(o + static_cast<int64_t>(r1) * D + col) =
-          make_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
 }
 
 namespace {

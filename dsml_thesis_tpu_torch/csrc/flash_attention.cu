@@ -28,18 +28,22 @@
 // cp.async on mbarriers. Bound: operations, as above.
 //
 // fp32 at D = 512 (dsml_flash_attention_f32; the first stage's AttnBlock in
-// first-stage training): the TF32 design of attention_f32.cuh, 64 query rows
-// a block against K / V tiles of 16 rows, the same output and row
-// log-sum-exp. Bound at [16, 1, 1024, 512]: operations on the TF32 tensor
-// cores (4 N^2 D a head against 4 * 4 N D bytes).
+// first-stage training and in mead-128-ldm-f4's frozen encodes and decodes):
+// hopper_wide_f32.cuh's design, resident. A launch writes the K and V^T tile
+// images (TF32) into the caller's scratch, then a cluster of two blocks a
+// 64-row q-tile, each owning 256 depth and output columns, forms the scores
+// once from the two halves of the depth (the partials cross by st.async)
+// and runs both products on TF32 wgmma over 64-key tiles; the same output
+// and row log-sum-exp. Bound at [16, 1, 1024, 512]: operations on the TF32
+// tensor cores (4 N^2 D a head against 4 * 4 N D bytes).
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
 // DSML_ATTN_PACKED=0): the packed fp32 forward's grid
 // (attention_f32_narrow.cuh) on one head of row stride 32.
-#include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
 #include "hopper_wide.cuh"
+#include "hopper_wide_f32.cuh"
 
 namespace {
 
@@ -99,28 +103,22 @@ extern "C" int dsml_flash_attention(const void* q, const void* k,
 
 namespace {
 
-__global__ void __launch_bounds__(128 * f32attn::FDSPLIT)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int nq, int nk, int q_tiles,
-                     float scale_log2) {
-  using namespace f32attn;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * FBM;
-  const int64_t row_base = bh * nq + q0;
-  float acc[D / FDSPLIT / 8][4];
-  float m0, m1, l0, l1;
-  fwd_rows<false>(q + row_base * D, k + bh * nk * D, v + bh * nk * D, nq - q0,
-                  nk, 0, nk, scale_log2,
-                  reinterpret_cast<uint32_t*>(smem_raw), acc, m0, m1, l0, l1);
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (warp / FDSPLIT) * 16 + lane_g();
-  if (lse != nullptr && warp % FDSPLIT == 0 && lane_t() == 0) {
-    if (q0 + r0 < nq) lse[row_base + r0] = m0 + log2f(l0);
-    if (q0 + r0 + 8 < nq) lse[row_base + r0 + 8] = m1 + log2f(l1);
-  }
-  store_fwd_rows(o + row_base * D, nq - q0, acc, 1.f / l0, 1.f / l1);
+// fp32 D = 512: hopper_wide_f32.cuh's design, resident (keys of one split:
+// all); the tile images first
+__global__ void __launch_bounds__(hwide_f32::PREP_NT)
+flash_fwd_f32_prep_kernel(const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ kimg,
+                          float* __restrict__ vimg, int nk, int tiles) {
+  hwide_f32::prep_tile(k, v, kimg, vimg, nk, tiles);
+}
+
+__global__ void __launch_bounds__(hwide_f32::NT, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, float* __restrict__ o,
+                     float* __restrict__ lse, int nq, int nk, float scale_log2,
+                     const float* __restrict__ kimg,
+                     const float* __restrict__ vimg, int tiles, int q_tiles) {
+  hwide_f32::attend<false>(q, kimg, vimg, o, lse, nullptr, nullptr, nq, nk, nk,
+                           scale_log2, tiles, q_tiles);
 }
 
 __global__ void __launch_bounds__(f32narrow::NT)
@@ -137,29 +135,26 @@ flash_fwd_f32_narrow_kernel(const float* __restrict__ q,
 }  // namespace
 
 // The fp32 instantiations (d = 512 and 32): the same contract as
-// dsml_flash_attention on fp32 tensors.
+// dsml_flash_attention on fp32 tensors, and at d = 512 scratch for the tile
+// images: 2 * bh * ceil(nk / 16) * 16 * 512 fp32 values
+// (ops/attention.py:wide_f32_plan; unread at d = 32).
 extern "C" int dsml_flash_attention_f32(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int bh, int nq, int nk, int d,
-                                        float scale, void* stream) {
-  using namespace f32attn;
+                                        void* scratch, int bh, int nq, int nk,
+                                        int d, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == f32narrow::D)
     return f32narrow::launch_fwd(
         flash_fwd_f32_narrow_kernel, static_cast<const float*>(q),
         static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), bh, nq, nk, 1, d, d,
-        d, scale, static_cast<cudaStream_t>(stream));
-  if (d != D || bh < 1 || nq < 1 || nk < 1) return -1;
-  const int smem = fwd_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + FBM - 1) / FBM;
-  flash_fwd_f32_kernel<<<bh * q_tiles, 128 * FDSPLIT, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), nq, nk, q_tiles,
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+        d, scale, s);
+  if (d != hwide_f32::D || bh < 1 || nq < 1 || nk < 1 || scratch == nullptr)
+    return -1;
+  return hwide_f32::launch(
+      flash_fwd_f32_prep_kernel, flash_fwd_f32_kernel,
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(scratch), bh, nq, nk, 1, s,
+      static_cast<const float*>(q), static_cast<float*>(o),
+      static_cast<float*>(lse), nq, nk, scale * 1.4426950408889634f);
 }

@@ -57,11 +57,14 @@
 // mbarriers; the same splits in 64-key units and the same combine launch.
 //
 // fp32 at D = 512 (dsml_flash_attention_streaming_f32; first-stage training
-// under DSML_FLASH_STREAMING=1): the TF32 design of attention_f32.cuh with
-// this kernel's roundings in fp32 (q times scale * log2(e) in fp32, the
-// -1e30 mask, the denominator the sum of the probabilities as "cast" to fp32,
-// which is the identity), the same splits in 64-key units and the same
-// combine launch writing fp32.
+// and mead-128-ldm-f4's frozen first stage under DSML_FLASH_STREAMING=1):
+// hopper_wide_f32.cuh's design (the tile images of K and V^T first, then a
+// cluster of two blocks a 64-row q-tile splitting D, both products on TF32
+// wgmma over 64-key tiles) with this kernel's roundings in fp32 (q times
+// scale * log2(e) in fp32 before its TF32 rounding, the -1e30 mask, the
+// denominator the sum of the probabilities as "cast" to fp32, which is the
+// identity), the same splits in 64-key units and the same combine launch
+// writing fp32.
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
 // DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1): attention_f32_narrow.cuh's
@@ -72,10 +75,10 @@
 // probabilities as used in P V; the same splits in 64-key units and the same
 // combine launch writing fp32. Bound at [32, 5, 1024, 32]: operations on the
 // TF32 tensor cores, and the exp2 of every score.
-#include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_tiles.cuh"
 #include "hopper_wide.cuh"
+#include "hopper_wide_f32.cuh"
 
 namespace {
 
@@ -341,49 +344,25 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
                               stream);
 }
 
-// The fp32 forward of one 64-row query tile over one split of the keys.
-__global__ void __launch_bounds__(128 * f32attn::FDSPLIT)
-streaming_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
+// fp32 D = 512: hopper_wide_f32.cuh's design with this kernel's roundings;
+// the tile images first
+__global__ void __launch_bounds__(hwide_f32::PREP_NT)
+streaming_f32_prep_kernel(const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ kimg,
+                          float* __restrict__ vimg, int nk, int tiles) {
+  hwide_f32::prep_tile(k, v, kimg, vimg, nk, tiles);
+}
+
+__global__ void __launch_bounds__(hwide_f32::NT, 1)
+streaming_fwd_f32_kernel(const float* __restrict__ q, float* __restrict__ o,
                          float* __restrict__ part_o,
                          float* __restrict__ part_ml, int nq, int nk,
-                         int q_tiles, int kv_per_split, float q_scale) {
-  using namespace f32attn;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * FBM;
-  const int split = blockIdx.y;
-  const int kv_begin = split * kv_per_split;
-  const int kv_end = min(nk, kv_begin + kv_per_split);
-  const int64_t row_base = bh * nq + q0;
-  float acc[D / FDSPLIT / 8][4];
-  float m0, m1, l0, l1;
-  fwd_rows<true>(q + row_base * D, k + bh * nk * D, v + bh * nk * D, nq - q0,
-                 nk, kv_begin, kv_end, q_scale,
-                 reinterpret_cast<uint32_t*>(smem_raw), acc, m0, m1, l0, l1);
-  if (gridDim.y == 1) {
-    store_fwd_rows(o + row_base * D, nq - q0, acc, 1.f / fmaxf(l0, 1e-30f),
-                   1.f / fmaxf(l1, 1e-30f));
-    return;
-  }
-  // part_o [splits, BH * Nq, D], part_ml [splits, 2, BH * Nq]
-  const int64_t rows = static_cast<int64_t>(gridDim.x / q_tiles) * nq;
-  part_ml += split * 2 * rows + row_base;
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (warp / FDSPLIT) * 16 + lane_g();
-  if (warp % FDSPLIT == 0 && lane_t() == 0) {
-    if (q0 + r0 < nq) {
-      part_ml[r0] = m0;
-      part_ml[rows + r0] = l0;
-    }
-    if (q0 + r0 + 8 < nq) {
-      part_ml[r0 + 8] = m1;
-      part_ml[rows + r0 + 8] = l1;
-    }
-  }
-  store_fwd_rows(part_o + (split * rows + row_base) * D, nq - q0, acc, 1.f,
-                 1.f);
+                         int keys_per_split, float q_scale,
+                         const float* __restrict__ kimg,
+                         const float* __restrict__ vimg, int tiles,
+                         int q_tiles) {
+  hwide_f32::attend<true>(q, kimg, vimg, o, nullptr, part_o, part_ml, nq, nk,
+                          keys_per_split, q_scale, tiles, q_tiles);
 }
 
 __global__ void __launch_bounds__(f32narrow::NT)
@@ -421,47 +400,44 @@ int launch_f32_narrow(const void* q, const void* k, const void* v, void* o,
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* part_o, void* part_ml, int bh, int nq, int nk,
-               int splits, float q_scale, cudaStream_t stream) {
-  using namespace f32attn;
-  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
-  const int chunks = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
-  const int kv_per_split = (chunks + splits - 1) / splits * SPLIT_KEYS;
-  const int smem = fwd_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      streaming_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int q_tiles = (nq + FBM - 1) / FBM;
-  streaming_fwd_f32_kernel<<<dim3(bh * q_tiles, splits), 128 * FDSPLIT, smem,
-                             stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+               void* part_o, void* part_ml, void* scratch, int bh, int nq,
+               int nk, int splits, float q_scale, cudaStream_t stream) {
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml) ||
+      scratch == nullptr)
+    return -1;
+  const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
+  const int err = hwide_f32::launch(
+      streaming_f32_prep_kernel, streaming_fwd_f32_kernel,
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(scratch), bh, nq, nk, splits, stream,
+      static_cast<const float*>(q), static_cast<float*>(o),
       static_cast<float*>(part_o), static_cast<float*>(part_ml), nq, nk,
-      q_tiles, kv_per_split, q_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+      keys_per_split, q_scale);
+  if (err != 0 || splits == 1) return err;
   return launch_combine<float>(part_o, part_ml, o,
-                               static_cast<int64_t>(bh) * nq, D, splits,
-                               stream);
+                               static_cast<int64_t>(bh) * nq, hwide_f32::D,
+                               splits, stream);
 }
 
 }  // namespace
 
 // The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming on fp32 tensors, q_scale = scale * log2(e)
-// in fp32.
+// in fp32, and at d = 512 scratch for the tile images:
+// 2 * bh * ceil(nk / 16) * 16 * 512 fp32 values
+// (ops/attention.py:wide_f32_plan; unread at d = 32).
 extern "C" int dsml_flash_attention_streaming_f32(
     const void* q, const void* k, const void* v, void* o, void* part_o,
-    void* part_ml, int bh, int nq, int nk, int d, int splits, float q_scale,
-    void* stream) {
+    void* part_ml, void* scratch, int bh, int nq, int nk, int d, int splits,
+    float q_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == f32narrow::D)
     return launch_f32_narrow(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
                              q_scale, s);
-  if (d != f32attn::D) return -1;
-  return launch_f32(q, k, v, o, part_o, part_ml, bh, nq, nk, splits, q_scale,
-                    s);
+  if (d != hwide_f32::D) return -1;
+  return launch_f32(q, k, v, o, part_o, part_ml, scratch, bh, nq, nk, splits,
+                    q_scale, s);
 }
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. splits cuts

@@ -2,15 +2,15 @@
 // (flash_attention_fproj.cu, flash_attention_packed.cu,
 // flash_attention_qout.cu, the D = 32 / 64 path of
 // flash_attention_streaming.cu, hopper_bwd.cuh's backward grids with the
-// bf16 streaming backward's lse launch, and hopper_wide.cuh's D = 512
-// forwards): shared-memory tiles in the swizzled layouts wgmma reads, the
-// wgmma descriptors and instructions (bf16 in, fp32 accumulate), named
-// barriers, mbarriers, cp.async copies that complete on an mbarrier, the
-// cluster barrier and distributed shared-memory loads, the K / V tile loader
-// and the online-softmax loop over a K / V ring that the packed, q/out-fused
-// and streaming kernels share, and the cluster gather and output projection
-// that the fused-projection and q/out-fused kernels share. Raw PTX, for
-// sm_90a.
+// bf16 streaming backward's lse launch, and hopper_wide.cuh's and
+// hopper_wide_f32.cuh's D = 512 forwards): shared-memory tiles in the
+// swizzled layouts wgmma reads, the wgmma descriptors and instructions (bf16
+// in, fp32 accumulate), named barriers, mbarriers, cp.async copies that
+// complete on an mbarrier, the cluster barrier and distributed shared-memory
+// loads, the K / V tile loader and the online-softmax loop over a K / V ring
+// that the packed, q/out-fused and streaming kernels share, and the cluster
+// gather and output projection that the fused-projection and q/out-fused
+// kernels share. Raw PTX, for sm_90a.
 //
 // Tiles. A tile of rows of ROWB bytes (32, 64 or 128: 16, 32 or 64 bf16
 // columns) is stored row after row with each 16-byte chunk of a row moved

@@ -85,12 +85,15 @@ versions, and the wrappers that choose between them by where the tensor lies.
 fp32. Each kernel has its own fp32 head widths (``F32_HEAD_DIMS``): 512 for
 the split-head forward, the streaming forward and both their backward
 kernels (the first stage's single-head attention block in first-stage
-training, ``csrc/attention_f32.cuh``), and 32 for the split-head, packed and
-streaming forwards, their backward kernels and the fused-projection kernel
-(the UNet of ``mead-128-ldm-f4.yaml``, which sets no dtype, ``csrc/
-attention_f32_narrow.cuh``). Both run in fp32 as the JAX package's do, and
-multiply on the tensor cores in TF32 (operands rounded once, fp32
-accumulation and softmax). The q/out-fused kernel takes bf16 only.
+training and in mead-128's frozen first stage; the forwards on TF32
+``wgmma``, ``csrc/hopper_wide_f32.cuh``, with scratch for their tile images
+from ``wide_f32_plan``; the backwards ``csrc/attention_f32.cuh``), and 32
+for the split-head, packed and streaming forwards, their backward kernels and
+the fused-projection kernel (the UNet of ``mead-128-ldm-f4.yaml``, which sets
+no dtype, ``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
+package's do, and multiply on the tensor cores in TF32 (operands rounded
+once, fp32 accumulation and softmax). The q/out-fused kernel takes bf16
+only.
 
 ``multi_head_attention`` is the split-head dispatch between
 ``flash_attention`` and ``flash_attention_streaming`` under
@@ -118,7 +121,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -185,6 +188,51 @@ def streaming_auto(nq: int, nk: int, d: int) -> bool:
             return False
         bq //= 2
     return True
+
+
+# The fp32 D = 512 forwards of rows 2 and 4 (csrc/hopper_wide_f32.cuh): a
+# launch writes the K and V^T tile images into scratch, then a cluster of two
+# blocks a 64-row q-tile splits the 512 columns; its constants, mirrored here
+# so that the CPU tests reach the plan
+WIDE_F32_HEAD_DIM = 512
+WIDE_F32_ROWS = 64                     # query rows of a q-tile
+WIDE_F32_KEYS = 64                     # keys of a K / V^T tile
+WIDE_F32_THREADS = 128                 # one warpgroup a block
+WIDE_F32_CLUSTER = 2                   # blocks of a q-tile: halves of D
+WIDE_F32_PREP_THREADS = 256            # a tile-image block: 16 keys
+
+
+class WideF32Plan(NamedTuple):
+    """The two launches of an fp32 D = 512 forward: ``prep_blocks`` blocks
+    of ``prep_threads`` write the tile images into fp32 scratch of shape
+    ``scratch``; then ``blocks`` (block pairs of the q-tiles x splits of the
+    keys) of ``threads``, in clusters of ``cluster``, with ``smem`` bytes of
+    dynamic shared memory attend."""
+    prep_blocks: int
+    prep_threads: int
+    blocks: Tuple[int, int]
+    cluster: int
+    threads: int
+    smem: int
+    scratch: Tuple[int, int, int, int]
+
+
+def wide_f32_plan(bh: int, nq: int, nk: int, splits: int = 1) -> WideF32Plan:
+    """The launches of the fp32 D = 512 forward for ``bh`` heads of ``nq``
+    queries against ``nk`` keys (``splits``: the streaming forward's cut of
+    the keys). A block's shared memory: alignment slack, its half of the
+    q-tile, of a K and of a V^T tile, two buffers of the other block's
+    partial scores and five mbarriers, as ``hwide_f32::SMEM`` counts it."""
+    d, rows, keys = WIDE_F32_HEAD_DIM, WIDE_F32_ROWS, WIDE_F32_KEYS
+    half, tiles = d // WIDE_F32_CLUSTER, -(-nk // keys)
+    smem = (1024 + rows * half * 4 + 2 * keys * half * 4 + 2 * rows * keys * 4
+            + 5 * 8)
+    return WideF32Plan(
+        prep_blocks=bh * tiles * keys // 16,
+        prep_threads=WIDE_F32_PREP_THREADS,
+        blocks=(bh * -(-nq // rows) * WIDE_F32_CLUSTER, splits),
+        cluster=WIDE_F32_CLUSTER, threads=WIDE_F32_THREADS, smem=smem,
+        scratch=(2, bh, tiles * keys, d))
 
 
 def streaming_splits(bh: int, nq: int, nk: int) -> int:
@@ -410,6 +458,19 @@ def _entry(kernel: str, t: torch.Tensor, d: int) -> str:
 _SPLIT_HEAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
+def _f32_scratch(q, nk: int, splits: int = 1) -> tuple:
+    """The scratch argument of an fp32 forward entry (the tile images at
+    D = 512, ``wide_f32_plan``; none at D = 32); nothing for bf16, whose
+    entries take no scratch."""
+    if q.dtype != torch.float32:
+        return ()
+    b, h, nq, d = q.shape
+    if d != WIDE_F32_HEAD_DIM:
+        return (None,)
+    shape = wide_f32_plan(b * h, nq, nk, splits).scratch
+    return (torch.empty(shape, dtype=torch.float32, device=q.device),)
+
+
 def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     """Check, launch and count the split-head forward kernel. With
     ``want_lse`` it also writes each row's log-sum-exp ([B*H*Nq] fp32), which
@@ -425,10 +486,12 @@ def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
            if want_lse else None)
+    scratch = _f32_scratch(q, k.shape[2])
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d,
-        float(scale), current_stream(q))
+        None if lse is None else lse.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch), b * h, nq,
+        k.shape[2], d, float(scale), current_stream(q))
     raise_on_error(code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out, lse
@@ -524,11 +587,13 @@ def _launch_streaming_forward(q, k, v, scale: float):
         f32 = dict(dtype=torch.float32, device=q.device)
         part_o = torch.empty((splits, b * h * nq, d), **f32)
         part_ml = torch.empty((splits, 2, b * h * nq), **f32)
+    scratch = _f32_scratch(q, nk, splits)
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), b * h, nq, nk, d,
-        splits, _folded_factor(scale, q.dtype), current_stream(q))
+        None if part_ml is None else part_ml.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch), b * h, nq,
+        nk, d, splits, _folded_factor(scale, q.dtype), current_stream(q))
     raise_on_error(code, "flash_attention_streaming")
     LAUNCHES["flash_attention_streaming"] += 1
     return out

@@ -55,11 +55,14 @@ references run with cuDNN's TF32 off.
 
 ``--f32-attn`` builds the four split-head and streaming attention sources
 alone and times their fp32 entries (rows 2, 4, 5 and 7 of PERF.md's kernel
-table), each case with ``device_ms`` and ``device_by_kernel`` (the lse,
-delta, dk/dv and dq launches) beside the event time: at D = 512 the
-forwards of rows 2 and 4 and the backwards of rows 7 and 5 at [16, 1, 1024,
-512] and [8, 1, 4096, 512] (the backwards also at a ragged [2, 1, 333, 333,
-512]); at D = 32 the forwards of rows 2 and 4 at ``F32_NARROW_SHAPES``.
+table), each case with ``device_ms`` and ``device_by_kernel`` (the tile
+images, lse, delta, dk/dv and dq launches) beside the event time: at
+D = 512 the forwards of rows 2 and 4 and the backwards of rows 7 and 5 at
+[16, 1, 1024, 512] and [8, 1, 4096, 512] (the backwards also at a ragged
+[2, 1, 333, 333, 512]), the forwards also at ``F32_WIDE_SHAPES``; at D = 32
+the forwards of rows 2 and 4 at ``F32_NARROW_SHAPES``. A parent tree whose
+fp32 forward entries take no scratch is called without it.
+``--only 512`` keeps the D = 512 cases.
 
     python -m dsml_thesis_tpu_torch.tools.variants --wide-attn [--only TEXT] \
         '{"parent": [["flash_attention.cu", "", "_ab/parent/.../flash_attention.cu"],
@@ -153,10 +156,17 @@ LEGACY = {"dsml_conv_stats": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
           # (x, partial, sums, b, n, c, chunks, stream): two launches
           "dsml_gn_channel_stats": [_P] * 3 + [_I] * 4 + [_P]}
 LEGACY.update({k + "_f32": v for k, v in list(LEGACY.items())})
+# the fp32 forwards before their scratch for the tile images came in
+LEGACY.update({"dsml_flash_attention_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
+               "dsml_flash_attention_streaming_f32": [_P] * 6 + [_I] * 5
+               + [_F, _P]})
 # an entry is legacy in a tree whose source lacks the marker of its plan
 MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
            "dsml_group_norm_silu": ("group_norm.cu", "int cluster"),
-           "dsml_gn_channel_stats": ("group_norm.cu", "int blocks")}
+           "dsml_gn_channel_stats": ("group_norm.cu", "int blocks"),
+           "dsml_flash_attention": ("flash_attention.cu", "void* scratch"),
+           "dsml_flash_attention_streaming": ("flash_attention_streaming.cu",
+                                              "void* scratch")}
 # what --conv-gn builds and times
 CONV_GN_SOURCES = SOURCES[-3:]
 CONV_GN_ENTRIES = ENTRIES[-4:]
@@ -190,6 +200,11 @@ WIDE_SHAPES = (((8, 1, 4096, 4096, 512), ("flash", "streaming")),
                ((1, 2, 333, 77, 512), ("flash", "streaming")),
                ((1, 1, 64, 2000, 512), ("streaming",)),
                ((1, 1, 16384, 16384, 512), ("streaming",)))
+# [B, H, Nq, Nk, D] of the fp32 D = 512 forwards beyond the two shapes above:
+# mead-128-ldm-f4's frozen first stage (training encodes at batch 32, served
+# identity encode and decodes at 8) and two ragged ones
+F32_WIDE_SHAPES = ((32, 1, 1024, 1024, 512), (8, 1, 1024, 1024, 512),
+                   (2, 1, 1000, 1000, 512), (1, 2, 333, 77, 512))
 # [B, H, Nq, Nk, D] of the fp32 D = 32 forwards (mead-128-ldm-f4's UNet
 # levels in training and serving, and a ragged one)
 F32_NARROW_SHAPES = ((32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
@@ -581,7 +596,8 @@ def f32_cases(rel, stream) -> dict:
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
 
     def fwd(kind, b, h, nq, nk, d):
-        """The split-head (``flash``) or streaming forward."""
+        """The split-head (``flash``) or streaming forward; a tree from
+        before the scratch argument is called without it."""
         q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
         scale = d ** -0.5
         streaming = kind == "streaming"
@@ -591,17 +607,22 @@ def f32_cases(rel, stream) -> dict:
         out = torch.empty_like(q)
         part_o = torch.empty((splits, b * h * nq, d), device="cuda")
         part_ml = torch.empty((splits, 2, b * h * nq), device="cuda")
+        scratch = (torch.empty(A.wide_f32_plan(b * h, nq, nk, splits).scratch,
+                               device="cuda")
+                   if d == A.WIDE_F32_HEAD_DIM else None)
         name = "dsml_flash_attention" + ("_streaming" if streaming else "")
         name += "_f32"
-        head = ((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 part_o.data_ptr(), part_ml.data_ptr(), b * h, nq, nk, d,
-                 splits, A._folded_factor(scale, q.dtype)) if streaming else
-                (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None, b * h, nq, nk, d, scale))
+        outs = ((out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr())
+                if streaming else (out.data_ptr(), None))
+        tail = ((b * h, nq, nk, d, splits, A._folded_factor(scale, q.dtype))
+                if streaming else (b * h, nq, nk, d, scale))
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        sp = (None if scratch is None else scratch.data_ptr(),)
 
         def call(lib):
+            head = ins + outs + (() if name in lib.legacy else sp) + tail
             return getattr(lib, name)(*head, stream())
-        call.operands = (q, k, v, part_o, part_ml)   # alive as long as call
+        call.operands = (q, k, v, part_o, part_ml, scratch)   # kept alive
         return call, lambda: rel(out, ref)
 
     def bwd(kind, b, h, nq, nk, d):
@@ -641,6 +662,9 @@ def f32_cases(rel, stream) -> dict:
             out[f"{kind} f32 {tag}"] = bwd(kind, *shape)
     for kind in ("flash_bwd", "streaming_bwd"):
         out[f"{kind} f32 [2,1,333,333,512]"] = bwd(kind, 2, 1, 333, 333, 512)
+    for shape in F32_WIDE_SHAPES:
+        for kind in ("flash", "streaming"):
+            out[f"{kind} f32 {_tag(shape)}"] = fwd(kind, *shape)
     for shape in F32_NARROW_SHAPES:
         for kind in ("flash", "streaming"):
             out[f"{kind} f32 {_tag(shape)}"] = fwd(kind, *shape)
