@@ -876,6 +876,11 @@ def phase_kernels():
         _flash_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),   # ragged
         _flash_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),      # Nk != Nq
         _flash_bwd_case(gen, 2, 1, 333, 333, 512, False, f32),     # 32 + 13
+        # the 128-row tiles of hopper_wide_f32_bwd.cuh: Nk = 64 + 1, Nk < 64
+        # on two heads, Nq and Nk just past one and two tiles
+        _flash_bwd_case(gen, 2, 1, 100, 65, 512, False, f32),
+        _flash_bwd_case(gen, 1, 2, 70, 9, 512, False, f32),
+        _flash_bwd_case(gen, 1, 1, 130, 257, 512, False, f32),
         _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
@@ -971,6 +976,9 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 1, 1000, 1000, 512, False, f32),  # ragged
         _streaming_bwd_case(gen, 1, 2, 333, 77, 512, False, f32),     # Nk != Nq
         _streaming_bwd_case(gen, 2, 1, 333, 333, 512, False, f32),    # 32 + 13
+        _streaming_bwd_case(gen, 2, 1, 100, 65, 512, False, f32),     # 64 + 1
+        _streaming_bwd_case(gen, 1, 2, 70, 9, 512, False, f32),       # Nk < 64
+        _streaming_bwd_case(gen, 1, 1, 130, 257, 512, False, f32),    # tiles + 1
         _streaming_bwd_case(gen, 8, 10, 1024, 1024, 32, True),
         _streaming_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _streaming_bwd_case(gen, 2, 3, 333, 77, 64, False),  # ragged, D = 64

@@ -21,18 +21,19 @@
 // Bound: operations (10 * Nq * Nk * D a head against 2 * (4 Nq + 4 Nk) * D
 // bytes); the grids execute 14 (the scores and dp are formed in both).
 //
-// fp32 at D = 512 (dsml_flash_attention_bwd_f32; first-stage training): the
-// TF32 design of attention_f32.cuh, the same three launches with D cut over
-// the eight warps of a block (64 columns of dk / dv, or of dq, a warp), 32
-// owned rows a block against streamed tiles of 16. It does 14 N^2 D
-// operations a head for the function's 10.
+// fp32 at D = 512 (dsml_flash_attention_bwd_f32; first-stage training):
+// hopper_wide_f32_bwd.cuh on TF32 wgmma: delta, the q^T / do^T / k^T tile
+// images, then a scores grid (S and dP of 128 x 128 tiles, P and dS into
+// scratch) and one grid of the three gradient GEMMs a chunk of keys; 10 N^2 D
+// operations a head, none formed twice. The scratch is the wrapper's
+// (ops/attention.py:wide_f32_bwd_plan).
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
 // DSML_ATTN_PACKED=0): the packed fp32 backward's three launches
 // (attention_f32_narrow.cuh) on one head of row stride 32.
-#include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+#include "hopper_wide_f32_bwd.cuh"
 
 namespace {
 
@@ -65,6 +66,39 @@ flash_bwd_dq_f32_narrow_kernel(const float* __restrict__ q,
                                float scale) {
   f32narrow::dq_block(q, k, v, dout, lse, delta, dq, ld, nq, nk, heads,
                       q_tiles, scale_log2, q_mul, scale);
+}
+
+__global__ void __launch_bounds__(hwide_f32_bwd::NT)
+flash_bwd_wide_f32_images_kernel(
+    const float* __restrict__ q, const float* __restrict__ dout,
+    const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ qt, float* __restrict__ dot, float* __restrict__ kt,
+    float* __restrict__ rows, int nq, int nk, int nqp, int nkp, float q_mul) {
+  hwide_f32_bwd::images(q, dout, k, v, qt, dot, kt, rows, nq, nk, nqp, nkp,
+                        q_mul);
+}
+
+__global__ void __launch_bounds__(hwide_f32_bwd::NT, 1)
+flash_bwd_wide_f32_scores_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ pt, float* __restrict__ dst, float* __restrict__ ds,
+    int nq, int nk, int nqp, int chunk, int c0, float scale_log2) {
+  hwide_f32_bwd::scores(q, k, v, dout, lse, delta, pt, dst, ds, nq, nk, nqp,
+                        chunk, c0, scale_log2);
+}
+
+__global__ void __launch_bounds__(hwide_f32_bwd::NT, 1)
+flash_bwd_wide_f32_grads_kernel(
+    const float* __restrict__ pt, const float* __restrict__ dst,
+    const float* __restrict__ ds, const float* __restrict__ dot,
+    const float* __restrict__ qt, const float* __restrict__ kt,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    int nq, int nk, int nqp, int nkp, int chunk, int c0, int cw, float scale,
+    float dk_mul) {
+  hwide_f32_bwd::grads(pt, dst, ds, dot, qt, kt, dq, dk, dv, nq, nk, nqp, nkp,
+                       chunk, c0, cw, scale, dk_mul);
 }
 
 }  // namespace
@@ -104,13 +138,16 @@ extern "C" int dsml_flash_attention_bwd(const void* q, const void* k,
 }
 
 // The fp32 instantiations (d = 512 and 32): the same contract as
-// dsml_flash_attention_bwd on fp32 tensors.
+// dsml_flash_attention_bwd on fp32 tensors; at d = 512 scratch holds the
+// tile images and a chunk's P^T, dS^T and dS (ops/attention.py:
+// wide_f32_bwd_plan), at d = 32 it is not read.
 extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
                                             const void* v, const void* o,
                                             const void* dout, const void* lse,
                                             void* delta, void* dq, void* dk,
                                             void* dv, int bh, int nq, int nk,
-                                            int d, float scale, void* stream) {
+                                            int d, float scale, void* scratch,
+                                            void* stream) {
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   if (d == f32narrow::D)
@@ -119,9 +156,11 @@ extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
         c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk),
         m(dv), bh, nq, nk, 1, scale * 1.4426950408889634f, 1.f, scale, scale,
         static_cast<cudaStream_t>(stream));
-  if (d != f32attn::D) return -1;
-  return f32attn::launch_bwd_f32(
-      c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk), m(dv),
-      bh, nq, nk, scale * 1.4426950408889634f, 1.f, scale, scale,
+  if (d != hwide_f32_bwd::D) return -1;
+  return hwide_f32_bwd::launch(
+      flash_bwd_wide_f32_images_kernel, flash_bwd_wide_f32_scores_kernel,
+      flash_bwd_wide_f32_grads_kernel, c(q), c(k), c(v), c(o), c(dout),
+      c(lse), m(delta), m(dq), m(dk), m(dv), m(scratch), bh, nq, nk,
+      scale * 1.4426950408889634f, 1.f, scale, scale,
       static_cast<cudaStream_t>(stream));
 }

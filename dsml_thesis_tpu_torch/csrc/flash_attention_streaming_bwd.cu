@@ -41,13 +41,14 @@
 // fp32 at D = 512 (dsml_flash_attention_streaming_bwd_f32; first-stage
 // training under DSML_FLASH_STREAMING=1): a log-sum-exp launch of its own
 // (64 query rows a block, key tiles of 16 through a cp.async ring, TF32
-// products from q times scale * log2(e) in fp32), then the three launches of
-// flash_attention_bwd's fp32 instantiation (attention_f32.cuh) with that
-// pre-scaled q: the scores of all four launches are formed from the same
-// rounded operands. dk is taken against the stored q * c and divided by
-// c = scale * log2(e) at the end, so no fifth tile is kept: the two differ by
-// one fp32 rounding of q * c, far under the TF32 rounding of the operand
-// itself.
+// products from q times scale * log2(e) in fp32), then the launches of
+// flash_attention_bwd's fp32 instantiation (hopper_wide_f32_bwd.cuh: delta,
+// the tile images, the scores grid and the gradient GEMMs on TF32 wgmma) with
+// q pre-scaled by c = scale * log2(e) where it is rounded: the scores of all
+// the launches are formed from the same rounded operands. dk is taken against
+// that q * c and multiplied by scale / c at the end, as the earlier fused
+// grids did: the two differ by one fp32 rounding of q * c, far under the TF32
+// rounding of the operand itself.
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet in
 // training under DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1):
@@ -65,6 +66,7 @@
 #include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+#include "hopper_wide_f32_bwd.cuh"
 
 namespace {
 
@@ -324,6 +326,39 @@ streaming_lse_f32_kernel(const float* __restrict__ q,
   }
 }
 
+__global__ void __launch_bounds__(hwide_f32_bwd::NT)
+streaming_bwd_wide_f32_images_kernel(
+    const float* __restrict__ q, const float* __restrict__ dout,
+    const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ qt, float* __restrict__ dot, float* __restrict__ kt,
+    float* __restrict__ rows, int nq, int nk, int nqp, int nkp, float q_mul) {
+  hwide_f32_bwd::images(q, dout, k, v, qt, dot, kt, rows, nq, nk, nqp, nkp,
+                        q_mul);
+}
+
+__global__ void __launch_bounds__(hwide_f32_bwd::NT, 1)
+streaming_bwd_wide_f32_scores_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ pt, float* __restrict__ dst, float* __restrict__ ds,
+    int nq, int nk, int nqp, int chunk, int c0, float scale_log2) {
+  hwide_f32_bwd::scores(q, k, v, dout, lse, delta, pt, dst, ds, nq, nk, nqp,
+                        chunk, c0, scale_log2);
+}
+
+__global__ void __launch_bounds__(hwide_f32_bwd::NT, 1)
+streaming_bwd_wide_f32_grads_kernel(
+    const float* __restrict__ pt, const float* __restrict__ dst,
+    const float* __restrict__ ds, const float* __restrict__ dot,
+    const float* __restrict__ qt, const float* __restrict__ kt,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+    int nq, int nk, int nqp, int nkp, int chunk, int c0, int cw, float scale,
+    float dk_mul) {
+  hwide_f32_bwd::grads(pt, dst, ds, dot, qt, kt, dq, dk, dv, nq, nk, nqp, nkp,
+                       chunk, c0, cw, scale, dk_mul);
+}
+
 __global__ void __launch_bounds__(f32narrow::NT)
 streaming_lse_f32_narrow_kernel(const float* __restrict__ q,
                                 const float* __restrict__ k,
@@ -384,11 +419,14 @@ int launch_f32_narrow(const float* q, const float* k, const float* v,
 
 // The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming_bwd on fp32 tensors, q_scale = scale *
-// log2(e) in fp32.
+// log2(e) in fp32; at d = 512 scratch holds the tile images and a chunk's
+// P^T, dS^T and dS (ops/attention.py:wide_f32_bwd_plan), at d = 32 it is not
+// read.
 extern "C" int dsml_flash_attention_streaming_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
-    int bh, int nq, int nk, int d, float scale, float q_scale, void* stream) {
+    int bh, int nq, int nk, int d, float scale, float q_scale, void* scratch,
+    void* stream) {
   using namespace f32attn;
   if (bh < 1 || nq < 1 || nk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -400,7 +438,7 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
         static_cast<float*>(delta), static_cast<float*>(dq),
         static_cast<float*>(dk), static_cast<float*>(dv), bh, nq, nk, scale,
         q_scale, s);
-  if (d != D) return -1;
+  if (d != D || scratch == nullptr) return -1;
   const int smem = lse_f32_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       streaming_lse_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -416,9 +454,12 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
   if (err != cudaSuccess) return static_cast<int>(err);
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
-  return launch_bwd_f32(qf, kf, c(v), c(o), c(dout), l, m(delta), m(dq), m(dk),
-                        m(dv), bh, nq, nk, 1.f, q_scale, scale,
-                        scale / q_scale, s);
+  return hwide_f32_bwd::launch(
+      streaming_bwd_wide_f32_images_kernel,
+      streaming_bwd_wide_f32_scores_kernel,
+      streaming_bwd_wide_f32_grads_kernel, qf, kf, c(v), c(o), c(dout), l,
+      m(delta), m(dq), m(dk), m(dv), m(scratch), bh, nq, nk, 1.f, q_scale,
+      scale, scale / q_scale, s);
 }
 
 // q_scale is scale * log2(e) as rounded to bf16 by the caller. Returns

@@ -87,10 +87,13 @@ the split-head forward, the streaming forward and both their backward
 kernels (the first stage's single-head attention block in first-stage
 training and in mead-128's frozen first stage; the forwards on TF32
 ``wgmma``, ``csrc/hopper_wide_f32.cuh``, with scratch for their tile images
-from ``wide_f32_plan``; the backwards ``csrc/attention_f32.cuh``), and 32
-for the split-head, packed and streaming forwards, their backward kernels and
-the fused-projection kernel (the UNet of ``mead-128-ldm-f4.yaml``, which sets
-no dtype, ``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
+from ``wide_f32_plan``; the backwards on TF32 ``wgmma`` too,
+``csrc/hopper_wide_f32_bwd.cuh``: a scores grid and a grid of the three
+gradient GEMMs joined by P and dS in scratch from ``wide_f32_bwd_plan``),
+and 32 for the split-head, packed and streaming forwards, their backward
+kernels and the fused-projection kernel (the UNet of
+``mead-128-ldm-f4.yaml``, which sets no dtype,
+``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
 package's do, and multiply on the tensor cores in TF32 (operands rounded
 once, fp32 accumulation and softmax). The q/out-fused kernel takes bf16
 only.
@@ -233,6 +236,66 @@ def wide_f32_plan(bh: int, nq: int, nk: int, splits: int = 1) -> WideF32Plan:
         blocks=(bh * -(-nq // rows) * WIDE_F32_CLUSTER, splits),
         cluster=WIDE_F32_CLUSTER, threads=WIDE_F32_THREADS, smem=smem,
         scratch=(2, bh, tiles * keys, d))
+
+
+# The fp32 D = 512 backwards of rows 7 and 5 (csrc/hopper_wide_f32_bwd.cuh):
+# delta, a launch writing q / do / k / v rounded to TF32 and q^T / do^T /
+# k^T, then a scores grid and a grid of the three gradient GEMMs for each
+# chunk of keys, the chunk's P^T, dS^T and dS in scratch; its constants,
+# mirrored here so that the CPU tests reach the plan
+WIDE_F32_BWD_TILE = 128                # rows of a score / gradient tile
+WIDE_F32_BWD_THREADS = 256             # two warpgroups a block
+WIDE_F32_BWD_COLS = 256                # output columns of a gradient tile
+WIDE_F32_BWD_S_STAGES = 6              # scores: 32-column stages, 32 KB
+WIDE_F32_BWD_G_STAGES = 4              # gradients: 32-column stages, 48 KB
+WIDE_F32_BWD_IMG_ROWS = 32             # an image block: 32 x 32
+WIDE_F32_BWD_CHUNK_BUDGET_MB = 512     # a chunk's P^T, dS^T and dS
+WIDE_F32_BWD_IMAGES = 4                # q, do, k, v: rounded, transposed
+
+
+class WideF32BwdPlan(NamedTuple):
+    """The launches of an fp32 D = 512 backward after delta: ``images``
+    blocks of ``threads`` write the rounded and the transposed copies; then,
+    for each of ``chunks`` chunks of ``chunk`` keys (the last one shorter),
+    ``scores`` blocks and ``grads`` blocks (the largest chunk's grids) of
+    ``threads`` with ``scores_smem`` / ``grads_smem`` bytes of dynamic shared
+    memory. ``scratch`` is the fp32 scratch of one call: the transposed
+    copies at the lengths padded to ``padded``, one chunk's P^T, dS^T and
+    dS, and the rounded copies."""
+    images: Tuple[int, int, int]
+    scores: Tuple[int, int, int]
+    grads: Tuple[int, int, int]
+    threads: int
+    scores_smem: int
+    grads_smem: int
+    padded: Tuple[int, int]
+    chunk: int
+    chunks: int
+    scratch: Tuple[int]
+
+
+def wide_f32_bwd_plan(bh: int, nq: int, nk: int) -> WideF32BwdPlan:
+    """The launches of the fp32 D = 512 backward for ``bh`` heads of ``nq``
+    queries against ``nk`` keys, as ``hwide_f32_bwd::launch`` makes them. A
+    chunk holds as many 128-key tiles as keep its three [Nq, chunk] arrays
+    within the budget (at least one, at most all); a block's shared memory
+    is 1 KB of alignment slack and its stages."""
+    d, tile, img = WIDE_F32_HEAD_DIM, WIDE_F32_BWD_TILE, WIDE_F32_BWD_IMG_ROWS
+    nqp, nkp = -(-nq // tile) * tile, -(-nk // tile) * tile
+    chunk = (WIDE_F32_BWD_CHUNK_BUDGET_MB << 20) // (3 * 4 * bh * nqp)
+    chunk = min(max(chunk // tile * tile, tile), nkp)
+    row_tile = tile * 128
+    return WideF32BwdPlan(
+        images=(max(nqp, nkp) // img, d // img, bh * WIDE_F32_BWD_IMAGES),
+        scores=(nqp // tile, chunk // tile, bh),
+        grads=(max(chunk, nqp) // tile * 2, bh, 3),
+        threads=WIDE_F32_BWD_THREADS,
+        scores_smem=1024 + WIDE_F32_BWD_S_STAGES * 2 * row_tile,
+        grads_smem=1024 + WIDE_F32_BWD_G_STAGES * (
+            row_tile + WIDE_F32_BWD_COLS * 128),
+        padded=(nqp, nkp), chunk=chunk, chunks=-(-nkp // chunk),
+        scratch=(bh * (d * (2 * nqp + nkp) + 3 * chunk * nqp
+                       + d * (2 * nq + 2 * nk)),))
 
 
 def streaming_splits(bh: int, nq: int, nk: int) -> int:
@@ -471,6 +534,19 @@ def _f32_scratch(q, nk: int, splits: int = 1) -> tuple:
     return (torch.empty(shape, dtype=torch.float32, device=q.device),)
 
 
+def _f32_bwd_scratch(q, nk: int) -> tuple:
+    """The scratch argument of an fp32 backward entry (``wide_f32_bwd_plan``
+    at D = 512; none at D = 32); nothing for bf16, whose entries take no
+    scratch."""
+    if q.dtype != torch.float32:
+        return ()
+    b, h, nq, d = q.shape
+    if d != WIDE_F32_HEAD_DIM:
+        return (None,)
+    return (torch.empty(wide_f32_bwd_plan(b * h, nq, nk).scratch,
+                        dtype=torch.float32, device=q.device),)
+
+
 def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
     """Check, launch and count the split-head forward kernel. With
     ``want_lse`` it also writes each row's log-sum-exp ([B*H*Nq] fp32), which
@@ -516,10 +592,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    scratch = _f32_bwd_scratch(q, k.shape[2])
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
+        *(None if t is None else t.data_ptr() for t in scratch),
         current_stream(q))
     raise_on_error(code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
@@ -627,11 +705,14 @@ def flash_attention_streaming_bwd(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty(b * h * nq, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    scratch = _f32_bwd_scratch(q, k.shape[2])
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
-        _folded_factor(scale, q.dtype), current_stream(q))
+        _folded_factor(scale, q.dtype),
+        *(None if t is None else t.data_ptr() for t in scratch),
+        current_stream(q))
     raise_on_error(code, "flash_attention_streaming_bwd")
     LAUNCHES["flash_attention_streaming_bwd"] += 1
     return dq, dk, dv

@@ -200,9 +200,12 @@ _FAMILIES = (
     ("flash_fwd_f32_kernel", "attention: flash_attention (fp32)"),
     ("streaming_fwd_f32_kernel", "attention: streaming (fp32)"),
     ("streaming_lse_f32_kernel", "attention backward: streaming log-sum-exp"),
-    ("bwd_dkdv_f32_kernel", "attention backward: dk / dv grid"),
-    ("bwd_dq_f32_kernel", "attention backward: dq grid"),
     ("bwd_delta_f32_kernel", "attention backward: delta"),
+    # the fp32 D = 512 backwards (hopper_wide_f32_bwd.cuh)
+    ("bwd_wide_f32_images_kernel", "attention backward: fp32 D = 512 images"),
+    ("bwd_wide_f32_scores_kernel", "attention backward: fp32 D = 512 scores"),
+    ("bwd_wide_f32_grads_kernel",
+     "attention backward: fp32 D = 512 gradient GEMMs"),
     ("fproj_attention_kernel", "attention: fproj (attention + to_out)"),
     ("qkv_proj_kernel", "attention: fproj (q, k, v projection)"),
     ("flash_attention_kernel", "attention: flash_attention"),

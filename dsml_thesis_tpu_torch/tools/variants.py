@@ -58,10 +58,12 @@ alone and times their fp32 entries (rows 2, 4, 5 and 7 of PERF.md's kernel
 table), each case with ``device_ms`` and ``device_by_kernel`` (the tile
 images, lse, delta, dk/dv and dq launches) beside the event time: at
 D = 512 the forwards of rows 2 and 4 and the backwards of rows 7 and 5 at
-[16, 1, 1024, 512] and [8, 1, 4096, 512] (the backwards also at a ragged
-[2, 1, 333, 333, 512]), the forwards also at ``F32_WIDE_SHAPES``; at D = 32
-the forwards of rows 2 and 4 at ``F32_NARROW_SHAPES``. A parent tree whose
-fp32 forward entries take no scratch is called without it.
+[16, 1, 1024, 512] and [8, 1, 4096, 512] (the backwards also at the ragged
+``F32_BWD_RAGGED``; their device time by launch: lse, delta, the tile
+images, the scores and the gradient GEMMs, or a parent's dk/dv and dq
+grids), the forwards also at ``F32_WIDE_SHAPES``; at D = 32 the forwards of
+rows 2 and 4 at ``F32_NARROW_SHAPES``. A parent tree whose fp32 forward or
+backward entries take no scratch is called without it.
 ``--only 512`` keeps the D = 512 cases.
 
     python -m dsml_thesis_tpu_torch.tools.variants --wide-attn [--only TEXT] \
@@ -160,13 +162,23 @@ LEGACY.update({k + "_f32": v for k, v in list(LEGACY.items())})
 LEGACY.update({"dsml_flash_attention_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
                "dsml_flash_attention_streaming_f32": [_P] * 6 + [_I] * 5
                + [_F, _P]})
+# the fp32 backwards before their scratch (tile images, a chunk's P^T, dS^T
+# and dS) came in
+LEGACY.update({"dsml_flash_attention_bwd_f32": [_P] * 10 + [_I] * 4
+               + [_F, _P],
+               "dsml_flash_attention_streaming_bwd_f32": [_P] * 10 + [_I] * 4
+               + [_F, _F, _P]})
 # an entry is legacy in a tree whose source lacks the marker of its plan
 MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
            "dsml_group_norm_silu": ("group_norm.cu", "int cluster"),
            "dsml_gn_channel_stats": ("group_norm.cu", "int blocks"),
            "dsml_flash_attention": ("flash_attention.cu", "void* scratch"),
            "dsml_flash_attention_streaming": ("flash_attention_streaming.cu",
-                                              "void* scratch")}
+                                              "void* scratch"),
+           "dsml_flash_attention_bwd": ("flash_attention_bwd.cu",
+                                        "void* scratch"),
+           "dsml_flash_attention_streaming_bwd": (
+               "flash_attention_streaming_bwd.cu", "void* scratch")}
 # what --conv-gn builds and times
 CONV_GN_SOURCES = SOURCES[-3:]
 CONV_GN_ENTRIES = ENTRIES[-4:]
@@ -205,6 +217,11 @@ WIDE_SHAPES = (((8, 1, 4096, 4096, 512), ("flash", "streaming")),
 # identity encode and decodes at 8) and two ragged ones
 F32_WIDE_SHAPES = ((32, 1, 1024, 1024, 512), (8, 1, 1024, 1024, 512),
                    (2, 1, 1000, 1000, 512), (1, 2, 333, 77, 512))
+# [B, H, Nq, Nk, D] of the ragged fp32 D = 512 backwards: Nq = 2 x 128 +
+# 77, Nk = 64 + 1 against Nq past 64, Nk < 64 on two heads, and Nq, Nk just
+# past one and two 128-row tiles
+F32_BWD_RAGGED = ((2, 1, 333, 333, 512), (2, 1, 100, 65, 512),
+                  (1, 2, 70, 9, 512), (1, 1, 130, 257, 512))
 # [B, H, Nq, Nk, D] of the fp32 D = 32 forwards (mead-128-ldm-f4's UNet
 # levels in training and serving, and a ragged one)
 F32_NARROW_SHAPES = ((32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
@@ -627,7 +644,8 @@ def f32_cases(rel, stream) -> dict:
 
     def bwd(kind, b, h, nq, nk, d):
         """The split-head (``flash_bwd``) or streaming backward, on this
-        tree's forward output."""
+        tree's forward output; a tree from before the scratch argument is
+        called without it."""
         q, do = rnd(b, h, nq, d), rnd(b, h, nq, d)
         k, v = rnd(b, h, nk, d), rnd(b, h, nk, d)
         scale = d ** -0.5
@@ -641,6 +659,7 @@ def f32_cases(rel, stream) -> dict:
             ref = A.flash_attention_bwd_reference(q, k, v, do, scale=scale)
         grads = [torch.empty_like(t) for t in (q, k, v)]
         delta = torch.empty(b * h * nq, device="cuda")
+        scratch = A._f32_bwd_scratch(q, nk)[0]
         name = "dsml_flash_attention" + ("_streaming_bwd" if streaming
                                          else "_bwd") + "_f32"
         head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -649,8 +668,10 @@ def f32_cases(rel, stream) -> dict:
                 *((A._folded_factor(scale, q.dtype),) if streaming else ()))
 
         def call(lib):
-            return getattr(lib, name)(*head, stream())
-        call.operands = (q, k, v, o, do, lse, delta)
+            return getattr(lib, name)(
+                *head, *(() if name in lib.legacy else (scratch.data_ptr(),)),
+                stream())
+        call.operands = (q, k, v, o, do, lse, delta, scratch)
         return call, lambda: max(rel(g, r) for g, r in zip(grads, ref))
 
     out = {}
@@ -661,7 +682,8 @@ def f32_cases(rel, stream) -> dict:
         for kind in ("flash_bwd", "streaming_bwd"):
             out[f"{kind} f32 {tag}"] = bwd(kind, *shape)
     for kind in ("flash_bwd", "streaming_bwd"):
-        out[f"{kind} f32 [2,1,333,333,512]"] = bwd(kind, 2, 1, 333, 333, 512)
+        for shape in F32_BWD_RAGGED:
+            out[f"{kind} f32 {_tag(shape)}"] = bwd(kind, *shape)
     for shape in F32_WIDE_SHAPES:
         for kind in ("flash", "streaming"):
             out[f"{kind} f32 {_tag(shape)}"] = fwd(kind, *shape)
