@@ -163,6 +163,14 @@ STATS_REL_TOL = 1e-4
 # roundings of the largest row; a wrong maximum or a dropped tile moves it by
 # whole units.
 LSE_REL_TOL = 1e-4
+# The packed forward's log-sum-exp at fp32 D = 32 forms its scores from q and
+# k rounded to TF32 (2^-11 relative each): over 32 products a score moves by
+# about 1e-3 of its scale, and with few keys to average over (Nk = 77) that
+# alone puts the row log-sum-exp up to about 2e-4 of the largest row away
+# from the fp32 one. Each such case also reports that floor on its own
+# inputs ("tf32_floor_rel_err": the plain formula on TF32-rounded q and k);
+# a wrong maximum or a dropped tile still moves it by whole units.
+LSE_TF32_REL_TOL = 5e-4
 TIME_LIMIT_S = 1150
 
 
@@ -382,6 +390,31 @@ def _packed_case(gen, b, nq, nk, heads, d, timed, dtype=torch.bfloat16):
                                                scale=scale),
         esize * b * (2 * nq + 2 * nk) * hd, 4 * b * nq * nk * hd, peak,
         dtype=_dtype_name(dtype), head_dim=d), run)
+
+
+def _tf32(x):
+    """x (fp32) rounded to TF32 as the kernels round their operands."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _packed_lse_case(gen, b, nq, nk, heads, d, dtype=torch.float32):
+    """The packed forward's row log-sum-exp ([B*H*Nq], base 2, of the scores
+    times scale) of the fp32 D = 32 instantiation against the plain one, the
+    error TF32 rounding of q and k alone gives on the same inputs beside it,
+    and the same bits again."""
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    hd = heads * d
+    q, k, v = (_rand(gen, b, n, hd, dtype=dtype) for n in (nq, nk, nk))
+    scale = d ** -0.5
+    run = lambda: A._launch_packed_forward(q, k, v, heads, scale, True)[1]
+    plain = lambda: A.packed_lse_reference(q, k, heads, scale=scale)
+    floor = _compare(A.packed_lse_reference(_tf32(q), _tf32(k), heads,
+                                            scale=scale), plain())[1]
+    case = _case((b, nq, nk, heads, d), False, run, plain, None, 0, 0, 1,
+                 output="lse", tol=LSE_TF32_REL_TOL, tf32_floor_rel_err=floor,
+                 dtype=_dtype_name(dtype), head_dim=d)
+    return _repeatable(case, run)
 
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
@@ -797,6 +830,13 @@ def phase_kernels():
         _packed_case(gen, 2, 1000, 1000, 5, 32, False, f32),   # ragged N
         _packed_case(gen, 2, 333, 77, 10, 32, False, f32),     # Nk != Nq
         _packed_case(gen, 2, 200, 129, 5, 32, False, f32),     # Nk = 128 + 1
+        _packed_case(gen, 2, 200, 257, 5, 32, False, f32),     # 2 x 128 + 1
+        _packed_case(gen, 3, 65, 129, 5, 32, False, f32),      # Nq = 64 + 1
+        _packed_case(gen, 2, 100, 50, 3, 32, False, f32),      # Nk < 64
+        _packed_lse_case(gen, 32, 1024, 1024, 5, 32),          # row 8 reads
+        _packed_lse_case(gen, 2, 200, 257, 5, 32),             # its lse
+        _packed_lse_case(gen, 3, 65, 129, 5, 32),
+        _packed_lse_case(gen, 2, 333, 77, 10, 32),
     ]
     qout = [
         _qout_case(gen, 16, 4096, 4096, 160, 5, True),
@@ -925,6 +965,8 @@ def phase_kernels():
         _packed_bwd_case(gen, 2, 1000, 1000, 5, 32, False, f32),  # ragged N
         _packed_bwd_case(gen, 2, 333, 77, 10, 32, False, f32),    # Nk != Nq
         _packed_bwd_case(gen, 2, 100, 50, 3, 32, False, f32),     # Nk < 64
+        _packed_bwd_case(gen, 2, 200, 257, 5, 32, False, f32),    # 2 x 128 + 1
+        _packed_bwd_case(gen, 3, 65, 129, 5, 32, False, f32),     # 64 + 1
     ]
     streaming = [
         _streaming_case(gen, 8, 1, 4096, 4096, 512, True),   # first stage

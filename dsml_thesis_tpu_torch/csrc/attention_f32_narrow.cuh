@@ -2,9 +2,12 @@
 // sets no dtype and so computes in fp32 (in the JAX package too), with
 // 32-wide heads at N = 1024, 256 and 64. Device code of the fp32 D = 32
 // instantiations:
-//   flash_attention_packed.cu     forward + row log-sum-exp, packed rows
+//   flash_attention_packed.cu     forward + row log-sum-exp, packed rows,
+//                                 where Nq and Nk are at most 64 (longer
+//                                 rows: hopper_narrow_f32.cuh)
 //   flash_attention.cu            the same on split heads (heads = 1)
-//   flash_attention_bwd_packed.cu delta, dk/dv grid, dq grid, packed rows
+//   flash_attention_bwd_packed.cu delta, dk/dv grid, dq grid, packed rows,
+//                                 likewise
 //   flash_attention_bwd.cu        the same on split heads (heads = 1)
 //   flash_attention_streaming.cu  the streaming forward on split heads
 //                                 (stream_block: K / V cut over splits)

@@ -31,12 +31,18 @@
 // of every score on the special-function unit (16 a cycle an SM) as much.
 //
 // fp32 at D = 32 (dsml_flash_attention_packed_f32; mead-128-ldm-f4.yaml, whose
-// UNet computes in fp32, in training): attention_f32_narrow.cuh's forward,
-// TF32 products, one 4-warp block a (batch, 64-row q-tile, head), the same
-// row log-sum-exp. Bound at [32, 1024, 5 x 32]: operations on the TF32
-// tensor cores (4 N^2 H D a batch element against 4 * 4 N H D bytes).
+// UNet computes in fp32, in training): hopper_narrow_f32.cuh on TF32 wgmma,
+// an images launch writing K and V^T rounded to TF32 as tile images into
+// the caller's scratch (hnarrow_f32::fwd_scratch_floats), then one or two
+// warpgroups a (batch x head, q-tile) over 64-key tiles, the same row
+// log-sum-exp. Where Nq and Nk are both at most hnarrow_f32::MMA_SYNC_MAX
+// (the N = 64 level) the plan keeps attention_f32_narrow.cuh's TF32
+// mma.sync forward, one launch. Bound at [32, 1024, 5 x 32]: operations on
+// the TF32 tensor cores (4 N^2 H D a batch element against 4 * 4 N H D
+// bytes).
 #include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
+#include "hopper_narrow_f32.cuh"
 
 namespace {
 
@@ -50,15 +56,35 @@ packed_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 __global__ void __launch_bounds__(f32narrow::NT)
-packed_attention_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o,
-                            float* __restrict__ lse, int64_t ldq, int64_t ldkv,
-                            int64_t ldo, int nq, int nk, int heads,
-                            int q_tiles, float scale_log2) {
+packed_attention_f32_narrow_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ o,
+                                   float* __restrict__ lse, int64_t ldq,
+                                   int64_t ldkv, int64_t ldo, int nq, int nk,
+                                   int heads, int q_tiles, float scale_log2) {
   f32narrow::fwd_block(q, k, v, o, lse, ldq, ldkv, ldo, nq, nk, heads,
                        q_tiles, scale_log2);
 }
+
+__global__ void __launch_bounds__(hnarrow_f32::IMG_NT)
+packed_images_f32_kernel(hnarrow_f32::ImageJobs jobs, int64_t ld, int heads) {
+  hnarrow_f32::images(jobs, ld, heads);
+}
+
+template <int WGS, int KT>
+__global__ void __launch_bounds__(WGS * 128, hnarrow_f32::fwd_min_blocks(WGS))
+packed_attention_f32_kernel(hnarrow_f32::FwdArgs a) {
+  hnarrow_f32::attend_block<WGS, KT>(a);
+}
+
+struct PackedF32Kernels {
+  static auto images() { return packed_images_f32_kernel; }
+  template <int WGS, int KT>
+  static auto fwd() {
+    return packed_attention_f32_kernel<WGS, KT>;
+  }
+};
 
 }  // namespace
 
@@ -84,17 +110,25 @@ extern "C" int dsml_flash_attention_packed(const void* q, const void* k,
   }
 }
 
-// The fp32 instantiation (d = 32 only): the same contract on fp32 tensors.
+// The fp32 instantiation (d = 32 only): the same contract on fp32 tensors;
+// scratch holds hnarrow_f32::fwd_scratch_floats(b * heads, nk) fp32.
 extern "C" int dsml_flash_attention_packed_f32(const void* q, const void* k,
                                                const void* v, void* o,
-                                               void* lse, int b, int nq,
-                                               int nk, int heads, int d,
-                                               float scale, void* stream) {
-  if (d != f32narrow::D) return -1;
+                                               void* lse, void* scratch,
+                                               int b, int nq, int nk,
+                                               int heads, int d, float scale,
+                                               void* stream) {
+  if (d != hnarrow_f32::D) return -1;
   const int64_t ld = static_cast<int64_t>(heads) * d;
-  return f32narrow::launch_fwd(
-      packed_attention_f32_kernel, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), b, nq, nk, heads, ld,
-      ld, ld, scale, static_cast<cudaStream_t>(stream));
+  if (hnarrow_f32::keeps_mma_sync(nq, nk))
+    return f32narrow::launch_fwd(
+        packed_attention_f32_narrow_kernel, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), static_cast<float*>(lse), b, nq, nk, heads,
+        ld, ld, ld, scale, static_cast<cudaStream_t>(stream));
+  return hnarrow_f32::launch_fwd<PackedF32Kernels>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), static_cast<float*>(scratch), b, nq, nk, heads,
+      ld, scale, static_cast<cudaStream_t>(stream));
 }

@@ -31,8 +31,8 @@ SOURCES = ("flash_attention.cu", "flash_attention_fproj.cu",
 HEADERS = ("mma_tiles.cuh", "hopper_tiles.cuh", "hopper_tf32.cuh",
            "hopper_fwd.cuh", "hopper_bwd.cuh", "hopper_wide.cuh",
            "hopper_wide_f32.cuh", "hopper_wide_f32_bwd.cuh",
-           "attention_f32.cuh", "attention_f32_narrow.cuh", "conv_stats.cuh",
-           "conv_igemm.cuh")
+           "hopper_narrow_f32.cuh", "attention_f32.cuh",
+           "attention_f32_narrow.cuh", "conv_stats.cuh", "conv_igemm.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes argument types of every C entry point of the library, in the order
@@ -53,14 +53,17 @@ SIGNATURES = {
 }
 # the fp32 instantiations (D = 512 attention and first-stage training's
 # GroupNorm and conv kernels; D = 32 attention of the fp32 UNet) take the
-# same arguments as their bf16 twins, the four D = 512 attention entries one
-# more: scratch for their tile images (the forwards: after their outputs;
-# the backwards: before the stream, with a chunk's P^T, dS^T and dS)
+# same arguments as their bf16 twins, the split-head, streaming and packed
+# attention entries one more: scratch for their tile images (the forwards:
+# after their outputs; the backwards: before the stream, at D = 512 with a
+# chunk's P^T, dS^T and dS)
 SIGNATURES.update({
     name + "_f32": SIGNATURES[name]
-    for name in ("dsml_flash_attention_fproj", "dsml_flash_attention_packed",
-                 "dsml_flash_attention_bwd_packed", "dsml_conv_stats",
+    for name in ("dsml_flash_attention_fproj", "dsml_conv_stats",
                  "dsml_gn_channel_stats", "dsml_group_norm_silu")})
+SIGNATURES["dsml_flash_attention_packed_f32"] = [_P] * 6 + [_I] * 5 + [_F, _P]
+SIGNATURES["dsml_flash_attention_bwd_packed_f32"] = (
+    [_P] * 10 + [_I] * 5 + [_F, _P, _P])
 SIGNATURES["dsml_flash_attention_f32"] = [_P] * 6 + [_I] * 4 + [_F, _P]
 SIGNATURES["dsml_flash_attention_streaming_f32"] = [_P] * 7 + [_I] * 5 + [_F,
                                                                         _P]

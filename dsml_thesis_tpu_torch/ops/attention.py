@@ -92,8 +92,12 @@ from ``wide_f32_plan``; the backwards on TF32 ``wgmma`` too,
 gradient GEMMs joined by P and dS in scratch from ``wide_f32_bwd_plan``),
 and 32 for the split-head, packed and streaming forwards, their backward
 kernels and the fused-projection kernel (the UNet of
-``mead-128-ldm-f4.yaml``, which sets no dtype,
-``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
+``mead-128-ldm-f4.yaml``, which sets no dtype: the packed pair on TF32
+``wgmma``, ``csrc/hopper_narrow_f32.cuh``, an images launch writing the
+rounded and transposed operands into scratch from ``narrow_f32_plan``
+first; the split-head and streaming pairs, and the packed pair where both
+lengths are at most 64, ``csrc/attention_f32_narrow.cuh``). Both run in
+fp32 as the JAX
 package's do, and multiply on the tensor cores in TF32 (operands rounded
 once, fp32 accumulation and softmax). The q/out-fused kernel takes bf16
 only.
@@ -298,6 +302,71 @@ def wide_f32_bwd_plan(bh: int, nq: int, nk: int) -> WideF32BwdPlan:
                        + d * (2 * nq + 2 * nk)),))
 
 
+# The fp32 D = 32 packed rows 3 and 8 (csrc/hopper_narrow_f32.cuh): an
+# images launch writes the operands rounded to TF32, and transposed where a
+# product contracts over keys or queries, as tile images into scratch; then
+# the forward, or the dk/dv and dq grids, stream them on TF32 wgmma. Its
+# constants, mirrored here so that the CPU tests reach the plan
+NARROW_F32_HEAD_DIM = 32
+NARROW_F32_PAD = 64                    # rows an image's length is padded to
+NARROW_F32_WG_ROWS = 64                # rows a warpgroup owns
+NARROW_F32_FWD_KEYS = 64               # keys of a forward K / V^T tile
+NARROW_F32_MMA_SYNC_MAX = 64           # both lengths at most: mma.sync grids
+NARROW_F32_FWD_WG_PER_SM = 6           # the forward: three blocks of two
+NARROW_F32_FWD_STAGES = 3              # K / V^T tiles of the forward's ring
+NARROW_F32_DKDV_STAGES = 2             # q, do, q^T, do^T, lse, delta
+NARROW_F32_DQ_STAGES = 3               # k, v, k^T
+NARROW_F32_STREAMED = 64               # rows of a backward's streamed tile
+NARROW_F32_IMG_ROWS = 32               # rows of an images block
+
+
+class NarrowF32Plan(NamedTuple):
+    """The launches of the fp32 D = 32 packed forward and backward for
+    ``bh`` heads: ``mma_sync`` where the entries keep
+    ``attention_f32_narrow.cuh``'s grids (the rest then describes the
+    launches they do not make); ``padded`` the image lengths (Nq, Nk
+    padded); ``fwd`` (blocks, threads, keys a tile, shared memory); ``dkdv``
+    and ``dq`` (blocks, threads, shared memory); the fp32 scratch of a
+    forward and of a backward call (their images)."""
+    mma_sync: bool
+    padded: Tuple[int, int]
+    fwd: Tuple[int, int, int, int]
+    dkdv: Tuple[int, int, int]
+    dq: Tuple[int, int, int]
+    fwd_scratch: int
+    bwd_scratch: int
+
+
+@functools.lru_cache(maxsize=256)   # a wrapper asks at every call
+def narrow_f32_plan(bh: int, nq: int, nk: int) -> NarrowF32Plan:
+    """The launches of the fp32 D = 32 packed kernels for ``bh`` heads of
+    ``nq`` queries against ``nk`` keys, as ``hnarrow_f32::launch_fwd`` /
+    ``launch_bwd`` make them: two warpgroups a block (sharing its ring)
+    where the owned length is longer than one warpgroup's 64 rows, one
+    otherwise; the ``mma.sync`` grids where both lengths are at most
+    ``NARROW_F32_MMA_SYNC_MAX`` (the one-call A/B's choice, PERF.md)."""
+    pad, rows, d = NARROW_F32_PAD, NARROW_F32_WG_ROWS, NARROW_F32_HEAD_DIM
+    npq, npk = -(-nq // pad) * pad, -(-nk // pad) * pad
+    tile = NARROW_F32_STREAMED * 128
+    wgs = lambda n: 2 if n > rows else 1
+    keys = NARROW_F32_FWD_KEYS
+    own = lambda n: 2 * wgs(n) * rows * 128
+    return NarrowF32Plan(
+        mma_sync=max(nq, nk) <= NARROW_F32_MMA_SYNC_MAX,
+        padded=(npq, npk),
+        fwd=(bh * -(-nq // (wgs(nq) * rows)), wgs(nq) * 128, keys,
+             1024 + NARROW_F32_FWD_STAGES * 2 * keys * 128
+             + wgs(nq) * rows * 128 + 2 * NARROW_F32_FWD_STAGES * 8),
+        dkdv=(bh * -(-nk // (wgs(nk) * rows)), wgs(nk) * 128,
+              1024 + own(nk) + NARROW_F32_DKDV_STAGES * (4 * tile + 1024)
+              + (2 * NARROW_F32_DKDV_STAGES + 1) * 8),
+        dq=(bh * -(-nq // (wgs(nq) * rows)), wgs(nq) * 128,
+            1024 + own(nq) + NARROW_F32_DQ_STAGES * 3 * tile
+            + (2 * NARROW_F32_DQ_STAGES + 1) * 8),
+        fwd_scratch=2 * bh * npk * d,
+        bwd_scratch=bh * d * (4 * npq + 3 * npk))
+
+
 def streaming_splits(bh: int, nq: int, nk: int) -> int:
     """Blocks the K / V stream of one query tile is cut over by the streaming
     forward kernel: as many as bring the grid to ``STREAMING_TARGET_BLOCKS``,
@@ -448,6 +517,19 @@ def packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = attention_reference(_split_heads(q, heads), _split_heads(k, heads),
                               _split_heads(v, heads), scale=scale)
     return out.permute(0, 2, 1, 3).reshape(q.shape)
+
+
+def packed_lse_reference(q: torch.Tensor, k: torch.Tensor, heads: int,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Plain row log-sum-exp of the packed forward: q [B, Nq, H*D], k
+    [B, Nk, H*D] -> [B*H*Nq] fp32, log2 of the sum of exp(score * scale)
+    (the domain of m + log2(l) over s * scale * log2(e) that the packed
+    forward kernel saves for its backward)."""
+    d = q.shape[-1] // heads
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s = torch.matmul(_split_heads(q, heads).float(),
+                     _split_heads(k, heads).float().transpose(-1, -2)) * scale
+    return (torch.logsumexp(s, dim=-1) * LOG2E).reshape(-1)
 
 
 def qout_reference(h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -967,6 +1049,19 @@ def packed_bwd_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     return head_dim in _head_dims("flash_attention_bwd_packed", dtype)
 
 
+def _packed_f32_scratch(q, bh: int, nq: int, nk: int, which: str) -> tuple:
+    """The scratch argument of an fp32 packed entry (its tile images,
+    ``narrow_f32_plan``'s ``which``: ``fwd_scratch`` or ``bwd_scratch``);
+    nothing for bf16, whose entries take no scratch."""
+    if q.dtype != torch.float32:
+        return ()
+    plan = narrow_f32_plan(bh, nq, nk)
+    if plan.mma_sync:   # the mma.sync grids read no images
+        return (None,)
+    return (torch.empty(getattr(plan, which), dtype=torch.float32,
+                        device=q.device),)
+
+
 def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     """Check, launch and count the packed forward kernel; ``want_lse`` as in
     ``_launch_flash_forward`` ([B*H*Nq] fp32)."""
@@ -981,10 +1076,12 @@ def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty(b * heads * nq, dtype=torch.float32, device=q.device)
            if want_lse else None)
+    scratch = _packed_f32_scratch(q, b * heads, nq, k.shape[1], "fwd_scratch")
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, nq, k.shape[1], heads,
-        hd // heads, float(scale), current_stream(q))
+        None if lse is None else lse.data_ptr(),
+        *(t if t is None else t.data_ptr() for t in scratch), b, nq,
+        k.shape[1], heads, hd // heads, float(scale), current_stream(q))
     raise_on_error(code, "flash_attention_packed")
     LAUNCHES["flash_attention_packed"] += 1
     return out, lse
@@ -1011,10 +1108,12 @@ def flash_attention_bwd_packed(q: torch.Tensor, k: torch.Tensor,
     launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    scratch = _packed_f32_scratch(q, b * heads, nq, k.shape[1], "bwd_scratch")
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, nq, k.shape[1], heads, d, float(scale),
+        *(t if t is None else t.data_ptr() for t in scratch),
         current_stream(q))
     raise_on_error(code, "flash_attention_bwd_packed")
     LAUNCHES["flash_attention_bwd_packed"] += 1

@@ -44,7 +44,9 @@
            [8, 4096, 2 x 80], the streaming forward at [8, 2, 4096, 80], and
            the split-head forward (the packed forward's grid on one head)
            and backward (the packed backward's grids on one head) at
-           [8, 10, 1024, 32], [8, 20, 256, 32] and [8, 2, 4096, 80]
+           [8, 10, 1024, 32], [8, 20, 256, 32] and [8, 2, 4096, 80], and
+           the fp32 packed forward (images, attention) and backward
+           (images with delta, dk / dv grid, dq grid) at [32, 1024, 5 x 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -184,12 +186,19 @@ def gate(smi: str):
 
 
 _FAMILIES = (
-    # the fp32 D = 32 kernels (flash_attention_fproj.cu's TF32 wgmma pair,
-    # attention_f32_narrow.cuh)
+    # the fp32 D = 32 packed rows 3 and 8 (hopper_narrow_f32.cuh's images
+    # and TF32 wgmma grids, or attention_f32_narrow.cuh's at N <= 64)
+    ("packed_images_f32_kernel", "attention: packed (fp32 D = 32: images)"),
+    ("packed_bwd_images_f32_kernel",
+     "attention backward: fp32 D = 32 images + delta"),
+    ("packed_attention_f32", "attention: packed (fp32 D = 32)"),
+    ("packed_bwd_dkdv_f32", "attention backward: dk / dv grid"),
+    ("packed_bwd_dq_f32", "attention backward: dq grid"),
+    # the other fp32 D = 32 kernels (flash_attention_fproj.cu's TF32 wgmma
+    # pair, attention_f32_narrow.cuh)
     ("fproj_qkv_tf32_kernel", "attention: fproj (fp32 D = 32: projections)"),
     ("fproj_attend_tf32_kernel",
      "attention: fproj (fp32 D = 32: attention + to_out)"),
-    ("packed_attention_f32_kernel", "attention: packed (fp32 D = 32)"),
     ("flash_fwd_f32_narrow_kernel", "attention: flash_attention (fp32 D = 32)"),
     ("streaming_fwd_f32_narrow_kernel", "attention: streaming (fp32 D = 32)"),
     ("streaming_lse_f32_narrow_kernel",
@@ -275,9 +284,8 @@ def split(smi: str, calls: int = 10):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rnd = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen,
-                                             device="cuda") * s
-                                 ).to(torch.bfloat16)
+    rnd = lambda *shape, s=1.0, dtype=torch.bfloat16: (
+        torch.randn(*shape, generator=gen, device="cuda") * s).to(dtype)
 
     def fproj(b, n, c, heads):
         h = rnd(b, n, c)
@@ -285,8 +293,8 @@ def split(smi: str, calls: int = 10):
         wo, bo = rnd(c, c, s=c ** -0.5), rnd(c, s=0.1)
         return lambda: A.flash_attention_fproj(h, wq, wk, wv, wo, bo, heads)
 
-    def packed_bwd(b, n, heads, d):
-        q, k, v, do = (rnd(b, n, heads * d) for _ in range(4))
+    def packed_bwd(b, n, heads, d, dtype=torch.bfloat16):
+        q, k, v, do = (rnd(b, n, heads * d, dtype=dtype) for _ in range(4))
         scale = d ** -0.5
         out, lse = A._launch_packed_forward(q, k, v, heads, scale, True)
         return lambda: A.flash_attention_bwd_packed(q, k, v, out, lse, do,
@@ -302,8 +310,8 @@ def split(smi: str, calls: int = 10):
         q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
         return lambda: A.flash_attention_streaming(q, k, v)
 
-    def packed(b, n, heads, d):
-        q, k, v = (rnd(b, n, heads * d) for _ in range(3))
+    def packed(b, n, heads, d, dtype=torch.bfloat16):
+        q, k, v = (rnd(b, n, heads * d, dtype=dtype) for _ in range(3))
         return lambda: A.flash_attention_packed(q, k, v, heads)
 
     def streaming_bwd(b, h, n, d):
@@ -373,7 +381,12 @@ def split(smi: str, calls: int = 10):
              ("flash_attention_bwd", [8, 20, 256, 256, 32],
               flash_bwd(8, 20, 256, 32)),
              ("flash_attention_bwd", [8, 2, 4096, 4096, 80],
-              flash_bwd(8, 2, 4096, 80))]
+              flash_bwd(8, 2, 4096, 80)),
+             # fp32 at D = 32: a train-mead128 step's level 0
+             ("flash_attention_packed", [32, 1024, 5, 32, "float32"],
+              packed(32, 1024, 5, 32, torch.float32)),
+             ("flash_attention_bwd_packed", [32, 1024, 5, 32, "float32"],
+              packed_bwd(32, 1024, 5, 32, torch.float32))]
     with torch.no_grad():
         for name, shape, fn in cases:
             for _ in range(3):

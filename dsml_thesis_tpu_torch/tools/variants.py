@@ -109,6 +109,24 @@ give the same bits. Design switches of the kept source (``F_FILL``,
 ``F_QKV_FILL``, ``F_STAGES``, ``F_OUT_STAGES``, ``F_ONE_WG_ROWS``) are text
 substitutions.
 
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-packed [--only TEXT] \
+        '{"parent": [["flash_attention_packed.cu", "",
+                      "_ab/parent/.../flash_attention_packed.cu"], ...],
+          "new": []}'
+
+``--f32-packed`` builds ``flash_attention_packed.cu`` and
+``flash_attention_bwd_packed.cu`` alone and times their fp32 D = 32
+entries (rows 3 and 8 of PERF.md's kernel table: mead-128-ldm-f4's
+training self-attention) at ``F32_PACKED_SHAPES``: the three levels of a
+``train-mead128`` step and four ragged shapes, each with ``device_ms`` and
+``device_by_kernel`` (the images, attention, dk/dv and dq launches, or a
+parent's delta); the outputs (o and the row log-sum-exp; dq, dk, dv) are
+held against the plain versions, and a second call must give the same
+bits. A parent tree whose fp32 packed entries take no scratch is called
+without it. Design switches of the kept header (``FWD_KEYS``,
+``FWD_STAGES``, ``DKDV_STAGES``, ``DQ_STAGES`` of
+``hopper_narrow_f32.cuh``) are text substitutions.
+
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
 
 ``--wrapper`` builds nothing of its own and times the same D = 32 forwards
@@ -168,6 +186,11 @@ LEGACY.update({"dsml_flash_attention_bwd_f32": [_P] * 10 + [_I] * 4
                + [_F, _P],
                "dsml_flash_attention_streaming_bwd_f32": [_P] * 10 + [_I] * 4
                + [_F, _F, _P]})
+# the fp32 packed entries before their scratch for the tile images came in
+LEGACY.update({"dsml_flash_attention_packed_f32": [_P] * 5 + [_I] * 5
+               + [_F, _P],
+               "dsml_flash_attention_bwd_packed_f32": [_P] * 10 + [_I] * 5
+               + [_F, _P]})
 # an entry is legacy in a tree whose source lacks the marker of its plan
 MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
            "dsml_group_norm_silu": ("group_norm.cu", "int cluster"),
@@ -178,7 +201,11 @@ MARKERS = {"dsml_conv_stats": ("conv_stats.cu", "int design"),
            "dsml_flash_attention_bwd": ("flash_attention_bwd.cu",
                                         "void* scratch"),
            "dsml_flash_attention_streaming_bwd": (
-               "flash_attention_streaming_bwd.cu", "void* scratch")}
+               "flash_attention_streaming_bwd.cu", "void* scratch"),
+           "dsml_flash_attention_packed": ("flash_attention_packed.cu",
+                                           "void* scratch"),
+           "dsml_flash_attention_bwd_packed": (
+               "flash_attention_bwd_packed.cu", "void* scratch")}
 # what --conv-gn builds and times
 CONV_GN_SOURCES = SOURCES[-3:]
 CONV_GN_ENTRIES = ENTRIES[-4:]
@@ -189,6 +216,16 @@ F32_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
 F32_ENTRIES = ("dsml_flash_attention_f32", "dsml_flash_attention_bwd_f32",
                "dsml_flash_attention_streaming_f32",
                "dsml_flash_attention_streaming_bwd_f32")
+# what --f32-packed builds and times: [B, Nq, Nk, heads] at D = 32, the
+# three levels of a train-mead128 step (batch 32), then ragged ones (Nk just
+# past a tile, Nk != Nq, Nk past a 128-key tile, Nk < 64)
+F32_PACKED_SOURCES = ("flash_attention_packed.cu",
+                      "flash_attention_bwd_packed.cu")
+F32_PACKED_ENTRIES = ("dsml_flash_attention_packed_f32",
+                      "dsml_flash_attention_bwd_packed_f32")
+F32_PACKED_SHAPES = ((32, 1024, 1024, 5), (32, 256, 256, 10),
+                     (32, 64, 64, 20), (2, 1000, 1000, 5), (2, 333, 77, 10),
+                     (2, 200, 129, 5), (2, 100, 50, 3))
 # what --wide-attn builds and times
 WIDE_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
 WIDE_ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_streaming")
@@ -512,6 +549,8 @@ def cases() -> dict:
         return stats_cases(rel, stream)
     if F32_FPROJ_ONLY:
         return fproj_f32_cases(rel, stream)
+    if F32_PACKED_ONLY:
+        return f32_packed_cases(rel, stream)
     if WIDE_ONLY:
         return {f"{kind} {_tag(shape)}": {"flash": flash,
                                           "streaming": streaming}[kind](*shape)
@@ -693,6 +732,75 @@ def f32_cases(rel, stream) -> dict:
     return out
 
 
+def f32_packed_cases(rel, stream) -> dict:
+    """The fp32 D = 32 packed cases of ``--f32-packed`` (see the module's
+    note): the forward (o and its row log-sum-exp) and the backward (on the
+    plain forward's output and log-sum-exp) against the plain versions, and
+    the same bits from a second call."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for b, nq, nk, heads in F32_PACKED_SHAPES:
+        d, hd = 32, 32 * heads
+        q, do = (torch.randn(b, nq, hd, generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(b, nk, hd, generator=gen, device="cuda")
+                for _ in range(2))
+        scale = d ** -0.5
+        plan = A.narrow_f32_plan(b * heads, nq, nk)
+        sp = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+        s = torch.matmul(sp(q), sp(k).transpose(-1, -2)) * scale
+        lse_ref = (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
+        o_ref = A.packed_reference(q, k, v, heads, scale=scale)
+        grads_ref = A.packed_bwd_reference(q, k, v, do, heads, scale=scale)
+        o, lse = torch.empty_like(q), torch.empty(b * heads * nq,
+                                                  device="cuda")
+        fwd_scratch = torch.empty(plan.fwd_scratch, device="cuda")
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty(b * heads * nq, device="cuda")
+        bwd_scratch = torch.empty(plan.bwd_scratch, device="cuda")
+        tag = (f"[{b},{nq},{heads}x{d}]" if nq == nk
+               else f"[{b},{nq}->{nk},{heads}x{d}]")
+
+        def fwd(lib, q=q, k=k, v=v, o=o, lse=lse, scratch=fwd_scratch, b=b,
+                nq=nq, nk=nk, heads=heads):
+            name = "dsml_flash_attention_packed_f32"
+            sp_ = () if name in lib.legacy else (scratch.data_ptr(),)
+            return getattr(lib, name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), *sp_, b, nq, nk, heads, 32, 32 ** -0.5,
+                stream())
+
+        def bwd(lib, q=q, k=k, v=v, do=do, o=o_ref, lse=lse_ref,
+                delta=delta, grads=grads, scratch=bwd_scratch, b=b, nq=nq,
+                nk=nk, heads=heads):
+            name = "dsml_flash_attention_bwd_packed_f32"
+            sp_ = () if name in lib.legacy else (scratch.data_ptr(),)
+            return getattr(lib, name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *(g.data_ptr() for g in grads), b, nq, nk, heads, 32,
+                32 ** -0.5, *sp_, stream())
+
+        for kind, call, outs, refs in (
+                ("packed", fwd, (o, lse), (o_ref, lse_ref)),
+                ("bwd_packed", bwd, grads, grads_ref)):
+            last = {}
+
+            def keep(lib, call=call, last=last):
+                last["lib"] = lib
+                return call(lib)
+
+            def err(call=call, outs=outs, refs=refs, last=last):
+                first = [t.clone() for t in outs]
+                call(last["lib"])
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, t) for a, t in zip(first, outs)):
+                    return float("inf")
+                return max(rel(a, r) for a, r in zip(outs, refs))
+            out[f"{kind} f32 {tag}"] = (keep, err)
+    return out
+
+
 def stats_cases(rel, stream) -> dict:
     """The channel statistics cases of ``--gn-stats`` (see the module's
     note): the sums against the plain version, and the same bits twice."""
@@ -857,6 +965,7 @@ F32_ONLY = False
 WIDE_ONLY = False
 GN_STATS_ONLY = False     # set by --gn-stats
 F32_FPROJ_ONLY = False    # set by --f32-fproj
+F32_PACKED_ONLY = False   # set by --f32-packed
 
 
 def card() -> str:
@@ -869,6 +978,7 @@ def card() -> str:
 
 def main():
     global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY, GN_STATS_ONLY, F32_FPROJ_ONLY
+    global F32_PACKED_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -888,6 +998,9 @@ def main():
     if "--f32-fproj" in args:
         args.remove("--f32-fproj")
         F32_FPROJ_ONLY = True
+    if "--f32-packed" in args:
+        args.remove("--f32-packed")
+        F32_PACKED_ONLY = True
     wrapper = "--wrapper" in args
     if wrapper:
         args.remove("--wrapper")
@@ -915,6 +1028,8 @@ def main():
                        (GN_STATS_SOURCES, GN_STATS_ENTRIES) if GN_STATS_ONLY
                        else (F32_FPROJ_SOURCES, F32_FPROJ_ENTRIES)
                        if F32_FPROJ_ONLY else
+                       (F32_PACKED_SOURCES, F32_PACKED_ENTRIES)
+                       if F32_PACKED_ONLY else
                        (SOURCES, ENTRIES)), ptxas=ptxas)
         todo, iters = cases(), 20
     names = list(libs)
@@ -941,7 +1056,8 @@ def main():
             res[name]["ms"] = sorted(times[name])[len(times[name]) // 2]
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
-            if F32_ONLY or WIDE_ONLY or GN_STATS_ONLY or F32_FPROJ_ONLY:
+            if (F32_ONLY or WIDE_ONLY or GN_STATS_ONLY or F32_FPROJ_ONLY
+                    or F32_PACKED_ONLY):
                 # and by kernel (lse, combine, the two launches, ..)
                 kernels = device_kernels_ms(lambda: call(libs[name]))
                 res[name]["device_ms"] = sum(kernels.values())
