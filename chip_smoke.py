@@ -199,6 +199,25 @@ def fail(msg):
     sys.exit(1)
 
 
+def device_ms(fn, iters=10):
+    """Device time of a call of ``fn``: its kernels' device time under
+    torch.profiler, summed over ``iters`` warm calls and divided by
+    ``iters`` (the host's time to launch them left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages()
+             if ev.device_type.name == "CUDA" and "#" not in ev.key)
+    return us / 1e3 / iters
+
+
 def time_ms(fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -306,8 +325,19 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
     return case
 
 
-def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
-    """The split-head forward, and the same bits from a second launch."""
+def _with_device_ms(case, kernel, library):
+    """A timed case with the device time of the kernel's call and of the
+    library's beside their event times: where a call is a few microseconds
+    of device work, the event times are the host's launch rate."""
+    case.update(device_ms=device_ms(kernel),
+                library_device_ms=device_ms(library))
+    return case
+
+
+def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16,
+                device=False):
+    """The split-head forward, and the same bits from a second launch
+    (``device``: the device times beside the event times)."""
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
@@ -315,30 +345,36 @@ def _flash_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     scale = d ** -0.5
     esize, peak = _width(dtype)
     run = lambda: A.flash_attention(q, k, v, scale=scale)
-    return _repeatable(_case(
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    case = _repeatable(_case(
         (b, h, nq, nk, d), timed, run,
-        lambda: A.attention_reference(q, k, v, scale=scale),
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        lambda: A.attention_reference(q, k, v, scale=scale), library,
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
         peak, dtype=_dtype_name(dtype), head_dim=d), run)
+    return _with_device_ms(case, run, library) if device else case
 
 
 def _flash_lse_case(gen, b, h, nq, nk, d, dtype=torch.bfloat16):
     """The split-head forward's row log-sum-exp ([B*H*Nq]: log2 of the sum
     of exp(score times scale)) against the plain one, and the same bits
-    again."""
+    again. At fp32 D = 32 the scores come from q and k rounded to TF32:
+    held at LSE_TF32_REL_TOL with the error that rounding alone gives on
+    the same inputs beside it, as the packed forward's are."""
     from dsml_thesis_tpu_torch.ops import attention as A
 
     q, k, v = (_rand(gen, b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
     scale = d ** -0.5
     run = lambda: A._launch_flash_forward(q, k, v, scale, True)[1]
 
-    def plain():
+    def plain(q=q, k=k):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         return (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
+    extra = dict(tol=LSE_REL_TOL)
+    if dtype == torch.float32 and d == 32:
+        extra = dict(tol=LSE_TF32_REL_TOL, tf32_floor_rel_err=_compare(
+            plain(_tf32(q), _tf32(k)), plain())[1])
     case = _case((b, h, nq, nk, d), False, run, plain, None, 0, 0, 1,
-                 output="lse", tol=LSE_REL_TOL, dtype=_dtype_name(dtype),
-                 head_dim=d)
+                 output="lse", **extra, dtype=_dtype_name(dtype), head_dim=d)
     return _repeatable(case, run)
 
 
@@ -476,7 +512,8 @@ def _repeatable(case, run):
     return case
 
 
-def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
+def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16,
+                    device=False):
     import torch.nn.functional as F
     from dsml_thesis_tpu_torch.ops import attention as A
 
@@ -484,13 +521,15 @@ def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
     scale = d ** -0.5
     esize, peak = _width(dtype)
     run = lambda: A.flash_attention_streaming(q, k, v, scale=scale)
-    return _repeatable(_case(
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    case = _repeatable(_case(
         (b, h, nq, nk, d), timed, run,
         lambda: A.streaming_attention_reference(q, k, v, scale=scale),
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        library,
         esize * b * h * (2 * nq + 2 * nk) * d, 4 * b * h * nq * nk * d,
         peak, kv_splits=A.streaming_splits(b * h, nq, nk),
         dtype=_dtype_name(dtype), head_dim=d), run)
+    return _with_device_ms(case, run, library) if device else case
 
 
 def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
@@ -786,8 +825,17 @@ def phase_kernels():
         _flash_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
         _flash_case(gen, 2, 3, 200, 129, 32, False, f32),      # Nk = 128 + 1
         _flash_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
-        _flash_case(gen, 16, 20, 64, 64, 32, True, f32),       # served
+        _flash_case(gen, 3, 5, 65, 129, 32, False, f32),       # Nq = 64 + 1
+        # served (mead128-split: 8 clips x the guidance pair), the N = 64
+        # level with the library's device time beside its event time
+        _flash_case(gen, 16, 20, 64, 64, 32, True, f32, device=True),
+        _flash_case(gen, 16, 5, 1024, 1024, 32, True, f32),
+        _flash_case(gen, 16, 10, 256, 256, 32, True, f32),
         _flash_case(gen, 12, 50, 60, 50, 32, False, f32),      # Nk < Nq < 64
+        # its row log-sum-exp, which row 7 reads
+        _flash_lse_case(gen, 32, 5, 1024, 1024, 32, f32),
+        _flash_lse_case(gen, 2, 5, 333, 77, 32, f32),
+        _flash_lse_case(gen, 2, 3, 200, 129, 32, f32),
     ]
     fproj = [
         _fproj_case(gen, 16, 1024, 320, 10, True),   # 2B after the pair tiles
@@ -797,6 +845,9 @@ def phase_kernels():
         _fproj_case(gen, 2, 100, 128, 2, False),     # 64-wide heads
         _fproj_case(gen, 2, 300, 160, 5, False),     # H*D not a multiple of 64
         _fproj_case(gen, 16, 250, 640, 20, False),   # widest, clusters, ragged
+        # 64-wide heads (fullattn-dh64 serves through them): levels 1, 2
+        _fproj_case(gen, 16, 1024, 320, 5, True),
+        _fproj_case(gen, 16, 256, 640, 10, True),
         # fp32 D = 32: mead-128-ldm-f4 served (8 clips x the guidance pair)
         _fproj_case(gen, 16, 1024, 160, 5, True, f32),
         _fproj_case(gen, 16, 256, 320, 10, True, f32),
@@ -940,6 +991,7 @@ def phase_kernels():
         _flash_bwd_case(gen, 32, 20, 64, 64, 32, True, f32),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False, f32),    # Nk != Nq
         _flash_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tiles + tails
+        _flash_bwd_case(gen, 3, 5, 65, 129, 32, False, f32),    # Nq = 64 + 1
     ]
     packed_bwd = [
         _packed_bwd_case(gen, 8, 1024, 1024, 10, 32, True),  # training step
@@ -1005,12 +1057,16 @@ def phase_kernels():
         _streaming_case(gen, 32, 10, 256, 256, 32, True, f32),
         _streaming_case(gen, 32, 20, 64, 64, 32, True, f32),
         _streaming_case(gen, 16, 5, 1024, 1024, 32, True, f32),
-        _streaming_case(gen, 16, 20, 64, 64, 32, True, f32),       # served
+        _streaming_case(gen, 16, 20, 64, 64, 32, True, f32,
+                        device=True),                              # served
+        _streaming_case(gen, 16, 10, 256, 256, 32, True, f32),
         _streaming_case(gen, 12, 50, 60, 50, 32, False, f32),      # Nk < Nq
         _streaming_case(gen, 2, 5, 333, 77, 32, False, f32),       # Nk != Nq
         _streaming_case(gen, 2, 3, 200, 129, 32, False, f32),      # 128 + 1
         _streaming_case(gen, 2, 2, 100, 50, 32, False, f32),       # Nk < 64
         _streaming_case(gen, 1, 2, 100, 5000, 32, False, f32),     # 40 ways
+        _streaming_case(gen, 1, 2, 100, 2000, 32, False, f32),     # 32 ways
+        _streaming_case(gen, 3, 5, 65, 129, 32, False, f32),       # 64 + 1
     ]
     streaming_bwd = [
         _streaming_bwd_case(gen, 16, 1, 1024, 1024, 512, True, f32),  # vqgan
@@ -1048,6 +1104,7 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 2, 100, 50, 32, False, f32),   # Nk < 64
         _streaming_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tails
         _streaming_bwd_case(gen, 1, 2, 100, 5000, 32, False, f32),  # long K
+        _streaming_bwd_case(gen, 3, 5, 65, 129, 32, False, f32),   # 64 + 1
     ]
     conv = [   # b, H, W, Cin, Cout, K, input norm, skip
         _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),

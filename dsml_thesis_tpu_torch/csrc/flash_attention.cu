@@ -38,10 +38,20 @@
 // tensor cores (4 N^2 D a head against 4 * 4 N D bytes).
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
-// DSML_ATTN_PACKED=0): the packed fp32 forward's grid
-// (attention_f32_narrow.cuh) on one head of row stride 32.
+// DSML_ATTN_PACKED=0): the packed fp32 forward's TF32 wgmma design
+// (hopper_narrow_f32.cuh) on split heads (heads = 1, row stride 32): an
+// images launch writes K and V^T rounded to TF32 as tile images into the
+// caller's scratch (hnarrow_f32::fwd_scratch_floats), then two warpgroups
+// a 128-row q-tile (one where Nq <= 64) share a 3-stage ring of 64-key
+// tiles, q rounded into shared memory, P in registers; the same row
+// log-sum-exp, base 2, which row 7's backward reads. Where Nq and Nk are
+// both at most hnarrow_f32::MMA_SYNC_MAX (the N = 64 level) the packed fp32
+// forward's TF32 mma.sync grid (attention_f32_narrow.cuh) on one head, one
+// launch and no scratch. Bound at [32, 5, 1024, 32]: operations on the
+// TF32 tensor cores (4 N^2 D a head against 4 * 4 N D bytes).
 #include "attention_f32_narrow.cuh"
 #include "hopper_fwd.cuh"
+#include "hopper_narrow_f32.cuh"
 #include "hopper_wide.cuh"
 #include "hopper_wide_f32.cuh"
 
@@ -132,22 +142,51 @@ flash_fwd_f32_narrow_kernel(const float* __restrict__ q,
                        q_tiles, scale_log2);
 }
 
+// fp32 D = 32 on split heads: hopper_narrow_f32.cuh's images launch and
+// forward, kernels of their own so that a profile tells row 2 from row 3
+__global__ void __launch_bounds__(hnarrow_f32::IMG_NT)
+split_images_f32_kernel(hnarrow_f32::ImageJobs jobs, int64_t ld, int heads) {
+  hnarrow_f32::images(jobs, ld, heads);
+}
+
+template <int WGS, int KT>
+__global__ void __launch_bounds__(WGS * 128, hnarrow_f32::fwd_min_blocks(WGS))
+split_attention_f32_kernel(hnarrow_f32::FwdArgs a) {
+  hnarrow_f32::attend_block<WGS, KT>(a);
+}
+
+struct SplitF32Kernels {
+  static auto images() { return split_images_f32_kernel; }
+  template <int WGS, int KT>
+  static auto fwd() {
+    return split_attention_f32_kernel<WGS, KT>;
+  }
+};
+
 }  // namespace
 
 // The fp32 instantiations (d = 512 and 32): the same contract as
-// dsml_flash_attention on fp32 tensors, and at d = 512 scratch for the tile
-// images: 2 * bh * ceil(nk / 16) * 16 * 512 fp32 values
-// (ops/attention.py:wide_f32_plan; unread at d = 32).
+// dsml_flash_attention on fp32 tensors, and scratch for the tile images: at
+// d = 512 2 * bh * ceil(nk / 16) * 16 * 512 fp32 values
+// (ops/attention.py:wide_f32_plan), at d = 32
+// hnarrow_f32::fwd_scratch_floats(bh, nk) (narrow_f32_plan; unread where
+// both lengths are at most hnarrow_f32::MMA_SYNC_MAX).
 extern "C" int dsml_flash_attention_f32(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         void* scratch, int bh, int nq, int nk,
                                         int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == f32narrow::D)
+  if (d == f32narrow::D && hnarrow_f32::keeps_mma_sync(nq, nk))
     return f32narrow::launch_fwd(
         flash_fwd_f32_narrow_kernel, static_cast<const float*>(q),
         static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), bh, nq, nk, 1, d, d,
+        d, scale, s);
+  if (d == hnarrow_f32::D)
+    return hnarrow_f32::launch_fwd<SplitF32Kernels>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), static_cast<float*>(scratch), bh, nq, nk, 1,
         d, scale, s);
   if (d != hwide_f32::D || bh < 1 || nq < 1 || nk < 1 || scratch == nullptr)
     return -1;

@@ -67,15 +67,22 @@
 // writing fp32.
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
-// DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1): attention_f32_narrow.cuh's
-// forward grid (4 warps, 64 query rows of one head in registers, 64-key K / V
-// tiles through two cp.async stages, TF32 mma.sync) on split heads, with this
-// kernel's roundings in fp32 (stream_block): q times scale * log2(e) before
-// its TF32 rounding, the -1e30 mask, the denominator the sum of the
-// probabilities as used in P V; the same splits in 64-key units and the same
-// combine launch writing fp32. Bound at [32, 5, 1024, 32]: operations on the
-// TF32 tensor cores, and the exp2 of every score.
+// DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1): the split-head fp32 forward's
+// TF32 wgmma design (hopper_narrow_f32.cuh, attend_block<.., true>) with
+// this kernel's roundings in fp32: one images launch writes K and V^T
+// rounded to TF32 into the caller's scratch (hnarrow_f32::fwd_scratch_floats),
+// then two warpgroups a 128-row q-tile (one where Nq <= 64) and a split of
+// the keys (grid.y) run the keys of their split through a 3-stage ring of
+// 64-key tiles, q times scale * log2(e) before its TF32 rounding, the -1e30
+// mask, the denominator the sum of the probabilities as used in P V; the
+// same splits in 64-key units (the host's count, streaming_splits) and the
+// same combine launch writing fp32. Where Nq and Nk are both at most
+// hnarrow_f32::MMA_SYNC_MAX, attention_f32_narrow.cuh's TF32 mma.sync grid
+// with the same roundings (stream_block), one launch and no images. Bound
+// at [32, 5, 1024, 32]: operations on the TF32 tensor cores, and the exp2
+// of every score.
 #include "attention_f32_narrow.cuh"
+#include "hopper_narrow_f32.cuh"
 #include "hopper_tiles.cuh"
 #include "hopper_wide.cuh"
 #include "hopper_wide_f32.cuh"
@@ -399,6 +406,48 @@ int launch_f32_narrow(const void* q, const void* k, const void* v, void* o,
                                splits, stream);
 }
 
+// fp32 D = 32 past the N = 64 level: hopper_narrow_f32.cuh's images launch
+// and streaming forward, kernels of their own so that a profile tells row 4
+// from rows 2 and 3
+__global__ void __launch_bounds__(hnarrow_f32::IMG_NT)
+streaming_images_f32_kernel(hnarrow_f32::ImageJobs jobs, int64_t ld,
+                            int heads) {
+  hnarrow_f32::images(jobs, ld, heads);
+}
+
+template <int WGS, int KT>
+__global__ void __launch_bounds__(WGS * 128, hnarrow_f32::fwd_min_blocks(WGS))
+streaming_attention_f32_kernel(hnarrow_f32::FwdArgs a) {
+  hnarrow_f32::attend_block<WGS, KT, true>(a);
+}
+
+struct StreamingF32Kernels {
+  static auto images() { return streaming_images_f32_kernel; }
+  template <int WGS, int KT>
+  static auto fwd() {
+    return streaming_attention_f32_kernel<WGS, KT>;
+  }
+};
+
+int launch_f32_hopper(const void* q, const void* k, const void* v, void* o,
+                      void* part_o, void* part_ml, void* scratch, int bh,
+                      int nq, int nk, int splits, float q_scale,
+                      cudaStream_t stream) {
+  if (!splits_ok(bh, nq, nk, splits, SPLIT_KEYS, part_o, part_ml)) return -1;
+  const int units = (nk + SPLIT_KEYS - 1) / SPLIT_KEYS;
+  const int keys_per_split = (units + splits - 1) / splits * SPLIT_KEYS;
+  const int err = hnarrow_f32::launch_fwd<StreamingF32Kernels, true>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), nullptr,
+      static_cast<float*>(scratch), bh, nq, nk, 1, hnarrow_f32::D, q_scale,
+      stream, static_cast<float*>(part_o), static_cast<float*>(part_ml),
+      splits, keys_per_split);
+  if (err != 0 || splits == 1) return err;
+  return launch_combine<float>(part_o, part_ml, o,
+                               static_cast<int64_t>(bh) * nq, hnarrow_f32::D,
+                               splits, stream);
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* part_o, void* part_ml, void* scratch, int bh, int nq,
                int nk, int splits, float q_scale, cudaStream_t stream) {
@@ -424,17 +473,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming on fp32 tensors, q_scale = scale * log2(e)
-// in fp32, and at d = 512 scratch for the tile images:
+// in fp32, and scratch for the tile images: at d = 512
 // 2 * bh * ceil(nk / 16) * 16 * 512 fp32 values
-// (ops/attention.py:wide_f32_plan; unread at d = 32).
+// (ops/attention.py:wide_f32_plan), at d = 32
+// hnarrow_f32::fwd_scratch_floats(bh, nk) (narrow_f32_plan; unread where
+// both lengths are at most hnarrow_f32::MMA_SYNC_MAX).
 extern "C" int dsml_flash_attention_streaming_f32(
     const void* q, const void* k, const void* v, void* o, void* part_o,
     void* part_ml, void* scratch, int bh, int nq, int nk, int d, int splits,
     float q_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == f32narrow::D)
+  if (d == f32narrow::D && hnarrow_f32::keeps_mma_sync(nq, nk))
     return launch_f32_narrow(q, k, v, o, part_o, part_ml, bh, nq, nk, splits,
                              q_scale, s);
+  if (d == hnarrow_f32::D)
+    return launch_f32_hopper(q, k, v, o, part_o, part_ml, scratch, bh, nq, nk,
+                             splits, q_scale, s);
   if (d != hwide_f32::D) return -1;
   return launch_f32(q, k, v, o, part_o, part_ml, scratch, bh, nq, nk, splits,
                     q_scale, s);

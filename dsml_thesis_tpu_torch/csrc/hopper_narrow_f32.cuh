@@ -1,7 +1,11 @@
 // The Hopper design of fp32 attention at head width 32 on TF32 wgmma: the
 // packed forward (flash_attention_packed.cu, row 3) and the packed backward
 // (flash_attention_bwd_packed.cu, row 8) of mead-128-ldm-f4.yaml's UNet,
-// which computes in fp32 with 32-wide heads at N = 1024, 256 and 64.
+// which computes in fp32 with 32-wide heads at N = 1024, 256 and 64, and
+// the same forward on split heads: the split-head forward
+// (flash_attention.cu, row 2) and, with the streaming kernel's roundings
+// and its cut of the keys (attend_block<.., STREAM>), the streaming forward
+// (flash_attention_streaming.cu, row 4), mead-128's flag routes.
 //
 // Layout: rows of `heads` heads of 32 columns at the row stride ld (heads *
 // 32 on packed rows; heads = 1, ld = 32 on split heads), a head addressed by
@@ -40,7 +44,15 @@
 //            fp32 with exp2 on the special-function unit alone, P kept in
 //            its accumulator's registers as the A operand of P V. The row
 //            log-sum-exp is m + log2(l) of s * scale * log2(e), which the
-//            backward reads;
+//            backward reads. Streaming (row 4): q times q_scale (scale *
+//            log2(e) in fp32) before its rounding, so the scores are base-2
+//            as formed; keys past the split's end at the finite -1e30 with
+//            probability 0 and the maximum starting there; the denominator
+//            the sum of the fp32 probabilities P V uses (the streaming
+//            kernel's cast to v's type is the identity in fp32); the keys
+//            [blockIdx.y keys_per_split, min(nk, ..)) of the one images
+//            launch; with one split o / max(l, 1e-30), with more the
+//            unnormalised output, maximum and sum for the combine launch;
 //   dk / dv  block (batch x head, 64 WGS keys): its k and v rows as the A
 //            operands from shared memory, q, do, q^T, do^T and the rows'
 //            lse and delta through a ring of DKDV_STAGES stages; S^T = k q^T
@@ -103,11 +115,11 @@ constexpr int MMA_SYNC_MAX = 64;
 // Warpgroups an SM the forward asks for (__launch_bounds__): six, three
 // blocks of two at 85 registers a thread, which q as a shared-memory
 // operand leaves room for (q in registers: 118 registers, two blocks; 6-8%
-// slower by the same A/B).
+// slower by the same A/B). A block of one warpgroup asks for no more blocks
+// than its shared memory lets in, three (six capped it at 80 registers,
+// which spilled).
 constexpr int FWD_WG_PER_SM = 6;
-__host__ __device__ constexpr int fwd_min_blocks(int wgs) {
-  return FWD_WG_PER_SM / wgs;
-}
+constexpr int SM_SHARED = 233472;   // bytes an SM, 1 KB of it a block's
 
 __host__ __device__ constexpr int pad_rows(int n) {
   return (n + PAD - 1) / PAD * PAD;
@@ -119,6 +131,10 @@ __host__ __device__ constexpr bool keeps_mma_sync(int nq, int nk) {
 __host__ __device__ constexpr int fwd_smem(int kt, int wgs) {
   return 1024 + FWD_STAGES * 2 * kt * ROWB + wgs * WG_ROWS * ROWB +
          2 * FWD_STAGES * 8;
+}
+__host__ __device__ constexpr int fwd_min_blocks(int wgs) {
+  const int by_smem = SM_SHARED / (fwd_smem(FWD_KEYS, wgs) + 1024);
+  return FWD_WG_PER_SM / wgs < by_smem ? FWD_WG_PER_SM / wgs : by_smem;
 }
 __host__ __device__ constexpr int dkdv_smem(int wgs) {
   return 1024 + 2 * wgs * WG_ROWS * ROWB + DKDV_STAGES * DKDV_STAGE +
@@ -322,15 +338,20 @@ struct FwdArgs {
   const float* kimg;    // the K row images [BH][npk * 32]
   const float* vimg;    // the V transposed images [BH][npk * 32]
   float* o;             // [B, nq, ld]
-  float* lse;           // [BH, nq] or null
+  float* lse;           // [BH, nq] or null (resident)
+  float* part_o;        // streaming with splits: [splits, BH * nq, 32]
+  float* part_ml;       //   and [splits, 2, BH * nq] (maximum, sum)
   int64_t ld;
   int nq, nk, npk, heads, q_tiles;
-  float scale_log2;
+  int keys_per_split;   // streaming: keys of a split (a multiple of 64)
+  float scale_log2;     // resident: the scores' factor, scale * log2(e)
+  float q_scale;        // streaming: q's factor, scale * log2(e) in fp32
 };
 
 // Block (batch x head, q-tile): WGS warpgroups of 64 query rows attend all
-// nk keys of the head in KT-key tiles (see the file's note).
-template <int WGS, int KT>
+// nk keys of the head in KT-key tiles (see the file's note); STREAM: the
+// keys of split blockIdx.y, with the streaming kernel's roundings.
+template <int WGS, int KT, bool STREAM = false>
 __device__ __forceinline__ void attend_block(const FwdArgs& a) {
   constexpr int NT = WGS * 128;
   constexpr int TILE = KT * ROWB;        // bytes of a K (or V^T) tile
@@ -351,7 +372,9 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
   const int h = static_cast<int>(bh % a.heads);
   const float* kh = a.kimg + bh * a.npk * D;
   const float* vh = a.vimg + bh * a.npk * D;
-  const int ntiles = (a.nk + KT - 1) / KT;
+  const int kv_begin = STREAM ? blockIdx.y * a.keys_per_split : 0;
+  const int kv_end = STREAM ? min(a.nk, kv_begin + a.keys_per_split) : a.nk;
+  const int ntiles = (kv_end - kv_begin + KT - 1) / KT;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -365,9 +388,10 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
   auto issue = [&](int i) {  // the keys of tile i into stage i % S
     const int s = i % S;
     if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
-    const int key0 = i * KT;
+    const int key0 = kv_begin + i * KT;
     // an image row is a key of K, or 128 bytes of a 32-key V^T panel: both
-    // end at the padded length, a multiple of 64 keys
+    // end at the padded length, a multiple of 64 keys (keys of the next
+    // split are copied too, and masked)
     const uint32_t st = ring + s * STAGE;
     copy_image<KT * 8, NT>(st, kh + key0 * D, a.npk - key0, tid);
     copy_image<KT * 8, NT>(st + TILE, vh + key0 * D, a.npk - key0, tid);
@@ -377,7 +401,11 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
 
   // the q-tile as a swizzled tile, the A operand of S: each thread rounds
   // the chunks it copied once they have landed (rows past nq zeros, not
-  // written back)
+  // written back), streaming times q_scale in fp32 first
+  auto round_q = [&](uint32_t x) {
+    return tf32_rna(STREAM ? __uint_as_float(x) * a.q_scale
+                           : __uint_as_float(x));
+  };
   const int rw = wg * WG_ROWS + ((tid & 127) >> 5) * 16 + (lane >> 2);
   const int t4 = lane & 3;
   {
@@ -396,10 +424,7 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
       uint4* p = reinterpret_cast<uint4*>(base + S * STAGE +
                                           Swz<128>::at(i >> 3, i & 7));
       const uint4 v = *p;
-      *p = make_uint4(tf32_rna(__uint_as_float(v.x)),
-                      tf32_rna(__uint_as_float(v.y)),
-                      tf32_rna(__uint_as_float(v.z)),
-                      tf32_rna(__uint_as_float(v.w)));
+      *p = make_uint4(round_q(v.x), round_q(v.y), round_q(v.z), round_q(v.w));
     }
     fence_async_shared();
     __syncthreads();   // the rounded q-tile visible to both warpgroups
@@ -408,7 +433,8 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
   float o[16];
 #pragma unroll
   for (int x = 0; x < 16; ++x) o[x] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float m_start = STREAM ? -1e30f : -INFINITY;
+  float m0 = m_start, m1 = m_start, l0 = 0.f, l1 = 0.f;
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % S;
     mbar_wait(&full[s], (i / S) & 1);
@@ -424,8 +450,8 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
     fence_regs(sc);
 
     float alpha0, alpha1;
-    softmax_scores<KT, false>(sc, m0, m1, alpha0, alpha1, i * KT, a.nk,
-                              a.scale_log2, lane);
+    softmax_scores<KT, STREAM>(sc, m0, m1, alpha0, alpha1, kv_begin + i * KT,
+                               kv_end, STREAM ? 1.f : a.scale_log2, lane);
     l0 *= alpha0;
     l1 *= alpha1;
     add_row_sums<KT>(sc, l0, l1);
@@ -446,6 +472,29 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
   l1 = quad_sum(l1);
   const int valid = a.nq - q0 - wg * WG_ROWS;
   const int r = rw - wg * WG_ROWS;
+  if constexpr (STREAM) {
+    const int64_t row0 = bh * a.nq + q0 + wg * WG_ROWS;   // split heads
+    if (gridDim.y == 1) {
+      store_rows(a.o + row0 * D, D, valid, o, 1.f / fmaxf(l0, 1e-30f),
+                 1.f / fmaxf(l1, 1e-30f));
+      return;
+    }
+    const int64_t rows = static_cast<int64_t>(gridDim.x / a.q_tiles) * a.nq;
+    float* ml = a.part_ml + blockIdx.y * 2 * rows + row0;
+    if (t4 == 0) {
+      if (r < valid) {
+        ml[r] = m0;
+        ml[rows + r] = l0;
+      }
+      if (r + 8 < valid) {
+        ml[r + 8] = m1;
+        ml[rows + r + 8] = l1;
+      }
+    }
+    store_rows(a.part_o + (blockIdx.y * rows + row0) * D, D, valid, o, 1.f,
+               1.f);
+    return;
+  }
   if (a.lse != nullptr && t4 == 0) {
     float* row = a.lse + bh * a.nq + q0 + rw;
     if (r < valid) row[0] = m0 * a.scale_log2 + log2f(l0);
@@ -456,13 +505,22 @@ __device__ __forceinline__ void attend_block(const FwdArgs& a) {
 }
 
 // The forward's kernels by plan: the caller's .cu defines a __global__
-// around attend_block<WGS, KT> for each (Kernels::fwd<WGS, KT>()), so that a
-// profile names its row.
-template <typename Kernels>
+// around attend_block<WGS, KT[, STREAM]> for each (Kernels::fwd<WGS, KT>()),
+// so that a profile names its row. scratch holds fwd_scratch_floats(b *
+// heads, nk) fp32. STREAM (split heads: heads = 1, ld = 32): scale is q_scale,
+// lse unused, and the grid's y the `splits` ranges of keys_per_split keys;
+// with splits > 1 the blocks write part_o / part_ml and the caller
+// combines them. Returns cudaGetLastError() of the first launch that failed
+// (0 = both launched), or -1 for an empty shape or no scratch.
+template <typename Kernels, bool STREAM = false>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* lse, float* scratch, int b, int nq, int nk, int heads,
-               int64_t ld, float scale, cudaStream_t stream) {
-  if (b < 1 || nq < 1 || nk < 1 || heads < 1) return -1;
+               int64_t ld, float scale, cudaStream_t stream,
+               float* part_o = nullptr, float* part_ml = nullptr,
+               int splits = 1, int keys_per_split = 0) {
+  if (b < 1 || nq < 1 || nk < 1 || heads < 1 || splits < 1 ||
+      scratch == nullptr)
+    return -1;
   const int64_t bh = static_cast<int64_t>(b) * heads;
   const int npk = pad_rows(nk);
   float* kimg = scratch;
@@ -475,15 +533,17 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   if (err != 0) return err;
   const int wgs = wgs_for(nq);
   const int q_tiles = (nq + wgs * WG_ROWS - 1) / (wgs * WG_ROWS);
-  const FwdArgs args{q, kimg, vimg, o, lse, ld, nq, nk, npk, heads, q_tiles,
-                     scale * 1.4426950408889634f};
+  const FwdArgs args{q, kimg, vimg, o, lse, part_o, part_ml, ld, nq, nk,
+                     npk, heads, q_tiles, STREAM ? keys_per_split : nk,
+                     STREAM ? 1.f : scale * 1.4426950408889634f,
+                     STREAM ? scale : 1.f};
   auto go = [&](auto kernel) {
     const int smem = fwd_smem(FWD_KEYS, wgs);
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<static_cast<unsigned>(bh * q_tiles), wgs * 128, smem, stream>>>(
-        args);
+    kernel<<<dim3(static_cast<unsigned>(bh * q_tiles), splits), wgs * 128,
+             smem, stream>>>(args);
     return static_cast<int>(cudaGetLastError());
   };
   return wgs == 2 ? go(Kernels::template fwd<2, FWD_KEYS>())

@@ -92,12 +92,14 @@ from ``wide_f32_plan``; the backwards on TF32 ``wgmma`` too,
 gradient GEMMs joined by P and dS in scratch from ``wide_f32_bwd_plan``),
 and 32 for the split-head, packed and streaming forwards, their backward
 kernels and the fused-projection kernel (the UNet of
-``mead-128-ldm-f4.yaml``, which sets no dtype: the packed pair on TF32
-``wgmma``, ``csrc/hopper_narrow_f32.cuh``, an images launch writing the
-rounded and transposed operands into scratch from ``narrow_f32_plan``
-first; the split-head and streaming pairs, and the packed pair where both
-lengths are at most 64, ``csrc/attention_f32_narrow.cuh``). Both run in
-fp32 as the JAX
+``mead-128-ldm-f4.yaml``, which sets no dtype: the packed pair and the
+split-head and streaming forwards on TF32 ``wgmma``,
+``csrc/hopper_narrow_f32.cuh``, an images launch writing the rounded and
+transposed operands into scratch from ``narrow_f32_plan`` first, the
+streaming forward with its own roundings and its cut of the keys over
+``streaming_splits`` blocks; where both lengths are at most 64 those four,
+and the split-head and streaming backwards at every length,
+``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
 package's do, and multiply on the tensor cores in TF32 (operands rounded
 once, fp32 accumulation and softmax). The q/out-fused kernel takes bf16
 only.
@@ -302,10 +304,11 @@ def wide_f32_bwd_plan(bh: int, nq: int, nk: int) -> WideF32BwdPlan:
                        + d * (2 * nq + 2 * nk)),))
 
 
-# The fp32 D = 32 packed rows 3 and 8 (csrc/hopper_narrow_f32.cuh): an
-# images launch writes the operands rounded to TF32, and transposed where a
-# product contracts over keys or queries, as tile images into scratch; then
-# the forward, or the dk/dv and dq grids, stream them on TF32 wgmma. Its
+# The fp32 D = 32 packed rows 3 and 8 and the split-head and streaming
+# forwards of rows 2 and 4 (csrc/hopper_narrow_f32.cuh): an images launch
+# writes the operands rounded to TF32, and transposed where a product
+# contracts over keys or queries, as tile images into scratch; then the
+# forward, or the dk/dv and dq grids, stream them on TF32 wgmma. Its
 # constants, mirrored here so that the CPU tests reach the plan
 NARROW_F32_HEAD_DIM = 32
 NARROW_F32_PAD = 64                    # rows an image's length is padded to
@@ -321,13 +324,15 @@ NARROW_F32_IMG_ROWS = 32               # rows of an images block
 
 
 class NarrowF32Plan(NamedTuple):
-    """The launches of the fp32 D = 32 packed forward and backward for
-    ``bh`` heads: ``mma_sync`` where the entries keep
-    ``attention_f32_narrow.cuh``'s grids (the rest then describes the
-    launches they do not make); ``padded`` the image lengths (Nq, Nk
-    padded); ``fwd`` (blocks, threads, keys a tile, shared memory); ``dkdv``
-    and ``dq`` (blocks, threads, shared memory); the fp32 scratch of a
-    forward and of a backward call (their images)."""
+    """The launches of the fp32 D = 32 forward (packed, split-head or
+    streaming) and packed backward for ``bh`` heads: ``mma_sync`` where the
+    entries keep ``attention_f32_narrow.cuh``'s grids (the rest then
+    describes the launches they do not make); ``padded`` the image lengths
+    (Nq, Nk padded); ``fwd`` (blocks, threads, keys a tile, shared memory);
+    ``dkdv`` and ``dq`` (blocks, threads, shared memory); the fp32 scratch
+    of a forward and of a backward call (their images); the streaming
+    forward's ``splits`` of the keys (its grid's y, each split
+    ``keys_per_split`` keys; one split of every key elsewhere)."""
     mma_sync: bool
     padded: Tuple[int, int]
     fwd: Tuple[int, int, int, int]
@@ -335,22 +340,30 @@ class NarrowF32Plan(NamedTuple):
     dq: Tuple[int, int, int]
     fwd_scratch: int
     bwd_scratch: int
+    splits: int
+    keys_per_split: int
 
 
 @functools.lru_cache(maxsize=256)   # a wrapper asks at every call
-def narrow_f32_plan(bh: int, nq: int, nk: int) -> NarrowF32Plan:
-    """The launches of the fp32 D = 32 packed kernels for ``bh`` heads of
-    ``nq`` queries against ``nk`` keys, as ``hnarrow_f32::launch_fwd`` /
+def narrow_f32_plan(bh: int, nq: int, nk: int,
+                    splits: int = 1) -> NarrowF32Plan:
+    """The launches of the fp32 D = 32 kernels for ``bh`` heads of ``nq``
+    queries against ``nk`` keys, as ``hnarrow_f32::launch_fwd`` /
     ``launch_bwd`` make them: two warpgroups a block (sharing its ring)
     where the owned length is longer than one warpgroup's 64 rows, one
     otherwise; the ``mma.sync`` grids where both lengths are at most
-    ``NARROW_F32_MMA_SYNC_MAX`` (the one-call A/B's choice, PERF.md)."""
+    ``NARROW_F32_MMA_SYNC_MAX`` (the one-call A/B's choice, PERF.md).
+    ``splits``: the streaming forward's cut of the keys
+    (``streaming_splits``, counted on 64-row q-tiles whatever q-tile the
+    grid uses), in units of ``STREAMING_TILE`` keys as
+    ``flash_attention_streaming.cu`` cuts them."""
     pad, rows, d = NARROW_F32_PAD, NARROW_F32_WG_ROWS, NARROW_F32_HEAD_DIM
     npq, npk = -(-nq // pad) * pad, -(-nk // pad) * pad
     tile = NARROW_F32_STREAMED * 128
     wgs = lambda n: 2 if n > rows else 1
     keys = NARROW_F32_FWD_KEYS
     own = lambda n: 2 * wgs(n) * rows * 128
+    units = -(-nk // STREAMING_TILE)
     return NarrowF32Plan(
         mma_sync=max(nq, nk) <= NARROW_F32_MMA_SYNC_MAX,
         padded=(npq, npk),
@@ -364,7 +377,8 @@ def narrow_f32_plan(bh: int, nq: int, nk: int) -> NarrowF32Plan:
             1024 + own(nq) + NARROW_F32_DQ_STAGES * 3 * tile
             + (2 * NARROW_F32_DQ_STAGES + 1) * 8),
         fwd_scratch=2 * bh * npk * d,
-        bwd_scratch=bh * d * (4 * npq + 3 * npk))
+        bwd_scratch=bh * d * (4 * npq + 3 * npk),
+        splits=splits, keys_per_split=-(-units // splits) * STREAMING_TILE)
 
 
 def streaming_splits(bh: int, nq: int, nk: int) -> int:
@@ -604,15 +618,20 @@ _SPLIT_HEAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _f32_scratch(q, nk: int, splits: int = 1) -> tuple:
-    """The scratch argument of an fp32 forward entry (the tile images at
-    D = 512, ``wide_f32_plan``; none at D = 32); nothing for bf16, whose
+    """The scratch argument of an fp32 forward entry, its tile images: at
+    D = 512 ``wide_f32_plan``'s, at D = 32 ``narrow_f32_plan``'s (none
+    where the plan keeps the ``mma.sync`` grids); nothing for bf16, whose
     entries take no scratch."""
     if q.dtype != torch.float32:
         return ()
     b, h, nq, d = q.shape
-    if d != WIDE_F32_HEAD_DIM:
-        return (None,)
-    shape = wide_f32_plan(b * h, nq, nk, splits).scratch
+    if d == WIDE_F32_HEAD_DIM:
+        shape = wide_f32_plan(b * h, nq, nk, splits).scratch
+    else:
+        plan = narrow_f32_plan(b * h, nq, nk)
+        if plan.mma_sync:   # the mma.sync grids read no images
+            return (None,)
+        shape = plan.fwd_scratch
     return (torch.empty(shape, dtype=torch.float32, device=q.device),)
 
 

@@ -46,7 +46,9 @@
            and backward (the packed backward's grids on one head) at
            [8, 10, 1024, 32], [8, 20, 256, 32] and [8, 2, 4096, 80], and
            the fp32 packed forward (images, attention) and backward
-           (images with delta, dk / dv grid, dq grid) at [32, 1024, 5 x 32]
+           (images with delta, dk / dv grid, dq grid) at [32, 1024, 5 x 32],
+           and the fp32 split-head and streaming forwards (images,
+           attention) at [32, 5, 1024, 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -186,6 +188,14 @@ def gate(smi: str):
 
 
 _FAMILIES = (
+    # the fp32 D = 32 split-head and streaming forwards of rows 2 and 4 past
+    # the N = 64 level (hopper_narrow_f32.cuh on split heads)
+    ("split_images_f32_kernel",
+     "attention: flash_attention (fp32 D = 32: images)"),
+    ("split_attention_f32_kernel", "attention: flash_attention (fp32 D = 32)"),
+    ("streaming_images_f32_kernel",
+     "attention: streaming (fp32 D = 32: images)"),
+    ("streaming_attention_f32_kernel", "attention: streaming (fp32 D = 32)"),
     # the fp32 D = 32 packed rows 3 and 8 (hopper_narrow_f32.cuh's images
     # and TF32 wgmma grids, or attention_f32_narrow.cuh's at N <= 64)
     ("packed_images_f32_kernel", "attention: packed (fp32 D = 32: images)"),
@@ -306,8 +316,8 @@ def split(smi: str, calls: int = 10):
         bo = rnd(c, s=0.1)
         return lambda: A.flash_attention_qout(h, k, v, wq, wo, bo, heads)
 
-    def streaming(b, h, nq, nk, d):
-        q, k, v = rnd(b, h, nq, d), rnd(b, h, nk, d), rnd(b, h, nk, d)
+    def streaming(b, h, nq, nk, d, dtype=torch.bfloat16):
+        q, k, v = (rnd(b, h, n, d, dtype=dtype) for n in (nq, nk, nk))
         return lambda: A.flash_attention_streaming(q, k, v)
 
     def packed(b, n, heads, d, dtype=torch.bfloat16):
@@ -319,8 +329,8 @@ def split(smi: str, calls: int = 10):
         out = A.flash_attention_streaming(q, k, v)
         return lambda: A.flash_attention_streaming_bwd(q, k, v, out, do)
 
-    def flash(b, h, n, d):
-        q, k, v = (rnd(b, h, n, d) for _ in range(3))
+    def flash(b, h, n, d, dtype=torch.bfloat16):
+        q, k, v = (rnd(b, h, n, d, dtype=dtype) for _ in range(3))
         return lambda: A.flash_attention(q, k, v)
 
     def flash_bwd(b, h, n, d):
@@ -386,7 +396,12 @@ def split(smi: str, calls: int = 10):
              ("flash_attention_packed", [32, 1024, 5, 32, "float32"],
               packed(32, 1024, 5, 32, torch.float32)),
              ("flash_attention_bwd_packed", [32, 1024, 5, 32, "float32"],
-              packed_bwd(32, 1024, 5, 32, torch.float32))]
+              packed_bwd(32, 1024, 5, 32, torch.float32)),
+             # ... and of a train-mead128-split / -streaming step
+             ("flash_attention", [32, 5, 1024, 1024, 32, "float32"],
+              flash(32, 5, 1024, 32, torch.float32)),
+             ("flash_attention_streaming", [32, 5, 1024, 1024, 32, "float32"],
+              streaming(32, 5, 1024, 1024, 32, torch.float32))]
     with torch.no_grad():
         for name, shape, fn in cases:
             for _ in range(3):

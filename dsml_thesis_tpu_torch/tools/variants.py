@@ -127,6 +127,23 @@ without it. Design switches of the kept header (``FWD_KEYS``,
 ``FWD_STAGES``, ``DKDV_STAGES``, ``DQ_STAGES`` of
 ``hopper_narrow_f32.cuh``) are text substitutions.
 
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-split [--only TEXT] \
+        '{"parent": [["flash_attention.cu", "",
+                      "_ab/parent/.../flash_attention.cu"], ...],
+          "new": []}'
+
+``--f32-split`` builds ``flash_attention.cu`` and
+``flash_attention_streaming.cu`` alone and times their fp32 D = 32
+forwards (rows 2 and 4 of PERF.md's kernel table: mead-128-ldm-f4's
+split-head and streaming routes) at ``F32_SPLIT_SHAPES``: the three levels
+of a ``train-mead128-split`` step (batch 32), the served ones (batch 16)
+and ragged ones, row 4 also with its keys cut over many splits; each with
+``device_ms`` and ``device_by_kernel`` (the images, attention and combine
+launches). The outputs (o, and row 2's log-sum-exp) are held against the
+plain versions, and a second call must give the same bits. Both trees'
+entries take the scratch of ``narrow_f32_plan`` (a tree that reads none at
+D = 32 ignores it).
+
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
 
 ``--wrapper`` builds nothing of its own and times the same D = 32 forwards
@@ -226,6 +243,19 @@ F32_PACKED_ENTRIES = ("dsml_flash_attention_packed_f32",
 F32_PACKED_SHAPES = ((32, 1024, 1024, 5), (32, 256, 256, 10),
                      (32, 64, 64, 20), (2, 1000, 1000, 5), (2, 333, 77, 10),
                      (2, 200, 129, 5), (2, 100, 50, 3))
+# what --f32-split builds and times: [B, H, Nq, Nk, D] at D = 32, the three
+# levels of a train-mead128-split step (batch 32), the served levels (16),
+# then ragged ones (Nk != Nq, Nk just past a 128-key span, Nq just past a
+# warpgroup, Nk < 64 against Nq past it, the keys cut 32 ways)
+F32_SPLIT_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
+F32_SPLIT_ENTRIES = ("dsml_flash_attention_f32",
+                     "dsml_flash_attention_streaming_f32")
+F32_SPLIT_SHAPES = ((32, 5, 1024, 1024, 32), (16, 5, 1024, 1024, 32),
+                    (32, 10, 256, 256, 32), (16, 10, 256, 256, 32),
+                    (32, 20, 64, 64, 32), (16, 20, 64, 64, 32),
+                    (2, 5, 333, 77, 32), (2, 3, 200, 129, 32),
+                    (3, 5, 65, 129, 32), (2, 2, 100, 50, 32),
+                    (1, 2, 100, 2000, 32))
 # what --wide-attn builds and times
 WIDE_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
 WIDE_ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_streaming")
@@ -551,6 +581,8 @@ def cases() -> dict:
         return fproj_f32_cases(rel, stream)
     if F32_PACKED_ONLY:
         return f32_packed_cases(rel, stream)
+    if F32_SPLIT_ONLY:
+        return f32_split_cases(rel, stream)
     if WIDE_ONLY:
         return {f"{kind} {_tag(shape)}": {"flash": flash,
                                           "streaming": streaming}[kind](*shape)
@@ -801,6 +833,71 @@ def f32_packed_cases(rel, stream) -> dict:
     return out
 
 
+def f32_split_cases(rel, stream) -> dict:
+    """The fp32 D = 32 split-head and streaming cases of ``--f32-split``
+    (see the module's note): o (and row 2's log-sum-exp) against the plain
+    versions, and the same bits from a second call."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for shape in F32_SPLIT_SHAPES:
+        b, h, nq, nk, d = shape
+        q = torch.randn(b, h, nq, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, h, nk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        scale = d ** -0.5
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+        lse_ref = (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
+        splits = A.streaming_splits(b * h, nq, nk)
+        plan = A.narrow_f32_plan(b * h, nq, nk, splits)
+        scratch = torch.empty(plan.fwd_scratch, device="cuda")
+        part_o = torch.empty((splits, b * h * nq, d), device="cuda")
+        part_ml = torch.empty((splits, 2, b * h * nq), device="cuda")
+        for kind in ("flash", "streaming"):
+            o = torch.empty_like(q)
+            lse = torch.empty(b * h * nq, device="cuda")
+            if kind == "flash":
+                refs = (A.attention_reference(q, k, v, scale=scale), lse_ref)
+                outs = (o, lse)
+
+                def call(lib, q=q, k=k, v=v, o=o, lse=lse, scratch=scratch,
+                         bh=b * h, nq=nq, nk=nk):
+                    return lib.dsml_flash_attention_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), bh,
+                        nq, nk, 32, 32 ** -0.5, stream())
+            else:
+                refs = (A.streaming_attention_reference(q, k, v,
+                                                        scale=scale),)
+                outs = (o,)
+
+                def call(lib, q=q, k=k, v=v, o=o, part_o=part_o,
+                         part_ml=part_ml, scratch=scratch, bh=b * h, nq=nq,
+                         nk=nk, splits=splits):
+                    return lib.dsml_flash_attention_streaming_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+                        scratch.data_ptr(), bh, nq, nk, 32, splits,
+                        A._folded_factor(32 ** -0.5, torch.float32),
+                        stream())
+            last = {}
+
+            def keep(lib, call=call, last=last):
+                last["lib"] = lib
+                return call(lib)
+
+            def err(call=call, outs=outs, refs=refs, last=last):
+                first = [t.clone() for t in outs]
+                call(last["lib"])
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, t) for a, t in zip(first, outs)):
+                    return float("inf")
+                return max(rel(a, r) for a, r in zip(outs, refs))
+            out[f"{kind} f32 {_tag(shape)}"
+                + (f" {splits} splits" if kind == "streaming" and splits > 1
+                   else "")] = (keep, err)
+    return out
+
+
 def stats_cases(rel, stream) -> dict:
     """The channel statistics cases of ``--gn-stats`` (see the module's
     note): the sums against the plain version, and the same bits twice."""
@@ -966,6 +1063,7 @@ WIDE_ONLY = False
 GN_STATS_ONLY = False     # set by --gn-stats
 F32_FPROJ_ONLY = False    # set by --f32-fproj
 F32_PACKED_ONLY = False   # set by --f32-packed
+F32_SPLIT_ONLY = False    # set by --f32-split
 
 
 def card() -> str:
@@ -978,7 +1076,7 @@ def card() -> str:
 
 def main():
     global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY, GN_STATS_ONLY, F32_FPROJ_ONLY
-    global F32_PACKED_ONLY
+    global F32_PACKED_ONLY, F32_SPLIT_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -1001,6 +1099,9 @@ def main():
     if "--f32-packed" in args:
         args.remove("--f32-packed")
         F32_PACKED_ONLY = True
+    if "--f32-split" in args:
+        args.remove("--f32-split")
+        F32_SPLIT_ONLY = True
     wrapper = "--wrapper" in args
     if wrapper:
         args.remove("--wrapper")
@@ -1030,6 +1131,8 @@ def main():
                        if F32_FPROJ_ONLY else
                        (F32_PACKED_SOURCES, F32_PACKED_ENTRIES)
                        if F32_PACKED_ONLY else
+                       (F32_SPLIT_SOURCES, F32_SPLIT_ENTRIES)
+                       if F32_SPLIT_ONLY else
                        (SOURCES, ENTRIES)), ptxas=ptxas)
         todo, iters = cases(), 20
     names = list(libs)
@@ -1057,7 +1160,7 @@ def main():
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
             if (F32_ONLY or WIDE_ONLY or GN_STATS_ONLY or F32_FPROJ_ONLY
-                    or F32_PACKED_ONLY):
+                    or F32_PACKED_ONLY or F32_SPLIT_ONLY):
                 # and by kernel (lse, combine, the two launches, ..)
                 kernels = device_kernels_ms(lambda: call(libs[name]))
                 res[name]["device_ms"] = sum(kernels.values())

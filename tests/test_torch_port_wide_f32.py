@@ -13,7 +13,8 @@ on the CPU.
   scratch of the tile images; its constants against the header's.
 * ``streaming_splits`` at the fp32 D = 512 shapes the runs use.
 * The forward entries get the arguments their C signatures declare, the
-  scratch of the plan's shape at D = 512 and none at D = 32 or in bf16.
+  scratch of the plan's shape at D = 512 (at D = 32 ``narrow_f32_plan``'s)
+  and none in bf16.
 * ``chip_smoke.expected_launches`` / ``expected_train_launches`` of the real
   ``mead-128-ldm-f4.yaml`` (meta device): 9 row-2 launches at D = 512 a
   ``train-mead128`` step and 14 a served ``mead128`` batch, and the first
@@ -147,8 +148,9 @@ def test_streaming_splits_at_the_runs_shapes(bh, nq, nk, splits):
 def test_forward_calls_its_entry_by_its_signature(streaming, dtype, d,
                                                   monkeypatch):
     """The forward entries get as many arguments as ``_build.SIGNATURES``
-    declares, the stream last; at fp32 D = 512 a scratch of the plan's
-    shape after the outputs, none at D = 32, no such argument in bf16."""
+    declares, the stream last; in fp32 a scratch of the plan's size after
+    the outputs (``wide_f32_plan`` at D = 512, ``narrow_f32_plan``'s images
+    at D = 32), no such argument in bf16."""
     kernel = "flash_attention_streaming" if streaming else "flash_attention"
     monkeypatch.setitem(tatt.LAUNCHES, kernel, 0)
     entry = _Entry()
@@ -185,9 +187,12 @@ def test_forward_calls_its_entry_by_its_signature(streaming, dtype, d,
         if d == 512:
             want = tatt.wide_f32_plan(b * h, nq, nk, splits).scratch
             assert [tuple(t.shape) for t in scratch].count(want) == 1
-            assert args[at] is not None
         else:
-            assert args[at] is None
+            plan = tatt.narrow_f32_plan(b * h, nq, nk)
+            assert not plan.mma_sync
+            assert [t.numel() for t in scratch
+                    if t.data_ptr() == args[at]] == [plan.fwd_scratch]
+        assert args[at] is not None
     else:
         tail = args[at:at + 4]
     assert tail == (b * h, nq, nk, d)
