@@ -325,12 +325,19 @@ def _case(shape, timed, kernel, plain, library, nbytes, flops, peak_flops,
     return case
 
 
-def _with_device_ms(case, kernel, library):
+def _with_device_ms(case, kernel, library, by_kernel=False):
     """A timed case with the device time of the kernel's call and of the
     library's beside their event times: where a call is a few microseconds
-    of device work, the event times are the host's launch rate."""
+    of device work, the event times are the host's launch rate. With
+    ``by_kernel`` the kernel's device time is also given by launch."""
     case.update(device_ms=device_ms(kernel),
                 library_device_ms=device_ms(library))
+    if by_kernel:
+        from dsml_thesis_tpu_torch.tools.variants import device_kernels_ms
+
+        case["device_ms_by_kernel"] = {
+            name: round(ms, 4)
+            for name, ms in device_kernels_ms(kernel).items()}
     return case
 
 
@@ -454,7 +461,7 @@ def _packed_lse_case(gen, b, nq, nk, heads, d, dtype=torch.float32):
 
 
 def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
-              plain, sdpa_inputs, scale, lse_bytes=4):
+              plain, sdpa_inputs, scale, lse_bytes=4, device=False):
     """An attention backward kernel on the forward kernel's own output and
     row log-sum-exp (``forward`` returns both; the streaming pair has no
     saved log-sum-exp, ``lse_bytes=0``): (dq, dk, dv) against the plain
@@ -462,7 +469,8 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     within REL_TOL of its own maximum; a second launch and the same gradient
     asked for through autograd (the ``Function`` the model uses) must both
     give the same bits. The yardstick is the backward of
-    ``scaled_dot_product_attention`` through autograd."""
+    ``scaled_dot_product_attention`` through autograd. ``device``: the
+    device times beside the event times, the kernel's by launch."""
     import torch.nn.functional as F
 
     esize, peak = _width(q.dtype)
@@ -471,11 +479,15 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     sq, sk, sv, sdo = (t.detach().requires_grad_(t is not sdpa_inputs[3])
                        for t in sdpa_inputs)
     so = F.scaled_dot_product_attention(sq, sk, sv, scale=scale)
+    run = lambda: backward(out, lse)
+    library = lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                          retain_graph=True)
     case = _case(
-        shape, timed, lambda: backward(out, lse), lambda: plain(out),
-        lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True),
+        shape, timed, run, lambda: plain(out), library,
         esize * b_h * (4 * nq + 4 * nk) * d + lse_bytes * b_h * nq,
         10 * b_h * nq * nk * d, peak, dtype=_dtype_name(q.dtype), head_dim=d)
+    if device:
+        _with_device_ms(case, run, library, by_kernel=True)
     first, again = backward(out, lse), backward(out, lse)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     auto = torch.autograd.grad(through_autograd(*leaves), leaves, do)
@@ -487,7 +499,8 @@ def _bwd_case(shape, timed, q, k, v, do, forward, backward, through_autograd,
     return case
 
 
-def _flash_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
+def _flash_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16,
+                    device=False):
     from dsml_thesis_tpu_torch.ops import attention as A
 
     q, k, v, do = (_rand(gen, b, h, n, d, dtype=dtype)
@@ -499,7 +512,7 @@ def _flash_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         lambda o, lse: A.flash_attention_bwd(q, k, v, o, lse, do, scale),
         lambda q_, k_, v_: A.flash_attention(q_, k_, v_, scale=scale),
         lambda _: A.flash_attention_bwd_reference(q, k, v, do, scale=scale),
-        (q, k, v, do), scale)
+        (q, k, v, do), scale, device=device)
 
 
 def _repeatable(case, run):
@@ -532,7 +545,8 @@ def _streaming_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16,
     return _with_device_ms(case, run, library) if device else case
 
 
-def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
+def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16,
+                        device=False):
     from dsml_thesis_tpu_torch.ops import attention as A
 
     q, k, v, do = (_rand(gen, b, h, n, d, dtype=dtype)
@@ -544,7 +558,7 @@ def _streaming_bwd_case(gen, b, h, nq, nk, d, timed, dtype=torch.bfloat16):
         lambda o, _: A.flash_attention_streaming_bwd(q, k, v, o, do, scale),
         lambda q_, k_, v_: A.flash_attention_streaming(q_, k_, v_, scale=scale),
         lambda o: A.streaming_bwd_reference(q, k, v, o, do, scale=scale),
-        (q, k, v, do), scale, lse_bytes=0)
+        (q, k, v, do), scale, lse_bytes=0, device=device)
 
 
 def _packed_bwd_case(gen, b, nq, nk, heads, d, timed, dtype=torch.bfloat16):
@@ -986,12 +1000,19 @@ def phase_kernels():
         _flash_bwd_case(gen, 2, 2, 100, 50, 80, False),      # Nk < 64
         _flash_bwd_case(gen, 2, 2, 1000, 333, 80, False),    # tiles + tails
         # fp32 D = 32: mead-128-ldm-f4 in training under DSML_ATTN_PACKED=0
-        _flash_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        # (device ms by launch at N = 1024)
+        _flash_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32, device=True),
         _flash_bwd_case(gen, 32, 10, 256, 256, 32, True, f32),
         _flash_bwd_case(gen, 32, 20, 64, 64, 32, True, f32),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False, f32),    # Nk != Nq
         _flash_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tiles + tails
         _flash_bwd_case(gen, 3, 5, 65, 129, 32, False, f32),    # Nq = 64 + 1
+        # the edges of the TF32 wgmma grids: long K, Nk = 128 + 1, Nq < 64
+        # < Nk (one warpgroup's q), Nk < 64 < Nq (one warpgroup's keys)
+        _flash_bwd_case(gen, 1, 2, 100, 2000, 32, False, f32),
+        _flash_bwd_case(gen, 2, 3, 200, 129, 32, False, f32),
+        _flash_bwd_case(gen, 2, 2, 50, 200, 32, False, f32),
+        _flash_bwd_case(gen, 2, 2, 100, 50, 32, False, f32),
     ]
     packed_bwd = [
         _packed_bwd_case(gen, 8, 1024, 1024, 10, 32, True),  # training step
@@ -1094,8 +1115,9 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 2, 100, 50, 80, False),    # Nk < 64
         _streaming_bwd_case(gen, 2, 2, 1000, 333, 80, False),  # tiles + tails
         # fp32 D = 32: mead-128-ldm-f4 in training under DSML_ATTN_PACKED=0
-        # DSML_FLASH_STREAMING=1, batch 32
-        _streaming_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32),
+        # DSML_FLASH_STREAMING=1, batch 32 (device ms by launch at N = 1024)
+        _streaming_bwd_case(gen, 32, 5, 1024, 1024, 32, True, f32,
+                            device=True),
         _streaming_bwd_case(gen, 32, 10, 256, 256, 32, True, f32),
         _streaming_bwd_case(gen, 32, 20, 64, 64, 32, True, f32),
         _streaming_bwd_case(gen, 16, 5, 1024, 1024, 32, True, f32),
@@ -1105,6 +1127,7 @@ def phase_kernels():
         _streaming_bwd_case(gen, 2, 2, 1000, 333, 32, False, f32),  # tails
         _streaming_bwd_case(gen, 1, 2, 100, 5000, 32, False, f32),  # long K
         _streaming_bwd_case(gen, 3, 5, 65, 129, 32, False, f32),   # 64 + 1
+        _streaming_bwd_case(gen, 2, 2, 50, 200, 32, False, f32),   # 50 < 64
     ]
     conv = [   # b, H, W, Cin, Cout, K, input norm, skip
         _conv_case(gen, 16, 64, 64, 160, 160, 3, True, True, True),

@@ -9,15 +9,15 @@
 //                                 likewise
 //   flash_attention_bwd_packed.cu delta, dk/dv grid, dq grid, packed rows,
 //                                 likewise
-//   flash_attention_bwd.cu        the same on split heads (heads = 1), at
-//                                 every length
+//   flash_attention_bwd.cu        the same on split heads (heads = 1),
+//                                 likewise
 //   flash_attention_streaming.cu  the streaming forward on split heads
 //                                 (stream_block: K / V cut over splits)
 //                                 where Nq and Nk are at most 64 (longer
 //                                 rows: hopper_narrow_f32.cuh)
 //   flash_attention_streaming_bwd.cu  its row log-sum-exp (lse_block), then
-//                                 the backward's grids on split heads, at
-//                                 every length
+//                                 the backward's grids on split heads,
+//                                 likewise
 //
 // Rows: a head h of batch b is addressed by base pointer + h * 32 with a row
 // stride ld (H * 32 on packed rows, 32 on split heads), so no head-split

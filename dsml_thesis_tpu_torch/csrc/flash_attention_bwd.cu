@@ -29,10 +29,20 @@
 // (ops/attention.py:wide_f32_bwd_plan).
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet under
-// DSML_ATTN_PACKED=0): the packed fp32 backward's three launches
-// (attention_f32_narrow.cuh) on one head of row stride 32.
+// DSML_ATTN_PACKED=0): the packed fp32 backward's TF32 wgmma design
+// (hopper_narrow_f32.cuh) on split heads (heads = 1, row stride 32): an
+// images launch writes q, do, k, v rounded to TF32 and q^T, do^T, k^T as
+// tile images into the caller's scratch (hnarrow_f32::bwd_scratch_floats)
+// and delta, then a dk/dv grid and a dq grid, two warpgroups own 128 rows
+// (one where the owned length is at most 64) against streamed 64-row tiles;
+// the scores (q k^T) * scale * log2(e) against the forward's base-2 lse.
+// Where Nq and Nk are both at most hnarrow_f32::MMA_SYNC_MAX (the N = 64
+// level) the packed fp32 backward's three TF32 mma.sync launches
+// (attention_f32_narrow.cuh: delta, dk/dv, dq) on one head, no scratch.
+// Bound at [32, 5, 1024, 32]: operations on the TF32 tensor cores.
 #include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+#include "hopper_narrow_f32.cuh"
 #include "hopper_wide_f32_bwd.cuh"
 
 namespace {
@@ -101,6 +111,39 @@ flash_bwd_wide_f32_grads_kernel(
                        chunk, c0, cw, scale, dk_mul);
 }
 
+// fp32 D = 32 on split heads: hopper_narrow_f32.cuh's images launch and
+// backward grids, kernels of their own so that a profile tells row 7 from
+// row 8
+__global__ void __launch_bounds__(hnarrow_f32::IMG_NT)
+split_bwd_images_f32_kernel(hnarrow_f32::ImageJobs jobs, int64_t ld,
+                            int heads) {
+  hnarrow_f32::images(jobs, ld, heads);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128, 4 / WGS)
+split_bwd_dkdv_f32_kernel(hnarrow_f32::BwdArgs a) {
+  hnarrow_f32::dkdv_block<WGS>(a);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128, 4 / WGS)
+split_bwd_dq_f32_kernel(hnarrow_f32::BwdArgs a) {
+  hnarrow_f32::dq_block<WGS>(a);
+}
+
+struct SplitBwdF32Kernels {
+  static auto images() { return split_bwd_images_f32_kernel; }
+  template <int WGS>
+  static auto dkdv() {
+    return split_bwd_dkdv_f32_kernel<WGS>;
+  }
+  template <int WGS>
+  static auto dq() {
+    return split_bwd_dq_f32_kernel<WGS>;
+  }
+};
+
 }  // namespace
 
 // delta is [BH, Nq] fp32 scratch. Returns cudaGetLastError() of the first
@@ -140,7 +183,9 @@ extern "C" int dsml_flash_attention_bwd(const void* q, const void* k,
 // The fp32 instantiations (d = 512 and 32): the same contract as
 // dsml_flash_attention_bwd on fp32 tensors; at d = 512 scratch holds the
 // tile images and a chunk's P^T, dS^T and dS (ops/attention.py:
-// wide_f32_bwd_plan), at d = 32 it is not read.
+// wide_f32_bwd_plan), at d = 32 hnarrow_f32::bwd_scratch_floats(bh, nq, nk)
+// (narrow_f32_plan; unread where both lengths are at most
+// hnarrow_f32::MMA_SYNC_MAX).
 extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
                                             const void* v, const void* o,
                                             const void* dout, const void* lse,
@@ -150,11 +195,17 @@ extern "C" int dsml_flash_attention_bwd_f32(const void* q, const void* k,
                                             void* stream) {
   auto c = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
-  if (d == f32narrow::D)
+  if (d == f32narrow::D && hnarrow_f32::keeps_mma_sync(nq, nk))
     return f32narrow::launch_bwd(
         flash_bwd_dkdv_f32_narrow_kernel, flash_bwd_dq_f32_narrow_kernel,
         c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk),
         m(dv), bh, nq, nk, 1, scale * 1.4426950408889634f, 1.f, scale, scale,
+        static_cast<cudaStream_t>(stream));
+  if (d == hnarrow_f32::D)
+    return hnarrow_f32::launch_bwd<SplitBwdF32Kernels>(
+        c(q), c(k), c(v), c(o), c(dout), c(lse), m(delta), m(dq), m(dk),
+        m(dv), m(scratch), bh, nq, nk, 1, d, scale,
+        scale * 1.4426950408889634f, scale,
         static_cast<cudaStream_t>(stream));
   if (d != hwide_f32_bwd::D) return -1;
   return hwide_f32_bwd::launch(

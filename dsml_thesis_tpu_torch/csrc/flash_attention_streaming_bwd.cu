@@ -51,21 +51,26 @@
 // rounding of the operand itself.
 //
 // fp32 at D = 32 (the same entry; mead-128-ldm-f4.yaml's fp32 UNet in
-// training under DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1):
-// attention_f32_narrow.cuh's launches on split heads (row stride 32): an lse
-// launch (lse_block: 64 query rows of one head a block, q times scale *
-// log2(e) in fp32 then rounded to TF32 in registers, 64-key K tiles through
-// two cp.async stages, the -1e30 mask), then delta, the dk/dv grid and the
-// dq grid of the packed fp32 backward with q_mul = scale * log2(e) and
-// scale_log2 = 1. All four launches form their scores from the same operands,
-// tf32(q * c) and tf32(k): the lse launch and the dq grid with the same
-// instructions as the forward (q as the A operand), the dk/dv grid with k as
-// the A operand (the same products, summed inside the tensor-core step in
-// its own order). dk is taken against the pre-scaled q tile and multiplied
-// by scale / c at the end. No atomics: equal inputs give equal bits.
+// training under DSML_ATTN_PACKED=0 DSML_FLASH_STREAMING=1): the packed
+// fp32 backward's TF32 wgmma design (hopper_narrow_f32.cuh) on split heads
+// (heads = 1, row stride 32) with this kernel's roundings: the images
+// launch writes tf32(q * c) (c = scale * log2(e) in fp32, the product in
+// fp32) as q's row and transposed images beside do, do^T, k, k^T, v and
+// delta; a log-sum-exp grid (lse_block: q's row image as the A operand from
+// shared memory, the K row images through the forward's ring of 64-key
+// tiles, the -1e30 mask, lse2 = m + log2(max(l, 1e-30))); then the dk/dv
+// and dq grids with scale_log2 = 1. Every grid forms its scores from the
+// same bits, tf32(q * c) and tf32(k), so p = exp2(s - lse2) sums to one. dk
+// is taken against the pre-scaled q and multiplied by scale / c at the end.
+// Where Nq and Nk are both at most hnarrow_f32::MMA_SYNC_MAX (the N = 64
+// level): attention_f32_narrow.cuh's TF32 mma.sync launches on split heads
+// (an lse launch, lse_block, then delta, the dk/dv grid and the dq grid of
+// the packed fp32 backward with q_mul = c and scale_log2 = 1), no scratch.
+// No atomics: equal inputs give equal bits.
 #include "attention_f32.cuh"
 #include "attention_f32_narrow.cuh"
 #include "hopper_bwd.cuh"
+#include "hopper_narrow_f32.cuh"
 #include "hopper_wide_f32_bwd.cuh"
 
 namespace {
@@ -415,13 +420,57 @@ int launch_f32_narrow(const float* q, const float* k, const float* v,
       scale / q_scale, scale, stream);
 }
 
+// fp32 D = 32 past the N = 64 level: hopper_narrow_f32.cuh's images launch,
+// log-sum-exp grid and backward grids, kernels of their own so that a
+// profile tells row 5 from rows 7 and 8
+__global__ void __launch_bounds__(hnarrow_f32::IMG_NT)
+streaming_bwd_images_f32_kernel(hnarrow_f32::ImageJobs jobs, int64_t ld,
+                                int heads) {
+  hnarrow_f32::images(jobs, ld, heads);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128, hnarrow_f32::lse_min_blocks(WGS))
+streaming_bwd_lse_f32_kernel(hnarrow_f32::LseArgs a) {
+  hnarrow_f32::lse_block<WGS>(a);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128, 4 / WGS)
+streaming_bwd_dkdv_f32_kernel(hnarrow_f32::BwdArgs a) {
+  hnarrow_f32::dkdv_block<WGS>(a);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128, 4 / WGS)
+streaming_bwd_dq_f32_kernel(hnarrow_f32::BwdArgs a) {
+  hnarrow_f32::dq_block<WGS>(a);
+}
+
+struct StreamingBwdF32Kernels {
+  static auto images() { return streaming_bwd_images_f32_kernel; }
+  template <int WGS>
+  static auto lse() {
+    return streaming_bwd_lse_f32_kernel<WGS>;
+  }
+  template <int WGS>
+  static auto dkdv() {
+    return streaming_bwd_dkdv_f32_kernel<WGS>;
+  }
+  template <int WGS>
+  static auto dq() {
+    return streaming_bwd_dq_f32_kernel<WGS>;
+  }
+};
+
 }  // namespace
 
 // The fp32 instantiations (d = 32 and 512): the same contract as
 // dsml_flash_attention_streaming_bwd on fp32 tensors, q_scale = scale *
 // log2(e) in fp32; at d = 512 scratch holds the tile images and a chunk's
-// P^T, dS^T and dS (ops/attention.py:wide_f32_bwd_plan), at d = 32 it is not
-// read.
+// P^T, dS^T and dS (ops/attention.py:wide_f32_bwd_plan), at d = 32
+// hnarrow_f32::bwd_scratch_floats(bh, nq, nk) (narrow_f32_plan; unread
+// where both lengths are at most hnarrow_f32::MMA_SYNC_MAX).
 extern "C" int dsml_flash_attention_streaming_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* lse, void* delta, void* dq, void* dk, void* dv,
@@ -430,6 +479,15 @@ extern "C" int dsml_flash_attention_streaming_bwd_f32(
   using namespace f32attn;
   if (bh < 1 || nq < 1 || nk < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == hnarrow_f32::D && !hnarrow_f32::keeps_mma_sync(nq, nk))
+    return hnarrow_f32::launch_bwd<StreamingBwdF32Kernels, true>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(dout), nullptr, static_cast<float*>(delta),
+        static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), static_cast<float*>(scratch), bh, nq, nk, 1,
+        hnarrow_f32::D, scale, 1.f, scale / q_scale, s, q_scale,
+        static_cast<float*>(lse));
   if (d == f32narrow::D)
     return launch_f32_narrow(
         static_cast<const float*>(q), static_cast<const float*>(k),

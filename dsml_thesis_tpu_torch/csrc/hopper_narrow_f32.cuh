@@ -2,10 +2,13 @@
 // packed forward (flash_attention_packed.cu, row 3) and the packed backward
 // (flash_attention_bwd_packed.cu, row 8) of mead-128-ldm-f4.yaml's UNet,
 // which computes in fp32 with 32-wide heads at N = 1024, 256 and 64, and
-// the same forward on split heads: the split-head forward
-// (flash_attention.cu, row 2) and, with the streaming kernel's roundings
-// and its cut of the keys (attend_block<.., STREAM>), the streaming forward
-// (flash_attention_streaming.cu, row 4), mead-128's flag routes.
+// the same grids on split heads, mead-128's flag routes: the split-head
+// forward (flash_attention.cu, row 2) and backward (flash_attention_bwd.cu,
+// row 7) and, with the streaming kernel's roundings, the streaming forward
+// (flash_attention_streaming.cu, row 4: its cut of the keys,
+// attend_block<.., STREAM>) and backward
+// (flash_attention_streaming_bwd.cu, row 5: q times the folded scale in its
+// images, its own log-sum-exp grid, lse_block).
 //
 // Layout: rows of `heads` heads of 32 columns at the row stride ld (heads *
 // 32 on packed rows; heads = 1, ld = 32 on split heads), a head addressed by
@@ -34,7 +37,17 @@
 //
 // Launches, in stream order:
 //   images   (images) the row and transposed images each grid reads,
-//            and in the backward delta = rowsum(do o) (one launch);
+//            each operand times its job's multiplier in fp32 before the
+//            rounding (1 but for row 5's q), and in the backward delta =
+//            rowsum(do o) (one launch);
+//   lse      row 5 only (lse_block): block (batch x head, 64 WGS queries),
+//            its q rows (the image of q times scale * log2(e)) as the A
+//            operand from shared memory, the K row images through the
+//            forward's ring of 64-key tiles; S = q K^T on wgmma, then the
+//            streaming kernel's online maximum and fp32 sum of the
+//            probabilities (keys past nk at -1e30 with probability 0, the
+//            maximum starting there): lse = m + log2(max(l, 1e-30)), base 2,
+//            from exactly the bits the gradient grids form their scores of;
 //   forward  block (batch x head, q-tile of 64 WGS query rows): q rounded
 //            once into a shared-memory tile, the head's K and V^T tile
 //            images in KT-key tiles through a ring of FWD_STAGES cp.async
@@ -72,7 +85,8 @@
 // Bound on the H100: operations on the TF32 tensor cores (4 N^2 D a head
 // forward, 10 N^2 D backward, against 16 N D and 32 N D bytes); at D = 32
 // each score also costs an exp2 on the special-function unit (16 a cycle an
-// SM), once in the forward and once in each backward grid.
+// SM), once in the forward and once in each backward grid (row 5's
+// log-sum-exp grid a third time: 2 N^2 D products, N^2 exp2).
 //
 // Arithmetic, as the plain versions' (ops/attention.py packed_reference,
 // packed_bwd_reference) in fp32 with TF32 products: scores in fp32 times
@@ -136,6 +150,18 @@ __host__ __device__ constexpr int fwd_min_blocks(int wgs) {
   const int by_smem = SM_SHARED / (fwd_smem(FWD_KEYS, wgs) + 1024);
   return FWD_WG_PER_SM / wgs < by_smem ? FWD_WG_PER_SM / wgs : by_smem;
 }
+// the log-sum-exp grid: the forward's ring of K tiles (no V^T), the owned q
+// rows, the ring's barriers and the q copy's; as many warpgroups an SM as
+// the forward (no P V: fewer registers still; eight were no faster by the
+// A/B of tools/variants.py --f32-split-bwd, PERF.md)
+__host__ __device__ constexpr int lse_smem(int wgs) {
+  return 1024 + FWD_STAGES * FWD_KEYS * ROWB + wgs * WG_ROWS * ROWB +
+         (2 * FWD_STAGES + 1) * 8;
+}
+__host__ __device__ constexpr int lse_min_blocks(int wgs) {
+  const int by_smem = SM_SHARED / (lse_smem(wgs) + 1024);
+  return FWD_WG_PER_SM / wgs < by_smem ? FWD_WG_PER_SM / wgs : by_smem;
+}
 __host__ __device__ constexpr int dkdv_smem(int wgs) {
   return 1024 + 2 * wgs * WG_ROWS * ROWB + DKDV_STAGES * DKDV_STAGE +
          (2 * DKDV_STAGES + 1) * 8;
@@ -156,7 +182,8 @@ inline int64_t bwd_scratch_floats(int64_t bh, int nq, int nk) {
 // ------------------------------------------------------------- images ---
 // One operand of the images launch: rows [B][n][heads * 32] at src (row
 // stride ld) -> its row image and / or transposed image (null: not
-// written), each [BH][np * 32] fp32; with o, also delta[bh * n + i] =
+// written), each [BH][np * 32] fp32 of tf32(src * mul) (the product in
+// fp32; mul = 1 is exact); with o, also delta[bh * n + i] =
 // sum_c src[i, c] o[i, c] (src = do).
 struct ImageJob {
   const float* src;
@@ -165,6 +192,7 @@ struct ImageJob {
   const float* o;
   float* delta;
   int n, np;
+  float mul;
 };
 struct ImageJobs {
   ImageJob job[4];
@@ -190,8 +218,9 @@ __device__ __forceinline__ void images(const ImageJobs& jobs, int64_t ld,
   const int64_t at = (b * job.n + (ok ? n : 0)) * ld + h * D + 4 * c;
   const float4 x = ok ? *reinterpret_cast<const float4*>(job.src + at)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
-  const uint4 u = make_uint4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
-                             tf32_rna(x.w));
+  const float mul = job.mul;
+  const uint4 u = make_uint4(tf32_rna(x.x * mul), tf32_rna(x.y * mul),
+                             tf32_rna(x.z * mul), tf32_rna(x.w * mul));
   const int64_t img = bh * job.np * D;
   if (job.rows != nullptr)
     *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(
@@ -526,8 +555,8 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   float* kimg = scratch;
   float* vimg = scratch + bh * npk * D;
   ImageJobs jobs{};
-  jobs.job[0] = {k, kimg, nullptr, nullptr, nullptr, nk, npk};
-  jobs.job[1] = {v, nullptr, vimg, nullptr, nullptr, nk, npk};
+  jobs.job[0] = {k, kimg, nullptr, nullptr, nullptr, nk, npk, 1.f};
+  jobs.job[1] = {v, nullptr, vimg, nullptr, nullptr, nk, npk, 1.f};
   int err = launch_images(Kernels::images(), jobs, 2, npk, bh, ld, heads,
                           stream);
   if (err != 0) return err;
@@ -829,20 +858,112 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a) {
              a.dq_mul, a.dq_mul);
 }
 
-// The images launch (q, q^T, do, do^T with delta, k, k^T, v), then the
-// dk/dv grid, then the dq grid on `stream`, by the caller's kernels
-// (Kernels::images(), dkdv<WGS>() around dkdv_block<WGS>, dq<WGS>()
-// around dq_block<WGS>). scratch holds
-// bwd_scratch_floats(b * heads, nq, nk) fp32. Returns cudaGetLastError() of
-// the first launch that failed (0 = all launched), or -1 for an empty
-// shape.
-template <typename Kernels>
+struct LseArgs {
+  const float* qr;      // the q row images [BH][npq * 32], q times its factor
+  const float* kr;      // the k row images [BH][npk * 32]
+  float* lse;           // [BH, nq]
+  int nq, nk, npq, npk, tiles;
+};
+
+// Block (batch x head, 64 WGS queries): the row log-sum-exp of its queries
+// over all nk keys of the head (see the file's note), in the base-2 domain
+// of scores already times scale * log2(e); the streaming kernel's rules.
+template <int WGS>
+__device__ __forceinline__ void lse_block(const LseArgs& a) {
+  constexpr int NT = WGS * 128;
+  constexpr int KT = FWD_KEYS;
+  constexpr int TILE = KT * ROWB;             // bytes of a K tile
+  constexpr int OWN = WGS * WG_ROWS * ROWB;   // bytes of the owned q
+  constexpr int S = FWD_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw, 1024);
+  const uint32_t sq = cvta(base), ring = sq + OWN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + OWN + S * TILE);
+  uint64_t* empty = full + S;
+  uint64_t* own = empty + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int64_t bh = blockIdx.x / a.tiles;
+  const int q0 = (blockIdx.x % a.tiles) * WGS * WG_ROWS;
+  const float* kh = a.kr + bh * a.npk * D;
+  const int ntiles = (a.nk + KT - 1) / KT;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], NT);
+      mbar_init(&empty[s], NT);
+    }
+    mbar_init(own, NT);
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers exist before anyone waits on them
+
+  copy_image<OWN / 16, NT>(sq, a.qr + bh * a.npq * D + q0 * D, a.npq - q0,
+                           tid);
+  cp_async_arrive(own);
+  auto issue = [&](int i) {  // the keys of tile i into stage i % S
+    const int s = i % S;
+    if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
+    copy_image<TILE / 16, NT>(ring + s * TILE, kh + i * KT * D,
+                              a.npk - i * KT, tid);
+    cp_async_arrive(&full[s]);
+  };
+  for (int i = 0; i < S - 1 && i < ntiles; ++i) issue(i);
+
+  const uint32_t myq = sq + wg * WG_ROWS * ROWB;
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
+  mbar_wait(own, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % S;
+    mbar_wait(&full[s], (i / S) & 1);
+    if (i + S - 1 < ntiles) issue(i + S - 1);   // into the stage of i - 1
+    fence_async_shared();
+
+    float sc[KT / 2];   // S = q K^T, base 2 as formed
+    wgmma_fence();
+    rows_times_rows<KT>(sc, myq, ring + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(&empty[s]);   // the K tile is read
+
+    float alpha0, alpha1;
+    softmax_scores<KT, true>(sc, m0, m1, alpha0, alpha1, i * KT, a.nk, 1.f,
+                             lane);
+    l0 *= alpha0;
+    l1 *= alpha1;
+    add_row_sums<KT>(sc, l0, l1);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if ((lane & 3) == 0) {
+    const int r = wg * WG_ROWS + ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int valid = a.nq - q0;
+    float* row = a.lse + bh * a.nq + q0;
+    if (r < valid) row[r] = m0 + log2f(fmaxf(l0, 1e-30f));
+    if (r + 8 < valid) row[r + 8] = m1 + log2f(fmaxf(l1, 1e-30f));
+  }
+}
+
+// The images launch (q times q_mul, q^T, do, do^T with delta, k, k^T, v),
+// with LSE the log-sum-exp grid writing lse_out (which the grids then read
+// in place of lse), then the dk/dv grid, then the dq grid on `stream`, by
+// the caller's kernels (Kernels::images(), lse<WGS>() around
+// lse_block<WGS>, dkdv<WGS>() around dkdv_block<WGS>, dq<WGS>() around
+// dq_block<WGS>). scratch holds bwd_scratch_floats(b * heads, nq, nk) fp32.
+// Returns cudaGetLastError() of the first launch that failed (0 = all
+// launched), or -1 for an empty shape or no scratch.
+template <typename Kernels, bool LSE = false>
 int launch_bwd(const float* q, const float* k, const float* v, const float* o,
                const float* dout, const float* lse, float* delta, float* dq,
                float* dk, float* dv, float* scratch, int b, int nq, int nk,
                int heads, int64_t ld, float scale, float scale_log2,
-               float dk_mul, cudaStream_t stream) {
-  if (b < 1 || nq < 1 || nk < 1 || heads < 1) return -1;
+               float dk_mul, cudaStream_t stream, float q_mul = 1.f,
+               float* lse_out = nullptr) {
+  if (b < 1 || nq < 1 || nk < 1 || heads < 1 || scratch == nullptr ||
+      (LSE && lse_out == nullptr))
+    return -1;
   const int64_t bh = static_cast<int64_t>(b) * heads;
   const int npq = pad_rows(nq), npk = pad_rows(nk);
   const int64_t qsz = bh * npq * D, ksz = bh * npk * D;
@@ -854,16 +975,15 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o,
   float* kt = kr + ksz;
   float* vr = kt + ksz;
   ImageJobs jobs{};
-  jobs.job[0] = {q, qr, qt, nullptr, nullptr, nq, npq};
-  jobs.job[1] = {dout, dor, dot, o, delta, nq, npq};
-  jobs.job[2] = {k, kr, kt, nullptr, nullptr, nk, npk};
-  jobs.job[3] = {v, vr, nullptr, nullptr, nullptr, nk, npk};
+  jobs.job[0] = {q, qr, qt, nullptr, nullptr, nq, npq, q_mul};
+  jobs.job[1] = {dout, dor, dot, o, delta, nq, npq, 1.f};
+  jobs.job[2] = {k, kr, kt, nullptr, nullptr, nk, npk, 1.f};
+  jobs.job[3] = {v, vr, nullptr, nullptr, nullptr, nk, npk, 1.f};
   int err = launch_images(Kernels::images(), jobs, 4, npq > npk ? npq : npk,
                           bh, ld, heads, stream);
   if (err != 0) return err;
-  BwdArgs args{qr, qt, dor, dot, kr, kt, vr, lse, delta, dq, dk, dv, ld,
-               nq, nk, npq, npk, heads, 0, scale_log2, dk_mul, scale};
-  auto go = [&](auto kernel, int wgs, int smem, int n) {
+  // a grid of bh x (the owned length in tiles of wgs warpgroups)
+  auto grid = [&](auto kernel, int wgs, int smem, int n, auto& args) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -872,12 +992,23 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o,
              stream>>>(args);
     return static_cast<int>(cudaGetLastError());
   };
+  if constexpr (LSE) {
+    LseArgs la{qr, kr, lse_out, nq, nk, npq, npk, 0};
+    err = wgs_for(nq) == 2
+              ? grid(Kernels::template lse<2>(), 2, lse_smem(2), nq, la)
+              : grid(Kernels::template lse<1>(), 1, lse_smem(1), nq, la);
+    if (err != 0) return err;
+    lse = lse_out;
+  }
+  BwdArgs args{qr, qt, dor, dot, kr, kt, vr, lse, delta, dq, dk, dv, ld,
+               nq, nk, npq, npk, heads, 0, scale_log2, dk_mul, scale};
   err = wgs_for(nk) == 2
-            ? go(Kernels::template dkdv<2>(), 2, dkdv_smem(2), nk)
-            : go(Kernels::template dkdv<1>(), 1, dkdv_smem(1), nk);
+            ? grid(Kernels::template dkdv<2>(), 2, dkdv_smem(2), nk, args)
+            : grid(Kernels::template dkdv<1>(), 1, dkdv_smem(1), nk, args);
   if (err != 0) return err;
-  return wgs_for(nq) == 2 ? go(Kernels::template dq<2>(), 2, dq_smem(2), nq)
-                          : go(Kernels::template dq<1>(), 1, dq_smem(1), nq);
+  return wgs_for(nq) == 2
+             ? grid(Kernels::template dq<2>(), 2, dq_smem(2), nq, args)
+             : grid(Kernels::template dq<1>(), 1, dq_smem(1), nq, args);
 }
 
 }  // namespace hnarrow_f32

@@ -79,8 +79,8 @@ versions, and the wrappers that choose between them by where the tensor lies.
     launch of its own (on ``wgmma``) recomputes the row log-sum-exp from q
     and k, then delta and, in bf16, the packed backward's dk / dv and dq
     grids on one head. Head widths 32, 64 and 80 in bf16, 32 and 512 in
-    fp32 (at 32 the narrow fp32 backward's grids on one head, with its own
-    log-sum-exp launch).
+    fp32 (at 32 the packed fp32 backward's grids on one head, with q times
+    scale * log2(e) in its images and a log-sum-exp grid of its own).
 
 fp32. Each kernel has its own fp32 head widths (``F32_HEAD_DIMS``): 512 for
 the split-head forward, the streaming forward and both their backward
@@ -93,13 +93,12 @@ gradient GEMMs joined by P and dS in scratch from ``wide_f32_bwd_plan``),
 and 32 for the split-head, packed and streaming forwards, their backward
 kernels and the fused-projection kernel (the UNet of
 ``mead-128-ldm-f4.yaml``, which sets no dtype: the packed pair and the
-split-head and streaming forwards on TF32 ``wgmma``,
+split-head and streaming pairs on TF32 ``wgmma``,
 ``csrc/hopper_narrow_f32.cuh``, an images launch writing the rounded and
 transposed operands into scratch from ``narrow_f32_plan`` first, the
-streaming forward with its own roundings and its cut of the keys over
-``streaming_splits`` blocks; where both lengths are at most 64 those four,
-and the split-head and streaming backwards at every length,
-``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
+streaming pair with its own roundings, the forward's cut of the keys over
+``streaming_splits`` blocks and the backward's log-sum-exp grid; where both
+lengths are at most 64 all six on ``csrc/attention_f32_narrow.cuh``). Both run in fp32 as the JAX
 package's do, and multiply on the tensor cores in TF32 (operands rounded
 once, fp32 accumulation and softmax). The q/out-fused kernel takes bf16
 only.
@@ -304,18 +303,19 @@ def wide_f32_bwd_plan(bh: int, nq: int, nk: int) -> WideF32BwdPlan:
                        + d * (2 * nq + 2 * nk)),))
 
 
-# The fp32 D = 32 packed rows 3 and 8 and the split-head and streaming
-# forwards of rows 2 and 4 (csrc/hopper_narrow_f32.cuh): an images launch
+# The fp32 D = 32 packed rows 3 and 8, the split-head rows 2 and 7 and the
+# streaming rows 4 and 5 (csrc/hopper_narrow_f32.cuh): an images launch
 # writes the operands rounded to TF32, and transposed where a product
 # contracts over keys or queries, as tile images into scratch; then the
-# forward, or the dk/dv and dq grids, stream them on TF32 wgmma. Its
-# constants, mirrored here so that the CPU tests reach the plan
+# forward, or (row 5: after its log-sum-exp grid) the dk/dv and dq grids,
+# stream them on TF32 wgmma. Its constants, mirrored here so that the CPU
+# tests reach the plan
 NARROW_F32_HEAD_DIM = 32
 NARROW_F32_PAD = 64                    # rows an image's length is padded to
 NARROW_F32_WG_ROWS = 64                # rows a warpgroup owns
 NARROW_F32_FWD_KEYS = 64               # keys of a forward K / V^T tile
 NARROW_F32_MMA_SYNC_MAX = 64           # both lengths at most: mma.sync grids
-NARROW_F32_FWD_WG_PER_SM = 6           # the forward: three blocks of two
+NARROW_F32_FWD_WG_PER_SM = 6           # the forward and row 5's lse grid
 NARROW_F32_FWD_STAGES = 3              # K / V^T tiles of the forward's ring
 NARROW_F32_DKDV_STAGES = 2             # q, do, q^T, do^T, lse, delta
 NARROW_F32_DQ_STAGES = 3               # k, v, k^T
@@ -324,18 +324,21 @@ NARROW_F32_IMG_ROWS = 32               # rows of an images block
 
 
 class NarrowF32Plan(NamedTuple):
-    """The launches of the fp32 D = 32 forward (packed, split-head or
-    streaming) and packed backward for ``bh`` heads: ``mma_sync`` where the
-    entries keep ``attention_f32_narrow.cuh``'s grids (the rest then
-    describes the launches they do not make); ``padded`` the image lengths
-    (Nq, Nk padded); ``fwd`` (blocks, threads, keys a tile, shared memory);
-    ``dkdv`` and ``dq`` (blocks, threads, shared memory); the fp32 scratch
-    of a forward and of a backward call (their images); the streaming
-    forward's ``splits`` of the keys (its grid's y, each split
-    ``keys_per_split`` keys; one split of every key elsewhere)."""
+    """The launches of the fp32 D = 32 forwards (packed, split-head or
+    streaming) and backwards (packed, split-head or streaming) for ``bh``
+    heads: ``mma_sync`` where the entries keep ``attention_f32_narrow.cuh``'s
+    grids (the rest then describes the launches they do not make);
+    ``padded`` the image lengths (Nq, Nk padded); ``fwd`` (blocks, threads,
+    keys a tile, shared memory); ``lse``, the streaming backward's
+    log-sum-exp grid, and ``dkdv`` and ``dq`` (blocks, threads, shared
+    memory); the fp32 scratch of a forward call and of a backward call of
+    rows 7, 5 and 8 (their images); the streaming forward's ``splits`` of
+    the keys (its grid's y, each split ``keys_per_split`` keys; one split of
+    every key elsewhere)."""
     mma_sync: bool
     padded: Tuple[int, int]
     fwd: Tuple[int, int, int, int]
+    lse: Tuple[int, int, int]
     dkdv: Tuple[int, int, int]
     dq: Tuple[int, int, int]
     fwd_scratch: int
@@ -370,6 +373,9 @@ def narrow_f32_plan(bh: int, nq: int, nk: int,
         fwd=(bh * -(-nq // (wgs(nq) * rows)), wgs(nq) * 128, keys,
              1024 + NARROW_F32_FWD_STAGES * 2 * keys * 128
              + wgs(nq) * rows * 128 + 2 * NARROW_F32_FWD_STAGES * 8),
+        lse=(bh * -(-nq // (wgs(nq) * rows)), wgs(nq) * 128,
+             1024 + NARROW_F32_FWD_STAGES * keys * 128
+             + wgs(nq) * rows * 128 + (2 * NARROW_F32_FWD_STAGES + 1) * 8),
         dkdv=(bh * -(-nk // (wgs(nk) * rows)), wgs(nk) * 128,
               1024 + own(nk) + NARROW_F32_DKDV_STAGES * (4 * tile + 1024)
               + (2 * NARROW_F32_DKDV_STAGES + 1) * 8),
@@ -617,35 +623,40 @@ def _entry(kernel: str, t: torch.Tensor, d: int) -> str:
 _SPLIT_HEAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _f32_scratch(q, nk: int, splits: int = 1) -> tuple:
-    """The scratch argument of an fp32 forward entry, its tile images: at
-    D = 512 ``wide_f32_plan``'s, at D = 32 ``narrow_f32_plan``'s (none
-    where the plan keeps the ``mma.sync`` grids); nothing for bf16, whose
-    entries take no scratch."""
+def _narrow_f32_scratch(q, bh: int, nq: int, nk: int, which: str) -> tuple:
+    """The scratch argument of an fp32 D = 32 entry (its tile images,
+    ``narrow_f32_plan``'s ``which``: ``fwd_scratch`` or ``bwd_scratch``;
+    None where the plan keeps the ``mma.sync`` grids); nothing for bf16,
+    whose entries take no scratch."""
     if q.dtype != torch.float32:
         return ()
+    plan = narrow_f32_plan(bh, nq, nk)
+    if plan.mma_sync:   # the mma.sync grids read no images
+        return (None,)
+    return (torch.empty(getattr(plan, which), dtype=torch.float32,
+                        device=q.device),)
+
+
+def _f32_scratch(q, nk: int, splits: int = 1) -> tuple:
+    """The scratch argument of a split-head fp32 forward entry, its tile
+    images: at D = 512 ``wide_f32_plan``'s, at D = 32 ``narrow_f32_plan``'s
+    (``_narrow_f32_scratch``); nothing for bf16."""
     b, h, nq, d = q.shape
-    if d == WIDE_F32_HEAD_DIM:
-        shape = wide_f32_plan(b * h, nq, nk, splits).scratch
-    else:
-        plan = narrow_f32_plan(b * h, nq, nk)
-        if plan.mma_sync:   # the mma.sync grids read no images
-            return (None,)
-        shape = plan.fwd_scratch
-    return (torch.empty(shape, dtype=torch.float32, device=q.device),)
+    if q.dtype == torch.float32 and d == WIDE_F32_HEAD_DIM:
+        return (torch.empty(wide_f32_plan(b * h, nq, nk, splits).scratch,
+                            dtype=torch.float32, device=q.device),)
+    return _narrow_f32_scratch(q, b * h, nq, nk, "fwd_scratch")
 
 
 def _f32_bwd_scratch(q, nk: int) -> tuple:
-    """The scratch argument of an fp32 backward entry (``wide_f32_bwd_plan``
-    at D = 512; none at D = 32); nothing for bf16, whose entries take no
-    scratch."""
-    if q.dtype != torch.float32:
-        return ()
+    """The scratch argument of a split-head fp32 backward entry: at D = 512
+    ``wide_f32_bwd_plan``'s, at D = 32 ``narrow_f32_plan``'s images
+    (``_narrow_f32_scratch``); nothing for bf16."""
     b, h, nq, d = q.shape
-    if d != WIDE_F32_HEAD_DIM:
-        return (None,)
-    return (torch.empty(wide_f32_bwd_plan(b * h, nq, nk).scratch,
-                        dtype=torch.float32, device=q.device),)
+    if q.dtype == torch.float32 and d == WIDE_F32_HEAD_DIM:
+        return (torch.empty(wide_f32_bwd_plan(b * h, nq, nk).scratch,
+                            dtype=torch.float32, device=q.device),)
+    return _narrow_f32_scratch(q, b * h, nq, nk, "bwd_scratch")
 
 
 def _launch_flash_forward(q, k, v, scale: float, want_lse: bool):
@@ -1068,19 +1079,6 @@ def packed_bwd_kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
     return head_dim in _head_dims("flash_attention_bwd_packed", dtype)
 
 
-def _packed_f32_scratch(q, bh: int, nq: int, nk: int, which: str) -> tuple:
-    """The scratch argument of an fp32 packed entry (its tile images,
-    ``narrow_f32_plan``'s ``which``: ``fwd_scratch`` or ``bwd_scratch``);
-    nothing for bf16, whose entries take no scratch."""
-    if q.dtype != torch.float32:
-        return ()
-    plan = narrow_f32_plan(bh, nq, nk)
-    if plan.mma_sync:   # the mma.sync grids read no images
-        return (None,)
-    return (torch.empty(getattr(plan, which), dtype=torch.float32,
-                        device=q.device),)
-
-
 def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     """Check, launch and count the packed forward kernel; ``want_lse`` as in
     ``_launch_flash_forward`` ([B*H*Nq] fp32)."""
@@ -1095,7 +1093,7 @@ def _launch_packed_forward(q, k, v, heads: int, scale: float, want_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty(b * heads * nq, dtype=torch.float32, device=q.device)
            if want_lse else None)
-    scratch = _packed_f32_scratch(q, b * heads, nq, k.shape[1], "fwd_scratch")
+    scratch = _narrow_f32_scratch(q, b * heads, nq, k.shape[1], "fwd_scratch")
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -1127,7 +1125,7 @@ def flash_attention_bwd_packed(q: torch.Tensor, k: torch.Tensor,
     launch = getattr(_build.load(), entry)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    scratch = _packed_f32_scratch(q, b * heads, nq, k.shape[1], "bwd_scratch")
+    scratch = _narrow_f32_scratch(q, b * heads, nq, k.shape[1], "bwd_scratch")
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -48,7 +48,9 @@
            the fp32 packed forward (images, attention) and backward
            (images with delta, dk / dv grid, dq grid) at [32, 1024, 5 x 32],
            and the fp32 split-head and streaming forwards (images,
-           attention) at [32, 5, 1024, 32]
+           attention) and backwards (images with delta, the streaming
+           one's log-sum-exp grid, dk / dv grid, dq grid) at
+           [32, 5, 1024, 32]
 --ae CFG   first-stage training steps of an autoencoder config
            (configs/autoencoder/vqgan-f4.yaml or kl-f4.yaml: fp32, batch 16,
            128 px, random weights and LPIPS from seed 0, disc_start 0 so
@@ -188,6 +190,10 @@ def gate(smi: str):
 
 
 _FAMILIES = (
+    # row 5's fp32 D = 32 log-sum-exp grid past the N = 64 level
+    # (hopper_narrow_f32.cuh on split heads)
+    ("streaming_bwd_lse_f32_kernel",
+     "attention backward: streaming log-sum-exp"),
     # the fp32 D = 32 split-head and streaming forwards of rows 2 and 4 past
     # the N = 64 level (hopper_narrow_f32.cuh on split heads)
     ("split_images_f32_kernel",
@@ -197,13 +203,14 @@ _FAMILIES = (
      "attention: streaming (fp32 D = 32: images)"),
     ("streaming_attention_f32_kernel", "attention: streaming (fp32 D = 32)"),
     # the fp32 D = 32 packed rows 3 and 8 (hopper_narrow_f32.cuh's images
-    # and TF32 wgmma grids, or attention_f32_narrow.cuh's at N <= 64)
+    # and TF32 wgmma grids, or attention_f32_narrow.cuh's at N <= 64), and
+    # the backward grids of rows 7 and 5 (packed_, split_, streaming_bwd_*)
     ("packed_images_f32_kernel", "attention: packed (fp32 D = 32: images)"),
-    ("packed_bwd_images_f32_kernel",
+    ("bwd_images_f32_kernel",
      "attention backward: fp32 D = 32 images + delta"),
     ("packed_attention_f32", "attention: packed (fp32 D = 32)"),
-    ("packed_bwd_dkdv_f32", "attention backward: dk / dv grid"),
-    ("packed_bwd_dq_f32", "attention backward: dq grid"),
+    ("bwd_dkdv_f32_kernel", "attention backward: dk / dv grid"),
+    ("bwd_dq_f32_kernel", "attention backward: dq grid"),
     # the other fp32 D = 32 kernels (flash_attention_fproj.cu's TF32 wgmma
     # pair, attention_f32_narrow.cuh)
     ("fproj_qkv_tf32_kernel", "attention: fproj (fp32 D = 32: projections)"),
@@ -324,8 +331,8 @@ def split(smi: str, calls: int = 10):
         q, k, v = (rnd(b, n, heads * d, dtype=dtype) for _ in range(3))
         return lambda: A.flash_attention_packed(q, k, v, heads)
 
-    def streaming_bwd(b, h, n, d):
-        q, k, v, do = (rnd(b, h, n, d) for _ in range(4))
+    def streaming_bwd(b, h, n, d, dtype=torch.bfloat16):
+        q, k, v, do = (rnd(b, h, n, d, dtype=dtype) for _ in range(4))
         out = A.flash_attention_streaming(q, k, v)
         return lambda: A.flash_attention_streaming_bwd(q, k, v, out, do)
 
@@ -333,8 +340,8 @@ def split(smi: str, calls: int = 10):
         q, k, v = (rnd(b, h, n, d, dtype=dtype) for _ in range(3))
         return lambda: A.flash_attention(q, k, v)
 
-    def flash_bwd(b, h, n, d):
-        q, k, v, do = (rnd(b, h, n, d) for _ in range(4))
+    def flash_bwd(b, h, n, d, dtype=torch.bfloat16):
+        q, k, v, do = (rnd(b, h, n, d, dtype=dtype) for _ in range(4))
         scale = d ** -0.5
         out, lse = A._launch_flash_forward(q, k, v, scale, True)
         return lambda: A.flash_attention_bwd(q, k, v, out, lse, do, scale)
@@ -401,7 +408,12 @@ def split(smi: str, calls: int = 10):
              ("flash_attention", [32, 5, 1024, 1024, 32, "float32"],
               flash(32, 5, 1024, 32, torch.float32)),
              ("flash_attention_streaming", [32, 5, 1024, 1024, 32, "float32"],
-              streaming(32, 5, 1024, 1024, 32, torch.float32))]
+              streaming(32, 5, 1024, 1024, 32, torch.float32)),
+             ("flash_attention_bwd", [32, 5, 1024, 1024, 32, "float32"],
+              flash_bwd(32, 5, 1024, 32, torch.float32)),
+             ("flash_attention_streaming_bwd",
+              [32, 5, 1024, 1024, 32, "float32"],
+              streaming_bwd(32, 5, 1024, 32, torch.float32))]
     with torch.no_grad():
         for name, shape, fn in cases:
             for _ in range(3):

@@ -144,6 +144,23 @@ plain versions, and a second call must give the same bits. Both trees'
 entries take the scratch of ``narrow_f32_plan`` (a tree that reads none at
 D = 32 ignores it).
 
+    python -m dsml_thesis_tpu_torch.tools.variants --f32-split-bwd \
+        [--only TEXT] '{"parent": [["flash_attention_bwd.cu", "",
+                      "_ab/parent/.../flash_attention_bwd.cu"], ...],
+          "new": []}'
+
+``--f32-split-bwd`` builds ``flash_attention_bwd.cu`` and
+``flash_attention_streaming_bwd.cu`` alone and times their fp32 D = 32
+backwards (rows 7 and 5 of PERF.md's kernel table: mead-128-ldm-f4's
+split-head and streaming routes in training) at ``F32_SPLIT_BWD_SHAPES``:
+the three levels of a ``train-mead128-split`` step (batch 32) and ragged
+ones; each with ``device_ms`` and ``device_by_kernel`` (the images,
+log-sum-exp, delta, dk/dv and dq launches). Row 7 runs on the plain
+forward's output and row log-sum-exp, row 5 on the plain streaming
+forward's output; dq, dk and dv are held against the plain versions, and a
+second call must give the same bits. Both trees' entries take the scratch
+of ``narrow_f32_plan`` (a tree that reads none at D = 32 ignores it).
+
     python -m dsml_thesis_tpu_torch.tools.variants --f32-attn --wrapper
 
 ``--wrapper`` builds nothing of its own and times the same D = 32 forwards
@@ -256,6 +273,19 @@ F32_SPLIT_SHAPES = ((32, 5, 1024, 1024, 32), (16, 5, 1024, 1024, 32),
                     (2, 5, 333, 77, 32), (2, 3, 200, 129, 32),
                     (3, 5, 65, 129, 32), (2, 2, 100, 50, 32),
                     (1, 2, 100, 2000, 32))
+# what --f32-split-bwd builds and times: [B, H, Nq, Nk, D] at D = 32, the
+# three levels of a train-mead128-split step (batch 32), then ragged ones
+# (Nk != Nq, Nk just past a 128-key span, Nq just past a warpgroup, Nq < 64
+# < Nk, Nk < 64 < Nq, long K)
+F32_SPLIT_BWD_SOURCES = ("flash_attention_bwd.cu",
+                         "flash_attention_streaming_bwd.cu")
+F32_SPLIT_BWD_ENTRIES = ("dsml_flash_attention_bwd_f32",
+                         "dsml_flash_attention_streaming_bwd_f32")
+F32_SPLIT_BWD_SHAPES = ((32, 5, 1024, 1024, 32), (32, 10, 256, 256, 32),
+                        (32, 20, 64, 64, 32), (2, 5, 333, 77, 32),
+                        (2, 3, 200, 129, 32), (3, 5, 65, 129, 32),
+                        (2, 2, 50, 200, 32), (2, 2, 100, 50, 32),
+                        (1, 2, 100, 2000, 32))
 # what --wide-attn builds and times
 WIDE_SOURCES = ("flash_attention.cu", "flash_attention_streaming.cu")
 WIDE_ENTRIES = ("dsml_flash_attention", "dsml_flash_attention_streaming")
@@ -583,6 +613,8 @@ def cases() -> dict:
         return f32_packed_cases(rel, stream)
     if F32_SPLIT_ONLY:
         return f32_split_cases(rel, stream)
+    if F32_SPLIT_BWD_ONLY:
+        return f32_split_bwd_cases(rel, stream)
     if WIDE_ONLY:
         return {f"{kind} {_tag(shape)}": {"flash": flash,
                                           "streaming": streaming}[kind](*shape)
@@ -764,6 +796,26 @@ def f32_cases(rel, stream) -> dict:
     return out
 
 
+def _repeatable(call, outs, refs, rel):
+    """(call, err) of a case whose error also asks for equal bits: err runs
+    the library of the last call once more, and reads inf where ``outs``
+    change, else the worst relative error of ``outs`` against ``refs``."""
+    last = {}
+
+    def keep(lib):
+        last["lib"] = lib
+        return call(lib)
+
+    def err():
+        first = [t.clone() for t in outs]
+        call(last["lib"])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, t) for a, t in zip(first, outs)):
+            return float("inf")
+        return max(rel(a, r) for a, r in zip(outs, refs))
+    return keep, err
+
+
 def f32_packed_cases(rel, stream) -> dict:
     """The fp32 D = 32 packed cases of ``--f32-packed`` (see the module's
     note): the forward (o and its row log-sum-exp) and the backward (on the
@@ -816,20 +868,7 @@ def f32_packed_cases(rel, stream) -> dict:
         for kind, call, outs, refs in (
                 ("packed", fwd, (o, lse), (o_ref, lse_ref)),
                 ("bwd_packed", bwd, grads, grads_ref)):
-            last = {}
-
-            def keep(lib, call=call, last=last):
-                last["lib"] = lib
-                return call(lib)
-
-            def err(call=call, outs=outs, refs=refs, last=last):
-                first = [t.clone() for t in outs]
-                call(last["lib"])
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, t) for a, t in zip(first, outs)):
-                    return float("inf")
-                return max(rel(a, r) for a, r in zip(outs, refs))
-            out[f"{kind} f32 {tag}"] = (keep, err)
+            out[f"{kind} f32 {tag}"] = _repeatable(call, outs, refs, rel)
     return out
 
 
@@ -879,22 +918,61 @@ def f32_split_cases(rel, stream) -> dict:
                         scratch.data_ptr(), bh, nq, nk, 32, splits,
                         A._folded_factor(32 ** -0.5, torch.float32),
                         stream())
-            last = {}
-
-            def keep(lib, call=call, last=last):
-                last["lib"] = lib
-                return call(lib)
-
-            def err(call=call, outs=outs, refs=refs, last=last):
-                first = [t.clone() for t in outs]
-                call(last["lib"])
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, t) for a, t in zip(first, outs)):
-                    return float("inf")
-                return max(rel(a, r) for a, r in zip(outs, refs))
             out[f"{kind} f32 {_tag(shape)}"
                 + (f" {splits} splits" if kind == "streaming" and splits > 1
-                   else "")] = (keep, err)
+                   else "")] = _repeatable(call, outs, refs, rel)
+    return out
+
+
+def f32_split_bwd_cases(rel, stream) -> dict:
+    """The fp32 D = 32 split-head and streaming backward cases of
+    ``--f32-split-bwd`` (see the module's note): dq, dk and dv against the
+    plain versions, and the same bits from a second call."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for shape in F32_SPLIT_BWD_SHAPES:
+        b, h, nq, nk, d = shape
+        q, do = (torch.randn(b, h, nq, d, generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, nk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        scale = d ** -0.5
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+        lse = (torch.logsumexp(s, dim=-1) * A.LOG2E).reshape(-1)
+        # delta reaches the entries by its address alone: each call keeps
+        # it (and the scratch) alive as a default argument
+        delta = torch.empty(b * h * nq, device="cuda")
+        scratch = torch.empty(A.narrow_f32_plan(b * h, nq, nk).bwd_scratch,
+                              device="cuda")
+        for kind in ("flash_bwd", "streaming_bwd"):
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            ptrs = (delta.data_ptr(), *(g.data_ptr() for g in grads),
+                    b * h, nq, nk, d, scale)
+            if kind == "flash_bwd":
+                o = A.attention_reference(q, k, v, scale=scale)
+                refs = A.flash_attention_bwd_reference(q, k, v, do,
+                                                       scale=scale)
+
+                def call(lib, q=q, k=k, v=v, o=o, do=do, lse=lse, ptrs=ptrs,
+                         delta=delta, scratch=scratch):
+                    return lib.dsml_flash_attention_bwd_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), do.data_ptr(), lse.data_ptr(), *ptrs,
+                        scratch.data_ptr(), stream())
+            else:
+                o = A.streaming_attention_reference(q, k, v, scale=scale)
+                refs = A.streaming_bwd_reference(q, k, v, o, do, scale=scale)
+                lse_out = torch.empty(b * h * nq, device="cuda")
+
+                def call(lib, q=q, k=k, v=v, o=o, do=do, lse=lse_out,
+                         ptrs=ptrs, delta=delta, scratch=scratch):
+                    return lib.dsml_flash_attention_streaming_bwd_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), do.data_ptr(), lse.data_ptr(), *ptrs,
+                        A._folded_factor(32 ** -0.5, torch.float32),
+                        scratch.data_ptr(), stream())
+            out[f"{kind} f32 {_tag(shape)}"] = _repeatable(call, grads, refs,
+                                                          rel)
     return out
 
 
@@ -1064,6 +1142,7 @@ GN_STATS_ONLY = False     # set by --gn-stats
 F32_FPROJ_ONLY = False    # set by --f32-fproj
 F32_PACKED_ONLY = False   # set by --f32-packed
 F32_SPLIT_ONLY = False    # set by --f32-split
+F32_SPLIT_BWD_ONLY = False   # set by --f32-split-bwd
 
 
 def card() -> str:
@@ -1076,7 +1155,7 @@ def card() -> str:
 
 def main():
     global CONV_GN_ONLY, F32_ONLY, WIDE_ONLY, GN_STATS_ONLY, F32_FPROJ_ONLY
-    global F32_PACKED_ONLY, F32_SPLIT_ONLY
+    global F32_PACKED_ONLY, F32_SPLIT_ONLY, F32_SPLIT_BWD_ONLY
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -1102,6 +1181,9 @@ def main():
     if "--f32-split" in args:
         args.remove("--f32-split")
         F32_SPLIT_ONLY = True
+    if "--f32-split-bwd" in args:
+        args.remove("--f32-split-bwd")
+        F32_SPLIT_BWD_ONLY = True
     wrapper = "--wrapper" in args
     if wrapper:
         args.remove("--wrapper")
@@ -1133,6 +1215,8 @@ def main():
                        if F32_PACKED_ONLY else
                        (F32_SPLIT_SOURCES, F32_SPLIT_ENTRIES)
                        if F32_SPLIT_ONLY else
+                       (F32_SPLIT_BWD_SOURCES, F32_SPLIT_BWD_ENTRIES)
+                       if F32_SPLIT_BWD_ONLY else
                        (SOURCES, ENTRIES)), ptxas=ptxas)
         todo, iters = cases(), 20
     names = list(libs)
@@ -1160,7 +1244,8 @@ def main():
             if CONV_GN_ONLY:
                 res[name]["device_ms"] = device_ms(lambda: call(libs[name]))
             if (F32_ONLY or WIDE_ONLY or GN_STATS_ONLY or F32_FPROJ_ONLY
-                    or F32_PACKED_ONLY or F32_SPLIT_ONLY):
+                    or F32_PACKED_ONLY or F32_SPLIT_ONLY
+                    or F32_SPLIT_BWD_ONLY):
                 # and by kernel (lse, combine, the two launches, ..)
                 kernels = device_kernels_ms(lambda: call(libs[name]))
                 res[name]["device_ms"] = sum(kernels.values())

@@ -15,8 +15,8 @@ first-stage training) as redesigned for Hopper on TF32 ``wgmma``
   the two rows: the grids, shared memory, chunks of keys and scratch; its
   constants against the header's.
 * The backward entries get the arguments their C signatures declare: a
-  scratch of the plan's size before the stream at fp32 D = 512, none at
-  D = 32, no such argument in bf16.
+  scratch of the plan's size before the stream at fp32 (D = 512, and
+  ``narrow_f32_plan``'s images at D = 32), no such argument in bf16.
 * ``chip_smoke.expected_ae_launches`` of the real ``vqgan-f4.yaml`` and
   ``kl-f4.yaml`` (meta device) under ``ae-vq``, ``ae-kl`` and
   ``ae-vq-streaming``: one backward launch an AttnBlock a step, as before.
@@ -193,8 +193,10 @@ def test_backward_calls_its_entry_by_its_signature(streaming, dtype, d,
                                                    shape, monkeypatch):
     """The backward entries get as many arguments as ``_build.SIGNATURES``
     declares, the head count, lengths and width after the ten tensors and
-    the stream last; at fp32 D = 512 a scratch of the plan's size just
-    before the stream, None there at D = 32, no such argument in bf16."""
+    the stream last; at fp32 a scratch of the plan's size just before the
+    stream (``wide_f32_bwd_plan`` at D = 512, ``narrow_f32_plan``'s images at
+    D = 32, None where that plan keeps the mma.sync grids), no such argument
+    in bf16."""
     kernel = ("flash_attention_streaming_bwd" if streaming
               else "flash_attention_bwd")
     monkeypatch.setitem(tatt.LAUNCHES, kernel, 0)
@@ -233,7 +235,13 @@ def test_backward_calls_its_entry_by_its_signature(streaming, dtype, d,
         assert [tuple(t.shape) for t in scratch].count(want) == 1
         assert isinstance(args[-2], int)
     elif dtype == torch.float32:
-        assert args[-2] is None
+        plan = tatt.narrow_f32_plan(b * h, nq, nk)
+        if plan.mma_sync:
+            assert args[-2] is None
+        else:
+            want = (plan.bwd_scratch,)
+            assert [tuple(t.shape) for t in scratch].count(want) == 1
+            assert isinstance(args[-2], int)
     else:
         assert isinstance(args[-2], float)
         assert len(args) == 16 + streaming
