@@ -28,7 +28,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
            frames at the config's frame size, DDIM-50, guidance 2.0, in
-           fourteen runs:
+           fifteen runs:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
@@ -54,8 +54,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
              mead128-epilogue  mead-128-ldm-f4, DSML_GN_EPILOGUE=1 (row 11
                              at its widths, the Cin = 9 stem and the 8 x 8
                              level), one batch
+             mead128-stats   mead-128-ldm-f4, DSML_PALLAS_GN=stats (row 10
+                             at the fp32 UNet's shapes), one batch
+           then in two runs DPM-Solver++ multistep (the fewer-steps
+           serving mode, --sampler dpm) in place of DDIM-50:
+             headline-dpm20  headline config, order 2, 20 UNet calls a frame
+             mead128-dpm10   mead-128-ldm-f4, order 3, 10 UNet calls a frame
+                             (update orders 1, 2, 3, 3, 3, 3, 3, 3, 2, 1)
            each checks shapes, finiteness, range, launch counts, and that
            (seed, batch index) reproduces a batch bit for bit
+  samplers one mead128-dpm10 batch's latents (8 clips, F frames) through the
+           kernels against the same batch through every kernel's plain
+           version, same seed (tolerance 1e-2 of the latents' maximum);
+           every sampler of diffusion/ (DPM-Solver++ multistep, singlestep,
+           singlestep_fixed, adaptive, 2M; PLMS; DDPM; DDIM with a mask,
+           with intermediates, inversion, reverse, manipulation,
+           stochastic_encode; tiled_apply) on the card against itself on
+           the CPU on closed-form models at [8, 32, 32, 3] (1e-5 of each
+           output's maximum, the adaptive iterations equal); then through
+           mead-128-ldm-f4's fp32 UNet at batch 8, full width, a few steps
+           each: PLMS (4 steps), DPM singlestep (6 evaluations, order 3),
+           adaptive (order 2, at most 3 iterations), ddim_invert then
+           ddim_reverse_from, a masked ddim_sample, one tiled UNet call and
+           decode (9 patches of 16 x 16 latents, also against the plain
+           path) and ddpm_p_sample_loop on a schedule cut to T = 20; each
+           checked for shape, finiteness and launch counts
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
            real shapes (the config's frame size, audio [17, 768]) and the
            YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
@@ -1297,12 +1320,15 @@ def count_fused_convs(net, mode):
     return n
 
 
-def expected_launches(ldm, env, unet_calls, encodes, decodes):
+def expected_launches(ldm, env, unet_calls, encodes, decodes, latent=None):
     """Launches of every kernel for a number of UNet calls, first-stage
     encodes and decodes under a flag set, from the model's own blocks. Under
     DSML_ATTN_PACKED=0 every UNet self-attention splits its heads and goes
-    to the split-head forward (or the streaming one)."""
-    short, long = count_attentions(ldm.unet, ldm.image_size)
+    to the split-head forward (or the streaming one). ``latent`` is the
+    UNet's latent size where it is not the config's (a tiled call's
+    patches)."""
+    latent = latent or ldm.image_size
+    short, long = count_attentions(ldm.unet, latent)
     fs = ldm.first_stage
     gn_mode = env.get("DSML_PALLAS_GN", "0")
     epilogue = env.get("DSML_GN_EPILOGUE", "0")
@@ -1321,7 +1347,7 @@ def expected_launches(ldm, env, unet_calls, encodes, decodes):
     if not packed:
         split_head += unet_calls * (short + long)
         if stream_mode == "auto":
-            auto = unet_calls * count_auto_streams(ldm.unet, ldm.image_size)
+            auto = unet_calls * count_auto_streams(ldm.unet, latent)
     return {
         "flash_attention": 0 if streaming else split_head - auto,
         "flash_attention_streaming": split_head if streaming else auto,
@@ -1416,20 +1442,27 @@ def phase_model(name, ldm, env):
         fail(f"model: kernel path and plain path disagree: {out}")
 
 
-def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
+def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0,
+                dpm=None):
     """One serve run: ``n_requests`` single-clip requests through a
-    MicroBatcher of batch 8 under a flag set. Returns the launch counts of
-    the served requests alone."""
+    MicroBatcher of batch 8 under a flag set, DDIM-50, or with ``dpm`` =
+    (evals, order) DPM-Solver++ multistep (``evals`` UNet calls a frame).
+    Returns the launch counts of the served requests alone."""
     from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
                                                  make_video_pipeline)
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
 
-    batch, steps, guidance, window = 8, 50, 2.0, 8
+    batch, guidance, window = 8, 2.0, 8
+    steps = 50 if dpm is None else dpm[0]   # UNet calls a frame
     size = image_size(cfg)
     device = torch.device("cuda")
-    ddim = make_ddim_schedule(ldm.schedule, steps, eta=0.0)
-    pipeline = make_video_pipeline(ldm, ddim, window, guidance_scale=guidance)
+    ddim = make_ddim_schedule(ldm.schedule, 50, eta=0.0)
+    chain = ({"sampler": "ddim"} if dpm is None else
+             {"sampler": "dpm", "sampler_steps": dpm[0],
+              "sampler_order": dpm[1]})
+    pipeline = make_video_pipeline(ldm, ddim, window, guidance_scale=guidance,
+                                   **chain)
     runner = make_pipeline_runner(pipeline, seed=seed, device=device)
 
     log = []  # (batch_index, inputs, output, seconds) of every dispatched batch
@@ -1480,8 +1513,8 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
 
     n_batches = n_requests // batch
     # a batch: one encode of the B*F masked frames and one of the B identity
-    # frames, one UNet call a DDIM step and frame (the guidance pair is
-    # deduplicated inside the call), one decode a frame
+    # frames, one UNet call a DDIM step (or DPM evaluation) and frame (the
+    # guidance pair is deduplicated inside the call), one decode a frame
     expect = expected_launches(ldm, env, unet_calls=n_batches * frames * steps,
                                encodes=2 * n_batches,
                                decodes=n_batches * frames)
@@ -1501,8 +1534,9 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
     secs = [round(s, 3) for *_, s in log]
     emit({"phase": "serve", "run": name,
           "config": os.path.relpath(cfg["path"], HERE), "flags": env,
-          "card": smi, "batch": batch, "frames": frames, "ddim_steps": steps,
-          "guidance": guidance, "requests": n_requests, "checks": checks,
+          "card": smi, "batch": batch, "frames": frames, **chain,
+          "unet_calls_per_frame": steps, "guidance": guidance,
+          "requests": n_requests, "checks": checks,
           "launches": launches, "launches_expected": expect,
           "seconds_per_batch": secs, "wall_seconds": round(wall, 3),
           "frames_per_s": round(n_requests * frames / wall, 4),
@@ -1510,6 +1544,309 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0):
     if not all(checks.values()):
         fail(f"serve {name}: checks failed: {checks}")
     return launches
+
+
+# Latents of one served batch through DPM-Solver++ on the kernel path against
+# the plain path: the fp32 UNet's TF32 attention against fp32 plain versions
+# (5.6e-5 of a UNet call's maximum), carried through ten evaluations whose
+# x0-prediction divides by alpha_t (0.0064 at t = 1) and through the
+# identity carry: 1e-2 of the latents' maximum. A wrong kernel moves latents
+# by their own scale.
+DPM_LATENT_REL_TOL = 1e-2
+# The samplers on the card against themselves on the CPU, closed-form models:
+# the same fp32 operations, reductions and transcendental functions in
+# another order or another libm.
+SAMPLER_REL_TOL = 1e-5
+
+
+def phase_dpm_latents(name, cfg, ldm, env, frames, dpm, seed=0):
+    """One served batch's latents (8 clips, ``frames`` frames, DPM-Solver++
+    of ``dpm`` = (evals, order), guidance 2.0) through the kernels and
+    through every kernel's plain version, from the same seed."""
+    from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
+                                                 make_video_pipeline)
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    device = torch.device("cuda")
+    pipe = make_video_pipeline(
+        ldm, make_ddim_schedule(ldm.schedule, 50, eta=0.0), 8,
+        guidance_scale=2.0, decode=False, sampler="dpm",
+        sampler_steps=dpm[0], sampler_order=dpm[1])
+    size = image_size(cfg)
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=device)
+    inputs = (r(8, frames, size, size, 3).clamp(-1, 1),
+              r(8, frames + 8, c2["subspace_dim"]),
+              r(8, size, size, 3).clamp(-1, 1),
+              torch.arange(8, device=device) % 8)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        out = pipe(*inputs, gen)
+        torch.cuda.synchronize()
+        return out
+
+    with flags(**env):
+        A.reset_launches()
+        lat_k = run()
+        launched = dict(A.LAUNCHES)
+    with plain_path(env):
+        A.reset_launches()
+        lat_p = run()
+        launched_plain = dict(A.LAUNCHES)
+    expect = expected_launches(ldm, env, unet_calls=frames * dpm[0],
+                               encodes=2, decodes=0)
+    err, rel = _compare(lat_k, lat_p)
+    out = {"phase": "dpm_latents", "run": name, "flags": env,
+           "evals": dpm[0], "order": dpm[1], "frames": frames,
+           "shape": list(lat_k.shape), "max_abs_err": err, "rel_err": rel,
+           "rel_tol": DPM_LATENT_REL_TOL,
+           "latent_max": float(lat_p.abs().max()),
+           "launches": launched, "launches_expected": expect}
+    emit(out)
+    if not (bool(torch.isfinite(lat_k).all()) and launched == expect
+            and not any(launched_plain.values())
+            and rel <= DPM_LATENT_REL_TOL):
+        fail(f"dpm latents {name}: kernel path and plain path disagree: {out}")
+
+
+def _closed_form_samplers():
+    """(name, fn(device) -> tensor or (tensor, info)) of every sampler of
+    the sampler layer on closed-form models at mead-128's served latent
+    shape [8, 32, 32, 3]: inputs and injected noise made on the CPU and
+    moved to ``device``."""
+    from dsml_thesis_tpu_torch.diffusion import (ddim, dpm_solver, gaussian,
+                                                 plms, schedules, tiling)
+
+    shape = (8, 32, 32, 3)
+    g = torch.Generator().manual_seed(3)
+    r = lambda *sh: torch.randn(*sh, generator=g)
+    x_T, x0, seq = r(*shape), r(*shape).clamp(-1, 1), r(50, *shape)
+    mask = torch.zeros(shape)
+    mask[:, :, :16] = 1.0
+    sched = schedules.make_schedule("linear", 1000, 0.0015, 0.0205)
+    short = schedules.make_schedule("linear", 50, 0.0015, 0.0205)
+    d_eta = schedules.make_ddim_schedule(sched, 10, eta=0.5)
+    d0 = schedules.make_ddim_schedule(sched, 10)
+    smooth = lambda x, t: (0.3 * torch.tanh(x)
+                           + 0.1 * torch.sin(0.01 * t.reshape(-1, 1, 1, 1)))
+
+    def oracle(s, target):
+        def eps(x, t):
+            sa = schedules.extract(s.sqrt_alphas_cumprod, t, 4)
+            sm = schedules.extract(s.sqrt_one_minus_alphas_cumprod, t, 4)
+            return (x - sa * target) / sm + 0.05 * torch.tanh(x)
+        return eps
+
+    def on(dev, *ts):
+        return [t.to(dev) for t in ts]
+
+    def suite(dev, **kw):
+        return dpm_solver.dpm_solver_sample_suite(
+            sched, smooth, shape, x_T=x_T.to(dev), **kw)
+
+    def adaptive(dev, order):
+        return dpm_solver.dpm_solver_sample_adaptive(
+            sched, smooth, shape, order=order, x_T=x_T.to(dev),
+            return_info=True)
+
+    def ddim_masked(dev):
+        xt, tgt, m, s = on(dev, x_T, x0, mask, seq)
+        return ddim.ddim_sample(d_eta, sched, oracle(sched, tgt), shape,
+                                x_T=xt, mask=m, x0=tgt, temperature=0.7,
+                                noise_seq=s[:10], mask_noise_seq=s[10:20])
+
+    def inversion(dev):
+        tgt, s = on(dev, x0, seq)
+        lat = ddim.ddim_invert(d_eta, oracle(sched, 0.8 * tgt), tgt)
+        back = ddim.ddim_reverse_from(d_eta, oracle(sched, -0.5 * tgt), lat,
+                                      noise_seq=s[:10])
+        edit, _ = ddim.latent_manipulation(d0, oracle(sched, tgt),
+                                           oracle(sched, -tgt), tgt)
+        enc = ddim.stochastic_encode(d0, tgt, torch.arange(8) % 10, s[0])
+        return torch.stack([lat, back, edit, enc])
+
+    def tiled(dev):
+        xt, = on(dev, x_T)
+        w = torch.linspace(-1, 1, 9).reshape(3, 3).to(dev)
+        up = lambda z, L: torch.tanh(z @ w).repeat_interleave(
+            4, 1).repeat_interleave(4, 2)
+        params = {"ks": [16, 16], "stride": [8, 8], "tie_braker": True}
+        return torch.cat([
+            tiling.tiled_apply(lambda z, L: torch.tanh(z @ w), xt, params
+                               ).flatten(),
+            tiling.tiled_apply(up, xt, params, uf=4).flatten()])
+
+    return [
+        ("dpm_multistep_o2_x0", lambda d: suite(d, steps=20, order=2)),
+        ("dpm_multistep_o3_eps_taylor_logSNR", lambda d: suite(
+            d, steps=10, order=3, predict_x0=False, solver_type="taylor",
+            skip_type="logSNR")),
+        ("dpm_singlestep_o3_quadratic_denoise", lambda d: suite(
+            d, steps=12, order=3, method="singlestep",
+            skip_type="time_quadratic", denoise_to_zero=True)),
+        ("dpm_singlestep_fixed_o2", lambda d: suite(
+            d, steps=8, order=2, method="singlestep_fixed",
+            t_start=0.9, t_end=0.01)),
+        ("dpm_adaptive_o2", lambda d: adaptive(d, 2)),
+        ("dpm_adaptive_o3", lambda d: adaptive(d, 3)),
+        ("dpm_2m", lambda d: dpm_solver.dpm_solver_sample(
+            dpm_solver.make_dpm_schedule(sched, 15),
+            lambda x, t: 0.3 * torch.tanh(x) + 0.001 * t.reshape(-1, 1, 1, 1),
+            shape, x_T=x_T.to(d))),
+        ("plms", lambda d: plms.plms_sample(
+            d0, oracle(sched, x0.to(d)), shape, x_T=x_T.to(d))),
+        ("ddpm_t50", lambda d: gaussian.ddpm_p_sample_loop(
+            short, oracle(short, x0.to(d)), shape, x_T=x_T.to(d),
+            noise_seq=seq.to(d))),
+        ("ddim_sample_masked", ddim_masked),
+        ("ddim_with_intermediates", lambda d: ddim.ddim_sample_with_intermediates(
+            d0, sched, oracle(sched, x0.to(d)), shape, x_T=x_T.to(d),
+            log_every=3)[1]),
+        ("ddim_invert_reverse_manipulate_encode", inversion),
+        ("tiled_apply", tiled),
+    ]
+
+
+def _unet_samplers(cfg, ldm):
+    """(name, UNet calls, decodes, latent size of the UNet call, fn) of each
+    sampler through the model's UNet at batch 8, a few steps each, on
+    random conditioning from a seed; and a dict that the adaptive solver
+    fills with its info."""
+    from dsml_thesis_tpu_torch.diffusion import (ddim, dpm_solver, gaussian,
+                                                 plms, schedules)
+
+    lat, ch = ldm.image_size, ldm.channels
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    shape = (8, lat, lat, ch)
+    cond = {"crossattn": r(8, 1, ldm.unet.context_dim),
+            "concat": r(8, lat, lat, ldm.unet.conv_in.in_channels - ch)}
+    eps = lambda x, t: ldm.apply_model(x, t, cond)
+    x_T, x0 = r(*shape), r(*shape).clamp(-1, 1)
+    mask = torch.zeros(shape, device="cuda")
+    mask[:, :, :lat // 2] = 1.0
+    d3, d4 = (schedules.make_ddim_schedule(ldm.schedule, n) for n in (3, 4))
+    # the cut: the DDPM chain on a 20-step schedule of the config's beta range
+    p = cfg["model"]["params"]
+    t20 = schedules.make_schedule("linear", 20, p["linear_start"],
+                                  p["linear_end"])
+    info = {}
+
+    def adaptive():
+        out, info["adaptive"] = dpm_solver.dpm_solver_sample_adaptive(
+            ldm.schedule, eps, shape, order=2, x_T=x_T, max_iters=3,
+            return_info=True)
+        return out
+
+    def tiled():
+        """One tiled UNet call and decode (9 patches of 16 x 16 latents),
+        also through every kernel's plain version."""
+        def run():
+            e = ldm.apply_model(x_T, torch.full((8,), 500, device="cuda"),
+                                cond)
+            return e, ldm.decode_first_stage(x_T, force_not_quantize=True)
+
+        ldm.split_input_params = {"ks": [16, 16], "stride": [8, 8],
+                                  "vqf": image_size(cfg) // lat}
+        try:
+            out = run()
+            counted = dict(A.LAUNCHES)
+            with plain_path({}):
+                plain = run()
+            A.LAUNCHES.clear()
+            A.LAUNCHES.update(counted)
+        finally:
+            ldm.split_input_params = None
+        info["tiled_rel_err"] = [_compare(o, q)[1] for o, q in zip(out, plain)]
+        return out
+
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    return info, [
+        ("plms", d4.num_steps + 1, 0, lat, lambda: plms.plms_sample(
+            d4, eps, shape, x_T=x_T)),
+        ("dpm_singlestep_o3_6", 6, 0, lat,
+         lambda: dpm_solver.dpm_solver_sample_suite(
+             ldm.schedule, eps, shape, steps=6, order=3, method="singlestep",
+             x_T=x_T)),
+        ("dpm_adaptive_o2", None, 0, lat, adaptive),
+        ("ddim_invert_reverse", 2 * d3.num_steps, 0, lat,
+         lambda: ddim.ddim_reverse_from(d3, eps, ddim.ddim_invert(d3, eps, x0))),
+        ("ddim_sample_masked", d3.num_steps, 0, lat, lambda: ddim.ddim_sample(
+            d3, ldm.schedule, eps, shape, gen, x_T=x_T, mask=mask, x0=x0)),
+        ("tiled_apply_model_and_decode", 1, 1, 16, tiled),
+        ("ddpm_t20", 20, 0, lat, lambda: gaussian.ddpm_p_sample_loop(
+            t20, eps, shape, gen, x_T=x_T)),
+    ]
+
+
+def phase_samplers(cfg, ldm, smi):
+    """Every sampler of the sampler layer on the card: against itself on the
+    CPU on closed-form models (``SAMPLER_REL_TOL`` of each output's maximum,
+    the adaptive solver's iterations and convergence equal), then through
+    the model's fp32 UNet at batch 8 and full width, a few steps each (the
+    DDPM chain on a schedule cut to T = 20; one tiled UNet call and decode,
+    9 patches of 16 x 16 latents), each checked for shape, finiteness and
+    its launch counts."""
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    results, ok = [], True
+    for name, fn in _closed_form_samplers():
+        t0 = time.monotonic()
+        got, want = fn(torch.device("cuda")), fn(torch.device("cpu"))
+        info = None
+        if isinstance(got, tuple):
+            (got, info), (want, info_cpu) = got, want
+            ok &= info == info_cpu
+        err, rel = _compare(got.float().cpu(), want.float())
+        ok &= rel <= SAMPLER_REL_TOL and bool(torch.isfinite(got).all())
+        results.append({"sampler": name, "shape": list(got.shape),
+                        "max_abs_err": err, "rel_err": rel, "info": info,
+                        "seconds": round(time.monotonic() - t0, 3)})
+    emit({"phase": "samplers", "part": "card_vs_cpu",
+          "rel_tol": SAMPLER_REL_TOL, "results": results})
+    if not ok:
+        fail(f"samplers: the card disagrees with the CPU: {results}")
+
+    results = []
+    info, cases = _unet_samplers(cfg, ldm)
+    with torch.no_grad():
+        for name, calls, decodes, latent, fn in cases:
+            A.reset_launches()
+            t0 = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            launched = dict(A.LAUNCHES)
+            if calls is None:   # order 2: two UNet calls an iteration
+                calls = 2 * info["adaptive"]["iterations"]
+            expect = expected_launches(ldm, {}, unet_calls=calls, encodes=0,
+                                       decodes=decodes, latent=latent)
+            outs = out if isinstance(out, tuple) else (out,)
+            lat = [8, ldm.image_size, ldm.image_size, ldm.channels]
+            want_shapes = [lat] + decodes * [[8, image_size(cfg),
+                                              image_size(cfg), 3]]
+            checks = {
+                "shape": [list(o.shape) for o in outs] == want_shapes,
+                "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+                "launches": launched == expect,
+            }
+            if decodes:   # the tiled calls against the plain path
+                checks["plain_path"] = all(
+                    e <= 5e-2 for e in info["tiled_rel_err"])
+            results.append({"sampler": name, "unet_calls": calls,
+                            "checks": checks, "launches": launched,
+                            "launches_expected": expect,
+                            "seconds": round(secs, 3)})
+            ok &= all(checks.values())
+    emit({"phase": "samplers", "part": "unet", "card": smi, "batch": 8,
+          "adaptive": info.get("adaptive"),
+          "tiled_rel_err_vs_plain": info.get("tiled_rel_err"),
+          "results": results})
+    if not ok:
+        fail(f"samplers: a sampler through the UNet failed: {results}")
 
 
 def image_size(cfg):
@@ -2166,6 +2503,15 @@ RUNS = (
     ("mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "1"}, 8),
     ("mead128-stats", CONFIG_128, {"DSML_PALLAS_GN": "stats"}, 8),
 )
+# serve runs of the DPM-Solver++ serving mode (every run of RUNS serves
+# DDIM-50): (name, config, flags, requests, (UNet evaluations a frame,
+# order)); mead128-dpm10 runs all three update orders at full width
+DPM_RUNS = (
+    ("headline-dpm20", CONFIG, {}, 8, (20, 2)),
+    ("mead128-dpm10", CONFIG_128, {}, 8, (10, 3)),
+)
+# the DPM run whose served batch is also held kernel path against plain path
+DPM_LATENT_RUN = "mead128-dpm10"
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (
     ("train", CONFIG, {}, 6),
@@ -2200,7 +2546,7 @@ AE_RUNS = (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,train")
+                    default="device,build,kernels,model,serve,samplers,train")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -2229,18 +2575,31 @@ def main():
         phase_build()
     cases = phase_kernels() if "kernels" in phases else None
     launches = {}
-    if "model" in phases or "serve" in phases:
+    if {"model", "serve", "samplers"} & set(phases):
         models = {}
-        for name, config, env, n_requests in RUNS:
+
+        def model(config):
             if config not in models:
                 cfg, ldm = build_ldm(config)
                 models[config] = (dict(cfg, path=config), ldm)
-            cfg, ldm = models[config]
+            return models[config]
+
+        for name, config, env, n_requests in RUNS:
+            cfg, ldm = model(config)
             if "model" in phases:
                 phase_model(name, ldm, env)
             if "serve" in phases:
                 launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
                                              args.frames, smi)
+        for name, config, env, n_requests, dpm in DPM_RUNS:
+            cfg, ldm = model(config)
+            if "serve" in phases:
+                launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
+                                             args.frames, smi, dpm=dpm)
+            if "samplers" in phases and name == DPM_LATENT_RUN:
+                phase_dpm_latents(name, cfg, ldm, env, args.frames, dpm)
+        if "samplers" in phases:
+            phase_samplers(*model(CONFIG_128), smi)
         del models, ldm   # free the card for the train runs
         torch.cuda.empty_cache()
     if "train" in phases:
@@ -2255,8 +2614,8 @@ def main():
                 launches[name] = phase_ae_train(name, config, env, steps, smi,
                                                 tmp, lpips_files,
                                                 resume=(name == "ae-vq"))
-    if cases is None or not all(
-            r[0] in launches for r in RUNS + TRAIN_RUNS + AE_RUNS):
+    if cases is None or "samplers" not in phases or not all(
+            r[0] in launches for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

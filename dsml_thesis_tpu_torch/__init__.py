@@ -9,8 +9,10 @@ kernel's wrapper runs the kernel's plain PyTorch version instead.
 
 Ported so far: the serving path of the talking-face pipeline
 (``configs/latent-diffusion/mead-256-ldm-f4.yaml`` and its ``-fullattn``
-twin): first-stage VQGAN, conditioning encoders, UNet, DDIM sampler, the
-frame-progressive video pipeline and the micro-batching server; and LDM
+twin): first-stage VQGAN, conditioning encoders, UNet, the sampler layer
+(DDIM, DPM-Solver(++) with the service's ``--sampler dpm`` mode, PLMS,
+ancestral DDPM, split-input tiling), the frame-progressive video pipeline
+and the micro-batching server; and LDM
 training of the same configs (``training/``, ``scripts/train_torch.py``):
 the diffusion loss, AdamW, EMA, LR schedules, validation, checkpoints; and
 first-stage training of ``configs/autoencoder/{vqgan-f4,kl-f4}.yaml``

@@ -3,16 +3,16 @@
 
 Counterpart of ``dsml_thesis_tpu/diffusion/gaussian.py``: ``q_sample``,
 ``predict_start_from_noise``, ``q_posterior``, ``get_loss`` and ``p_losses``
-(simple + VLB-weighted loss with optional per-sample weights). The DDPM
-ancestral sampling loop of that module is not ported: no entry point of the
-port calls it yet.
+(simple + VLB-weighted loss with optional per-sample weights), and the DDPM
+ancestral sampling loop.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from .ddim import draw_noise, initial_noise
 from .schedules import DiffusionSchedule, extract
 
 
@@ -90,3 +90,38 @@ def p_losses(sched: DiffusionSchedule, model_eps: torch.Tensor,
     aux = {"loss_simple": wmean(loss_simple), "loss_vlb": wmean(loss_vlb),
            "loss": loss}
     return loss, aux
+
+
+def ddpm_p_sample_loop(sched: DiffusionSchedule,
+                       denoise_fn: Callable[[torch.Tensor, torch.Tensor],
+                                            torch.Tensor],
+                       shape, generator: Optional[torch.Generator] = None,
+                       clip_denoised: bool = True,
+                       x_T: Optional[torch.Tensor] = None,
+                       noise_seq: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Full ancestral DDPM sampling: ``num_timesteps`` model calls.
+
+    denoise_fn(x_t, t[batch]) -> eps prediction (taken in fp32). x_T and
+    noise_seq ([T, *shape], row i used at the i-th reverse step,
+    t = T-1-i) inject the initial and per-step noise; otherwise both come
+    from ``generator``. The per-step scalars are 0-dim fp32 tensors on the
+    CPU, with the same values ``extract`` would gather."""
+    img = initial_noise(shape, generator, x_T)
+    b, T = shape[0], sched.num_timesteps
+    for i in range(T):
+        ts = T - 1 - i
+        t = torch.full((b,), ts, dtype=torch.long, device=img.device)
+        eps = denoise_fn(img, t).float()
+        x_recon = (sched.sqrt_recip_alphas_cumprod[ts] * img
+                   - sched.sqrt_recipm1_alphas_cumprod[ts] * eps)
+        if clip_denoised:
+            x_recon = x_recon.clamp(-1.0, 1.0)
+        mean = (sched.posterior_mean_coef1[ts] * x_recon
+                + sched.posterior_mean_coef2[ts] * img)
+        noise = draw_noise(generator, img, noise_seq, i)
+        # no noise at t == 0
+        nonzero = 1.0 if ts > 0 else 0.0
+        img = mean + nonzero * torch.exp(
+            0.5 * sched.posterior_log_variance_clipped[ts]) * noise
+    return img

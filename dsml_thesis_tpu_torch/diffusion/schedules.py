@@ -54,6 +54,20 @@ def make_ddim_timesteps(ddim_discr_method: str, num_ddim_timesteps: int,
     return np.minimum(ddim_timesteps + 1, num_ddpm_timesteps - 1)
 
 
+def make_strength_ddim_timesteps(num_ddim_timesteps: int,
+                                 num_ddpm_timesteps: int,
+                                 strength: float) -> np.ndarray:
+    """Strength-scaled DDIM subsequence of the editing stack: the first
+    ``strength`` fraction of the chain in ``num_ddim_timesteps`` linspace
+    steps, the first pinned to 1, so the forward chain ends exactly at
+    t = T * strength."""
+    ts = (np.linspace(0, 1, num_ddim_timesteps)
+          * int(num_ddpm_timesteps * strength))
+    ts = np.asarray([int(s) for s in ts], dtype=np.int64)
+    ts[0] = 1
+    return ts
+
+
 def make_ddim_sampling_parameters(alphacums: np.ndarray,
                                   ddim_timesteps: np.ndarray, eta: float):
     """Per-DDIM-step (sigma, alpha_bar, alpha_bar_prev) triples."""
@@ -148,6 +162,7 @@ class DDIMSchedule:
     alphas: torch.Tensor                  # [S] alpha_bar at t
     alphas_prev: torch.Tensor             # [S] alpha_bar at the previous step
     sqrt_one_minus_alphas: torch.Tensor   # [S]
+    sqrt_one_minus_alphas_prev: torch.Tensor  # [S] (deterministic inversion)
     sigmas: torch.Tensor                  # [S] eta-scaled sigma
 
     @property
@@ -156,10 +171,16 @@ class DDIMSchedule:
 
 
 def make_ddim_schedule(schedule: DiffusionSchedule, num_steps: int,
-                       eta: float = 0.0, method: str = "uniform"
-                       ) -> DDIMSchedule:
+                       eta: float = 0.0, method: str = "uniform",
+                       strength: Optional[float] = None) -> DDIMSchedule:
+    """``strength`` < 1 traverses only that first fraction of the chain
+    (``make_strength_ddim_timesteps``); 1 or more is the full chain."""
     alphacums = schedule.alphas_cumprod.numpy().astype(np.float64)
-    tsteps = make_ddim_timesteps(method, num_steps, schedule.num_timesteps)
+    n = schedule.num_timesteps
+    if strength is not None and strength < 1.0:
+        tsteps = make_strength_ddim_timesteps(num_steps, n, strength)
+    else:
+        tsteps = make_ddim_timesteps(method, num_steps, n)
     sigmas, alphas, alphas_prev = make_ddim_sampling_parameters(
         alphacums, tsteps, eta)
     return DDIMSchedule(
@@ -167,6 +188,7 @@ def make_ddim_schedule(schedule: DiffusionSchedule, num_steps: int,
         alphas=_f32(alphas),
         alphas_prev=_f32(alphas_prev),
         sqrt_one_minus_alphas=_f32(np.sqrt(1.0 - alphas)),
+        sqrt_one_minus_alphas_prev=_f32(np.sqrt(1.0 - alphas_prev)),
         sigmas=_f32(sigmas),
     )
 

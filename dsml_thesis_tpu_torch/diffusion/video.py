@@ -2,8 +2,9 @@
 
 Counterpart of ``dsml_thesis_tpu/diffusion/video.py``. Per frame: the
 conditionings (class + audio-window cross-attention token; masked-frame and
-running-identity latents channel-concatenated), a full DDIM reverse chain,
-then the generated latent becomes the next frame's identity latent. All
+running-identity latents channel-concatenated), a full reverse chain (DDIM,
+or DPM-Solver++ multistep in the fewer-steps serving mode), then the
+generated latent becomes the next frame's identity latent. All
 masked-frame encodes and audio-window encodings are hoisted out of the frame
 loop and a leading batch axis carries independent clips.
 
@@ -21,7 +22,8 @@ import torch
 
 from ..flags import env_flag
 from .ddim import p_sample_ddim
-from .schedules import DDIMSchedule
+from .dpm_solver import dpm_solver_sample_suite
+from .schedules import DDIMSchedule, DiffusionSchedule
 
 # apply_fn(x_noisy, t, context, concat) -> eps
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
@@ -41,6 +43,9 @@ def progressive_video_sample(
     x_T: Optional[torch.Tensor] = None,  # [B, F, h, w, c] injected noise
     pair_apply_fn: Optional[ApplyFn] = None,
     sampler: str = "ddim",
+    sched: Optional[DiffusionSchedule] = None,
+    sampler_steps: int = 20,
+    sampler_order: int = 2,
 ) -> torch.Tensor:
     """Generate all frames; returns latents [B, F, h, w, c] in fp32.
 
@@ -48,12 +53,21 @@ def progressive_video_sample(
     shared by both halves. With ``pair_apply_fn`` (and DSML_CFG_DEDUP not 0)
     the UNet gets the B-batch inputs plus the 2B context pair and computes
     the shared prefix once; otherwise the call is batch-doubled.
+
+    sampler="ddim" runs ``ddim``'s chain per frame. sampler="dpm" runs
+    DPM-Solver++ multistep instead, ``sampler_steps`` UNet calls of order
+    ``sampler_order`` a frame on the same trained model; it needs ``sched``,
+    the full training schedule. Initial noise, guidance (with the pair
+    dedup) and the identity carry are the same for both.
     """
-    if sampler == "dpm":
-        raise NotImplementedError(
-            "sampler='dpm' needs the DPM-Solver port, which has not landed")
-    if sampler != "ddim":
+    if sampler not in ("ddim", "dpm"):
         raise ValueError(f"unknown sampler {sampler!r} (want 'ddim' or 'dpm')")
+    if sampler == "dpm" and sched is None:
+        raise ValueError("sampler='dpm' needs the full DiffusionSchedule "
+                         "(pass sched=ldm.schedule)")
+    if sampler == "dpm" and sampler_order not in (1, 2, 3):
+        raise ValueError(f"sampler_order must be 1, 2, or 3 "
+                         f"(got {sampler_order})")
     if x_T is None and generator is None:
         raise ValueError("pass a torch.Generator (or inject x_T)")
 
@@ -88,8 +102,14 @@ def progressive_video_sample(
         else:
             img = torch.randn(z_id0.shape, generator=generator,
                               device=z_id0.device, dtype=torch.float32)
-        for i in range(S):
-            img, _ = p_sample_ddim(ddim, eps_fn, img, S - 1 - i)
+        if sampler == "dpm":
+            img = dpm_solver_sample_suite(
+                sched, eps_fn, img.shape, steps=sampler_steps,
+                order=sampler_order, method="multistep", predict_x0=True,
+                x_T=img)
+        else:
+            for i in range(S):
+                img, _ = p_sample_ddim(ddim, eps_fn, img, S - 1 - i)
         z_id = img  # the identity carry
         frames.append(img)
     return torch.stack(frames, dim=1)
@@ -108,7 +128,8 @@ def audio_windows(audio_feats: torch.Tensor, num_frames: int,
 
 def make_video_pipeline(ldm, ddim: DDIMSchedule, audio_window: int,
                         guidance_scale: float = 1.0, decode: bool = True,
-                        sampler: str = "ddim"):
+                        sampler: str = "ddim", sampler_steps: int = 20,
+                        sampler_order: int = 2):
     """The full talking-face synthesis pipeline as one function:
 
         pipeline(masked_frames[B,F,H,W,3], audio_feats[B,T,D],
@@ -116,9 +137,15 @@ def make_video_pipeline(ldm, ddim: DDIMSchedule, audio_window: int,
             -> [B,F,H,W,3] images in [-1, 1] (latents when decode=False)
 
     Masked-frame encodes (batched over B*F), the identity encode, the
-    audio-window conditioning, class / null embeddings, the frame and DDIM
-    loops, and one first-stage decode per frame. Tensors must lie where the
-    model lies.
+    audio-window conditioning, class / null embeddings, the frame and
+    sampler loops, and one first-stage decode per frame. Tensors must lie
+    where the model lies.
+
+    sampler="dpm" swaps each frame's DDIM chain for DPM-Solver++ multistep
+    at ``sampler_steps`` UNet calls of order ``sampler_order`` (see
+    ``progressive_video_sample``); ``ddim`` sets the chain when
+    sampler="ddim". With ``split_input_params`` the UNet runs tiled and the
+    guidance pair is batch-doubled (the dedup does not tile).
     """
 
     @torch.no_grad()
@@ -144,12 +171,15 @@ def make_video_pipeline(ldm, ddim: DDIMSchedule, audio_window: int,
 
         apply_fn = lambda x, t, c, cc: ldm.apply_model(
             x, t, {"crossattn": c, "concat": cc})
-        pair_fn = lambda x, t, c, cc: ldm.apply_model(
-            x, t, {"crossattn": c, "concat": cc}, cfg_pairs=True)
+        pair_fn = None if ldm.split_input_params is not None else (
+            lambda x, t, c, cc: ldm.apply_model(
+                x, t, {"crossattn": c, "concat": cc}, cfg_pairs=True))
         frames = progressive_video_sample(
             ddim, apply_fn, m_lat, ctxs, z_id0, generator,
             uncond_contexts=uctxs, guidance_scale=guidance_scale,
-            pair_apply_fn=pair_fn, x_T=x_T, sampler=sampler)
+            pair_apply_fn=pair_fn, x_T=x_T, sampler=sampler,
+            sched=ldm.schedule, sampler_steps=sampler_steps,
+            sampler_order=sampler_order)
         if not decode:
             return frames
         imgs = [ldm.decode_first_stage(frames[:, f]) for f in range(F)]

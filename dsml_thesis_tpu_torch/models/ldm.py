@@ -17,8 +17,9 @@ sets ``requires_grad`` to match. Random draws come from a ``torch.Generator``
 (another stream than ``jax.random`` gives from the same seed), and each can
 be handed in (``t=``, ``noise=``, ``drop=``) as ``x_T`` can for sampling.
 
-Not ported yet: KL first stages and the split-input patch tiling
-(``split_input_params`` raises ``NotImplementedError``).
+``split_input_params`` runs the UNet (and, with ``patch_distributed_vq``,
+the first-stage encode and decode) over overlapping patches blended by
+``diffusion/tiling.py``. Not ported yet: KL first stages.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..diffusion import tiling
 from ..diffusion.gaussian import p_losses, q_sample
 from ..diffusion.schedules import DiffusionSchedule
 
@@ -80,10 +82,12 @@ class LatentDiffusion(nn.Module):
         self.image_size, self.channels = image_size, channels
         self.split_input_params = split_input_params
 
-    def _no_tiling(self):
-        if self.split_input_params is not None:
-            raise NotImplementedError(
-                "split_input_params (patch tiling) is not ported yet")
+    def _split_params(self) -> Optional[Dict]:
+        """split_input_params when the patch-distributed first stage is on."""
+        sp = self.split_input_params
+        if sp and sp.get("patch_distributed_vq", True):
+            return sp
+        return None
 
     # ---------- which parameters train ----------
 
@@ -150,21 +154,34 @@ class LatentDiffusion(nn.Module):
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """Images [B,H,W,3] -> scaled latents [B,h,w,c]."""
-        self._no_tiling()
+        """Images [B,H,W,3] -> scaled latents [B,h,w,c]; with
+        ``split_input_params`` overlapping pixel patches are encoded and
+        their latents blended (df = vqf)."""
         if self.first_stage is None:
             return x * self.scale_factor
-        return self.first_stage.encode(x) * self.scale_factor
+        sp = self._split_params()
+        if sp is not None:
+            z = tiling.tiled_apply(lambda v, L: self.first_stage.encode(v), x,
+                                   sp, df=int(sp["vqf"]))
+        else:
+            z = self.first_stage.encode(x)
+        return z * self.scale_factor
 
     def decode_first_stage(self, z: torch.Tensor,
                            force_not_quantize: bool = False) -> torch.Tensor:
-        """Scaled latents -> images; the VQ first stage quantizes first."""
-        self._no_tiling()
+        """Scaled latents -> images; the VQ first stage quantizes first.
+        With ``split_input_params`` overlapping latent patches are decoded
+        and their pixels blended (uf = vqf)."""
         z = z / self.scale_factor
         if self.first_stage is None:
             return z
-        return self.first_stage.decode(z,
-                                       force_not_quantize=force_not_quantize)
+        dec = lambda v: self.first_stage.decode(
+            v, force_not_quantize=force_not_quantize)
+        sp = self._split_params()
+        if sp is not None:
+            return tiling.tiled_apply(lambda v, L: dec(v), z, sp,
+                                      uf=int(sp["vqf"]))
+        return dec(z)
 
     # ---------- conditioning ----------
 
@@ -247,14 +264,29 @@ class LatentDiffusion(nn.Module):
                     cfg_pairs: bool = False) -> torch.Tensor:
         """Channel-concat the concat streams, cross-attend to the context.
         With ``cfg_pairs`` x_t / t / concat arrive at B and the context is
-        the [uncond; cond] pair at 2B (see ``UNetModel.forward``)."""
-        self._no_tiling()
+        the [uncond; cond] pair at 2B (see ``UNetModel.forward``).
+
+        With ``split_input_params`` the UNet runs over overlapping patches
+        of the channel-concatenated input, the context and t replicated per
+        patch, and the eps patches are blended; the guidance-pair dedup is
+        refused there."""
         x_in = x_t
         if cond.get("concat") is not None:
             cc = cond["concat"]
             dt = torch.promote_types(x_t.dtype, cc.dtype)
             x_in = torch.cat([x_t.to(dt), cc.to(dt)], dim=-1)
-        return self.unet(x_in, t, cond.get("crossattn"), cfg_pairs=cfg_pairs)
+        ctx = cond.get("crossattn")
+        if self.split_input_params is None:
+            return self.unet(x_in, t, ctx, cfg_pairs=cfg_pairs)
+        if cfg_pairs:
+            raise NotImplementedError(
+                "cfg_pairs dedup not supported with split_input_params")
+
+        def fn(patches, L):
+            c_rep = None if ctx is None else ctx.repeat_interleave(L, 0)
+            return self.unet(patches, t.repeat_interleave(L, 0), c_rep)
+
+        return tiling.tiled_apply(fn, x_in, self.split_input_params)
 
     # ---------- training ----------
 

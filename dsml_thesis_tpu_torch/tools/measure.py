@@ -12,7 +12,9 @@
            (DSML_FLASH_STREAMING=0 / 1) at the first stage's [8, 1, 4096, 512]
 --profile  one warm batch of a model config (default mead-256-ldm-f4; batch
            8 at the config's frame size, DDIM-50, guidance 2.0, random
-           weights) under the DSML_* flags
+           weights; --sampler dpm --sampler-steps N --sampler-order K serves
+           DPM-Solver++ multistep instead, N UNet calls a frame) under the
+           DSML_* flags
            of the environment: phase times from CUDA events, then one UNet
            call and one frame under torch.profiler: kernels launched a call,
            device time by kernel family and the device's idle share (traced,
@@ -78,6 +80,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from .. import cli
 from ..config import build_model, load_config
 from ..diffusion import make_ddim_schedule, make_video_pipeline
 from ..flags import KERNEL_FLAGS
@@ -438,21 +441,26 @@ def _frame_size(cfg) -> int:
         "ddconfig"]["resolution"]
 
 
-def profile(smi: str, frames: int, config: str):
+def profile(smi: str, frames: int, config: str, sampler: str = "ddim",
+            sampler_steps: int = 20, sampler_order: int = 2):
     from torch.profiler import ProfilerActivity
 
     device = torch.device("cuda")
-    batch, steps, window = 8, 50, 8
+    batch, window = 8, 8
+    chain = {"sampler": sampler}
+    if sampler == "dpm":
+        chain.update(sampler_steps=sampler_steps, sampler_order=sampler_order)
+    steps = 50 if sampler == "ddim" else sampler_steps   # UNet calls a frame
     env = {k: os.environ[k] for k in KERNEL_FLAGS if k in os.environ}
     run = {"card": smi, "config": os.path.relpath(config, ROOT), "flags": env,
-           "batch": batch}
+           "batch": batch, **chain}
     cfg = load_config([config])
     size = _frame_size(cfg)
     torch.manual_seed(0)
     ldm = build_model(cfg["model"])
     torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
     ldm = cast_sampling_params(ldm).to(device).eval()
-    ddim = make_ddim_schedule(ldm.schedule, steps, eta=0.0)
+    ddim = make_ddim_schedule(ldm.schedule, 50, eta=0.0)
     gen = torch.Generator(device=device).manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=gen, device=device)
     adim = cfg["model"]["params"]["cond_stage_config_2"]["params"]["subspace_dim"]
@@ -462,7 +470,7 @@ def profile(smi: str, frames: int, config: str):
                 r(batch, f + window, adim), r(batch, size, size, 3).clamp(-1, 1),
                 torch.arange(batch, device=device) % 8)
 
-    pipe = make_video_pipeline(ldm, ddim, window, guidance_scale=2.0)
+    pipe = make_video_pipeline(ldm, ddim, window, guidance_scale=2.0, **chain)
     pipe(*inputs(1), gen)  # warm-up: kernel build, cuDNN algorithm choice
     torch.cuda.synchronize()
 
@@ -474,7 +482,7 @@ def profile(smi: str, frames: int, config: str):
             ldm.encode_first_stage(mf.reshape((-1,) + mf.shape[2:])),
             ldm.encode_first_stage(idn)), 1)
         lat = make_video_pipeline(ldm, ddim, window, guidance_scale=2.0,
-                                  decode=False)
+                                  decode=False, **chain)
         chain_ms = event_ms(lambda: lat(mf, au, idn, lab, gen), 1) - enc_ms
         lat, ch = ldm.image_size, ldm.channels
         z = r(batch, lat, lat, ch)
@@ -485,8 +493,8 @@ def profile(smi: str, frames: int, config: str):
         wall = time.monotonic() - t0
     print(json.dumps({
         "measure": "phases", **run, "frames": frames,
-        "ddim_steps": steps, "batch_ms": total_ms,
-        "encode_ms": enc_ms, "ddim_chain_ms": chain_ms,
+        "unet_calls_per_frame": steps, "batch_ms": total_ms,
+        "encode_ms": enc_ms, "chain_ms": chain_ms,
         "unet_call_ms": chain_ms / (frames * steps),
         "decode_ms_per_frame": dec_ms, "launches": dict(A.LAUNCHES),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -708,6 +716,7 @@ def main():
                     help="model config YAML of --profile and --train")
     ap.add_argument("--ae", default=None, metavar="CONFIG",
                     help="first-stage config YAML to time training steps of")
+    cli.add_sampler_args(ap, note="the chain --profile times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -718,7 +727,8 @@ def main():
     if args.split:
         split(smi)
     if args.profile:
-        profile(smi, args.frames, args.config)
+        profile(smi, args.frames, args.config, args.sampler,
+                args.sampler_steps, args.sampler_order)
     if args.train:
         train(smi, args.config)
     if args.ae:

@@ -9,6 +9,7 @@ Usage:
   python scripts/serve_torch.py
       --config configs/latent-diffusion/mead-256-ldm-f4.yaml
       [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0]
+      [--sampler dpm --sampler-steps 20 --sampler-order 2]
       [--size N] [--port 8000 --max-wait-ms 50] [--device cuda]
 
 ``--config`` is one of the MEAD talking-face YAMLs: the headline
@@ -16,6 +17,10 @@ Usage:
 self-attention at every level, 64 x 64 (4096 tokens) included, or the
 reference's own ``mead-128-ldm-f4.yaml`` (128 px frames, an fp32 UNet).
 ``--size`` defaults to the config's frame size (its first stage's).
+``--steps`` is the DDIM chain's length; ``--sampler dpm`` serves each frame
+with DPM-Solver++ multistep instead, ``--sampler-steps`` UNet calls a frame
+(20 by default, against DDIM's 50) of order ``--sampler-order``, on the same
+weights.
 
 Environment flags, the JAX package's own (dsml_thesis_tpu_torch/flags.py):
   DSML_ATTN_PACKED=0         split-head attention instead of the packed kernel
@@ -45,6 +50,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import torch
 
+from dsml_thesis_tpu_torch import cli
 from dsml_thesis_tpu_torch.config import build_model, load_config
 from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
                                              make_video_pipeline)
@@ -80,6 +86,7 @@ def main():
                     help="admission cap on queued requests; beyond it new "
                          "requests get 503 at once")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    cli.add_sampler_args(ap)
     args = ap.parse_args()
 
     device = torch.device(args.device)
@@ -95,11 +102,15 @@ def main():
     audio_seq = args.audio_seq or (args.frames + args.audio_window)
 
     ddim = make_ddim_schedule(ldm.schedule, args.steps, eta=0.0)
-    pipeline = make_video_pipeline(ldm, ddim, args.audio_window,
-                                   guidance_scale=args.scale)
+    pipeline = make_video_pipeline(
+        ldm, ddim, args.audio_window, guidance_scale=args.scale,
+        sampler=args.sampler, sampler_steps=args.sampler_steps,
+        sampler_order=args.sampler_order)
     runner = make_pipeline_runner(pipeline, seed=args.seed, device=device)
-    print(f"# serving {args.config} on {device} ({args.steps} DDIM steps, "
-          f"cfg {args.scale})")
+    chain = (f"{args.steps} DDIM steps" if args.sampler == "ddim" else
+             f"DPM-Solver++ o{args.sampler_order} "
+             f"{args.sampler_steps} evals")
+    print(f"# serving {args.config} on {device} ({chain}, cfg {args.scale})")
     clip_shapes = {
         "masked_frames": (args.frames, size, size, 3),
         "audio": (audio_seq, c2["subspace_dim"]),

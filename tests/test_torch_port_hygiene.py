@@ -56,7 +56,8 @@ def test_package_has_the_expected_modules():
                  "training.loggers", "training.trainer", "tools.measure",
                  "losses.discriminator", "losses.lpips", "losses.vqperceptual",
                  "losses.contperceptual", "training.vqgan", "training.kl_ae",
-                 "training.vqgan_trainer"):
+                 "training.vqgan_trainer", "cli", "diffusion.dpm_solver",
+                 "diffusion.plms", "diffusion.tiling"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 
