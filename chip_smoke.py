@@ -28,7 +28,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
            frames at the config's frame size, DDIM-50, guidance 2.0, in
-           fifteen runs:
+           fifteen runs, then the AffectNet model's class batches:
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
@@ -56,6 +56,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              level), one batch
              mead128-stats   mead-128-ldm-f4, DSML_PALLAS_GN=stats (row 10
                              at the fp32 UNet's shapes), one batch
+             affectnet       affectnet-128-ldm-vq-f4 (face reenactment: fp32
+                             UNet of mead-128's shape, VQ-f4 of 16,384
+                             codes), 2 classes x 8 samples through
+                             reenactment.sample_class (the call of
+                             scripts/sample_affectnet_torch.py), DDIM-50,
+                             guidance 3.0 against the null embedding, after
+                             one guided UNet call and one decode held kernel
+                             path against plain path
            then in two runs DPM-Solver++ multistep (the fewer-steps
            serving mode, --sampler dpm) in place of DDIM-50:
              headline-dpm20  headline config, order 2, 20 UNet calls a frame
@@ -83,7 +91,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            real shapes (the config's frame size, audio [17, 768]) and the
            YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
            32 at 128 px in fp32 for mead-128), full width and depth, in
-           thirteen runs:
+           fourteen runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
                              with --resume for one more step
@@ -107,6 +115,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              at D = 32), 2 steps
              train-mead128-epilogue   mead-128-ldm-f4, DSML_GN_EPILOGUE=res
                              (rows 3 + 8 in fp32, row 11 forward), 2 steps
+             train-affectnet affectnet-128-ldm-vq-f4 at its YAML's batch of
+                             24 (image, class_label; rows 3 + 8 in fp32,
+                             row 2 at D = 512 in the encode), 2 steps
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, the backward
            kernel's calls by head width against the model's self-attentions,
@@ -127,9 +138,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ae-vq-epilogue  vqgan-f4, DSML_GN_EPILOGUE=1, 2 steps
              ae-kl-epilogue-res  kl-f4, DSML_GN_EPILOGUE=res, 2 steps
            each checks the same, plus a d_weight above zero and moved
-           discriminator parameters
+           discriminator parameters;
+           then the AffectNet editing stack (affectnet-edit): the latent
+           cache of 8 synthetic images (reenactment.compute_latent_cache:
+           VQ encode, DDIM inversion of 40 steps at strength 0.5, the
+           reconstruction), 2 steps of the DiffusionCLIP finetune
+           (affectnet-128-clip-ldm-vq-f4, batch 4, through
+           scripts/train_torch.py's main() on that cache via LatentTrain; a
+           random full-width CLIP ViT-B/16, a random IR-SE50 and a synthetic
+           BPE table written to the temporary directory keep the l2, id and
+           CLIP-direction losses live), with one validation batch and one
+           image log, and one reenactment.manipulate call on the finetuned
+           model; checks: launch counts (row 1 through its autograd Function
+           in the differentiated chain, rows 2 and 7 in the decode and its
+           backward at [4, 1, 1024, 512]), the towers and the first stage
+           unchanged, parameters moved, the first step's loss and gradients
+           kernel path against plain path, the peak memory
 then the line {"kernels": [...]} (a row per kernel, a sub-row per fp32
-D = 32 and D = 512 instantiation and one each for GroupNorm and conv +
+D = 32 and D = 512 instantiation, one for row 7 at the DiffusionCLIP
+finetune's [4, 1, 1024, 512] and one each for GroupNorm and conv +
 statistics at the fp32 UNet's shapes), the card's name and power limit, and,
 last,
 {"ok": true, "device": {...}}.
@@ -163,6 +190,12 @@ CONFIG_DH64 = os.path.join(CONFIG_DIR, "mead-256-ldm-f4-fullattn-dh64.yaml")
 # the reference's own talking-face model: fp32 UNet (no dtype), 128 px, 32 x 32
 # latents, self-attention at every level (32-wide heads), batch 32 in training
 CONFIG_128 = os.path.join(CONFIG_DIR, "mead-128-ldm-f4.yaml")
+# the face-reenactment family: the AffectNet emotion-conditioned LDM (fp32
+# UNet of mead-128's shape, VQ-f4 first stage of 16,384 codes) and its
+# DiffusionCLIP finetune
+CONFIG_AFFECTNET = os.path.join(CONFIG_DIR, "affectnet-128-ldm-vq-f4.yaml")
+CONFIG_AFFECTNET_CLIP = os.path.join(CONFIG_DIR,
+                                     "affectnet-128-clip-ldm-vq-f4.yaml")
 CONFIG_VQ = os.path.join(HERE, "configs", "autoencoder", "vqgan-f4.yaml")
 CONFIG_KL = os.path.join(HERE, "configs", "autoencoder", "kl-f4.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -1009,6 +1042,9 @@ def phase_kernels():
         _flash_bwd_case(gen, 2, 1, 100, 65, 512, False, f32),
         _flash_bwd_case(gen, 1, 2, 70, 9, 512, False, f32),
         _flash_bwd_case(gen, 1, 1, 130, 257, 512, False, f32),
+        # the DiffusionCLIP finetune's decoder backward (affectnet-edit)
+        _affectnet_clip(_flash_bwd_case(gen, 4, 1, 1024, 1024, 512, True,
+                                        f32)),
         _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
@@ -1856,10 +1892,13 @@ def image_size(cfg):
 
 
 def synthetic_spec(cfg):
-    """SyntheticDataset's fields at a config's real shapes."""
+    """SyntheticDataset's fields at a config's real shapes: the talking-face
+    model's five, or the AffectNet model's image and class label."""
     size = image_size(cfg)
-    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
     frame = [[size, size, 3], "float32"]
+    if "cond_stage_config_2" not in cfg["model"]["params"]:
+        return {"image": frame, "class_label": [[], "int32"]}
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
     return {"image": frame, "masked_image": frame, "identity": frame,
             "class_label": [[], "int32"],
             "audio": [[c2["seq_len"], c2["subspace_dim"]], "float32"]}
@@ -1881,13 +1920,16 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     """Launches of every kernel for ``steps`` training steps and
     ``eval_batches`` validation batches (two loss evaluations each, raw and
     EMA weights, in eval-mode routing), from the model's own blocks. A step:
-    three frozen first-stage encodes (image and the two concat streams), and
-    every UNet self-attention once forward and once backward through the
-    packed kernels (or the split-head ones under DSML_ATTN_PACKED=0). The
-    GroupNorm kernel runs forward only: its backward differentiates the
-    plain version, as in the JAX package."""
+    a frozen first-stage encode of the image and of each channel-concat
+    stream that goes through the first stage (three for the talking-face
+    model, one for the AffectNet one), and every UNet self-attention once
+    forward and once backward through the packed kernels (or the split-head
+    ones under DSML_ATTN_PACKED=0). The GroupNorm kernel runs forward only:
+    its backward differentiates the plain version, as in the JAX package."""
     short, long = count_attentions(ldm.unet, ldm.image_size)
-    step = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
+    encodes = 1 + sum(s.route == "concat_first_stage" for s in ldm.cond_specs)
+    step = expected_launches(ldm, env, unet_calls=1, encodes=encodes,
+                             decodes=0)
     # training mode has no fused branch: the packed kernels take every
     # self-attention (or, under DSML_ATTN_PACKED=0, the split-head forward
     # that expected_launches counts), and the matching backward kernel runs
@@ -1903,7 +1945,8 @@ def expected_train_launches(ldm, env, steps, eval_batches):
         auto = count_auto_streams(ldm.unet, ldm.image_size)
         step[bwd] -= auto
         step["flash_attention_streaming_bwd"] = auto
-    evals = expected_launches(ldm, env, unet_calls=1, encodes=3, decodes=0)
+    evals = expected_launches(ldm, env, unet_calls=1, encodes=encodes,
+                              decodes=0)
     return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
 
 
@@ -2373,6 +2416,392 @@ def phase_ae_train(name, config, env, steps, smi, tmp, lpips_files,
     return launches
 
 
+# ------------------------------------------------------------------ AffectNet
+
+def phase_affectnet(name, ldm, smi, n=8, steps=50, scale=3.0,
+                    classes=(0, 1)):
+    """AffectNet serving through ``reenactment.sample_class`` (the library
+    call of scripts/sample_affectnet_torch.py) on affectnet-128-ldm-vq-f4
+    at full width, random weights: first one guided UNet call (a batch of
+    ``n`` doubled to 2n by the guidance) and one decode of ``n`` latents
+    (unquantized) through the kernels against the same calls through the
+    plain versions (5e-2 of the output's maximum, as ``phase_model``), then
+    a class batch of ``n`` images for each class (DDIM-``steps``, guidance
+    ``scale`` against the null embedding, decoded), launch counts from the
+    model's own blocks, the first class again from its seed for equal bits,
+    and one class batch's busy device time beside its wall time. Returns the
+    launch counts of the class batches."""
+    from dsml_thesis_tpu_torch.diffusion import make_ddim_schedule
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.reenactment import sample_class
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat, ch = ldm.image_size, ldm.channels
+    x = torch.randn(n, lat, lat, ch, generator=gen, device="cuda")
+    z = torch.randn(n, lat, lat, ch, generator=gen, device="cuda")
+    t = torch.full((n,), 500, device="cuda")
+    batch = {"class_label": torch.arange(n, device="cuda") % 8}
+
+    def model_call():
+        with torch.no_grad():
+            eps = ldm.make_eps_fn(ldm.encode_conditioning(batch),
+                                  ldm.null_conditioning(batch, batch_size=n),
+                                  scale)(x, t)
+            img = ldm.decode_first_stage(z, force_not_quantize=True)
+        torch.cuda.synchronize()
+        return eps.float(), img.float()
+
+    def class_batch(c):
+        g = torch.Generator(device="cuda").manual_seed(c)
+        out = sample_class(ldm, c, n, steps=steps, scale=scale, generator=g)
+        torch.cuda.synchronize()
+        return out
+
+    env = {}
+    with flags(**env):
+        A.reset_launches()
+        eps_k, img_k = model_call()
+        model_launches = dict(A.LAUNCHES)
+    with plain_path(env):
+        A.reset_launches()
+        eps_p, img_p = model_call()
+        plain_launches = dict(A.LAUNCHES)
+    model = {"rel_tol": 5e-2, "launches": model_launches,
+             "launches_expected": expected_launches(ldm, env, unet_calls=1,
+                                                    encodes=0, decodes=1)}
+    for part, k, p in (("unet", eps_k, eps_p), ("decode", img_k, img_p)):
+        err, rel = _compare(k, p)
+        model[part] = {"shape": list(k.shape), "max_abs_err": err,
+                       "rel_err": rel}
+
+    results, secs = {}, []
+    with flags(**env):
+        A.reset_launches()   # counts below are of the class batches alone
+        for c in classes:
+            t0 = time.monotonic()
+            results[c] = class_batch(c).float().cpu().numpy()
+            secs.append(time.monotonic() - t0)
+        launches = dict(A.LAUNCHES)
+        again = class_batch(classes[0]).float().cpu().numpy()
+        busy_ms = device_ms(lambda: class_batch(classes[-1]), iters=1)
+    chain = make_ddim_schedule(ldm.schedule, steps).num_steps
+    expect = expected_launches(ldm, env, unet_calls=len(classes) * chain,
+                               encodes=0, decodes=len(classes))
+    size = lat * 2 ** (len(ldm.first_stage.decoder.ch_mult) - 1)
+    imgs = list(results.values())
+    checks = {
+        "model_agrees": all(model[k]["rel_err"] <= 5e-2
+                            for k in ("unet", "decode")),
+        "model_launches": model_launches == model["launches_expected"]
+        and not any(plain_launches.values()),
+        "shape": all(r.shape == (n, size, size, 3) for r in imgs),
+        "finite": all(bool(np.isfinite(r).all()) for r in imgs),
+        "range": all(float(np.abs(r).max()) <= 1.0 for r in imgs),
+        "varied": all(float(r.std()) > 1e-3 for r in imgs),
+        "launches": launches == expect,
+        "reproducible": bool(np.array_equal(again, results[classes[0]])),
+        "classes_differ": not np.array_equal(imgs[0], imgs[-1]),
+    }
+    wall_ms = 1e3 * secs[-1]
+    emit({"phase": "serve", "run": name,
+          "config": os.path.relpath(CONFIG_AFFECTNET, HERE), "card": smi,
+          "classes": list(classes), "samples_per_class": n, "sampler": "ddim",
+          "unet_calls_per_class": chain, "guidance": scale, "model": model,
+          "checks": checks, "launches": launches,
+          "launches_expected": expect,
+          "seconds_per_class": [round(v, 3) for v in secs],
+          "class_busy_ms": busy_ms, "class_wall_ms": wall_ms,
+          "idle_share": 1.0 - busy_ms / wall_ms,
+          "images_per_s": n / secs[-1]})
+    if not all(checks.values()):
+        fail(f"serve {name}: checks failed: {checks}")
+    return launches
+
+
+# a synthetic BPE merge table (the real one ships with the clip package)
+BPE_MERGES = (
+    "t h", "th e</w>", "f a", "fa c", "fac e</w>", "h a", "ha p", "hap p",
+    "happ y</w>", "p h", "ph o", "pho t", "phot o</w>", "o f</w>", "s a",
+    "sa d</w>", "a n", "an g", "ang r", "angr y</w>",
+)
+
+
+def write_guidance_files(tmp):
+    """The finetune's guidance checkpoints from seed 0, in the layouts the
+    config's keys read: a full-width CLIP ViT-B/16 in the OpenAI layout
+    (``clip_ckpt``), an IR-SE50 in the reference Backbone's (``id_ckpt``)
+    and a BPE merge table (``clip_bpe``). The real files are not in the
+    repository; random weights keep all three losses live."""
+    from dsml_thesis_tpu_torch.models import clip as C
+    from dsml_thesis_tpu_torch.models.insight_face import (
+        IRSE, reference_state_dict)
+
+    torch.manual_seed(0)
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("clip_ckpt", "clip_vit_b16.pt"), ("id_ckpt", "model_ir_se50.pth"),
+        ("clip_bpe", "bpe_merges.txt"))}
+    torch.save(C.openai_state_dict(C.CLIP(C.CLIPConfig())), paths["clip_ckpt"])
+    torch.save(reference_state_dict(IRSE()), paths["id_ckpt"])
+    with open(paths["clip_bpe"], "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(BPE_MERGES) + "\n")
+    return paths
+
+
+# parameters whose gradients through the finetune's chain and decode the
+# kernel path and the plain path are held to (level 0: N = 1024, row 1)
+EDIT_GRAD_PROBES = (
+    "unet.conv_in.weight",
+    "unet.down_0_0_attn.block_0.attn1.to_q.weight",
+    "unet.down_0_0_attn.block_0.attn1.to_out.weight",
+    "unet.down_1_0_attn.block_0.attn1.to_q.weight",
+    "unet.up_0_2_attn.block_0.attn1.to_out.weight",
+    "unet.out_norm.weight",
+)
+
+
+def expected_edit_launches(ldm, chain, steps, eval_batches, image_logs):
+    """Launches of a DiffusionCLIP finetune run, from the model's own
+    blocks: a step runs the ``chain`` UNet calls of the training schedule
+    and one decode under autograd (every self-attention through row 1's
+    autograd ``Function``, each decoder attention block through row 2 with
+    its log-sum-exp and once through row 7 in the backward); a validation
+    batch runs that twice without gradients (raw and EMA weights), an image
+    log once. Also returns the row-1 launches that go through the
+    ``Function``."""
+    def calls(n):
+        return expected_launches(ldm, {}, unet_calls=n * chain, encodes=0,
+                                 decodes=n)
+
+    out = calls(steps + 2 * eval_batches + image_logs)
+    out["flash_attention_bwd"] = steps * count_attn_blocks(
+        ldm.first_stage.decoder)
+    return out, calls(steps)["flash_attention_fproj"]
+
+
+@contextlib.contextmanager
+def autograd_fproj_calls():
+    """Counts, inside the block, the row-1 calls that go through its
+    autograd ``Function`` (the composed backward) rather than the
+    no-gradient launch."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    seen = {"calls": 0}
+    real = A._KernelForward
+
+    class Spy:
+        @staticmethod
+        def apply(launch, *args):
+            seen["calls"] += launch is A._fproj_launch
+            return real.apply(launch, *args)
+
+    with mock.patch.object(A, "_KernelForward", Spy):
+        yield seen
+
+
+def _cache_nodes(d, n):
+    """LatentTrain / LatentTest nodes over the cache in ``d``."""
+    def node(split, prefix, n_samples):
+        return {"target": f"ldm.data.latents.Latent{split}", "params": {
+            f"{prefix}_precomputed_latents_path": os.path.join(d,
+                                                               "latents.npy"),
+            f"{prefix}_origin_path": os.path.join(d, "origin.npy"),
+            f"{prefix}_files_path": os.path.join(d, "files.npy"),
+            "n_samples": n_samples, "size": 128}}
+    return node("Train", "training", None), node("Test", "test", n)
+
+
+def phase_affectnet_edit(name, smi, tmp, n_images=8, steps=40, strength=0.5,
+                         finetune_steps=2):
+    """The editing stack of the AffectNet model at full width on the card:
+
+    1. ``reenactment.compute_latent_cache`` (scripts/compute_latents_torch.py's
+       call) of ``n_images`` synthetic images under their labels: VQ encode,
+       DDIM inversion over the first ``strength`` of the chain in ``steps``
+       steps, the reconstruction decoded; written as a cache.
+    2. ``finetune_steps`` steps of the DiffusionCLIP finetune
+       (affectnet-128-clip-ldm-vq-f4.yaml) through scripts/train_torch.py's
+       ``main()`` on that cache via ``LatentTrain`` (batch 4), the l2, id and
+       CLIP-direction losses live from guidance files written here, one
+       validation batch and one image log; launch counts (row 1 under
+       autograd through its ``Function``, row 2 with its log-sum-exp, row 7
+       at [4, 1, 1024, 512]), the peak memory, a warm step's time; the first
+       step's loss and a few gradients on the kernel path against the plain
+       path (a fresh trainer from the same seed: the first step's weights).
+    3. ``reenactment.manipulate`` (scripts/latent_manipulation_torch.py's
+       call) on the finetuned model: inversion under the source class and
+       the reverse chain under the target, decoded.
+    Returns the phase's launch counts."""
+    from dsml_thesis_tpu_torch.config import build_model, load_config
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.reenactment import (compute_latent_cache,
+                                                   inversion_schedule,
+                                                   manipulate)
+    from dsml_thesis_tpu_torch.training.finetune_trainer import \
+        FinetuneTrainer
+
+    cfg = load_config([CONFIG_AFFECTNET])
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"])
+    torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
+    ldm = ldm.to("cuda").eval()
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-1, 1, (n_images, 128, 128, 3)).astype(np.float32)
+    labels = np.arange(n_images) % 8
+    chain = inversion_schedule(ldm, steps, strength).num_steps
+    with flags():
+        A.reset_launches()
+        t0 = time.monotonic()
+        cache = compute_latent_cache(ldm, images, labels, steps=steps,
+                                     strength=strength, reconstruct=True,
+                                     batch_size=n_images)
+        cache_s = time.monotonic() - t0
+        cache_launches = dict(A.LAUNCHES)
+    cache_expect = expected_launches(ldm, {}, unet_calls=2 * chain,
+                                     encodes=1, decodes=1)
+    d = os.path.join(tmp, "affectnet-cache")
+    os.makedirs(d, exist_ok=True)
+    for key in ("origin", "latents", "recon"):
+        np.save(os.path.join(d, f"{key}.npy"), cache[key])
+    np.save(os.path.join(d, "files.npy"),
+            np.array([f"{l}_synthetic{i}.png" for i, l in enumerate(labels)]))
+    del ldm
+    torch.cuda.empty_cache()
+
+    guidance = write_guidance_files(tmp)
+    train_node, val_node = _cache_nodes(d, 4)
+    argv = ["--base", CONFIG_AFFECTNET_CLIP, "-t", "--max-steps",
+            str(finetune_steps), "--logdir", os.path.join(tmp, "edit"),
+            "--name", name, "--seed", "0", "--no-test", "--log-every", "1",
+            f"data.params.train={json.dumps(train_node)}",
+            f"data.params.validation={json.dumps(val_node)}",
+            "data.params.num_workers=2",
+            "lightning.callbacks.image_logger.params.batch_frequency="
+            f"{finetune_steps}",
+            "lightning.callbacks.image_logger.params.max_images=4",
+            *(f"model.params.{k}={v}" for k, v in guidance.items())]
+    with flags(), deterministic_cudnn():
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with autograd_fproj_calls() as through_function:
+            trainer = _train_torch().main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ft, state = trainer.finetune, trainer._state
+        train_ddim = ft.train_ddim.num_steps
+        expect, expect_function = expected_edit_launches(
+            trainer.ldm, train_ddim, finetune_steps, 1, 1)
+        losses, vals = _train_losses(trainer.logdir)
+        with open(os.path.join(trainer.logdir, "metrics.jsonl")) as f:
+            first = next(json.loads(ln) for ln in f
+                         if json.loads(ln)["split"] == "train")
+        live = {k: first.get(f"train/loss_{k}", 0.0)
+                for k in ("l2", "id", "clip")}
+        moved = sum(not torch.equal(p, e)
+                    for p, e in zip(state.params, state.ema_params))
+        saved_proj = torch.load(guidance["clip_ckpt"])["visual.proj"]
+        towers_kept = (
+            torch.equal(ft.clip_image_embed.visual.proj.cpu(), saved_proj)
+            and not any(p.requires_grad
+                        for tower in (ft.clip_image_embed, ft.arcface_embed)
+                        for p in tower.parameters())
+            and all(n.startswith("unet.") for n in state.names))
+        image_log = os.path.join(trainer.logdir, "images",
+                                 f"edited_step{finetune_steps:08d}.npy")
+        logged = np.load(image_log) if os.path.exists(image_log) else None
+        xb = trainer._to_device(next(iter(trainer.train_data)))
+        # one more step, warm: the run's own steps built and chose everything
+        step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 1, 0)
+
+        fresh = FinetuneTrainer(trainer.config, os.path.join(tmp, "edit-b"),
+                                seed=0, device=torch.device("cuda"))
+        batch = fresh._to_device(next(iter(fresh.train_data)))
+        probes = dict(fresh.ldm.named_parameters())
+        fresh.ldm.configure_trainable()
+
+        def run():
+            fresh.ldm.zero_grad(set_to_none=True)
+            loss, _ = fresh.finetune.training_loss(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {n: probes[n].grad.detach().float().clone()
+                     for n in EDIT_GRAD_PROBES}
+            fresh.ldm.zero_grad(set_to_none=True)
+            return float(loss.detach()), grads
+
+        grads_ok, grads = _kernel_vs_plain(run, {})
+        fresh.close()
+        del fresh, probes, batch
+
+        ldm = trainer.ldm.eval()
+        with torch.no_grad():
+            z0 = ldm.encode_first_stage(
+                torch.from_numpy(images[:4]).to("cuda"))
+        A.reset_launches()
+        edited, _ = manipulate(ldm, inversion_schedule(ldm, steps, strength),
+                               trg_label=1, src_label=0, z0=z0)
+        torch.cuda.synchronize()
+        manip_launches = dict(A.LAUNCHES)
+        manip_expect = expected_launches(ldm, {}, unet_calls=2 * chain,
+                                         encodes=0, decodes=1)
+        edited = edited.float().cpu().numpy()
+        trainer.close()
+        del trainer, state, ft, ldm, xb
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "edit"), ignore_errors=True)
+    shutil.rmtree(os.path.join(tmp, "edit-b"), ignore_errors=True)
+
+    checks = {
+        "cache_shapes": cache["latents"].shape == (n_images, 32, 32, 3)
+        and cache["origin"].shape == cache["recon"].shape == images.shape,
+        "cache_finite": all(bool(np.isfinite(v).all())
+                            for v in cache.values()),
+        "cache_launches": cache_launches == cache_expect,
+        "steps": len(losses) == finetune_steps,
+        "finite": all(np.isfinite(losses)) and len(vals) == 1,
+        "losses_live": all(v > 0 for v in live.values()),
+        "parameters_moved": moved > 0,
+        "towers_and_first_stage_kept": towers_kept,
+        "launches": launches == expect,
+        "row1_through_autograd_function":
+            through_function["calls"] == expect_function,
+        "image_log": logged is not None and logged.shape == (4, 128, 128, 3),
+        "kernel_path_agrees_with_plain_path": grads_ok,
+        "manipulation": edited.shape == (4, 128, 128, 3)
+        and bool(np.isfinite(edited).all())
+        and float(np.abs(edited).max()) <= 1.0,
+        "manipulation_launches": manip_launches == manip_expect,
+    }
+    emit({"phase": "edit", "run": name,
+          "config": os.path.relpath(CONFIG_AFFECTNET_CLIP, HERE),
+          "card": smi, "checks": checks,
+          "cache": {"images": n_images, "steps": chain, "strength": strength,
+                    "seconds": round(cache_s, 3), "launches": cache_launches,
+                    "launches_expected": cache_expect},
+          "finetune": {"batch": 4, "chain_steps": train_ddim,
+                       "optimizer_steps": finetune_steps, "losses": losses,
+                       "first_step_terms": live,
+                       "val": vals[0] if vals else None,
+                       "tensors_moved": moved, "launches": launches,
+                       "launches_expected": expect,
+                       "row1_through_function": through_function["calls"],
+                       "row1_through_function_expected": expect_function,
+                       "warm_step_ms": step_ms,
+                       "peak_memory_bytes": peak,
+                       "run_wall_seconds": round(wall, 3),
+                       "gradients": grads},
+          "manipulation": {"launches": manip_launches,
+                           "launches_expected": manip_expect}})
+    if not all(checks.values()):
+        fail(f"edit {name}: checks failed: {checks}")
+    return {k: cache_launches[k] + launches[k] + manip_launches[k]
+            for k in launches}
+
+
 # kernel -> (source, the TPU kernel it replaces, the run that is its path)
 KERNELS = {
     "flash_attention_fproj": (
@@ -2420,6 +2849,11 @@ F32_WIDE = {
     "flash_attention_streaming": "ae-vq-streaming",
     "flash_attention_streaming_bwd": "ae-vq-streaming",
 }
+# the fp32 D = 512 backward at the DiffusionCLIP finetune's batch of 4 (its
+# decoder, under autograd): kernel -> the run that is its path; a sub-row
+F32_EDIT = {
+    "flash_attention_bwd": "affectnet-edit",
+}
 # the fp32 cases at mead-128-ldm-f4's UNet shapes (``_mead128``): kernel ->
 # the run that is their path; a sub-row each
 F32_UNET = {
@@ -2438,6 +2872,11 @@ def _mead128(case):
     return dict(case, config="mead-128-ldm-f4")
 
 
+def _affectnet_clip(case):
+    """Marks a case at the shapes of the DiffusionCLIP finetune's step."""
+    return dict(case, config="affectnet-128-clip-ldm-vq-f4")
+
+
 def kernels_line(cases, launches_by_run):
     """A row for each kernel (its first timed case, its launches in the run
     that is its path), a sub-row for each fp32 D = 32 and D = 512
@@ -2449,8 +2888,12 @@ def kernels_line(cases, launches_by_run):
                for name, run in F32_NARROW.items()]
     subrows += [(name, run, "float32, head width 512",
                  lambda c: c.get("dtype") == "float32"
-                 and c.get("head_dim") == 512)
+                 and c.get("head_dim") == 512 and "config" not in c)
                 for name, run in F32_WIDE.items()]
+    subrows += [(name, run,
+                 "float32, head width 512, DiffusionCLIP finetune decode",
+                 lambda c: c.get("config") == "affectnet-128-clip-ldm-vq-f4")
+                for name, run in F32_EDIT.items()]
     subrows += [(name, run, "float32, mead-128-ldm-f4 UNet shapes",
                  lambda c: c.get("config") == "mead-128-ldm-f4")
                 for name, run in F32_UNET.items()]
@@ -2530,7 +2973,10 @@ TRAIN_RUNS = (
     ("train-mead128-streaming", CONFIG_128,
      {"DSML_ATTN_PACKED": "0", "DSML_FLASH_STREAMING": "1"}, 2),
     ("train-mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "res"}, 2),
+    ("train-affectnet", CONFIG_AFFECTNET, {}, 2),
 )
+# the AffectNet serve run and the editing phase (names in the kernels line)
+AFFECTNET_RUN, EDIT_RUN = "affectnet", "affectnet-edit"
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (
     ("ae-vq", CONFIG_VQ, {}, 4),
@@ -2558,7 +3004,7 @@ def main():
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
     for config in (CONFIG, CONFIG_FULLATTN, CONFIG_DH64, CONFIG_128, CONFIG_VQ,
-                   CONFIG_KL):
+                   CONFIG_KL, CONFIG_AFFECTNET, CONFIG_AFFECTNET_CLIP):
         if not os.path.exists(config):
             print(f"chip_smoke: {config} is missing: run from a checkout",
                   file=sys.stderr)
@@ -2600,6 +3046,9 @@ def main():
                 phase_dpm_latents(name, cfg, ldm, env, args.frames, dpm)
         if "samplers" in phases:
             phase_samplers(*model(CONFIG_128), smi)
+        if "serve" in phases:
+            launches[AFFECTNET_RUN] = phase_affectnet(
+                AFFECTNET_RUN, model(CONFIG_AFFECTNET)[1], smi)
         del models, ldm   # free the card for the train runs
         torch.cuda.empty_cache()
     if "train" in phases:
@@ -2614,8 +3063,10 @@ def main():
                 launches[name] = phase_ae_train(name, config, env, steps, smi,
                                                 tmp, lpips_files,
                                                 resume=(name == "ae-vq"))
+            launches[EDIT_RUN] = phase_affectnet_edit(EDIT_RUN, smi, tmp)
+    runs = [r[0] for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS]
     if cases is None or "samplers" not in phases or not all(
-            r[0] in launches for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS):
+            r in launches for r in runs + [AFFECTNET_RUN, EDIT_RUN]):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Shared argparse fragments of the port's sampling and serving CLIs.
+"""Shared fragments of the port's CLIs: the sampler arguments, the device
+choice, the PNG row beside a saved result.
 
 Counterpart of ``dsml_thesis_tpu/cli.py``: every video-pipeline CLI offers
 the same ``--sampler`` surface, so the flag trio lives in one place.
@@ -26,3 +27,28 @@ def add_sampler_args(ap: argparse.ArgumentParser, note: str = "") -> None:
     ap.add_argument("--sampler-order", type=int, default=2,
                     choices=(1, 2, 3),
                     help="DPM-Solver++ order when --sampler dpm")
+
+
+def device_of(cpu: bool):
+    """The device of a script: the card, or the CPU when ``--cpu`` asks for
+    it; no card is an error."""
+    import torch
+
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device (pass --cpu to run on the CPU)")
+    return torch.device("cuda")
+
+
+def save_png_row(images, path: str) -> None:
+    """[N, H, W, 3] images in [-1, 1] side by side as one PNG, where Pillow
+    is installed (the ``.npy`` beside it is the result)."""
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        return
+    row = np.concatenate(list((images + 1.0) * 127.5), axis=1)
+    Image.fromarray(row.astype(np.uint8)).save(path)

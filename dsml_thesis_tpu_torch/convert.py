@@ -10,9 +10,19 @@ by dots; only the leaves change:
   kernel  [I, O]            -> weight [O, I]            (Linear)
   kernel  [k, I, O]         -> weight [O, I, k]         (Conv1d)
   kernel  [kh, kw, I, O]    -> weight [O, I, kh, kw]    (Conv2d)
-  scale                     -> weight                   (Group / LayerNorm)
+  scale                     -> weight                   (Group / Layer /
+                                                         BatchNorm)
   embedding                 -> <embedding module>.weight
   bias                      -> bias
+  any other leaf            -> the tensor of that name, as it is: the free
+                               tensors of the CLIP towers (class_embedding,
+                               positional_embedding, proj, token_embedding,
+                               text_projection), a PReLU's alpha, IR-SE's
+                               output_scale / output_bias
+
+``from_jax_variables(variables)`` also reads the ``batch_stats`` collection
+of a module with BatchNorm (IR-SE): a BatchNorm's ``mean`` / ``var`` (and
+IR-SE's ``output_mean`` / ``output_var``) land in the buffers of those names.
 
 ``to_jax_tree(module, tensors)`` and ``to_jax_params(ldm, tensors)`` are the
 inverses: a module's ``state_dict`` (or any tensors under the same keys:
@@ -59,6 +69,20 @@ def from_jax_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
         else:
             key, arr = _leaf(prefix, name, value)
             out[key] = torch.from_numpy(arr)
+    return out
+
+
+def from_jax_variables(variables: Mapping,
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX variables tree ``{"params": ..., "batch_stats": ...}`` ->
+    ``state_dict`` of its port module, parameters and running statistics
+    (buffers under the statistics' own names) together."""
+    out = from_jax_tree(variables["params"], prefix)
+    stats = from_jax_tree(variables.get("batch_stats", {}), prefix)
+    clash = set(out) & set(stats)
+    if clash:
+        raise ValueError(f"parameters and statistics share names: {clash}")
+    out.update(stats)
     return out
 
 

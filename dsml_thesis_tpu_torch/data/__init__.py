@@ -1,2 +1,5 @@
 """Datasets and the loader of the port."""
-from .datasets import DataLoader, SyntheticDataset, collate  # noqa: F401
+from .datasets import (AffectnetDataset, AffectnetTest,  # noqa: F401
+                       AffectnetTrain, DataLoader, LatentDataset, LatentTest,
+                       LatentTrain, SyntheticDataset, collate, load_image,
+                       load_images)

@@ -1,8 +1,9 @@
 """Conditioning-stage encoders of the talking-face model.
 
-Counterpart of ``dsml_thesis_tpu/models/encoders.py`` for the two streams
-the serving path uses: the class label (with its trainable null row for
-classifier-free guidance) and the audio window pooled to one token. Both
+Counterpart of ``dsml_thesis_tpu/models/encoders.py`` for the streams the
+ported models use: the class label (with the null embedding of
+classifier-free guidance in each of the reference's three layouts) and the
+audio window pooled to one token. Both
 compute in the promotion of input and parameter types, like the JAX modules
 (an fp32 input through bf16-cast weights stays fp32). In training the
 class embedder drops the whole batch's labels to the null token with
@@ -21,16 +22,44 @@ from .unet import Linear
 
 
 class ClassEmbedder(nn.Module):
-    """Class label -> one cross-attention token. Row ``n_classes`` of the
-    (n_classes + 1)-row table is the trainable null embedding that
-    classifier-free guidance uses as the unconditional token."""
+    """Class label -> one cross-attention token, with the null embedding that
+    classifier-free guidance uses as the unconditional token. ``null_mode``
+    selects the reference's variant:
+
+      - ``extra_row`` (the talking-face ``ClassEmbedder``): row
+        ``n_classes`` of an (n_classes + 1)-row ``embedding`` table;
+      - ``separate`` (``ClassEmbedder3``): an ``embedding`` of n_classes rows
+        and a 1-row ``uncond_embedding``; with ``freeze_null``
+        (``ClassEmbedder2``) that row is detached and listed by
+        ``frozen_paths()``, so that the optimizer never sees it;
+      - ``none`` (face reenactment's plain ``ClassEmbedder``): no null
+        embedding and no label drop.
+    """
 
     def __init__(self, embed_dim: int, n_classes: int, p_uncond: float = 0.0,
-                 key: str = "class_label"):
+                 key: str = "class_label", null_mode: str = "extra_row",
+                 freeze_null: bool = False):
         super().__init__()
+        if freeze_null and null_mode != "separate":
+            raise ValueError("freeze_null=True requires null_mode='separate' "
+                             f"(got null_mode={null_mode!r})")
+        if null_mode not in ("extra_row", "separate", "none"):
+            raise ValueError(f"unknown null_mode {null_mode!r}")
+        if null_mode == "none" and p_uncond != 0.0:
+            raise ValueError("null_mode='none' cannot drop labels")
         self.n_classes, self.key = n_classes, key
         self.p_uncond = p_uncond
-        self.embedding = nn.Embedding(n_classes + 1, embed_dim)
+        self.null_mode, self.freeze_null = null_mode, freeze_null
+        extra = 1 if null_mode == "extra_row" else 0
+        self.embedding = nn.Embedding(n_classes + extra, embed_dim)
+        if null_mode == "separate":
+            self.uncond_embedding = nn.Embedding(1, embed_dim)
+
+    def frozen_paths(self):
+        """Sub-trees the optimizer skips (``LatentDiffusion.frozen_subpaths``
+        collects them): the pinned null row, which decoupled weight decay
+        would otherwise shrink though it gets no gradient."""
+        return ("uncond_embedding",) if self.freeze_null else ()
 
     def forward(self, labels: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -52,7 +81,17 @@ class ClassEmbedder(nn.Module):
 
     def null_token(self, batch_size: int) -> torch.Tensor:
         """Unconditional token for classifier-free guidance, [B, 1, D]."""
-        row = self.embedding.weight[self.n_classes]
+        if self.null_mode == "extra_row":
+            row = self.embedding.weight[self.n_classes]
+        elif self.null_mode == "separate":
+            row = self.uncond_embedding.weight[0]
+            if self.freeze_null:
+                row = row.detach()
+        else:
+            raise ValueError(
+                "this ClassEmbedder has no null embedding (null_mode='none', "
+                "the plain variant): guidance needs ClassEmbedder3 or the "
+                "talking-face variant")
         return row[None, None, :].expand(batch_size, 1, -1)
 
 

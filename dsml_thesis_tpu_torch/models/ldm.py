@@ -17,6 +17,9 @@ sets ``requires_grad`` to match. Random draws come from a ``torch.Generator``
 (another stream than ``jax.random`` gives from the same seed), and each can
 be handed in (``t=``, ``noise=``, ``drop=``) as ``x_T`` can for sampling.
 
+Sampling: ``null_conditioning`` and ``make_eps_fn`` compose the guided
+model closure of the samplers, as the JAX class's methods of those names do.
+
 ``split_input_params`` runs the UNet (and, with ``patch_distributed_vq``,
 the first-stage encode and decode) over overlapping patches blended by
 ``diffusion/tiling.py``. Not ported yet: KL first stages.
@@ -30,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from ..diffusion import tiling
+from ..diffusion.ddim import cfg_eps_fn
 from ..diffusion.gaussian import p_losses, q_sample
 from ..diffusion.schedules import DiffusionSchedule
 
@@ -218,16 +222,27 @@ class LatentDiffusion(nn.Module):
     def encode_conditioning(self, batch: Dict[str, torch.Tensor],
                             training: bool = False,
                             generator: Optional[torch.Generator] = None,
-                            drop: Optional[torch.Tensor] = None
+                            drop: Optional[torch.Tensor] = None,
+                            null: bool = False,
+                            batch_size: Optional[int] = None
                             ) -> Dict[str, Optional[torch.Tensor]]:
         """Run every cond stage and route the streams: cross-attention
         context (feature- then token-concatenated) and the channel-concat
         group (``concat_first_stage`` streams through the frozen first
         stage). With ``training`` an encoder that drops labels draws from
         ``generator`` (or takes ``drop``); a non-trainable encoder's output
-        is detached."""
+        is detached. ``null`` gives the unconditional branch of the guidance
+        (see ``null_conditioning``)."""
         feat, tok, concat = [], [], []
         for spec in self.cond_specs:
+            if (null and spec.route.startswith("crossattn")
+                    and spec.module is not None
+                    and hasattr(spec.module, "null_token")):
+                n = batch_size if batch_size is not None \
+                    else batch[spec.key].shape[0]
+                v = spec.module.null_token(n)
+                (feat if spec.route == "crossattn_feature" else tok).append(v)
+                continue
             v = batch[spec.key]
             if spec.module is not None:
                 if isinstance(spec.module, _LABEL_DROPPERS):
@@ -256,6 +271,29 @@ class LatentDiffusion(nn.Module):
             ctx = t if ctx is None else torch.cat([ctx, t], dim=1)
         return {"crossattn": ctx,
                 "concat": torch.cat(concat, dim=-1) if concat else None}
+
+    def null_conditioning(self, batch: Dict[str, torch.Tensor],
+                          batch_size: int) -> Dict[str, Optional[torch.Tensor]]:
+        """The unconditional branch of classifier-free guidance: each
+        cross-attention stream from its encoder's null token at
+        ``batch_size`` (the batch may hold None there), the concat streams
+        as ``encode_conditioning`` routes them."""
+        return self.encode_conditioning(batch, null=True,
+                                        batch_size=batch_size)
+
+    def make_eps_fn(self, cond: Dict[str, Optional[torch.Tensor]],
+                    uncond: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+                    scale: float = 1.0):
+        """``eps_fn(x, t)`` of the samplers: the model under ``cond``, with
+        classifier-free guidance against ``uncond`` at ``scale`` (one
+        batch-doubled call; a single conditional call at scale 1 or without
+        ``uncond``)."""
+        if self.parameterization != "eps":
+            raise NotImplementedError(
+                "sampling is implemented for parameterization='eps' only, "
+                f"got {self.parameterization!r}")
+        return cfg_eps_fn(lambda x, t, c: self.apply_model(x, t, c), cond,
+                          uncond, scale)
 
     # ---------- model application ----------
 

@@ -62,6 +62,18 @@
            a step, peak memory, then one step under torch.profiler: kernels
            launched, device-busy ms, device time by kernel family and the
            device's idle share
+--affectnet  one warm class batch of affectnet-128-ldm-vq-f4 (8 images,
+           DDIM-50, guidance 3.0 as a batch of 16, random weights cast for
+           sampling, through reenactment.sample_class) by CUDA events, then
+           one batch untraced and one under torch.profiler: kernels
+           launched, device time by family and the idle share
+--finetune one warm step of the DiffusionCLIP finetune
+           (affectnet-128-clip-ldm-vq-f4: batch 4, the 6-step chain and the
+           decode under autograd, random full-width CLIP ViT-B/16 and
+           IR-SE50 towers and a random direction table handed in) through
+           the port's train step: ms a warm step by CUDA events, the
+           forward and the backward by events, peak memory, launches a step,
+           then one step under torch.profiler as --train's
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -92,6 +104,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CONFIG = os.path.join(ROOT, "configs", "latent-diffusion",
                       "mead-256-ldm-f4.yaml")
 PARTIAL = "DSML_ATTN_FPROJ_PARTIAL"
+CONFIG_AFFECTNET = os.path.join(ROOT, "configs", "latent-diffusion",
+                                "affectnet-128-ldm-vq-f4.yaml")
+CONFIG_AFFECTNET_CLIP = os.path.join(ROOT, "configs", "latent-diffusion",
+                                     "affectnet-128-clip-ldm-vq-f4.yaml")
 
 
 def card() -> str:
@@ -658,6 +674,98 @@ def _profile_step(step, measure: str, run: dict):
                         for k, v in top]}), flush=True)
 
 
+def affectnet(smi: str, n: int = 8, steps: int = 50, scale: float = 3.0):
+    from ..reenactment import sample_class
+
+    device = torch.device("cuda")
+    cfg = load_config([CONFIG_AFFECTNET])
+    run = {"card": smi, "config": os.path.relpath(CONFIG_AFFECTNET, ROOT),
+           "samples": n, "steps": steps, "guidance": scale,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"])
+    torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
+    ldm = cast_sampling_params(ldm).to(device).eval()
+    gen = torch.Generator(device=device)
+
+    def batch():
+        gen.manual_seed(0)
+        sample_class(ldm, 1, n, steps=steps, scale=scale, generator=gen)
+
+    batch()   # warm-up: kernel build
+    A.reset_launches()
+    ms = event_ms(batch, 2)
+    print(json.dumps({"measure": "affectnet_class_batch", **run,
+                      "class_batch_ms": ms,
+                      "launches_per_batch": {k: v / 2 for k, v in
+                                             A.LAUNCHES.items() if v}}),
+          flush=True)
+    with torch.no_grad():
+        _profile_step(batch, "affectnet_class_profile", run)
+
+
+def finetune(smi: str, steps: int = 5):
+    from ..config import build_finetune
+    from ..models import clip as C
+    from ..models.insight_face import IRSE, make_id_embed
+    from ..training.train_state import (create_train_state, make_optimizer,
+                                        make_train_step)
+
+    device = torch.device("cuda")
+    cfg = load_config([CONFIG_AFFECTNET_CLIP])
+    bs = cfg["data"]["params"]["batch_size"]
+    run = {"card": smi, "config": os.path.relpath(CONFIG_AFFECTNET_CLIP, ROOT),
+           "batch": bs, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"])
+    ft = build_finetune(
+        cfg["model"], ldm=ldm,
+        clip_image_embed=C.make_clip_image_embed(C.CLIPConfig()),
+        arcface_embed=make_id_embed(IRSE()),
+        text_direction=torch.randn(8, C.CLIPConfig().embed_dim),
+        direction_by_source=True).to(device)
+    base_lr = bs * cfg["model"].get("base_learning_rate", 1e-6)
+    state = create_train_state(ldm, make_optimizer(ldm, base_lr), base_lr)
+    step = make_train_step(ft)
+    gen = torch.Generator(device=device).manual_seed(0)
+    lat = ldm.image_size
+    batch = {"latent": torch.randn(bs, lat, lat, 3, generator=gen,
+                                   device=device),
+             "original": torch.rand(bs, 128, 128, 3, generator=gen,
+                                    device=device) * 2 - 1,
+             "class_label": torch.arange(bs, device=device) % 8}
+
+    for _ in range(2):   # warm-up: kernel build, cuDNN algorithm choice
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    step_ms = event_ms(lambda: step(state, batch, 0), steps)
+    launches = {k: v / steps for k, v in A.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    holder = {}
+
+    def forward():
+        holder["loss"] = ft.training_loss(batch)[0]
+
+    fwd_ms = event_ms(forward, 1)
+    bwd_ms = event_ms(lambda: holder["loss"].backward(), 1)
+    with torch.no_grad():
+        chain_ms = event_ms(lambda: ft.edit(batch["latent"],
+                                            ft.targets(batch, bs)), 1)
+    state.optimizer.zero_grad(set_to_none=True)
+    print(json.dumps({
+        "measure": "finetune_step", **run, "steps_timed": steps,
+        "chain_steps": ft.train_ddim.num_steps, "step_ms": step_ms,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "chain_ms_without_gradient": chain_ms, "launches_per_step": launches,
+        "peak_memory_gb": peak / 2 ** 30,
+        "trainable_parameters": sum(p.numel() for p in state.params)}),
+        flush=True)
+    _profile_step(lambda: step(state, batch, 0), "finetune_profile", run)
+
+
 def ae(smi: str, config: str, steps: int = 10):
     from ..training.vqgan import create_first_stage_state
     from ..training.vqgan_trainer import TRAINERS
@@ -716,6 +824,10 @@ def main():
                     help="model config YAML of --profile and --train")
     ap.add_argument("--ae", default=None, metavar="CONFIG",
                     help="first-stage config YAML to time training steps of")
+    ap.add_argument("--affectnet", action="store_true",
+                    help="one AffectNet class batch, timed and profiled")
+    ap.add_argument("--finetune", action="store_true",
+                    help="DiffusionCLIP finetune steps, timed and profiled")
     cli.add_sampler_args(ap, note="the chain --profile times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -733,6 +845,10 @@ def main():
         train(smi, args.config)
     if args.ae:
         ae(smi, args.ae)
+    if args.affectnet:
+        affectnet(smi)
+    if args.finetune:
+        finetune(smi)
 
 
 if __name__ == "__main__":

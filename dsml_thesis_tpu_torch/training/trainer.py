@@ -19,10 +19,11 @@ Counterpart of ``dsml_thesis_tpu/training/trainer.py``:
 
 One process on one device: no mesh, no sharding. Not ported, each raising
 ``NotImplementedError`` where a config or caller asks for it: periodic image
-logging (``log_images``), warm start from ``model.params.ckpt_path`` or a
-first-stage ``ckpt_path``, tensor / fully-sharded parallelism, the step
-profiler, and the finetune trainer. First-stage training is
-``training/vqgan_trainer.py``.
+logging (``log_images``) of the LDM (the finetune trainer's is ported),
+warm start from ``model.params.ckpt_path`` or a first-stage ``ckpt_path``,
+tensor / fully-sharded parallelism and the step profiler. First-stage
+training is ``training/vqgan_trainer.py``, the DiffusionCLIP finetune
+``training/finetune_trainer.py``.
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ def _array_fields(batch: Dict) -> Dict[str, np.ndarray]:
 
 
 class Trainer:
+    # whether log_images is implemented (the finetune trainer's is)
+    logs_images = False
+
     def __init__(self, config: Dict, logdir: str, seed: int = 123,
                  max_steps: Optional[int] = None,
                  device: Optional[torch.device] = None):
@@ -123,7 +127,9 @@ class Trainer:
         self.limit_test_batches = trainer_cfg.get("limit_test_batches")
         il = self.lightning_cfg.get("callbacks", {}).get(
             "image_logger", {}).get("params", {})
-        if il.get("batch_frequency"):
+        self.image_every = il.get("batch_frequency")
+        self.log_max_images = int(il.get("max_images", 4))
+        if self.image_every and not self.logs_images:
             raise NotImplementedError(
                 "lightning.callbacks.image_logger: periodic image logging "
                 "(log_images) is not ported")
@@ -310,8 +316,9 @@ class Trainer:
             profile_at_step: Optional[int] = None) -> TrainState:
         if self.train_data is None:
             raise ValueError("fit: the config has no data.params.train")
-        if image_every:
+        if image_every and not self.logs_images:
             raise NotImplementedError("image_every: log_images is not ported")
+        image_every = image_every or self.image_every
         if profile_at_step is not None:
             raise NotImplementedError(
                 "profile_at_step: the step profiler is not ported (see "
@@ -327,7 +334,7 @@ class Trainer:
                 epochs = 1
         self._install_signal_handlers()
         try:
-            self._fit_epochs(epochs, log_every, val_max_batches)
+            self._fit_epochs(epochs, log_every, val_max_batches, image_every)
         except BaseException:
             if self._state is not None:
                 print("Summoning checkpoint (exception).")
@@ -342,7 +349,8 @@ class Trainer:
             return False
         return step // max(1, self.grad_accum) >= self.max_steps
 
-    def _fit_epochs(self, epochs, log_every, val_max_batches):
+    def _fit_epochs(self, epochs, log_every, val_max_batches,
+                    image_every=None):
         if self._state is None:
             self.init_state()
         state = self._state
@@ -359,6 +367,9 @@ class Trainer:
                                            self.seed)
                 if state.step % log_every == 0:
                     self.log_metrics(metrics, state.step)
+                if image_every and state.step % image_every == 0:
+                    # the batch that triggered the interval
+                    self.log_images(batch, state.step, n=self.log_max_images)
                 if self._should_stop or self._hit_max_steps(state.step):
                     break
             epoch_s = time.time() - t_epoch

@@ -13,7 +13,7 @@ config has one. A first-stage config (``configs/autoencoder/*.yaml``: a
 ``VQModel`` or ``AutoencoderKL`` target) goes to ``VQGANTrainer`` /
 ``KLAETrainer`` instead (validation, top-k on ``val/rec_loss``, ``last``; no
 test split). It runs on the card; without one it fails unless ``--cpu`` is
-given. The shipped model configs name the MEAD dataset, which the port
+given. The shipped MEAD configs name the MEAD dataset, which the port
 does not read yet: override ``data`` with a synthetic node, e.g.
 
     data.params.train='{target: dsml_thesis_tpu_torch.data.SyntheticDataset,
@@ -21,7 +21,23 @@ does not read yet: override ``data`` with a synthetic node, e.g.
       masked_image: [[256, 256, 3], float32], identity: [[256, 256, 3],
       float32], class_label: [[], int32], audio: [[17, 768], float32]}}}'
 
-(and the same for ``data.params.validation``). The first-stage configs name
+(and the same for ``data.params.validation``). The AffectNet LDM config
+(``affectnet-128-ldm-vq-f4.yaml``) reads its image lists through
+``data.params.train.params.training_images_list_file=<list>`` (one path a
+line, ``<label>_*.jpg``) and ``...validation.params.test_images_list_file``,
+or takes a synthetic node with ``spec: {image: [[128, 128, 3], float32],
+class_label: [[], int32]}``; its image logger (every 5,000 steps) is not
+ported for the LDM: ``lightning.callbacks.image_logger.params.batch_frequency=0``.
+The DiffusionCLIP finetune
+(``affectnet-128-clip-ldm-vq-f4.yaml``, target ``LatentDiffusionCLIP``) goes
+to ``FinetuneTrainer``: its data are latent caches of
+``scripts/compute_latents_torch.py``
+(``data.params.train.params.training_precomputed_latents_path=.../latents.npy``,
+``training_origin_path=.../origin.npy``, ``training_files_path=.../files.npy``,
+and the ``test_*`` keys of the validation node) and its guidance towers come
+from ``model.params.clip_ckpt=<CLIP checkpoint>``,
+``model.params.clip_bpe=<BPE merge table>`` and
+``model.params.id_ckpt=<IR-SE50 state_dict>``. The first-stage configs name
 AffectNet, likewise not read: a node with ``spec: {image: [[128, 128, 3],
 float32]}``; their ``perceptual_weight: 1.0`` needs the LPIPS files,
 ``model.params.lossconfig.params.vgg_ckpt=<torchvision vgg16 features
@@ -67,7 +83,8 @@ def main(argv=None):
     import torch
     import yaml
 
-    from dsml_thesis_tpu_torch.config import load_config
+    from dsml_thesis_tpu_torch.config import is_finetune_target, load_config
+    from dsml_thesis_tpu_torch.training.finetune_trainer import FinetuneTrainer
     from dsml_thesis_tpu_torch.training.trainer import Trainer
     from dsml_thesis_tpu_torch.training.vqgan_trainer import TRAINERS
 
@@ -112,9 +129,11 @@ def main(argv=None):
     if first_stage:
         trainer = TRAINERS[target](config, logdir, seed=opt.seed,
                                    max_steps=opt.max_steps, device=device)
-    elif "autoencoder" in target or "tune" in target.rsplit(".", 2)[-2]:
-        raise NotImplementedError(
-            f"model target {target}: the finetune trainer is not ported")
+    elif is_finetune_target(target):
+        trainer = FinetuneTrainer(config, logdir, seed=opt.seed,
+                                  max_steps=opt.max_steps, device=device)
+    elif "autoencoder" in target:
+        raise NotImplementedError(f"model target {target} is not ported")
     else:
         trainer = Trainer(config, logdir, seed=opt.seed,
                           max_steps=opt.max_steps, device=device)

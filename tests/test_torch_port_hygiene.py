@@ -36,9 +36,10 @@ def _package_modules():
 
 
 def _python_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "serve_torch.py"),
-           os.path.join(ROOT, "scripts", "train_torch.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f"{name}_torch.py")
+            for name in ("serve", "train", "sample_affectnet",
+                         "compute_latents", "latent_manipulation")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)  # one order for every test worker
@@ -57,7 +58,10 @@ def test_package_has_the_expected_modules():
                  "losses.discriminator", "losses.lpips", "losses.vqperceptual",
                  "losses.contperceptual", "training.vqgan", "training.kl_ae",
                  "training.vqgan_trainer", "cli", "diffusion.dpm_solver",
-                 "diffusion.plms", "diffusion.tiling"):
+                 "diffusion.plms", "diffusion.tiling", "reenactment",
+                 "data.clip_tokenizer", "losses.guidance", "models.clip",
+                 "models.insight_face", "models.diffclip",
+                 "training.finetune_trainer"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 
@@ -274,7 +278,8 @@ def test_kernel_flags_are_the_flags_the_code_reads():
     for path in _python_sources():
         read |= set(re.findall(r'env_(?:flag|mode)\(\s*"(DSML_\w+)"',
                                open(path).read()))
-    not_kernels = {"DSML_GELU_EXACT", "DSML_CFG_DEDUP"}   # a formula, a batch
+    # a formula, a batch, an image decoder the data path refuses
+    not_kernels = {"DSML_GELU_EXACT", "DSML_CFG_DEDUP", "DSML_NATIVE_IMAGE"}
     assert set(KERNEL_FLAGS) == read - not_kernels
     assert {"DSML_FLASH_STREAMING", "DSML_GN_EPILOGUE"} <= set(KERNEL_FLAGS)
     doc = open(os.path.join(PKG, "flags.py")).read()

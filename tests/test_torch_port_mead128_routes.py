@@ -351,12 +351,15 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     timed = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
              "bound_by": "operations", "library_ms": 1.5, "max_abs_err": 0.0}
     runs = [r[0] for r in chip_smoke.RUNS + chip_smoke.TRAIN_RUNS
-            + chip_smoke.AE_RUNS]
+            + chip_smoke.AE_RUNS] + [chip_smoke.AFFECTNET_RUN,
+                                     chip_smoke.EDIT_RUN]
     cases = {name: [dict(timed, shape=[1], dtype="bfloat16"),
                     dict(timed, shape=[2], dtype="float32", head_dim=32),
                     chip_smoke._mead128(dict(timed, shape=[3],
                                              dtype="float32")),
-                    dict(timed, shape=[4], dtype="float32", head_dim=512)]
+                    dict(timed, shape=[4], dtype="float32", head_dim=512),
+                    chip_smoke._affectnet_clip(dict(
+                        timed, shape=[5], dtype="float32", head_dim=512))]
              for name in chip_smoke.KERNELS}
     launches = {run: dict.fromkeys(chip_smoke.KERNELS, 1) for run in runs}
     launches["train-mead128-streaming"]["flash_attention_streaming_bwd"] = 32
@@ -373,7 +376,10 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     stats = sub[("gn_channel_stats", "float32, mead-128-ldm-f4 UNet shapes")]
     assert stats["shape"] == [3]
     assert stats["launches_in_run"] == "mead128-stats"
-    assert len(rows) == len(chip_smoke.KERNELS) + 14
+    edit = sub[("flash_attention_bwd",
+                "float32, head width 512, DiffusionCLIP finetune decode")]
+    assert edit["shape"] == [5] and edit["launches_in_run"] == "affectnet-edit"
+    assert len(rows) == len(chip_smoke.KERNELS) + 15
     for r in rows:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
