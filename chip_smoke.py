@@ -27,8 +27,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
            latent size through the kernels against the same calls through the
            plain versions, under each flag set of the serve runs
   serve    a MicroBatcher of batch 8 answers single-clip requests of F
-           frames at the config's frame size, DDIM-50, guidance 2.0, in
-           fifteen runs, then the AffectNet model's class batches:
+           frames at the config's frame size, guidance 2.0, in fifteen
+           runs, then the AffectNet model's class batches; each config's run
+           without a flag serves DDIM-50, each flag run DDIM-10
+           (SERVE_DDIM_STEPS):
              fullattn        -fullattn, no flag, 16 requests (two batches)
              fullattn-dh64   -fullattn-dh64 (level-0 heads of 80 through the
                              packed kernel), no flag, one batch
@@ -154,11 +156,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
            backward at [4, 1, 1024, 512]), the towers and the first stage
            unchanged, parameters moved, the first step's loss and gradients
            kernel path against plain path, the peak memory
+  audio    scripts/mead_audio_features_torch.py's main() at full width on two
+           synthetic 48 kHz clips of about 3 s (random weights from seed 0):
+           wav2vec2-base (base: 7 x 512 convs, 12 layers of 768) and
+           LARGE_960H (bundle: 24 layers of 1024, CTC logits of 32); each
+           pickle against the same model on the CPU in fp32 (TF32 off, 1e-4
+           of the maximum) and at cuDNN's default TF32 (2e-2), a warm clip's
+           ms at both
+  tune     the lip-reading finetune (mead-128-ldm-f4-tune.yaml: the fp32
+           mead-128 model, an 8-step eta = 1.0 chain, the lipreader loss)
+           through scripts/train_torch.py's main() at its own batch of 8, 2
+           steps and one validation batch, a random LRS3 lipreader written
+           to the temporary directory (lipread_ckpt), synthetic data with
+           landmarks (the card's machine has no Pillow for MEAD's frames);
+           checks: the lr term present, launch counts (row 1 through its
+           autograd Function, rows 2 and 7 at [8, 1, 1024, 512]), the
+           lipreader and the first stage unchanged, parameters moved, the
+           first step's loss and gradients kernel path against plain path,
+           the peak memory and a warm step's ms
 then the line {"kernels": [...]} (a row per kernel, a sub-row per fp32
-D = 32 and D = 512 instantiation, one for row 7 at the DiffusionCLIP
-finetune's [4, 1, 1024, 512] and one each for GroupNorm and conv +
-statistics at the fp32 UNet's shapes), the card's name and power limit, and,
-last,
+D = 32 and D = 512 instantiation, one for row 7 at each of the DiffusionCLIP
+finetune's [4, 1, 1024, 512] and the lip-reading finetune's [8, 1, 1024, 512]
+and one each for GroupNorm and conv + statistics at the fp32 UNet's shapes),
+the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then).
@@ -167,9 +187,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -196,6 +218,9 @@ CONFIG_128 = os.path.join(CONFIG_DIR, "mead-128-ldm-f4.yaml")
 CONFIG_AFFECTNET = os.path.join(CONFIG_DIR, "affectnet-128-ldm-vq-f4.yaml")
 CONFIG_AFFECTNET_CLIP = os.path.join(CONFIG_DIR,
                                      "affectnet-128-clip-ldm-vq-f4.yaml")
+# the talking-face lip-reading finetune (mead-128-ldm-f4's model under the
+# reference's ddpm2condtune: an 8-step eta = 1.0 chain and a lipreader loss)
+CONFIG_TUNE = os.path.join(CONFIG_DIR, "mead-128-ldm-f4-tune.yaml")
 CONFIG_VQ = os.path.join(HERE, "configs", "autoencoder", "vqgan-f4.yaml")
 CONFIG_KL = os.path.join(HERE, "configs", "autoencoder", "kl-f4.yaml")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -246,8 +271,16 @@ def flags(**values):
         os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
+T0 = time.monotonic()
+
+
 def emit(obj):
+    """One JSON line on stdout; the seconds since start on stderr, so that
+    a run that nears TIME_LIMIT_S shows which phase took the time."""
     print(json.dumps(obj), flush=True)
+    print(f"chip_smoke: {time.monotonic() - T0:.1f} s: {obj.get('phase')} "
+          f"{obj.get('run', obj.get('name', ''))}", file=sys.stderr,
+          flush=True)
 
 
 def fail(msg):
@@ -267,11 +300,25 @@ def device_ms(fn, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-             for ev in prof.key_averages()
-             if ev.device_type.name == "CUDA" and "#" not in ev.key)
-    return us / 1e3 / iters
+    return _device_us(prof) / 1e3 / iters
+
+
+# Annotations PyTorch mirrors onto the device track (`ProfilerStep#1`,
+# `Optimizer.step#AdamW.step`) span kernels and are left out; a kernel's own
+# name may hold a '#' (`{lambda()#1}`) and counts.
+_ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+
+
+def _device_us(prof):
+    """The device time of the kernels a torch.profiler run traced, in us,
+    summed over the trace's own records (``key_averages`` first builds a
+    Python object a record: many seconds for a traced sampling chain)."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.duration_ns()
+               for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA
+               and not _ANNOTATION.match(ev.name())) / 1e3
 
 
 def time_ms(fn, iters, warmup=2):
@@ -1045,6 +1092,9 @@ def phase_kernels():
         # the DiffusionCLIP finetune's decoder backward (affectnet-edit)
         _affectnet_clip(_flash_bwd_case(gen, 4, 1, 1024, 1024, 512, True,
                                         f32)),
+        # the lip-reading finetune's prediction decode (train-mead128-tune)
+        _lipread_tune(_flash_bwd_case(gen, 8, 1, 1024, 1024, 512, True,
+                                      f32)),
         _flash_bwd_case(gen, 8, 10, 1024, 1024, 32, True),   # DSML_ATTN_PACKED=0
         _flash_bwd_case(gen, 8, 20, 256, 256, 32, True),
         _flash_bwd_case(gen, 2, 5, 333, 77, 32, False),      # ragged, Nk != Nq
@@ -1479,9 +1529,10 @@ def phase_model(name, ldm, env):
 
 
 def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0,
-                dpm=None):
+                dpm=None, ddim_steps=50):
     """One serve run: ``n_requests`` single-clip requests through a
-    MicroBatcher of batch 8 under a flag set, DDIM-50, or with ``dpm`` =
+    MicroBatcher of batch 8 under a flag set, DDIM-``ddim_steps``, or with
+    ``dpm`` =
     (evals, order) DPM-Solver++ multistep (``evals`` UNet calls a frame).
     Returns the launch counts of the served requests alone."""
     from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
@@ -1490,10 +1541,10 @@ def phase_serve(name, cfg, ldm, env, n_requests, frames, smi, seed=0,
     from dsml_thesis_tpu_torch.server import MicroBatcher, make_pipeline_runner
 
     batch, guidance, window = 8, 2.0, 8
-    steps = 50 if dpm is None else dpm[0]   # UNet calls a frame
+    ddim = make_ddim_schedule(ldm.schedule, ddim_steps, eta=0.0)
+    steps = ddim.num_steps if dpm is None else dpm[0]   # UNet calls a frame
     size = image_size(cfg)
     device = torch.device("cuda")
-    ddim = make_ddim_schedule(ldm.schedule, 50, eta=0.0)
     chain = ({"sampler": "ddim"} if dpm is None else
              {"sampler": "dpm", "sampler_steps": dpm[0],
               "sampler_order": dpm[1]})
@@ -2052,16 +2103,46 @@ def _grad_check(trainer, env):
     return _kernel_vs_plain(run, env)
 
 
-def _train_torch():
-    """scripts/train_torch.py as a module (its main() is the entry point the
-    train runs drive)."""
+def _script(name):
+    """scripts/<name>.py as a module (its main() is the entry point a run
+    drives)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "train_torch", os.path.join(HERE, "scripts", "train_torch.py"))
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _train_torch():
+    """scripts/train_torch.py as a module."""
+    return _script("train_torch")
+
+
+# Checkpoints of a train phase's runs (2.8 GB each at the LDM's widths): the
+# first run writes `last` and checks it, and its monitored (top-k) one too
+# only where it is resumed (`train`, `ae-vq`); save_top_k=0 is Lightning's
+# spelling of "no monitored checkpoint". The twin run, whose checks are its
+# losses and gradients, writes none (`no_checkpoint_files`). One write of
+# every four is left; the finetunes (`affectnet-edit`, the tune) write
+# `last` alone.
+NO_TOP_K = "lightning.modelcheckpoint.params.save_top_k=0"
+
+
+@contextlib.contextmanager
+def no_checkpoint_files():
+    """Trainers write no checkpoint file inside the block."""
+    from dsml_thesis_tpu_torch.training.trainer import Trainer
+    from dsml_thesis_tpu_torch.training.vqgan_trainer import VQGANTrainer
+
+    saved = Trainer.save_checkpoint, VQGANTrainer.save_checkpoint
+    Trainer.save_checkpoint = VQGANTrainer.save_checkpoint = \
+        lambda self, name: None
+    try:
+        yield
+    finally:
+        Trainer.save_checkpoint, VQGANTrainer.save_checkpoint = saved
 
 
 def phase_train(name, config, env, steps, smi, tmp, resume=False):
@@ -2090,10 +2171,11 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         data.append("lightning.callbacks.image_logger.params."
                     "batch_frequency=0")
 
-    def run(tag, n_steps):
+    def run(tag, n_steps, top_k):
         argv = ["--base", config, "-t", "--max-steps", str(n_steps),
                 "--logdir", os.path.join(tmp, tag), "--name", name,
-                "--seed", "0", "--no-test", "--log-every", "1", *data]
+                "--seed", "0", "--no-test", "--log-every", "1", *data,
+                *([] if top_k else [NO_TOP_K])]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -2111,7 +2193,7 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
                         else contextlib.nullcontext()):
         A.reset_launches()   # counts below are of this run alone
         with backward_head_widths() as bwd_widths:
-            trainer, wall = run(f"{name}-a", steps)
+            trainer, wall = run(f"{name}-a", steps, top_k=resume)
         launches = dict(A.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         state = trainer._state
@@ -2134,13 +2216,14 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
             resumed_step = again._state.step
             resumed_losses, _ = _train_losses(trainer.logdir)
             del again
-        # a run leaves `last` and one top-k checkpoint (2.7 GB each): cleared
-        # as soon as they have been read, so that the script's peak use of
-        # the temporary directory is one run's
+        # the run leaves `last` (2.8 GB; `train` a top-k checkpoint beside
+        # it): cleared as soon as it has been read, so that the script's peak
+        # use of the temporary directory is one run's
         shutil.rmtree(os.path.join(tmp, f"{name}-a"))
         del trainer, state, xb
         torch.cuda.empty_cache()
-        twin, _ = run(f"{name}-b", steps)
+        with no_checkpoint_files():
+            twin, _ = run(f"{name}-b", steps, top_k=False)
         twin_losses, _ = _train_losses(twin.logdir)
         shutil.rmtree(os.path.join(tmp, f"{name}-b"))
         grads_ok, grads = _grad_check(twin, env)
@@ -2323,10 +2406,11 @@ def phase_ae_train(name, config, env, steps, smi, tmp, lpips_files,
                  f"{lc}.disc_start=0", f"{lc}.vgg_ckpt={lpips_files[0]}",
                  f"{lc}.lpips_lin_ckpt={lpips_files[1]}"]
 
-    def run(tag, n_steps):
+    def run(tag, n_steps, top_k):
         argv = ["--base", config, "-t", "--max-steps", str(n_steps),
                 "--logdir", os.path.join(tmp, tag), "--name", name,
-                "--seed", "0", "--log-every", "1", *overrides]
+                "--seed", "0", "--log-every", "1", *overrides,
+                *([] if top_k else [NO_TOP_K])]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -2342,7 +2426,7 @@ def phase_ae_train(name, config, env, steps, smi, tmp, lpips_files,
 
     with flags(**env), deterministic_cudnn():
         A.reset_launches()   # counts below are of this run alone
-        trainer, wall = run(f"{name}-a", steps)
+        trainer, wall = run(f"{name}-a", steps, top_k=resume)
         launches = dict(A.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         train, vals = records(trainer.logdir)
@@ -2372,7 +2456,8 @@ def phase_ae_train(name, config, env, steps, smi, tmp, lpips_files,
         shutil.rmtree(os.path.join(tmp, f"{name}-a"))
         del trainer, x
         torch.cuda.empty_cache()
-        twin, _ = run(f"{name}-b", steps)
+        with no_checkpoint_files():
+            twin, _ = run(f"{name}-b", steps, top_k=False)
         twin_losses = [r["train/total_loss"] for r in records(twin.logdir)[0]]
         shutil.rmtree(os.path.join(tmp, f"{name}-b"))
         grads_ok, grads = _ae_grad_check(twin, env)
@@ -2429,8 +2514,10 @@ def phase_affectnet(name, ldm, smi, n=8, steps=50, scale=3.0,
     a class batch of ``n`` images for each class (DDIM-``steps``, guidance
     ``scale`` against the null embedding, decoded), launch counts from the
     model's own blocks, the first class again from its seed for equal bits,
-    and one class batch's busy device time beside its wall time. Returns the
-    launch counts of the class batches."""
+    traced: its busy device time beside a class batch's wall time. Returns
+    the launch counts of the class batches."""
+    from torch.profiler import ProfilerActivity, profile
+
     from dsml_thesis_tpu_torch.diffusion import make_ddim_schedule
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.reenactment import sample_class
@@ -2482,8 +2569,9 @@ def phase_affectnet(name, ldm, smi, n=8, steps=50, scale=3.0,
             results[c] = class_batch(c).float().cpu().numpy()
             secs.append(time.monotonic() - t0)
         launches = dict(A.LAUNCHES)
-        again = class_batch(classes[0]).float().cpu().numpy()
-        busy_ms = device_ms(lambda: class_batch(classes[-1]), iters=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = class_batch(classes[0]).float().cpu().numpy()
+        busy_ms = _device_us(prof) / 1e3
     chain = make_ddim_schedule(ldm.schedule, steps).num_steps
     expect = expected_launches(ldm, env, unet_calls=len(classes) * chain,
                                encodes=0, decodes=len(classes))
@@ -2680,7 +2768,8 @@ def phase_affectnet_edit(name, smi, tmp, n_images=8, steps=40, strength=0.5,
             "lightning.callbacks.image_logger.params.batch_frequency="
             f"{finetune_steps}",
             "lightning.callbacks.image_logger.params.max_images=4",
-            *(f"model.params.{k}={v}" for k, v in guidance.items())]
+            *(f"model.params.{k}={v}" for k, v in guidance.items()),
+            NO_TOP_K]
     with flags(), deterministic_cudnn():
         A.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2802,6 +2891,328 @@ def phase_affectnet_edit(name, smi, tmp, n_images=8, steps=40, strength=0.5,
             for k in launches}
 
 
+# --------------------------------------------------------- talking-face audio
+
+# The audio features on the card held to the same model on the CPU, fp32: with
+# TF32 off in cuDNN and cuBLAS the two differ by the order of fp32 sums only
+# (a 24-layer encoder keeps that some tens of roundings of the largest row);
+# cuDNN's default TF32 rounds the conv extractor's operands to 10-bit
+# mantissas (2^-11 relative each), which the encoder carries to the output at
+# well under 2e-2 of its maximum, while a wrong weight, index or resample
+# moves it by the order of the maximum itself.
+AUDIO_REL_TOL = 1e-4
+AUDIO_TF32_REL_TOL = 2e-2
+# the clips of the audio-features phase: (name, seconds, video frames)
+AUDIO_CLIPS = (("001", 3.0, 90), ("002", 3.2, 96))
+
+
+def write_audio_tree(root, rate=48000):
+    """The MEAD layout of ``AUDIO_CLIPS``: synthetic 16-bit wavs at ``rate``
+    (a few tones and noise) and frame directories of empty ``*.jpg`` names,
+    which the features script only counts. Returns the tuples pickle."""
+    import pickle
+    import wave
+
+    rng = np.random.default_rng(0)
+    subj, emo, lvl = "M003", "neutral", "level_1"
+    for clip, seconds, frames in AUDIO_CLIPS:
+        t = np.arange(int(rate * seconds)) / rate
+        sig = (0.4 * np.sin(2 * np.pi * 180 * t)
+               + 0.3 * np.sin(2 * np.pi * 1250 * t) * np.sin(2 * np.pi * 3 * t)
+               + 0.05 * rng.standard_normal(len(t)))
+        pcm = (sig / np.abs(sig).max() * 32000).astype(np.int16)
+        wav_dir = os.path.join(root, subj, "audio", emo, lvl)
+        os.makedirs(wav_dir, exist_ok=True)
+        with wave.open(os.path.join(wav_dir, f"{clip}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(pcm.tobytes())
+        frame_dir = os.path.join(root, subj, "video", "front", emo, lvl, clip)
+        os.makedirs(frame_dir, exist_ok=True)
+        for k in range(frames):
+            open(os.path.join(frame_dir, f"{k:03d}.jpg"), "w").close()
+    path = os.path.join(root, "tuples.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({(subj, emo, lvl, c) for c, _, _ in AUDIO_CLIPS}, f)
+    return path
+
+
+def phase_audio_features(smi, tmp, seed=0):
+    """scripts/mead_audio_features_torch.py's ``main()`` on the card at full
+    width, random weights from ``seed``: ``base`` (wav2vec2-base: 7 x 512
+    convs, 12 layers of 768; hidden states, the CNN features resampled to
+    the frame count before the encoder) and ``bundle`` (``LARGE_960H``: 24
+    layers of 1024, CTC logits of 32 resampled after the model), over 48 kHz
+    clips of about 3 s (``AUDIO_CLIPS``). Each clip's pickle against the
+    same model on the CPU in fp32 (``AUDIO_REL_TOL`` of the maximum, TF32
+    off as ``main()`` of this script sets it); then at cuDNN's default TF32
+    (``AUDIO_TF32_REL_TOL``); a warm clip's ms at both. No kernel of the
+    port runs here (the attention is plain ``einsum``, as in the JAX
+    package): the counts stay 0."""
+    import pickle
+
+    from dsml_thesis_tpu_torch.ops import attention as A
+
+    mod = _script("mead_audio_features_torch")
+    root = os.path.join(tmp, "mead-audio")
+    tuples = write_audio_tree(root)
+    subj, emo, lvl = "M003", "neutral", "level_1"
+    runs, checks = {}, {}
+    for variant in ("base", "bundle"):
+        out = os.path.join(tmp, f"features-{variant}")
+        A.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mod.main(["--tuples", tuples, "--audio-root", root, "--frames-root",
+                  root, "--outdir", out, "--variant", variant, "--seed",
+                  str(seed)])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launched = {k: v for k, v in A.LAUNCHES.items() if v}
+        cpu_model, do_norm = mod.build_model(variant, None, seed)
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        bundle = variant == "bundle"
+        width = 32 if bundle else 768
+        errs, errs_tf32, shapes, ms, ms_tf32 = {}, {}, {}, {}, {}
+        for clip, _, frames in AUDIO_CLIPS:
+            name = f"{subj}_{emo}_{lvl}_{clip}"
+            with open(os.path.join(out, f"{name}.pkl"), "rb") as f:
+                feats = pickle.load(f)
+            shapes[name] = [list(feats.shape), str(feats.dtype)]
+            wav = mod.normalize_audio(mod.load_wav_16k(os.path.join(
+                root, subj, "audio", emo, lvl, f"{clip}.wav")), do_norm)
+            ref = mod.featurize(cpu_model, wav, frames, bundle, "cpu")
+            errs[name] = _compare(torch.from_numpy(feats),
+                                  torch.from_numpy(ref))[1]
+            fn = lambda: mod.featurize(card_model, wav, frames, bundle, "cuda")
+            ms[name] = time_ms(fn, 3, 1)
+            with cudnn_tf32():
+                errs_tf32[name] = _compare(torch.from_numpy(fn()),
+                                           torch.from_numpy(ref))[1]
+                ms_tf32[name] = time_ms(fn, 3, 1)
+            checks[f"{variant}_{clip}_shape"] = (
+                feats.shape == (frames, width) and feats.dtype == np.float32
+                and bool(np.isfinite(feats).all()))
+        checks[f"{variant}_matches_cpu"] = all(
+            e <= AUDIO_REL_TOL for e in errs.values())
+        checks[f"{variant}_tf32_matches_cpu"] = all(
+            e <= AUDIO_TF32_REL_TOL for e in errs_tf32.values())
+        checks[f"{variant}_no_port_kernel"] = not launched
+        runs[variant] = {
+            "layers": card_model.cfg.num_layers,
+            "hidden": card_model.cfg.hidden_size,
+            "conv_dim": list(card_model.cfg.conv_dim),
+            "ctc_vocab": card_model.cfg.ctc_vocab, "shapes": shapes,
+            "rel_err_tf32_off": errs, "rel_err_cudnn_tf32": errs_tf32,
+            "clip_ms_tf32_off": ms, "clip_ms_cudnn_tf32": ms_tf32,
+            "main_wall_seconds": round(wall, 3), "launches": launched}
+        del cpu_model, card_model
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "audio", "run": "audio-features", "card": smi,
+          "script": "scripts/mead_audio_features_torch.py",
+          "clips": [{"clip": c, "seconds": s, "frames": n, "rate": 48000}
+                    for c, s, n in AUDIO_CLIPS],
+          "rel_tol": AUDIO_REL_TOL, "tf32_rel_tol": AUDIO_TF32_REL_TOL,
+          "checks": checks, "variants": runs})
+    if not all(checks.values()):
+        fail(f"audio features: checks failed: {checks}")
+
+
+# ------------------------------------------------------- lip-reading finetune
+
+# parameters whose gradients through the tune's chain, the prediction's
+# decode and the lipreader the kernel path and the plain path are held to
+TUNE_GRAD_PROBES = EDIT_GRAD_PROBES + (
+    "cond.class_label.embedding.weight",
+    "cond.audio.att_conv_0.weight",
+)
+
+
+def expected_tune_launches(ldm, chain, steps, eval_batches):
+    """Launches of a lip-reading finetune run, from the model's own blocks:
+    a step encodes the image and the two channel-concat streams through the
+    frozen first stage, runs the ``chain`` UNet calls of the eta = 1.0 DDIM
+    chain under autograd (every self-attention through row 1's autograd
+    ``Function``), decodes the prediction with gradient (each decoder
+    attention block through row 2 with its log-sum-exp, once through row 7
+    in the backward) and the target without; a validation batch runs that
+    twice without gradients (raw and EMA weights). Also returns the row-1
+    launches that go through the ``Function``."""
+    encodes = 1 + sum(s.route == "concat_first_stage" for s in ldm.cond_specs)
+
+    def calls(n):
+        return expected_launches(ldm, {}, unet_calls=n * chain,
+                                 encodes=n * encodes, decodes=2 * n)
+
+    out = calls(steps + 2 * eval_batches)
+    out["flash_attention_bwd"] = steps * count_attn_blocks(
+        ldm.first_stage.decoder)
+    return out, calls(steps)["flash_attention_fproj"]
+
+
+def write_lipreader_file(tmp, seed=0):
+    """A random LRS3-layout ``model.pth`` (the espnet E2E model's
+    ``encoder.frontend.`` keys) from ``seed``: the real file is not in the
+    repository."""
+    from dsml_thesis_tpu_torch.models.lipreader import (LipreaderFrontend,
+                                                        reference_state_dict)
+
+    torch.manual_seed(seed)
+    path = os.path.join(tmp, "lrs3_model.pth")
+    torch.save(reference_state_dict(LipreaderFrontend()), path)
+    return path
+
+
+def phase_lipread_tune(name, smi, tmp, steps=2):
+    """The lip-reading finetune (``mead-128-ldm-f4-tune.yaml``) at full
+    width on the card through scripts/train_torch.py's ``main()``: its own
+    batch of 8 and 8-step eta = 1.0 chain, ``steps`` steps and one
+    validation batch, with a random LRS3 lipreader written here
+    (``lipread_ckpt``). The data are a synthetic node with the config's
+    shapes plus ``landmarks`` [68, 2]: the card's machine has no Pillow to
+    decode MEAD's JPEG frames, so the MEAD reader itself is held on the CPU
+    (tests/test_torch_port_mead_data.py). Checks: the lr term present and
+    finite, launch counts (row 1 under autograd through its ``Function``,
+    rows 2 and 7 at [8, 1, 1024, 512]), the lipreader and the first stage
+    bit for bit as built, parameters moved, the first step's loss and probe
+    gradients kernel path against plain path on a fresh trainer (its
+    codebook spread, so that the lr term is live); the peak memory and a
+    warm step's ms. Returns the run's launch counts."""
+    from dsml_thesis_tpu_torch.config import build_model, load_config
+    from dsml_thesis_tpu_torch.models.lipreader import \
+        load_lipreader_checkpoint
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.training.finetune_trainer import \
+        FinetuneTrainer
+
+    cfg = load_config([CONFIG_TUNE])
+    bs = cfg["data"]["params"]["batch_size"]
+    spec = dict(synthetic_spec(cfg), landmarks=[[68, 2], "float32"])
+    node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
+            "params": {"spec": spec, "length": bs * steps}}
+    val = {"target": node["target"],
+           "params": {"spec": spec, "length": bs, "seed": 1000}}
+    lipread = write_lipreader_file(tmp)
+    argv = ["--base", CONFIG_TUNE, "-t", "--max-steps", str(steps),
+            "--logdir", os.path.join(tmp, "tune"), "--name", name,
+            "--seed", "0", "--no-test", "--log-every", "1",
+            f"data.params.train={json.dumps(node)}",
+            f"data.params.validation={json.dumps(val)}",
+            "data.params.num_workers=2",
+            f"model.params.lipread_ckpt={lipread}", NO_TOP_K]
+    with flags():
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with autograd_fproj_calls() as through_function:
+            trainer = _train_torch().main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ft, state = trainer.finetune, trainer._state
+        chain = ft.ddim.num_steps
+        expect, expect_function = expected_tune_launches(trainer.ldm, chain,
+                                                         steps, 1)
+        with open(os.path.join(trainer.logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        train = [r for r in recs if r["split"] == "train"]
+        vals = [r for r in recs if r["split"] == "val"]
+        moved = sum(not torch.equal(p, e)
+                    for p, e in zip(state.params, state.ema_params))
+        reader = ft.lipreader.tower.state_dict()
+        saved = load_lipreader_checkpoint(lipread).state_dict()
+        reader_kept = (all(torch.equal(reader[k].cpu(), v)
+                           for k, v in saved.items())
+                       and not any(p.requires_grad
+                                   for p in ft.lipreader.parameters()))
+        torch.manual_seed(0)   # the trainer's own init, from its seed
+        built = build_model(cfg["model"]).first_stage.state_dict()
+        first_stage_kept = all(
+            torch.equal(v.cpu(), built[k])
+            for k, v in trainer.ldm.first_stage.state_dict().items())
+        del built
+        trained_groups = sorted({n.split(".")[0] for n in state.names})
+        config = trainer.config
+        xb = trainer._to_device(next(iter(trainer.train_data)))
+        # one more step, warm: the run's own steps built and chose everything
+        step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 1, 0)
+        trainer.close()
+        del trainer, state, ft, xb
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(tmp, "tune"), ignore_errors=True)
+
+        fresh = FinetuneTrainer(config, os.path.join(tmp, "tune-b"), seed=0,
+                                device=torch.device("cuda"))
+        batch = fresh._to_device(next(iter(fresh.train_data)))
+        probes = dict(fresh.ldm.named_parameters())
+        fresh.ldm.configure_trainable()
+        # the codebook at its init holds every code at the origin, so every
+        # latent decodes to about one image and the lipreader sees equal
+        # mouths (the run's lr term reads ~1e-4); a spread codebook, as
+        # build_ldm's, makes the lr term and its gradient live for the check
+        torch.manual_seed(0)
+        torch.nn.init.normal_(fresh.ldm.first_stage.quantize.embedding.weight)
+        gen = torch.Generator(device="cuda")
+        lr_terms = []
+
+        def run():
+            gen.manual_seed(7)
+            fresh.ldm.zero_grad(set_to_none=True)
+            loss, aux = fresh.finetune.training_loss(batch, gen)
+            lr_terms.append(float(aux["lr_loss"].detach()))
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {n: probes[n].grad.detach().float().clone()
+                     for n in TUNE_GRAD_PROBES}
+            fresh.ldm.zero_grad(set_to_none=True)
+            return float(loss.detach()), grads
+
+        grads_ok, grads = _kernel_vs_plain(run, {})
+        fresh.close()
+        del fresh, probes, batch
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "tune-b"), ignore_errors=True)
+
+    def finite(recs, key):
+        return bool(recs) and all(key in r and np.isfinite(r[key])
+                                  for r in recs)
+
+    checks = {
+        "steps": len(train) == steps,
+        "finite": finite(train, "train/loss") and len(vals) == 1,
+        "lr_loss_present": finite(train, "train/lr_loss")
+        and finite(vals, "val/lr_loss") and finite(vals, "val/l2_loss"),
+        "parameters_moved": moved > 0,
+        "trains_unet_and_cond_stages": trained_groups == ["cond", "unet"],
+        "lipreader_kept": reader_kept,
+        "first_stage_kept": first_stage_kept,
+        "launches": launches == expect,
+        "row1_through_autograd_function":
+            through_function["calls"] == expect_function,
+        "kernel_path_agrees_with_plain_path": grads_ok,
+        "lr_term_live_in_the_check": min(lr_terms) > 1e-3,
+    }
+    emit({"phase": "tune", "run": name,
+          "config": os.path.relpath(CONFIG_TUNE, HERE), "card": smi,
+          "checks": checks, "batch": bs, "chain_steps": chain,
+          "optimizer_steps": steps,
+          "losses": [r["train/loss"] for r in train],
+          "lr_losses": [r.get("train/lr_loss") for r in train],
+          "val": vals[0] if vals else None, "tensors_moved": moved,
+          "launches": launches, "launches_expected": expect,
+          "row1_through_function": through_function["calls"],
+          "row1_through_function_expected": expect_function,
+          "warm_step_ms": step_ms, "peak_memory_bytes": peak,
+          "run_wall_seconds": round(wall, 3), "gradients": grads,
+          "check_lr_loss_kernels_plain": lr_terms})
+    if not all(checks.values()):
+        fail(f"tune {name}: checks failed: {checks}")
+    return launches
+
+
 # kernel -> (source, the TPU kernel it replaces, the run that is its path)
 KERNELS = {
     "flash_attention_fproj": (
@@ -2854,6 +3265,11 @@ F32_WIDE = {
 F32_EDIT = {
     "flash_attention_bwd": "affectnet-edit",
 }
+# the fp32 D = 512 backward at the lip-reading finetune's batch of 8 (its
+# prediction's decode, under autograd): kernel -> the run that is its path
+F32_TUNE = {
+    "flash_attention_bwd": "train-mead128-tune",
+}
 # the fp32 cases at mead-128-ldm-f4's UNet shapes (``_mead128``): kernel ->
 # the run that is their path; a sub-row each
 F32_UNET = {
@@ -2877,6 +3293,11 @@ def _affectnet_clip(case):
     return dict(case, config="affectnet-128-clip-ldm-vq-f4")
 
 
+def _lipread_tune(case):
+    """Marks a case at the shapes of the lip-reading finetune's step."""
+    return dict(case, config="mead-128-ldm-f4-tune")
+
+
 def kernels_line(cases, launches_by_run):
     """A row for each kernel (its first timed case, its launches in the run
     that is its path), a sub-row for each fp32 D = 32 and D = 512
@@ -2894,6 +3315,10 @@ def kernels_line(cases, launches_by_run):
                  "float32, head width 512, DiffusionCLIP finetune decode",
                  lambda c: c.get("config") == "affectnet-128-clip-ldm-vq-f4")
                 for name, run in F32_EDIT.items()]
+    subrows += [(name, run,
+                 "float32, head width 512, lip-reading finetune decode",
+                 lambda c: c.get("config") == "mead-128-ldm-f4-tune")
+                for name, run in F32_TUNE.items()]
     subrows += [(name, run, "float32, mead-128-ldm-f4 UNet shapes",
                  lambda c: c.get("config") == "mead-128-ldm-f4")
                 for name, run in F32_UNET.items()]
@@ -2946,8 +3371,13 @@ RUNS = (
     ("mead128-epilogue", CONFIG_128, {"DSML_GN_EPILOGUE": "1"}, 8),
     ("mead128-stats", CONFIG_128, {"DSML_PALLAS_GN": "stats"}, 8),
 )
+# DDIM steps of each run of RUNS: each config's run without a flag serves
+# the config's DDIM-50; a flag run exists to drive a kernel route, which every
+# UNet call of a batch takes alike, so DDIM-10 (20 UNet calls a batch, not
+# 100) drives it as well, the checks unchanged, for a fifth of the time
+SERVE_DDIM_STEPS = {name: 10 if env else 50 for name, _, env, _ in RUNS}
 # serve runs of the DPM-Solver++ serving mode (every run of RUNS serves
-# DDIM-50): (name, config, flags, requests, (UNet evaluations a frame,
+# DDIM): (name, config, flags, requests, (UNet evaluations a frame,
 # order)); mead128-dpm10 runs all three update orders at full width
 DPM_RUNS = (
     ("headline-dpm20", CONFIG, {}, 8, (20, 2)),
@@ -2977,6 +3407,8 @@ TRAIN_RUNS = (
 )
 # the AffectNet serve run and the editing phase (names in the kernels line)
 AFFECTNET_RUN, EDIT_RUN = "affectnet", "affectnet-edit"
+# the lip-reading finetune's run (a name in the kernels line)
+TUNE_RUN = "train-mead128-tune"
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (
     ("ae-vq", CONFIG_VQ, {}, 4),
@@ -2992,7 +3424,8 @@ AE_RUNS = (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,samplers,train")
+                    default="device,build,kernels,model,serve,samplers,train,"
+                            "audio,tune")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -3004,7 +3437,8 @@ def main():
         sys.exit(2)
     # nothing is printed before the program itself is known to be here
     for config in (CONFIG, CONFIG_FULLATTN, CONFIG_DH64, CONFIG_128, CONFIG_VQ,
-                   CONFIG_KL, CONFIG_AFFECTNET, CONFIG_AFFECTNET_CLIP):
+                   CONFIG_KL, CONFIG_AFFECTNET, CONFIG_AFFECTNET_CLIP,
+                   CONFIG_TUNE):
         if not os.path.exists(config):
             print(f"chip_smoke: {config} is missing: run from a checkout",
                   file=sys.stderr)
@@ -3035,8 +3469,9 @@ def main():
             if "model" in phases:
                 phase_model(name, ldm, env)
             if "serve" in phases:
-                launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
-                                             args.frames, smi)
+                launches[name] = phase_serve(
+                    name, cfg, ldm, env, n_requests, args.frames, smi,
+                    ddim_steps=SERVE_DDIM_STEPS[name])
         for name, config, env, n_requests, dpm in DPM_RUNS:
             cfg, ldm = model(config)
             if "serve" in phases:
@@ -3051,22 +3486,29 @@ def main():
                 AFFECTNET_RUN, model(CONFIG_AFFECTNET)[1], smi)
         del models, ldm   # free the card for the train runs
         torch.cuda.empty_cache()
-    if "train" in phases:
+    if {"train", "audio", "tune"} & set(phases):
         import tempfile
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-            for name, config, env, steps in TRAIN_RUNS:
-                launches[name] = phase_train(name, config, env, steps, smi, tmp,
-                                             resume=(name == "train"))
-            lpips_files = write_lpips_files(tmp)
-            for name, config, env, steps in AE_RUNS:
-                launches[name] = phase_ae_train(name, config, env, steps, smi,
-                                                tmp, lpips_files,
-                                                resume=(name == "ae-vq"))
-            launches[EDIT_RUN] = phase_affectnet_edit(EDIT_RUN, smi, tmp)
+            if "train" in phases:
+                for name, config, env, steps in TRAIN_RUNS:
+                    launches[name] = phase_train(name, config, env, steps,
+                                                 smi, tmp,
+                                                 resume=(name == "train"))
+                lpips_files = write_lpips_files(tmp)
+                for name, config, env, steps in AE_RUNS:
+                    launches[name] = phase_ae_train(
+                        name, config, env, steps, smi, tmp, lpips_files,
+                        resume=(name == "ae-vq"))
+                launches[EDIT_RUN] = phase_affectnet_edit(EDIT_RUN, smi, tmp)
+            if "audio" in phases:
+                phase_audio_features(smi, tmp)
+            if "tune" in phases:
+                launches[TUNE_RUN] = phase_lipread_tune(TUNE_RUN, smi, tmp)
     runs = [r[0] for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS]
-    if cases is None or "samplers" not in phases or not all(
-            r in launches for r in runs + [AFFECTNET_RUN, EDIT_RUN]):
+    if cases is None or "samplers" not in phases or "audio" not in phases \
+            or not all(r in launches for r in runs + [AFFECTNET_RUN, EDIT_RUN,
+                                                      TUNE_RUN]):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

@@ -9,15 +9,18 @@ one-conditioning face-reenactment (AffectNet) ``LatentDiffusion`` /
 ``LatentDiffusionCLIP`` (a ``ClassEmbedder`` in one of its three null
 layouts). ``build_finetune`` wraps the latter in the DiffusionCLIP
 finetune, ``build_guidance_encoders`` builds its frozen CLIP and IR-SE
-towers from checkpoint paths. ``instantiate_from_config`` covers the dataset
-targets the port's trainers drive (``SyntheticDataset`` under the JAX
-package's target names too, the AffectNet and latent-cache datasets).
-``scheduler_config``, ``base_learning_rate`` and ``data`` are read by the
-trainer as the JAX trainer reads them. The first-stage targets
-(``VQModel``, ``AutoencoderKL``) are trained by ``training/vqgan_trainer.py``
+towers from checkpoint paths, and wraps the talking-face model in the
+lip-reading finetune (its lipreader from ``lipread_ckpt``).
+``instantiate_from_config`` covers the dataset targets the port's trainers
+drive (``SyntheticDataset`` under the JAX package's target names too, the
+AffectNet, MEAD and latent-cache datasets) and the end-to-end trainable
+wav2vec2 cond stage (``AudioEmbedder``). ``scheduler_config``,
+``base_learning_rate`` and ``data`` are read by the trainer as the JAX
+trainer reads them. The first-stage targets (``VQModel``,
+``AutoencoderKL``) are trained by ``training/vqgan_trainer.py``
 (``TRAINERS``), which builds model and loss from the node. Other targets
-(the text and landmark encoders, the lipreading finetune, the EfficientNet
-classifier) raise ``NotImplementedError`` until their modules are ported.
+(the text and landmark encoders, the EfficientNet classifier) raise
+``NotImplementedError`` until their modules are ported.
 """
 from __future__ import annotations
 
@@ -111,6 +114,13 @@ def _synthetic(p: Dict) -> D.SyntheticDataset:
     return D.SyntheticDataset(**p)
 
 
+def _build_audio_embedder(p: Dict):
+    from .models.wav2vec2 import AudioEmbedder
+
+    return AudioEmbedder(win_len=p.get("win_len", 4),
+                         subspace_dim=p.get("subspace_dim", 768))
+
+
 _BUILDERS = {
     "ldm.modules.diffusionmodules.openaimodel.UNetModel": _build_unet,
     "ldm.models.autoencoder.VQModelInterface": _build_vq,
@@ -131,11 +141,17 @@ _BUILDERS = {
             p, "extra_row" if "p_uncond" in p else "none"),
     "ldm.modules.encoders.modules.Conv1DTemporalAttention":
         lambda p: Conv1DTemporalAttention(**p),
+    # end-to-end trainable wav2vec2 conditioning (the reference's MEADBase4
+    # experimental path); its conv extractor stays out of the optimizer
+    "ldm.modules.encoders.modules.AudioEmbedder": _build_audio_embedder,
+    "dsml_thesis_tpu.models.wav2vec2.AudioEmbedder": _build_audio_embedder,
     "dsml_thesis_tpu_torch.data.SyntheticDataset": _synthetic,
     "dsml_thesis_tpu.data.SyntheticDataset": _synthetic,
     "dsml_thesis_tpu.data.datasets.SyntheticDataset": _synthetic,
     "taming.data.custom.AffectnetTrain": lambda p: D.AffectnetTrain(**p),
     "taming.data.custom.AffectnetTest": lambda p: D.AffectnetTest(**p),
+    "taming.data.custom.MEADBase3": lambda p: D.MEADBase3(**p),
+    "taming.data.custom.MEADBase5": lambda p: D.MEADBase5(**p),
     "ldm.data.latents.LatentTrain": lambda p: D.LatentTrain(**p),
     "ldm.data.latents.LatentTest": lambda p: D.LatentTest(**p),
 }
@@ -264,7 +280,8 @@ def _resolve_edit_attr(name: str) -> int:
 
 
 def build_guidance_encoders(p: Dict, edit_attr: Optional[str] = None,
-                            skip: Optional[set] = None) -> Dict:
+                            skip: Optional[set] = None,
+                            device: Optional[torch.device] = None) -> Dict:
     """The frozen guidance towers from checkpoint paths in the model config
     node's params (keys of this framework: the reference hard-codes its
     downloads):
@@ -277,7 +294,9 @@ def build_guidance_encoders(p: Dict, edit_attr: Optional[str] = None,
       cls_ckpt   raises: the EfficientNet classifier is not ported
 
     Returns keyword arguments of ``DiffusionCLIPFinetune``; the names in
-    ``skip`` are not built."""
+    ``skip`` are not built. The text directions are computed on ``device``
+    (the CPU when None): two batches of 79 prompts a class through the
+    text tower."""
     skip = skip or set()
     out: Dict = {}
     if p.get("cls_ckpt") and "classifier_logits" not in skip:
@@ -293,7 +312,8 @@ def build_guidance_encoders(p: Dict, edit_attr: Optional[str] = None,
             cfg, {k[len("visual."):]: v for k, v in sd.items()
                   if k.startswith("visual.")})
         if want_text:
-            out.update(_text_directions(cfg, sd, p["clip_bpe"], edit_attr))
+            out.update(_text_directions(cfg, sd, p["clip_bpe"], edit_attr,
+                                        device))
     if p.get("id_ckpt") and "arcface_embed" not in skip:
         from .models.insight_face import IRSE, convert_irse, make_id_embed
 
@@ -306,8 +326,8 @@ def build_guidance_encoders(p: Dict, edit_attr: Optional[str] = None,
     return out
 
 
-def _text_directions(cfg, sd: Dict, bpe_path: str,
-                     edit_attr: Optional[str]) -> Dict:
+def _text_directions(cfg, sd: Dict, bpe_path: str, edit_attr: Optional[str],
+                     device: Optional[torch.device] = None) -> Dict:
     """The CLIP text directions of the finetune, a row a class: with
     ``edit_attr`` from each SOURCE class's emotion text (``face`` for the
     target class itself) toward the edit's text, else from ``face`` toward
@@ -319,7 +339,7 @@ def _text_directions(cfg, sd: Dict, bpe_path: str,
     text = C.CLIPTextTower(cfg)
     text.load_state_dict({k[len("text."):]: v for k, v in sd.items()
                           if k.startswith("text.")}, strict=True)
-    text.eval()
+    text.eval().to(device)
     tok = CLIPTokenizer(bpe_path)
 
     def tokens(txt):
@@ -327,7 +347,7 @@ def _text_directions(cfg, sd: Dict, bpe_path: str,
         # contexts ever cut a prompt
         return torch.from_numpy(tok.tokenize(
             [t.format(txt) for t in C.IMAGENET_TEMPLATES],
-            context_length=cfg.context_length, truncate=True))
+            context_length=cfg.context_length, truncate=True)).to(device)
 
     def direction(src_txt, trg_txt):
         return C.compute_text_direction(text, tokens(src_txt), tokens(trg_txt))
@@ -348,27 +368,55 @@ def _text_directions(cfg, sd: Dict, bpe_path: str,
             "direction_by_source": by_source}
 
 
+def _build_lipread_finetune(p: Dict, ldm: LatentDiffusion,
+                            lipreader=None):
+    """``LipreadFinetune`` of a ``ddpm2condtune`` config: the lipreader
+    handed in, else built from ``lipread_ckpt`` (an LRS3 ``model.pth``,
+    activation ``lipread_relu_type``), else none (the L2 term alone)."""
+    from .models.lipread_tune import LipreadFinetune
+
+    if lipreader is None and p.get("lipread_ckpt"):
+        from .models.lipreader import (load_lipreader_checkpoint,
+                                       make_lipreader_apply)
+
+        lipreader = make_lipreader_apply(load_lipreader_checkpoint(
+            p["lipread_ckpt"], p.get("lipread_relu_type", "swish")))
+    return LipreadFinetune(
+        ldm, lipreader=lipreader,
+        decode_steps=p.get("decode_steps", 8),
+        lr_loss_weight=p.get("lr_loss_w", 1.0),
+        start_lr_loss=p.get("start_lr_loss", 0),
+        # the reference's mouth geometry; smaller in tiny test configs
+        mouth_crop=p.get("mouth_crop", 72),
+        mouth_center_crop=p.get("mouth_center_crop", 64),
+        mouth_size=p.get("mouth_size", 88))
+
+
 def build_finetune(model_cfg: Dict, ldm: Optional[LatentDiffusion] = None,
-                   **encoder_fns):
+                   device: Optional[torch.device] = None, **encoder_fns):
     """The finetune wrapper of a config's target: ``LatentDiffusionCLIP`` ->
     ``DiffusionCLIPFinetune`` (its knobs: ``num_train_steps``, ``strength``,
-    ``*_loss_w``, ``edit_attr``). ``encoder_fns`` hands in guidance towers;
-    the others are built from the config's checkpoint paths. The lipreading
-    finetune (``ddpm2condtune``) raises: it is not ported."""
+    ``*_loss_w``, ``edit_attr``); ``ddpm2condtune`` -> ``LipreadFinetune``
+    (``lipread_ckpt``, ``lipread_relu_type``, ``decode_steps``,
+    ``lr_loss_w``, ``start_lr_loss``, the ``mouth_*`` geometry).
+    ``encoder_fns`` hands in guidance towers (``lipreader_fn`` for the
+    lip-reading one); the others are built from the config's checkpoint
+    paths; ``device`` is where the text directions are computed."""
     target = model_cfg["target"]
+    p = dict(model_cfg.get("params", {}))
     if target.endswith("ddpm2condtune.LatentDiffusion"):
-        raise NotImplementedError(
-            "the lipreading finetune (ddpm2condtune) is not ported")
+        return _build_lipread_finetune(
+            p, ldm if ldm is not None else build_model(model_cfg),
+            encoder_fns.get("lipreader_fn"))
     if not target.endswith("latent_diffclip.LatentDiffusionCLIP"):
         raise NotImplementedError(f"finetune target {target}")
     from .models.diffclip import DiffusionCLIPFinetune
 
-    p = dict(model_cfg.get("params", {}))
     if ldm is None:
         ldm = build_model(model_cfg)
     edit_attr = p.get("edit_attr")
     enc = {**build_guidance_encoders(p, edit_attr=edit_attr,
-                                     skip=set(encoder_fns)),
+                                     skip=set(encoder_fns), device=device),
            **encoder_fns}
     return DiffusionCLIPFinetune(
         ldm,

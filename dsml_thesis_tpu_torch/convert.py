@@ -10,6 +10,7 @@ by dots; only the leaves change:
   kernel  [I, O]            -> weight [O, I]            (Linear)
   kernel  [k, I, O]         -> weight [O, I, k]         (Conv1d)
   kernel  [kh, kw, I, O]    -> weight [O, I, kh, kw]    (Conv2d)
+  kernel  [kt, kh, kw, I, O] -> weight [O, I, kt, kh, kw] (Conv3d)
   scale                     -> weight                   (Group / Layer /
                                                          BatchNorm)
   embedding                 -> <embedding module>.weight
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _join(*parts: str) -> str:
@@ -94,7 +95,8 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-_INVERSE_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
+_INVERSE_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0),
+                        5: (2, 3, 4, 1, 0)}
 
 
 def to_jax_tree(module: nn.Module,
@@ -119,7 +121,7 @@ def to_jax_tree(module: nn.Module,
             a = tensors[key].detach().float().cpu().numpy()
             parts = path.split(".") if path else []
             if name == "weight" and isinstance(
-                    sub, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                    sub, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
                 leaf = "kernel"
                 a = np.ascontiguousarray(
                     np.transpose(a, _INVERSE_KERNEL_AXES[a.ndim]))

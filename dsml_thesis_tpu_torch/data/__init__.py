@@ -1,5 +1,5 @@
 """Datasets and the loader of the port."""
 from .datasets import (AffectnetDataset, AffectnetTest,  # noqa: F401
                        AffectnetTrain, DataLoader, LatentDataset, LatentTest,
-                       LatentTrain, SyntheticDataset, collate, load_image,
-                       load_images)
+                       LatentTrain, MEADBase3, MEADBase5, MEADTalkingFace,
+                       SyntheticDataset, collate, load_image, load_images)

@@ -4,7 +4,10 @@ Counterpart of ``dsml_thesis_tpu/data/datasets.py`` for what the port's
 trainers drive: ``SyntheticDataset`` (random tensors of a given spec, the
 same numpy draws as the JAX package's, so both trainers see the same
 batches), the AffectNet path-list dataset (label from the file name's
-prefix), the latent caches that ``scripts/compute_latents_torch.py`` writes
+prefix), the MEAD talking-face clips (``MEADTalkingFace``, the reference's
+``MEADBase3`` / ``MEADBase5``: frames, landmark pickles and the per-frame
+audio features of ``scripts/mead_audio_features_torch.py``), the latent
+caches that ``scripts/compute_latents_torch.py`` writes
 (``LatentDataset``), ``collate`` and ``DataLoader`` for one process. Batches
 are dicts of numpy arrays; the trainer moves them to the device. Images are
 float32 NHWC in [-1, 1].
@@ -12,12 +15,13 @@ float32 NHWC in [-1, 1].
 Pillow decodes and resizes images; it is imported where an image is opened
 or resized, never when this module is imported. Where ``LatentDataset``
 must resize and Pillow is missing, it raises (the JAX package skips the
-resize then). Not ported: the MEAD datasets and the native image decoder
-(``DSML_NATIVE_IMAGE=1`` raises ``NotImplementedError``).
+resize then). Not ported: the native image decoder (``DSML_NATIVE_IMAGE=1``
+raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
 import os
+import pickle
 import queue as queue_mod
 import threading
 from typing import Dict, List, Optional
@@ -147,6 +151,192 @@ def AffectnetTest(size=128, test_images_list_file=None, model="emoca",
                             random_crop=random_crop,
                             shape_root=kw.get("shape_root"),
                             shape_model=model, seed=seed)
+
+
+def _load_pickle(path: str):
+    """A pickle's object; None for an empty file. A missing file raises."""
+    if os.path.getsize(path) > 0:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    return None
+
+
+class MEADTalkingFace:
+    """The MEAD clips of a list of (subject, emotion, level, clip) tuples,
+    under ``<data_root>/<subj>/video/front/<emo>/<lvl>/<clip>/`` (frames),
+    ``.../landmarks/front/...`` (a landmark pickle a frame) and
+    ``<audio_dir>/<subj>_<emo>_<lvl>_<clip>.pkl`` (one feature row a frame).
+
+    ``mode='train'``: one random target frame a clip, an identity frame drawn
+    among the first ``anchor + max_shortcut``, the target with everything
+    below the mouth masked, the normalized non-mouth landmarks, the
+    (2 * audio_window + 1)-row audio window (clamped at the clip's edges),
+    the emotion label. ``mode='sample'``: every frame's masked image and
+    landmarks and the whole audio track (``force_align`` pins the identity
+    to frame 0). ``include_landmarks`` adds the raw landmarks (MEADBase5,
+    the lip-reading finetune). A missing landmark pickle raises; an empty
+    one falls back to the dataset's mean landmarks."""
+
+    def __init__(self, tuples_path: str, data_root: str, audio_dir: str,
+                 audio_window: int = 8, size: int = 128, mode: str = "train",
+                 max_shortcut: int = 60, include_landmarks: bool = False,
+                 force_align: bool = False, random_crop: bool = False,
+                 seed: int = 0):
+        if mode not in ("train", "sample"):
+            raise ValueError(f"unknown mode {mode!r}")
+        with open(tuples_path, "rb") as f:
+            self.tuples = sorted(list(pickle.load(f)))
+        self.data_root, self.audio_dir = data_root, audio_dir
+        self.audio_window, self.size, self.mode = audio_window, size, mode
+        self.max_shortcut = max_shortcut
+        self.include_landmarks = include_landmarks
+        self.force_align, self.random_crop = force_align, random_crop
+        self.seed = seed
+        self._mean_landmarks = None
+
+    def _mean_lm(self) -> np.ndarray:
+        """The dataset's mean landmarks (``mean_landmarks.pkl`` under the
+        data root; the image centre where there is none)."""
+        if self._mean_landmarks is None:
+            p = os.path.join(self.data_root, "mean_landmarks.pkl")
+            self._mean_landmarks = (
+                np.asarray(_load_pickle(p), np.float32) if os.path.exists(p)
+                else np.full((68, 2), self.size / 2, np.float32))
+        return self._mean_landmarks
+
+    def __len__(self):
+        return len(self.tuples)
+
+    def _clip_dir(self, subj, emotion, lvl, nbr):
+        return os.path.join(self.data_root, subj, "video", "front", emotion,
+                            lvl, nbr)
+
+    def _landmarks_dir(self, subj, emotion, lvl, nbr):
+        return os.path.join(self.data_root, subj, "landmarks", "front",
+                            emotion, lvl, nbr)
+
+    def _mask_mouth(self, image: np.ndarray, landmarks):
+        """(image with every row from 5 px above the mouth's top masked to
+        -1, the non-mouth landmarks 0-48 in [-1, 1] raveled). Without
+        landmarks the mean ones and the image's middle row stand in. A
+        negative row keeps Python's slicing, as the reference's unclamped
+        index does."""
+        masked = image.copy()
+        if landmarks is not None:
+            min_y = int(np.min(landmarks[48:68][:, 1])) - 5
+        else:
+            landmarks = self._mean_lm()
+            min_y = self.size // 2
+        masked[min_y:, :, :] = -1.0
+        mlm = np.clip(np.asarray(landmarks[0:48], np.float32), 0, self.size)
+        return masked, (mlm / (self.size / 2) - 1.0).ravel()
+
+    def _audio_window_at(self, audio_features: np.ndarray,
+                         t: int) -> np.ndarray:
+        n = len(audio_features)
+        idx = [min(max(t + i, 0), n - 1)
+               for i in range(-self.audio_window, self.audio_window + 1)]
+        return audio_features[idx]
+
+    def __getitem__(self, idx) -> Dict:
+        subj, emotion, lvl, nbr = self.tuples[idx]
+        clip_dir = self._clip_dir(subj, emotion, lvl, nbr)
+        lm_dir = self._landmarks_dir(subj, emotion, lvl, nbr)
+        audio = _load_pickle(
+            os.path.join(self.audio_dir, f"{subj}_{emotion}_{lvl}_{nbr}.pkl"))
+        frames = sorted(os.listdir(clip_dir))
+        n = len(frames)
+
+        def lm(k):
+            return _load_pickle(
+                os.path.join(lm_dir, frames[k].replace("jpg", "pkl")))
+
+        if audio is None:
+            raise ValueError(
+                f"empty audio features for {subj}/{emotion}/{lvl}/{nbr}: "
+                "regenerate with scripts/mead_audio_features_torch.py")
+        audio = np.asarray(audio)
+        if n != audio.shape[0]:
+            raise AssertionError(
+                f"{subj}/{emotion}/{lvl}/{nbr}: {n} frames but "
+                f"{audio.shape[0]} audio feature rows")
+
+        rng = _item_rng(self.seed, getattr(self, "_epoch", 0), idx)
+        anchor = rng.randint(n) if self.mode == "train" else 0
+        if self.mode == "sample" and self.force_align:
+            id_idx = 0
+        else:
+            id_idx = rng.randint(min(n, anchor + self.max_shortcut))
+        if self.mode == "sample" and not self.random_crop:
+            all_imgs = load_images(
+                [os.path.join(clip_dir, f) for f in frames], self.size)
+            image, identity = all_imgs[anchor], all_imgs[id_idx]
+        else:
+            all_imgs = None
+            image = load_image(os.path.join(clip_dir, frames[anchor]),
+                               self.size, self.random_crop, rng)
+            identity = load_image(os.path.join(clip_dir, frames[id_idx]),
+                                  self.size, self.random_crop, rng)
+
+        ex: Dict = {
+            "image": image,
+            "identity": identity,
+            "class_label": np.int32(EMOTION2LABEL[emotion]),
+            "human_label": emotion,
+            "frame_idx": np.int32(anchor),
+            "num_frames": np.int32(n),
+            "subj": subj, "lvl": lvl, "nbr": nbr,
+            "identity_idx": np.int32(id_idx),
+        }
+        if self.mode == "train":
+            landmarks = lm(anchor)
+            ex["masked_image"], ex["masked_landmarks"] = self._mask_mouth(
+                image, landmarks)
+            ex["audio"] = self._audio_window_at(audio, anchor).astype(
+                np.float32)
+            if self.include_landmarks:
+                ex["landmarks"] = np.asarray(
+                    landmarks if landmarks is not None else self._mean_lm(),
+                    dtype=np.float32)
+            return ex
+        masked, mlms, lms = [], [], []
+        for k in range(n):
+            img_k = (all_imgs[k] if all_imgs is not None else load_image(
+                os.path.join(clip_dir, frames[k]), self.size,
+                self.random_crop, rng))
+            landmarks = lm(k)
+            m, mlm = self._mask_mouth(img_k, landmarks)
+            masked.append(m)
+            mlms.append(mlm)
+            lms.append(np.asarray(
+                landmarks if landmarks is not None else self._mean_lm(),
+                dtype=np.float32))
+        ex["masked_image"] = np.stack(masked)
+        ex["masked_landmarks"] = np.stack(mlms)
+        ex["audio"] = np.asarray(audio, dtype=np.float32)
+        if self.include_landmarks:
+            ex["landmarks"] = np.stack(lms)
+        return ex
+
+
+def _mead_base(include_landmarks, audio_window, size=128, tuples_path=None,
+               mode="train", data_root=None, audio_dir=None,
+               force_align=False, random_crop=False, seed=0, **kw):
+    return MEADTalkingFace(tuples_path, data_root, audio_dir,
+                           audio_window=audio_window, size=size, mode=mode,
+                           force_align=force_align,
+                           include_landmarks=include_landmarks,
+                           random_crop=random_crop, seed=seed,
+                           max_shortcut=kw.get("max_shortcut", 60))
+
+
+def MEADBase3(audio_window, **kw):
+    return _mead_base(False, audio_window, **kw)
+
+
+def MEADBase5(audio_window, **kw):
+    """MEADBase3 with the raw landmarks (the lip-reading finetune's)."""
+    return _mead_base(True, audio_window, **kw)
 
 
 class LatentDataset:

@@ -74,6 +74,14 @@
            the port's train step: ms a warm step by CUDA events, the
            forward and the backward by events, peak memory, launches a step,
            then one step under torch.profiler as --train's
+--lipread  one warm step of the lip-reading finetune
+           (mead-128-ldm-f4-tune: batch 8, the 8-step eta = 1.0 chain and
+           the prediction's decode under autograd, a random LRS3 lipreader
+           on 88 px mouths) through the port's train step: ms a warm step
+           by CUDA events, the forward and the backward by events, peak
+           memory, launches a step, then one step under torch.profiler as
+           --train's (wall, busy, idle share, kernels, device time by
+           family)
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -108,6 +116,8 @@ CONFIG_AFFECTNET = os.path.join(ROOT, "configs", "latent-diffusion",
                                 "affectnet-128-ldm-vq-f4.yaml")
 CONFIG_AFFECTNET_CLIP = os.path.join(ROOT, "configs", "latent-diffusion",
                                      "affectnet-128-clip-ldm-vq-f4.yaml")
+CONFIG_TUNE = os.path.join(ROOT, "configs", "latent-diffusion",
+                           "mead-128-ldm-f4-tune.yaml")
 
 
 def card() -> str:
@@ -766,6 +776,67 @@ def finetune(smi: str, steps: int = 5):
     _profile_step(lambda: step(state, batch, 0), "finetune_profile", run)
 
 
+def lipread(smi: str, steps: int = 5):
+    from ..config import build_finetune
+    from ..models.lipreader import LipreaderFrontend, make_lipreader_apply
+    from ..training.train_state import (create_train_state, make_optimizer,
+                                        make_train_step)
+
+    device = torch.device("cuda")
+    cfg = load_config([CONFIG_TUNE])
+    bs = cfg["data"]["params"]["batch_size"]
+    run = {"card": smi, "config": os.path.relpath(CONFIG_TUNE, ROOT),
+           "batch": bs, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"])
+    # a spread codebook (the init holds every code at the origin): decoded
+    # frames, and so the lipreader's mouths, differ between latents
+    torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
+    ft = build_finetune(cfg["model"], ldm=ldm, lipreader_fn=(
+        make_lipreader_apply(LipreaderFrontend()))).to(device)
+    base_lr = bs * cfg["model"].get("base_learning_rate", 1e-6)
+    state = create_train_state(ldm, make_optimizer(ldm, base_lr), base_lr)
+    step = make_train_step(ft)
+    gen = torch.Generator(device=device).manual_seed(0)
+    c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
+    frame = lambda: torch.rand(bs, 128, 128, 3, generator=gen,
+                               device=device) * 2 - 1
+    # landmarks around a face's mouth (centroid near (64, 90)) on 128 px
+    landmarks = torch.tensor([64.0, 90.0], device=device) + 6 * torch.randn(
+        bs, 68, 2, generator=gen, device=device)
+    batch = {"image": frame(), "masked_image": frame(), "identity": frame(),
+             "class_label": torch.arange(bs, device=device) % 8,
+             "audio": torch.randn(bs, c2["seq_len"], c2["subspace_dim"],
+                                  generator=gen, device=device),
+             "landmarks": landmarks}
+
+    for _ in range(2):   # warm-up: kernel build, cuDNN algorithm choice
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    step_ms = event_ms(lambda: step(state, batch, 0), steps)
+    launches = {k: v / steps for k, v in A.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    holder = {}
+
+    def forward():
+        holder["loss"] = ft.training_loss(batch, gen)[0]
+
+    fwd_ms = event_ms(forward, 1)
+    bwd_ms = event_ms(lambda: holder["loss"].backward(), 1)
+    state.optimizer.zero_grad(set_to_none=True)
+    print(json.dumps({
+        "measure": "lipread_step", **run, "steps_timed": steps,
+        "chain_steps": ft.ddim.num_steps, "step_ms": step_ms,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "launches_per_step": launches, "peak_memory_gb": peak / 2 ** 30,
+        "trainable_parameters": sum(p.numel() for p in state.params)}),
+        flush=True)
+    _profile_step(lambda: step(state, batch, 0), "lipread_profile", run)
+
+
 def ae(smi: str, config: str, steps: int = 10):
     from ..training.vqgan import create_first_stage_state
     from ..training.vqgan_trainer import TRAINERS
@@ -828,6 +899,8 @@ def main():
                     help="one AffectNet class batch, timed and profiled")
     ap.add_argument("--finetune", action="store_true",
                     help="DiffusionCLIP finetune steps, timed and profiled")
+    ap.add_argument("--lipread", action="store_true",
+                    help="lip-reading finetune steps, timed and profiled")
     cli.add_sampler_args(ap, note="the chain --profile times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -849,6 +922,8 @@ def main():
         affectnet(smi)
     if args.finetune:
         finetune(smi)
+    if args.lipread:
+        lipread(smi)
 
 
 if __name__ == "__main__":

@@ -177,6 +177,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1110,7 +1111,10 @@ def device_kernels_ms(fn, iters: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        if ev.device_type.name == "CUDA" and "#" not in ev.key:
+        # annotations mirrored onto the device track (`ProfilerStep#1`)
+        # span kernels; a kernel's own name may hold '#' (`{lambda()#1}`)
+        if ev.device_type.name == "CUDA" and not re.match(
+                r"^[\w.]+#[\w.]+$", ev.key):
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
             # the kernel's name without namespaces, arguments and return

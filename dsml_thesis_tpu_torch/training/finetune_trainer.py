@@ -1,14 +1,18 @@
-"""Trainer of the DiffusionCLIP emotion-editing finetune.
+"""Trainer of the guidance finetunes: DiffusionCLIP emotion editing and the
+talking-face lip-reading finetune.
 
 Counterpart of ``dsml_thesis_tpu/training/finetune_trainer.py``: the port's
 ``Trainer`` with the loss module swapped for the finetune wrapper that
 ``config.build_finetune`` builds over the trainer's LDM. Gradients run
-through the differentiable reverse DDIM chain into the UNet; the optimizer
-and the EMA take the LDM's trainable parameters only, so the first stage and
-the guidance towers (held by the wrapper) stay as they were loaded.
-``log_images`` saves the EMA weights' edited grids as ``.npy`` under
-``images/`` (``lightning.callbacks.image_logger.params.batch_frequency``
-sets the interval).
+through the differentiable reverse DDIM chain into the UNet (and the
+trainable cond stages); the optimizer and the EMA take the LDM's trainable
+parameters only, so the first stage and the guidance towers or the
+lipreader (held by the wrapper) stay as they were loaded. Validation logs
+the wrapper's terms (``val/l2_loss``, ``val/lr_loss`` of the lip-reading
+finetune). ``log_images`` saves the EMA weights' edited grids of the
+DiffusionCLIP finetune as ``.npy`` under ``images/``
+(``lightning.callbacks.image_logger.params.batch_frequency`` sets the
+interval); for a wrapper without ``edit`` it does nothing.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from .trainer import Trainer
 
 class FinetuneTrainer(Trainer):
     """``encoder_fns``: guidance towers handed in (``clip_image_embed``,
-    ``arcface_embed``) in place of those the config's checkpoint paths
-    (``clip_ckpt``, ``clip_bpe``, ``id_ckpt``) would build."""
+    ``arcface_embed``, ``lipreader_fn``) in place of those the config's
+    checkpoint paths (``clip_ckpt``, ``clip_bpe``, ``id_ckpt``,
+    ``lipread_ckpt``) would build."""
 
     logs_images = True
 
@@ -36,14 +41,16 @@ class FinetuneTrainer(Trainer):
         super().__init__(config, logdir, seed=seed, max_steps=max_steps,
                          device=device)
         self.finetune = build_finetune(self.model_cfg, ldm=self.ldm,
+                                       device=self.device,
                                        **(encoder_fns or {})).to(self.device)
         self.loss_module = self.finetune
 
     @torch.no_grad()
     def log_images(self, batch: Dict, step: int, n: int = 4) -> None:
         """The first ``n`` examples edited by the EMA weights, clamped to
-        [-1, 1], as ``images/edited_step<step>.npy``."""
-        if "latent" not in batch:
+        [-1, 1], as ``images/edited_step<step>.npy``; nothing for a
+        wrapper without ``edit`` (the lip-reading finetune)."""
+        if not hasattr(self.finetune, "edit") or "latent" not in batch:
             return
         nb = self._to_device(batch)
         x_lat = nb["latent"][:n]

@@ -13,15 +13,23 @@ config has one. A first-stage config (``configs/autoencoder/*.yaml``: a
 ``VQModel`` or ``AutoencoderKL`` target) goes to ``VQGANTrainer`` /
 ``KLAETrainer`` instead (validation, top-k on ``val/rec_loss``, ``last``; no
 test split). It runs on the card; without one it fails unless ``--cpu`` is
-given. The shipped MEAD configs name the MEAD dataset, which the port
-does not read yet: override ``data`` with a synthetic node, e.g.
+given. The shipped MEAD configs read the MEAD clips (``MEADBase3`` /
+``MEADBase5``) through ``data.params.train.params.tuples_path=<tuples.pkl>``,
+``data_root=<root>`` and ``audio_dir=<features of
+scripts/mead_audio_features_torch.py>`` (and the same under
+``data.params.validation``), or take a synthetic node, e.g.
 
     data.params.train='{target: dsml_thesis_tpu_torch.data.SyntheticDataset,
       params: {length: 64, spec: {image: [[256, 256, 3], float32],
       masked_image: [[256, 256, 3], float32], identity: [[256, 256, 3],
       float32], class_label: [[], int32], audio: [[17, 768], float32]}}}'
 
-(and the same for ``data.params.validation``). The AffectNet LDM config
+The lip-reading finetune (``mead-128-ldm-f4-tune.yaml``, target
+``ddpm2condtune``) goes to ``FinetuneTrainer``; its data carry
+``landmarks`` (``MEADBase5``, or a synthetic node whose spec adds
+``landmarks: [[68, 2], float32]``) and its frozen lipreader comes from
+``model.params.lipread_ckpt=<LRS3 model.pth>`` (without it the loss is the
+L2 term alone). The AffectNet LDM config
 (``affectnet-128-ldm-vq-f4.yaml``) reads its image lists through
 ``data.params.train.params.training_images_list_file=<list>`` (one path a
 line, ``<label>_*.jpg``) and ``...validation.params.test_images_list_file``,

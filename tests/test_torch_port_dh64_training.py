@@ -425,12 +425,14 @@ def test_smoke_train_launches_of_the_dh64_runs(run, monkeypatch):
 def test_smoke_counts_the_split_head_dh64_serve_run(monkeypatch):
     """``fullattn-dh64-split``: every self-attention of a UNet call (11 at
     N <= 1024, 5 at N = 4096) through the split-head forward, none through
-    the fused or packed kernels."""
+    the fused or packed kernels; a served batch is 2 frames of the run's
+    DDIM chain."""
     env = {"DSML_ATTN_PACKED": "0"}
     assert ("fullattn-dh64-split", chip_smoke.CONFIG_DH64, env, 8) \
         in chip_smoke.RUNS
+    calls = 2 * chip_smoke.SERVE_DDIM_STEPS["fullattn-dh64-split"]
     _, ldm = _meta_ldm("mead-256-ldm-f4-fullattn-dh64.yaml")
-    expect = chip_smoke.expected_launches(ldm, env, unet_calls=100, encodes=2,
-                                          decodes=2)
+    expect = chip_smoke.expected_launches(ldm, env, unet_calls=calls,
+                                          encodes=2, decodes=2)
     assert {k: v for k, v in expect.items() if v} == {
-        "flash_attention": 100 * 16 + 2 * 3 + 2 * 4}
+        "flash_attention": calls * 16 + 2 * 3 + 2 * 4}

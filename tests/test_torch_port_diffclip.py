@@ -12,8 +12,8 @@ package, on the CPU in fp32.
 * ``build_finetune`` from checkpoint paths in the config (a tiny CLIP in the
   OpenAI layout, IR-SE50 in the reference layout, a synthetic BPE table):
   the text-direction table and the loss against the JAX package's
-  ``build_finetune`` of the same files (1e-4); the refusals (classifier
-  loss, the lipreading finetune).
+  ``build_finetune`` of the same files (1e-4); the refusals of the
+  classifier loss, and the lip-reading target now building its wrapper.
 * ``scripts/train_torch.py --cpu`` on a tiny finetune config over a latent
   cache: ``FinetuneTrainer``, two steps, the towers and the first stage as
   loaded, the optimizer and the EMA over the UNet only, the edited grids of
@@ -243,12 +243,14 @@ def test_unported_finetune_options_raise(tiny_ft, tmp_path):
     model_cfg["params"].update(cls_loss_w=0.0, cls_ckpt=str(tmp_path / "x"))
     with pytest.raises(NotImplementedError):
         build_finetune(model_cfg)
-    tune = {"target": "ldm.models.diffusion.ddpm2condtune.LatentDiffusion",
-            "params": {}}
-    with pytest.raises(NotImplementedError):
-        build_finetune(tune)
+    # the lip-reading finetune is ported: its target builds its wrapper
     from dsml_thesis_tpu_torch.config import is_finetune_target
+    from dsml_thesis_tpu_torch.models.lipread_tune import LipreadFinetune
+    from test_torch_port_lipread import tune_cfg
 
+    tune = tune_cfg()["model"]
+    assert isinstance(build_finetune(tune), LipreadFinetune)
+    assert is_finetune_target(tune["target"])
     assert is_finetune_target(cfg["model"]["target"])
     assert not is_finetune_target("ldm.models.diffusion.ddpm.LatentDiffusion")
 

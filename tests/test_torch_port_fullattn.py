@@ -316,7 +316,8 @@ def test_fullattn_state_dict_keys_are_the_jax_tree_paths(real_fullattn):
 def test_smoke_script_counts_the_real_models_blocks(real_fullattn):
     """The launch arithmetic of ``chip_smoke.py`` on the real `-fullattn`
     model: 11 self-attentions the fused op takes and 5 at N = 4096 a UNet
-    call, 51 GroupNorms a call."""
+    call, 51 GroupNorms a call, over a ``fullattn-flags`` batch (2 frames
+    of its DDIM chain)."""
     import sys
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -324,12 +325,13 @@ def test_smoke_script_counts_the_real_models_blocks(real_fullattn):
     _, ldm = real_fullattn
     assert chip_smoke.count_attentions(ldm.unet, ldm.image_size) == (11, 5)
     assert chip_smoke.count_norms(ldm.unet) == 51
+    calls = 2 * chip_smoke.SERVE_DDIM_STEPS["fullattn-flags"]
     expect = chip_smoke.expected_launches(
         ldm, {"DSML_ATTN_FPROJ_PARTIAL": "1", "DSML_PALLAS_GN": "1"},
-        unet_calls=100, encodes=2, decodes=2)
-    assert expect["flash_attention_qout"] == 500
+        unet_calls=calls, encodes=2, decodes=2)
+    assert expect["flash_attention_qout"] == 5 * calls
     assert expect["flash_attention_packed"] == 0
-    assert expect["flash_attention_fproj"] == 1100
+    assert expect["flash_attention_fproj"] == 11 * calls
     assert expect["flash_attention"] == 14
-    assert expect["group_norm_silu"] == 5194
+    assert expect["group_norm_silu"] == 51 * calls + 40 + 54
     assert expect["gn_channel_stats"] == 0

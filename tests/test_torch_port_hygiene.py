@@ -39,7 +39,8 @@ def _python_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     out += [os.path.join(ROOT, "scripts", f"{name}_torch.py")
             for name in ("serve", "train", "sample_affectnet",
-                         "compute_latents", "latent_manipulation")]
+                         "compute_latents", "latent_manipulation",
+                         "mead_audio_features")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)  # one order for every test worker
@@ -61,7 +62,8 @@ def test_package_has_the_expected_modules():
                  "diffusion.plms", "diffusion.tiling", "reenactment",
                  "data.clip_tokenizer", "losses.guidance", "models.clip",
                  "models.insight_face", "models.diffclip",
-                 "training.finetune_trainer"):
+                 "training.finetune_trainer", "models.wav2vec2",
+                 "models.lipreader", "models.lipread_tune"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 

@@ -509,17 +509,19 @@ def test_smoke_train_launches_are_one_cpu_steps_wrapper_calls(tiny128, run,
 def test_smoke_counts_of_the_real_yaml(run):
     """The real YAML on the meta device: 16 self-attentions a UNet call, all
     of them short (N <= 1024) at 32 x 32 latents; the first stage's
-    attention blocks 3 an encode, 4 a decode."""
+    attention blocks 3 an encode, 4 a decode; a served batch is 2 frames of
+    the run's DDIM chain."""
     ldm = _meta_mead128()
     assert ldm.image_size == 32
     assert chip_smoke.count_attentions(ldm.unet, ldm.image_size) == (16, 0)
     assert chip_smoke.count_head_widths(ldm.unet) == {32: 16}
     if run in SMOKE_RUNS:
         env = SMOKE_RUNS[run]
-        expect = chip_smoke.expected_launches(ldm, env, unet_calls=100,
+        calls = 2 * chip_smoke.SERVE_DDIM_STEPS[run]
+        expect = chip_smoke.expected_launches(ldm, env, unet_calls=calls,
                                               encodes=2, decodes=2)
-        want = ({"flash_attention_fproj": 1600, "flash_attention": 14}
-                if not env else {"flash_attention": 1600 + 14})
+        want = ({"flash_attention_fproj": 16 * calls, "flash_attention": 14}
+                if not env else {"flash_attention": 16 * calls + 14})
     else:
         env = SMOKE_TRAIN_RUNS[run]
         _, expect = chip_smoke.expected_train_launches(ldm, env, steps=1,

@@ -304,18 +304,19 @@ def test_smoke_train_launches_are_one_cpu_steps_wrapper_calls(tiny128, run,
     assert per_step[kernel] >= 7
 
 
-# the real YAML on the meta device: a served batch (100 UNet calls, two
-# encodes, two decodes; 16 self-attentions a call, the first stage's
-# attention blocks 3 an encode, 4 a decode; GroupNorms 51 a UNet call, 20 an
-# encode, 27 a decode; fused convs under DSML_GN_EPILOGUE=1 67, 23, 30) and a
-# training step (three encodes; under res 34 fused convs in the UNet, 16 an
-# encode)
+# the real YAML on the meta device: a served batch of a flag run (DDIM-10:
+# 20 UNet calls, two encodes, two decodes; 16 self-attentions a call, the
+# first stage's attention blocks 3 an encode, 4 a decode; GroupNorms 51 a
+# UNet call, 20 an encode, 27 a decode; fused convs under
+# DSML_GN_EPILOGUE=1 67, 23, 30) and a training step (three encodes; under
+# res 34 fused convs in the UNet, 16 an encode)
 FULL_SIZE = {
-    "mead128-streaming": {"flash_attention_streaming": 1600 + 14},
-    "mead128-gn": {"flash_attention_fproj": 1600, "flash_attention": 14,
-                   "group_norm_silu": 5100 + 40 + 54},
-    "mead128-epilogue": {"flash_attention_fproj": 1600, "flash_attention": 14,
-                         "conv_stats": 6700 + 46 + 60},
+    "mead128-streaming": {"flash_attention_streaming": 16 * 20 + 14},
+    "mead128-gn": {"flash_attention_fproj": 16 * 20, "flash_attention": 14,
+                   "group_norm_silu": 51 * 20 + 40 + 54},
+    "mead128-epilogue": {"flash_attention_fproj": 16 * 20,
+                         "flash_attention": 14,
+                         "conv_stats": 67 * 20 + 46 + 60},
     "train-mead128-streaming": {"flash_attention_streaming": 16 + 9,
                                 "flash_attention_streaming_bwd": 16},
     "train-mead128-epilogue": {"flash_attention_packed": 16,
@@ -329,7 +330,9 @@ def test_smoke_counts_of_the_real_yaml(run):
     ldm = _meta_mead128()
     if run in NEW_RUNS:
         expect = chip_smoke.expected_launches(
-            ldm, NEW_RUNS[run], unet_calls=100, encodes=2, decodes=2)
+            ldm, NEW_RUNS[run],
+            unet_calls=2 * chip_smoke.SERVE_DDIM_STEPS[run], encodes=2,
+            decodes=2)
     else:
         _, expect = chip_smoke.expected_train_launches(
             ldm, NEW_TRAIN_RUNS[run], steps=1, eval_batches=0)
@@ -338,9 +341,10 @@ def test_smoke_counts_of_the_real_yaml(run):
 
 def test_the_kernels_line_has_the_fp32_sub_rows():
     """The ``kernels`` line's sub-rows of the streaming pair (fp32 D = 32
-    and D = 512) and of GroupNorm, the channel statistics and conv +
-    statistics at the fp32 UNet's shapes read their launches from the runs
-    that are their paths."""
+    and D = 512), of GroupNorm, the channel statistics and conv +
+    statistics at the fp32 UNet's shapes, and of row 7 at the two
+    finetunes' decodes read their launches from the runs that are their
+    paths."""
     assert chip_smoke.F32_NARROW["flash_attention_streaming"] \
         == "train-mead128-streaming"
     assert chip_smoke.F32_NARROW["flash_attention_streaming_bwd"] \
@@ -352,14 +356,16 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
              "bound_by": "operations", "library_ms": 1.5, "max_abs_err": 0.0}
     runs = [r[0] for r in chip_smoke.RUNS + chip_smoke.TRAIN_RUNS
             + chip_smoke.AE_RUNS] + [chip_smoke.AFFECTNET_RUN,
-                                     chip_smoke.EDIT_RUN]
+                                     chip_smoke.EDIT_RUN, chip_smoke.TUNE_RUN]
     cases = {name: [dict(timed, shape=[1], dtype="bfloat16"),
                     dict(timed, shape=[2], dtype="float32", head_dim=32),
                     chip_smoke._mead128(dict(timed, shape=[3],
                                              dtype="float32")),
                     dict(timed, shape=[4], dtype="float32", head_dim=512),
                     chip_smoke._affectnet_clip(dict(
-                        timed, shape=[5], dtype="float32", head_dim=512))]
+                        timed, shape=[5], dtype="float32", head_dim=512)),
+                    chip_smoke._lipread_tune(dict(
+                        timed, shape=[6], dtype="float32", head_dim=512))]
              for name in chip_smoke.KERNELS}
     launches = {run: dict.fromkeys(chip_smoke.KERNELS, 1) for run in runs}
     launches["train-mead128-streaming"]["flash_attention_streaming_bwd"] = 32
@@ -379,7 +385,16 @@ def test_the_kernels_line_has_the_fp32_sub_rows():
     edit = sub[("flash_attention_bwd",
                 "float32, head width 512, DiffusionCLIP finetune decode")]
     assert edit["shape"] == [5] and edit["launches_in_run"] == "affectnet-edit"
-    assert len(rows) == len(chip_smoke.KERNELS) + 15
+    launches["train-mead128-tune"]["flash_attention_bwd"] = 8
+    rows = chip_smoke.kernels_line(cases, launches)["kernels"]
+    sub = {(r["name"], r["variant"]): r for r in rows if "variant" in r}
+    tune = sub[("flash_attention_bwd",
+                "float32, head width 512, lip-reading finetune decode")]
+    assert tune["shape"] == [6] and tune["launches"] == 8
+    assert tune["launches_in_run"] == "train-mead128-tune"
+    assert sub[("flash_attention_bwd", "float32, head width 512")][
+        "shape"] == [4]
+    assert len(rows) == len(chip_smoke.KERNELS) + 16
     for r in rows:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

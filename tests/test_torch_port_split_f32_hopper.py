@@ -252,9 +252,10 @@ FLAG_RUNS = {name: env for name, _, env, _ in chip_smoke.RUNS
 @pytest.mark.parametrize("run", sorted(FLAG_RUNS))
 def test_flag_run_launch_counts_are_unchanged(run):
     """The real YAML on the meta device: a served batch (8 clips, F = 2,
-    DDIM-50 with guidance: 100 UNet calls, 2 encodes, 2 decodes) is 1600
-    fp32 D = 32 forwards of row 2 or 4 and 14 first-stage ones at D = 512;
-    a training step 16 and 16 backwards, and 9 first-stage encodes'."""
+    the run's DDIM chain with guidance: 2 x steps UNet calls, 2 encodes, 2
+    decodes) is 16 fp32 D = 32 forwards of row 2 or 4 a UNet call and 14
+    first-stage ones at D = 512; a training step 16 and 16 backwards, and
+    9 first-stage encodes'."""
     assert len(FLAG_RUNS) == 4
     env, ldm = FLAG_RUNS[run], _meta_mead128()
     fwd = ("flash_attention_streaming"
@@ -264,7 +265,8 @@ def test_flag_run_launch_counts_are_unchanged(run):
                                                     eval_batches=0)
         want = {fwd: 16 + 9, fwd + "_bwd": 16}
     else:
-        got = chip_smoke.expected_launches(ldm, env, unet_calls=100,
+        calls = 2 * chip_smoke.SERVE_DDIM_STEPS[run]
+        got = chip_smoke.expected_launches(ldm, env, unet_calls=calls,
                                            encodes=2, decodes=2)
-        want = {fwd: 1600 + 14}
+        want = {fwd: 16 * calls + 14}
     assert {k: v for k, v in got.items() if v} == want

@@ -310,12 +310,14 @@ def test_smoke_mead128_stats_launches_are_one_cpu_calls_wrapper_calls(
 
 
 def test_smoke_mead128_stats_counts_of_the_real_yaml():
-    """A served batch of the real YAML (100 UNet calls, two encodes, two
-    decodes): GroupNorms 51 a UNet call, 20 an encode, 27 a decode."""
+    """A served batch of the real YAML (2 frames of ``mead128-stats``'s DDIM
+    chain, two encodes, two decodes): GroupNorms 51 a UNet call, 20 an
+    encode, 27 a decode."""
     ldm = _meta(chip_smoke.CONFIG_128)
+    calls = 2 * chip_smoke.SERVE_DDIM_STEPS["mead128-stats"]
     expect = chip_smoke.expected_launches(
-        ldm, {"DSML_PALLAS_GN": "stats"}, unet_calls=100, encodes=2,
+        ldm, {"DSML_PALLAS_GN": "stats"}, unet_calls=calls, encodes=2,
         decodes=2)
     assert {k: v for k, v in expect.items() if v} == {
-        "flash_attention_fproj": 1600, "flash_attention": 14,
-        "gn_channel_stats": 5100 + 40 + 54}
+        "flash_attention_fproj": 16 * calls, "flash_attention": 14,
+        "gn_channel_stats": 51 * calls + 40 + 54}

@@ -113,9 +113,12 @@ def test_dataset_targets_and_unported_targets():
         ds = instantiate_from_config(
             {"target": target, "params": {"spec": SPEC, "length": 3}})
         assert isinstance(ds, SyntheticDataset) and len(ds) == 3
+    # the MEAD datasets are ported (tests/test_torch_port_mead_data.py builds
+    # them from files); a target still unported raises
     with pytest.raises(NotImplementedError):
-        instantiate_from_config({"target": "taming.data.custom.MEADBase3",
-                                 "params": {"size": 256}})
+        instantiate_from_config(
+            {"target": "ldm.modules.encoders.modules.LandmarkEncoder",
+             "params": {"output_dim": 128}})
 
 
 # --------------------------------------------------------------------------
