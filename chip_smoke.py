@@ -109,7 +109,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              train-dh64-streaming  -fullattn-dh64, DSML_ATTN_PACKED=0 and
                              DSML_FLASH_STREAMING=1, 2 steps
              train-mead128   mead-128-ldm-f4, no flag (rows 3 + 8 in fp32 at
-                             D = 32), 2 steps
+                             D = 32), 2 steps, an image log at step 2;
+                             its `last` kept for the tune phase
              train-mead128-split   mead-128-ldm-f4, DSML_ATTN_PACKED=0 (rows
                              2 + 7 in fp32 at D = 32), 2 steps
              train-mead128-streaming  mead-128-ldm-f4, DSML_ATTN_PACKED=0
@@ -119,13 +120,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              (rows 3 + 8 in fp32, row 11 forward), 2 steps
              train-affectnet affectnet-128-ldm-vq-f4 at its YAML's batch of
                              24 (image, class_label; rows 3 + 8 in fp32,
-                             row 2 at D = 512 in the encode), 2 steps
+                             row 2 at D = 512 in the encode), 2 steps, an
+                             image log at step 2
            each checks: finite losses, parameters that moved, launch counts
            against those counted from the model's own blocks, the backward
            kernel's calls by head width against the model's self-attentions,
            equal loss bits from a second run with the same seed, and loss and
            a handful of gradients on the kernel path against the plain path
-           on the card;
+           on the card; the image logger runs as each YAML ships it, and in
+           the first run of train-mead128 and train-affectnet once, at the
+           last step (max_images 8, DDIM-20 chains with rows 1 and 2,
+           decodes): every row file of its shape, finite, in [-1, 1]
+           (images_logged), its launches in the counts;
            then first-stage training (fp32, the AttnBlock at D = 512) of
            configs/autoencoder/*.yaml at full width, batch 16, 128 px,
            SyntheticDataset images, LPIPS files written from seed 0,
@@ -166,14 +172,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
   tune     the lip-reading finetune (mead-128-ldm-f4-tune.yaml: the fp32
            mead-128 model, an 8-step eta = 1.0 chain, the lipreader loss)
            through scripts/train_torch.py's main() at its own batch of 8, 2
-           steps and one validation batch, a random LRS3 lipreader written
-           to the temporary directory (lipread_ckpt), synthetic data with
-           landmarks (the card's machine has no Pillow for MEAD's frames);
-           checks: the lr term present, launch counts (row 1 through its
-           autograd Function, rows 2 and 7 at [8, 1, 1024, 512]), the
-           lipreader and the first stage unchanged, parameters moved, the
-           first step's loss and gradients kernel path against plain path,
-           the peak memory and a warm step's ms
+           steps and one validation batch, warm-started from train-mead128's
+           checkpoint (model.params.ckpt_path; needs the train phase), a
+           random LRS3 lipreader written to the temporary directory
+           (lipread_ckpt), synthetic data with landmarks (the card's machine
+           has no Pillow for MEAD's frames); checks: the model, EMA and step
+           0 as saved before the first step (warm_started), the lr term
+           present, launch counts (row 1 through its autograd Function, rows
+           2 and 7 at [8, 1, 1024, 512]), the lipreader as built and the
+           first stage as loaded, parameters moved, the first step's loss
+           and gradients kernel path against plain path, the peak memory and
+           a warm step's ms
 then the line {"kernels": [...]} (a row per kernel, a sub-row per fp32
 D = 32 and D = 512 instantiation, one for row 7 at each of the DiffusionCLIP
 finetune's [4, 1, 1024, 512] and the lip-reading finetune's [8, 1, 1024, 512]
@@ -181,7 +190,8 @@ and one each for GroupNorm and conv + statistics at the fp32 UNet's shapes),
 the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 
-`--phases device,build,kernels` runs a subset (no final ok line then).
+`--phases device,build,kernels` runs a subset (no final ok line then); a
+list with tune must hold train.
 """
 from __future__ import annotations
 
@@ -191,7 +201,6 @@ import copy
 import dataclasses
 import json
 import os
-import re
 import shutil
 import signal
 import subprocess
@@ -303,22 +312,20 @@ def device_ms(fn, iters=10):
     return _device_us(prof) / 1e3 / iters
 
 
-# Annotations PyTorch mirrors onto the device track (`ProfilerStep#1`,
-# `Optimizer.step#AdamW.step`) span kernels and are left out; a kernel's own
-# name may hold a '#' (`{lambda()#1}`) and counts.
-_ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
-
-
 def _device_us(prof):
     """The device time of the kernels a torch.profiler run traced, in us,
     summed over the trace's own records (``key_averages`` first builds a
-    Python object a record: many seconds for a traced sampling chain)."""
+    Python object a record: many seconds for a traced sampling chain);
+    annotations mirrored onto the device track are left out
+    (``tools/measure.py:is_annotation``)."""
     from torch.autograd import DeviceType
+
+    from dsml_thesis_tpu_torch.tools.measure import is_annotation
 
     return sum(ev.duration_ns()
                for ev in prof.profiler.kineto_results.events()
                if ev.device_type() == DeviceType.CUDA
-               and not _ANNOTATION.match(ev.name())) / 1e3
+               and not is_annotation(ev.name())) / 1e3
 
 
 def time_ms(fn, iters, warmup=2):
@@ -2145,12 +2152,108 @@ def no_checkpoint_files():
         Trainer.save_checkpoint, VQGANTrainer.save_checkpoint = saved
 
 
+# the train runs whose first run logs images once, at its last step,
+# through the config's own image logger (batch_frequency set to the run's
+# steps; max_images 8 as shipped; DDIM-20); the twin run logs none
+IMAGE_LOG_RUNS = ("train-mead128", "train-affectnet")
+IMAGE_LOG_DDIM_STEPS = 20
+# the train run whose `last` checkpoint the tune phase warm-starts from
+WARM_START_RUN = "train-mead128"
+
+
+def warm_start_file(tmp):
+    """Where phase_train keeps WARM_START_RUN's last/state.pt until the tune
+    phase has read it."""
+    return os.path.join(tmp, f"{WARM_START_RUN}-last-state.pt")
+
+
+@contextlib.contextmanager
+def timed_calls(cls, method):
+    """Seconds of every call of ``cls.method`` inside the block, the card
+    synchronized around each (a list the block reads after)."""
+    from unittest import mock
+
+    real, seconds = getattr(cls, method), []
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(round(time.monotonic() - t0, 3))
+        return out
+
+    with mock.patch.object(cls, method, timed):
+        yield seconds
+
+
+def image_log_plan(ldm, ddim_steps=IMAGE_LOG_DDIM_STEPS):
+    """(UNet calls, first-stage encodes, decodes, denoise-row length,
+    diffusion-row length, rows) of one Trainer.log_images call, from the
+    model and the trainer's own rules: the encode of the images and of each
+    channel-concat stream through the first stage; a DDIM chain for the
+    samples, one from the same start for the denoise row and, for a VQ first
+    stage, one for the quantized samples; decodes of the reconstruction,
+    the samples, the denoise row, each timestep of the diffusion row and the
+    quantized samples."""
+    from dsml_thesis_tpu_torch.diffusion import make_ddim_schedule
+    from dsml_thesis_tpu_torch.models.autoencoder import VQModel
+    from dsml_thesis_tpu_torch.training.trainer import diffusion_row_t
+
+    vq = isinstance(ldm.first_stage, VQModel)
+    S = make_ddim_schedule(ldm.schedule, ddim_steps).num_steps
+    every = max(1, S // 4)
+    denoise = len({i for i in range(S) if (S - 1 - i) % every == 0}
+                  | {0, S - 1})
+    diffusion = len(diffusion_row_t(ldm.schedule.num_timesteps))
+    encodes = 1 + sum(s.route == "concat_first_stage" for s in ldm.cond_specs)
+    rows = ["inputs", "reconstruction", "samples", "denoise_row",
+            "diffusion_row"] + (["samples_x0_quantized"] if vq else [])
+    return ((3 if vq else 2) * S, encodes, 3 + diffusion + vq, denoise,
+            diffusion, rows)
+
+
+def expected_image_log_launches(ldm, env):
+    """Launches of every kernel in one Trainer.log_images call (eval-mode
+    routes, no gradient)."""
+    unet_calls, encodes, decodes, *_ = image_log_plan(ldm)
+    return expected_launches(ldm, env, unet_calls=unet_calls,
+                             encodes=encodes, decodes=decodes)
+
+
+def check_image_log(logdir, step, ldm, n, size, spec):
+    """The image log a run wrote at ``step``: every row of image_log_plan as
+    images/<row>_step<step>.npy of its shape ([n, size, size, 3]; the
+    denoise and diffusion rows their lengths), finite and within [-1, 1],
+    and the conditioning grids of the batch's image streams, finite, of
+    shape [n, size, size, 3]. Returns (ok, {file: shape})."""
+    *_, denoise, diffusion, rows = image_log_plan(ldm)
+    lead = {"denoise_row": denoise, "diffusion_row": diffusion}
+    want = {r: (lead.get(r, n), size, size, 3) for r in rows}
+    want.update({f"conditioning_{k}": (n, size, size, 3)
+                 for k in ("shape_image", "masked_image", "identity")
+                 if k in spec})
+    ok, shapes = True, {}
+    for row, shape in want.items():
+        path = os.path.join(logdir, "images", f"{row}_step{step:08d}.npy")
+        if not os.path.exists(path):
+            ok, shapes[row] = False, None
+            continue
+        a = np.load(path)
+        shapes[row] = list(a.shape)
+        ok &= bool(a.shape == shape and np.isfinite(a).all()
+                   and (row.startswith("conditioning_")
+                        or (a.min() >= -1.0 and a.max() <= 1.0)))
+    return ok, shapes
+
+
 def phase_train(name, config, env, steps, smi, tmp, resume=False):
     """One train run through scripts/train_torch.py's main() at the YAML's
     own batch size. Returns the launch counts of the run (steps + one
-    validation batch)."""
+    validation batch, and one image log in IMAGE_LOG_RUNS)."""
     from dsml_thesis_tpu_torch.config import load_config
     from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.training.trainer import Trainer
 
     train_torch = _train_torch()
     cfg = load_config([config])
@@ -2164,18 +2267,18 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
     # YAML's flow form)
     data = [f"data.params.train={json.dumps(node)}",
             f"data.params.validation={json.dumps(val)}"]
-    # mead-128-ldm-f4's image logger (every 5,000 steps) is not ported (the
-    # trainer refuses it, ROADMAP.md queue A item 6); it would not fire in a
-    # run this short
-    if cfg.get("lightning", {}).get("callbacks", {}).get("image_logger"):
-        data.append("lightning.callbacks.image_logger.params."
-                    "batch_frequency=0")
+    # the image logger runs as the YAML ships it (every 5,000 steps: never in
+    # a run this short), but in IMAGE_LOG_RUNS' first run once, at its last
+    # step
+    log_images = name in IMAGE_LOG_RUNS
+    image_log = (["lightning.callbacks.image_logger.params.batch_frequency="
+                  f"{steps}"] if log_images else [])
 
-    def run(tag, n_steps, top_k):
+    def run(tag, n_steps, top_k, extra=()):
         argv = ["--base", config, "-t", "--max-steps", str(n_steps),
                 "--logdir", os.path.join(tmp, tag), "--name", name,
                 "--seed", "0", "--no-test", "--log-every", "1", *data,
-                *([] if top_k else [NO_TOP_K])]
+                *extra, *([] if top_k else [NO_TOP_K])]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -2192,8 +2295,10 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
     with flags(**env), (deterministic_cudnn() if fp32
                         else contextlib.nullcontext()):
         A.reset_launches()   # counts below are of this run alone
-        with backward_head_widths() as bwd_widths:
-            trainer, wall = run(f"{name}-a", steps, top_k=resume)
+        with backward_head_widths() as bwd_widths, \
+                timed_calls(Trainer, "log_images") as log_seconds:
+            trainer, wall = run(f"{name}-a", steps, top_k=resume,
+                                extra=image_log)
         launches = dict(A.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         state = trainer._state
@@ -2208,6 +2313,11 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 4, 1)
         ckpt = os.path.join(trainer.logdir, "checkpoints", "last", "state.pt")
         ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+        if log_images:
+            images_ok, image_shapes = check_image_log(
+                trainer.logdir, steps, trainer.ldm, trainer.log_max_images,
+                image_size(cfg), spec)
+            image_expect = expected_image_log_launches(trainer.ldm, env)
         resumed_step = None
         if resume:
             again = train_torch.main(
@@ -2218,7 +2328,10 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
             del again
         # the run leaves `last` (2.8 GB; `train` a top-k checkpoint beside
         # it): cleared as soon as it has been read, so that the script's peak
-        # use of the temporary directory is one run's
+        # use of the temporary directory is one run's; the tune phase's warm
+        # start keeps WARM_START_RUN's until it has read it
+        if name == WARM_START_RUN and ckpt_bytes:
+            os.replace(ckpt, warm_start_file(tmp))
         shutil.rmtree(os.path.join(tmp, f"{name}-a"))
         del trainer, state, xb
         torch.cuda.empty_cache()
@@ -2228,6 +2341,8 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         shutil.rmtree(os.path.join(tmp, f"{name}-b"))
         grads_ok, grads = _grad_check(twin, env)
         expect, per_step = expected_train_launches(twin.ldm, env, steps, 1)
+        if log_images:
+            expect = {k: v + image_expect[k] for k, v in expect.items()}
         del twin
         torch.cuda.empty_cache()
 
@@ -2238,9 +2353,12 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
                 if isinstance(v, float)),
         "val_raw_and_ema": bool(vals) and "val_loss" in vals[0]
         and "val_loss_ema" in vals[0],
+        "val_memory_logged": bool(vals) and vals[0].get(
+            "cuda_0_peak_mib", 0) > 0,
         "parameters_moved": moved > 0,
         "launches": launches == expect,
         "backward_head_widths": bwd_widths == bwd_widths_expected,
+        **({"images_logged": images_ok} if log_images else {}),
         "same_seed_same_loss_bits": losses == twin_losses,
         "checkpoint_written": ckpt_bytes > 0,
         "kernel_path_agrees_with_plain_path": grads_ok,
@@ -2257,6 +2375,8 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
           "losses": losses, "val": vals[0] if vals else None,
           "tensors_moved": moved, "launches": launches,
           "launches_expected": expect, "launches_per_step": per_step,
+          "image_log": ({"launches": image_expect, "shapes": image_shapes,
+                         "seconds": log_seconds} if log_images else None),
           "backward_launches_by_head_width": bwd_widths,
           "warm_step_ms": step_ms, "img_per_s": batch * 1e3 / step_ms,
           "peak_memory_bytes": peak, "checkpoint_bytes": ckpt_bytes,
@@ -3073,21 +3193,38 @@ def phase_lipread_tune(name, smi, tmp, steps=2):
     (``lipread_ckpt``). The data are a synthetic node with the config's
     shapes plus ``landmarks`` [68, 2]: the card's machine has no Pillow to
     decode MEAD's JPEG frames, so the MEAD reader itself is held on the CPU
-    (tests/test_torch_port_mead_data.py). Checks: the lr term present and
+    (tests/test_torch_port_mead_data.py). The run warm-starts from the
+    train phase's WARM_START_RUN checkpoint (``model.params.ckpt_path``),
+    its audio stage at that model's ``seq_len`` (17: the tune YAML's 9 would
+    not take a mead-128-ldm-f4 audio stage, Linear(17, 17)), and deletes the
+    file once read. Checks: the model, its EMA and step 0 as saved before
+    the first step (``warm_started``), the lr term present and
     finite, launch counts (row 1 under autograd through its ``Function``,
-    rows 2 and 7 at [8, 1, 1024, 512]), the lipreader and the first stage
-    bit for bit as built, parameters moved, the first step's loss and probe
+    rows 2 and 7 at [8, 1, 1024, 512]), the lipreader bit for bit as built
+    and the first stage as loaded, parameters moved, the first step's loss
+    and probe
     gradients kernel path against plain path on a fresh trainer (its
     codebook spread, so that the lr term is live); the peak memory and a
     warm step's ms. Returns the run's launch counts."""
-    from dsml_thesis_tpu_torch.config import build_model, load_config
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.config import load_config
     from dsml_thesis_tpu_torch.models.lipreader import \
         load_lipreader_checkpoint
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.training.finetune_trainer import \
         FinetuneTrainer
+    from dsml_thesis_tpu_torch.training.trainer import Trainer
 
-    cfg = load_config([CONFIG_TUNE])
+    warm = warm_start_file(tmp)
+    if not os.path.exists(warm):
+        fail(f"tune {name}: no {WARM_START_RUN} checkpoint to warm-start "
+             "from (the train phase writes it)")
+    seq_len = load_config([CONFIG_128])["model"]["params"][
+        "cond_stage_config_2"]["params"]["seq_len"]
+    warm_args = [f"model.params.ckpt_path={warm}",
+                 f"model.params.cond_stage_config_2.params.seq_len={seq_len}"]
+    cfg = load_config([CONFIG_TUNE], overrides=warm_args)
     bs = cfg["data"]["params"]["batch_size"]
     spec = dict(synthetic_spec(cfg), landmarks=[[68, 2], "float32"])
     node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
@@ -3101,12 +3238,37 @@ def phase_lipread_tune(name, smi, tmp, steps=2):
             f"data.params.train={json.dumps(node)}",
             f"data.params.validation={json.dumps(val)}",
             "data.params.num_workers=2",
-            f"model.params.lipread_ckpt={lipread}", NO_TOP_K]
+            f"model.params.lipread_ckpt={lipread}", *warm_args, NO_TOP_K]
+    # the saved tensors, mapped (the optimizer's moments are never read)
+    warm_sd = torch.load(warm, map_location="cpu", mmap=True,
+                         weights_only=True)
+    warm_checks = {}
+    init_state = Trainer.init_state
+
+    def init_and_compare(self):
+        """The run's state, held to the saved one before its first step."""
+        state = init_state(self)
+        sd = self.ldm.state_dict()
+        warm_checks.update(
+            model=sd.keys() == warm_sd["model"].keys() and all(
+                torch.equal(v.cpu(), warm_sd["model"][k])
+                for k, v in sd.items()),
+            ema=set(state.names) == set(warm_sd["ema"]) and all(
+                torch.equal(e.cpu(), warm_sd["ema"][n])
+                for n, e in zip(state.names, state.ema_params)),
+            ema_differs_from_raw=any(
+                not torch.equal(warm_sd["ema"][n], warm_sd["model"][n])
+                for n in state.names),
+            step_0=state.step == 0)
+        return state
+
     with flags():
         A.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        with autograd_fproj_calls() as through_function:
+        with autograd_fproj_calls() as through_function, \
+                mock.patch.object(Trainer, "init_state", init_and_compare), \
+                timed_calls(Trainer, "_warm_start") as warm_seconds:
             trainer = _train_torch().main(argv)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -3128,14 +3290,14 @@ def phase_lipread_tune(name, smi, tmp, steps=2):
                            for k, v in saved.items())
                        and not any(p.requires_grad
                                    for p in ft.lipreader.parameters()))
-        torch.manual_seed(0)   # the trainer's own init, from its seed
-        built = build_model(cfg["model"]).first_stage.state_dict()
         first_stage_kept = all(
-            torch.equal(v.cpu(), built[k])
+            torch.equal(v.cpu(), warm_sd["model"][f"first_stage.{k}"])
             for k, v in trainer.ldm.first_stage.state_dict().items())
-        del built
+        del saved, warm_sd
+        os.remove(warm)   # read: the tune's fresh trainer below starts cold
         trained_groups = sorted({n.split(".")[0] for n in state.names})
-        config = trainer.config
+        config = copy.deepcopy(trainer.config)
+        del config["model"]["params"]["ckpt_path"]
         xb = trainer._to_device(next(iter(trainer.train_data)))
         # one more step, warm: the run's own steps built and chose everything
         step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 1, 0)
@@ -3186,6 +3348,7 @@ def phase_lipread_tune(name, smi, tmp, steps=2):
         "lr_loss_present": finite(train, "train/lr_loss")
         and finite(vals, "val/lr_loss") and finite(vals, "val/l2_loss"),
         "parameters_moved": moved > 0,
+        "warm_started": bool(warm_checks) and all(warm_checks.values()),
         "trains_unet_and_cond_stages": trained_groups == ["cond", "unet"],
         "lipreader_kept": reader_kept,
         "first_stage_kept": first_stage_kept,
@@ -3197,7 +3360,9 @@ def phase_lipread_tune(name, smi, tmp, steps=2):
     }
     emit({"phase": "tune", "run": name,
           "config": os.path.relpath(CONFIG_TUNE, HERE), "card": smi,
-          "checks": checks, "batch": bs, "chain_steps": chain,
+          "checks": checks, "warm_start": warm_checks,
+          "warm_start_seconds": warm_seconds, "batch": bs,
+          "chain_steps": chain, "audio_seq_len": seq_len,
           "optimizer_steps": steps,
           "losses": [r["train/loss"] for r in train],
           "lr_losses": [r.get("train/lr_loss") for r in train],
@@ -3430,6 +3595,11 @@ def main():
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    if "tune" in phases and "train" not in phases:
+        print(f"chip_smoke: --phases: the tune phase warm-starts from the "
+              f"train phase's {WARM_START_RUN} checkpoint: add train",
+              file=sys.stderr)
+        sys.exit(2)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on the "

@@ -1,5 +1,5 @@
 """Shared fragments of the port's CLIs: the sampler arguments, the device
-choice, the PNG row beside a saved result.
+choice, the ``--ckpt`` help, the PNG row beside a saved result.
 
 Counterpart of ``dsml_thesis_tpu/cli.py``: every video-pipeline CLI offers
 the same ``--sampler`` surface, so the flag trio lives in one place.
@@ -27,6 +27,12 @@ def add_sampler_args(ap: argparse.ArgumentParser, note: str = "") -> None:
     ap.add_argument("--sampler-order", type=int, default=2,
                     choices=(1, 2, 3),
                     help="DPM-Solver++ order when --sampler dpm")
+
+
+CKPT_HELP = ("weights: a reference PyTorch Lightning .ckpt (the thesis's "
+             "published weights; EMA preferred), a checkpoint of "
+             "scripts/train_torch.py (checkpoints/<name>/state.pt or its "
+             "directory) or a torch.save'd state_dict of the port's model")
 
 
 def device_of(cpu: bool):

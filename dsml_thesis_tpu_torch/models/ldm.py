@@ -18,7 +18,8 @@ sets ``requires_grad`` to match. Random draws come from a ``torch.Generator``
 be handed in (``t=``, ``noise=``, ``drop=``) as ``x_T`` can for sampling.
 
 Sampling: ``null_conditioning`` and ``make_eps_fn`` compose the guided
-model closure of the samplers, as the JAX class's methods of those names do.
+model closure of the samplers, as the JAX class's methods of those names do;
+``sample_ddim`` runs a DDIM chain under them (the trainer's image logger).
 
 ``split_input_params`` runs the UNet (and, with ``patch_distributed_vq``,
 the first-stage encode and decode) over overlapping patches blended by
@@ -33,9 +34,9 @@ import torch
 import torch.nn as nn
 
 from ..diffusion import tiling
-from ..diffusion.ddim import cfg_eps_fn
+from ..diffusion.ddim import cfg_eps_fn, ddim_sample
 from ..diffusion.gaussian import p_losses, q_sample
-from ..diffusion.schedules import DiffusionSchedule
+from ..diffusion.schedules import DiffusionSchedule, make_ddim_schedule
 
 from .encoders import ClassEmbedder
 
@@ -294,6 +295,21 @@ class LatentDiffusion(nn.Module):
                 f"got {self.parameterization!r}")
         return cfg_eps_fn(lambda x, t, c: self.apply_model(x, t, c), cond,
                           uncond, scale)
+
+    def sample_ddim(self, cond: Dict[str, Optional[torch.Tensor]], shape,
+                    generator: Optional[torch.Generator] = None,
+                    steps: int = 50, eta: float = 0.0,
+                    uncond: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+                    guidance_scale: float = 1.0,
+                    x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents [B, h, w, c] of a ``steps``-step DDIM chain under
+        ``cond`` (guided against ``uncond`` at ``guidance_scale``); eta > 0
+        adds the step noise. ``x_T`` replaces the initial draw from
+        ``generator``."""
+        ddim = make_ddim_schedule(self.schedule, steps, eta=eta)
+        return ddim_sample(ddim, self.schedule,
+                           self.make_eps_fn(cond, uncond, guidance_scale),
+                           shape, generator, x_T=x_T, eta_noise=eta > 0)
 
     # ---------- model application ----------
 

@@ -13,8 +13,9 @@ that the port's scripts and the smoke run on the card drive one code path:
     (``LatentDataset`` reads them);
   - ``manipulate``: inversion under the source class (or cached inverted
     latents) and the reverse chain under a target class, decoded;
-  - ``load_weights``: a ``torch.save``d state_dict of the port's model, or a
-    trainer checkpoint (its EMA weights unless told otherwise).
+  - ``load_weights``: any checkpoint ``utils_io.load_params`` reads (a
+    reference Lightning ``.ckpt``, a trainer checkpoint of the port, a
+    state_dict of its model), EMA weights unless told otherwise.
 
 Each runs where the model's parameters lie and draws from a
 ``torch.Generator`` on that device.
@@ -31,6 +32,7 @@ from .diffusion import (ddim_invert, ddim_reverse_from, ddim_sample,
                         plms_sample)
 from .diffusion.schedules import DDIMSchedule
 from .models.ldm import LatentDiffusion
+from .utils_io import load_params
 
 SAMPLERS = ("ddim", "plms", "dpm++", "dpm")
 
@@ -44,19 +46,14 @@ def _labels(label, n: int, device) -> Dict[str, torch.Tensor]:
                                       device=device)}
 
 
-def load_weights(ldm: LatentDiffusion, path: str,
+def load_weights(ldm: LatentDiffusion, path: str, model_cfg: Dict,
                  use_ema: bool = True) -> LatentDiffusion:
-    """Load ``path`` into ``ldm``: a state_dict of the model, or a
-    checkpoint of the port's trainers (``model`` and ``ema``; the EMA
-    shadows replace the trained parameters unless ``use_ema`` is False)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if "model" in obj and "ema" in obj:
-        sd = dict(obj["model"])
-        if use_ema:
-            sd.update(obj["ema"])
-    else:
-        sd = obj
-    ldm.load_state_dict(sd, strict=True)
+    """Load ``path`` into ``ldm`` (built from ``model_cfg``) through
+    ``utils_io.load_params``: a reference Lightning checkpoint, a checkpoint
+    of the port's trainers or a state_dict of the model; the EMA weights
+    replace the trained ones where the file has them, unless ``use_ema`` is
+    False."""
+    ldm.load_state_dict(load_params(path, ldm, model_cfg, use_ema=use_ema))
     return ldm
 
 

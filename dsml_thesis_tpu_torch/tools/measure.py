@@ -310,16 +310,25 @@ def _by_family(kernels: dict, field: int) -> dict:
 _ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
 
 
+def is_annotation(name: str) -> bool:
+    """Whether a device record of a torch.profiler trace is an annotation
+    that PyTorch mirrors onto the device track (``ProfilerStep#1``,
+    ``Optimizer.step#AdamW.step``: it spans kernels, so summing it counts
+    them twice) rather than a kernel. A kernel's own name may hold '#'
+    (``void at::native::...{lambda()#3}...``) and is a kernel. The one rule
+    of every device-time sum of the port's tools and of ``chip_smoke.py``."""
+    return bool(_ANNOTATION.match(name))
+
+
 def _device_kernels(prof) -> dict:
-    """name -> (device ms, launches) of every kernel a profile recorded.
-    Annotations that PyTorch mirrors onto the device track
-    (``Optimizer.step#AdamW.step``) span their kernels and are left out."""
+    """name -> (device ms, launches) of every kernel a profile recorded
+    (annotations left out: ``is_annotation``)."""
     out = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if (dev_us > 0 and ev.device_type.name == "CUDA"
-                and not _ANNOTATION.match(ev.key)):
+                and not is_annotation(ev.key)):
             out[ev.key] = (dev_us / 1e3, ev.count)
     return out
 

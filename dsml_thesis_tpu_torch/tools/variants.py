@@ -177,7 +177,6 @@ import ctypes
 import dataclasses
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -1110,11 +1109,10 @@ def device_kernels_ms(fn, iters: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
+    from .measure import is_annotation
+
     for ev in prof.key_averages():
-        # annotations mirrored onto the device track (`ProfilerStep#1`)
-        # span kernels; a kernel's own name may hold '#' (`{lambda()#1}`)
-        if ev.device_type.name == "CUDA" and not re.match(
-                r"^[\w.]+#[\w.]+$", ev.key):
+        if ev.device_type.name == "CUDA" and not is_annotation(ev.key):
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
             # the kernel's name without namespaces, arguments and return

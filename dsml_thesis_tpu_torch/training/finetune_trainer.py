@@ -9,8 +9,11 @@ trainable cond stages); the optimizer and the EMA take the LDM's trainable
 parameters only, so the first stage and the guidance towers or the
 lipreader (held by the wrapper) stay as they were loaded. Validation logs
 the wrapper's terms (``val/l2_loss``, ``val/lr_loss`` of the lip-reading
-finetune). ``log_images`` saves the EMA weights' edited grids of the
-DiffusionCLIP finetune as ``.npy`` under ``images/``
+finetune). The warm start (``model.params.ckpt_path``, a first-stage
+``ckpt_path``) is the base trainer's: it loads the LDM, and the lipreader,
+the guidance towers and the other extras stay as built. ``log_images``
+saves the EMA weights' edited grids of the DiffusionCLIP finetune as
+``.npy`` under ``images/``
 (``lightning.callbacks.image_logger.params.batch_frequency`` sets the
 interval); for a wrapper without ``edit`` it does nothing.
 """
@@ -31,8 +34,6 @@ class FinetuneTrainer(Trainer):
     ``arcface_embed``, ``lipreader_fn``) in place of those the config's
     checkpoint paths (``clip_ckpt``, ``clip_bpe``, ``id_ckpt``,
     ``lipread_ckpt``) would build."""
-
-    logs_images = True
 
     def __init__(self, config: Dict, logdir: str, seed: int = 123,
                  max_steps: Optional[int] = None,

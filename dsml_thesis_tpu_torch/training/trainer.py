@@ -15,14 +15,24 @@ Counterpart of ``dsml_thesis_tpu/training/trainer.py``:
     (``torch.save`` of model, optimizer, EMA shadows and step); ``last`` after
     every epoch, the best ``save_top_k`` by the model's monitor with the
     metric in the name;
-  - SIGTERM / SIGUSR1 save ``last`` and stop.
+  - SIGTERM / SIGUSR1 save ``last`` and stop;
+  - warm start: ``first_stage_config.params.ckpt_path`` loads the frozen
+    first stage, ``model.params.ckpt_path`` the whole model (raw weights into
+    the parameters, EMA shadows into the EMA) from any checkpoint
+    ``utils_io.load_params`` reads; the step restarts at 0 and the optimizer
+    fresh;
+  - the image logger (``lightning.callbacks.image_logger``: every
+    ``batch_frequency`` steps, ``max_images`` of the batch that triggered
+    it): ``log_images`` writes the EMA weights' grids as ``.npy`` (and
+    ``.png`` where Pillow imports) under ``images/``;
+  - ``fit(profile_at_step=k)``: a ``torch.profiler`` Chrome trace of five
+    steps from step k under ``profile/``; validation logs the card's peak
+    and current memory (``profiling.device_memory_stats``).
 
 One process on one device: no mesh, no sharding. Not ported, each raising
-``NotImplementedError`` where a config or caller asks for it: periodic image
-logging (``log_images``) of the LDM (the finetune trainer's is ported),
-warm start from ``model.params.ckpt_path`` or a first-stage ``ckpt_path``,
-tensor / fully-sharded parallelism and the step profiler. First-stage
-training is ``training/vqgan_trainer.py``, the DiffusionCLIP finetune
+``NotImplementedError`` where a config or caller asks for it: tensor /
+fully-sharded parallelism and the image logger's cached-latent branch.
+First-stage training is ``training/vqgan_trainer.py``, the finetunes
 ``training/finetune_trainer.py``.
 """
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from ..config import build_model, instantiate_from_config
 from .checkpointing import save_topk
 from .loggers import build_logger
+from .profiling import StepProfiler, device_memory_stats
 from .train_state import (TrainState, create_train_state, fold_seed,
                           make_eval_step, make_optimizer, make_train_step)
 
@@ -52,10 +63,14 @@ def _array_fields(batch: Dict) -> Dict[str, np.ndarray]:
             if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
-class Trainer:
-    # whether log_images is implemented (the finetune trainer's is)
-    logs_images = False
+def diffusion_row_t(num_timesteps: int):
+    """The timesteps of the image logger's ``diffusion_row``, spread over
+    the schedule as in the reference's ImageLogger rows."""
+    T = num_timesteps
+    return sorted({0, T // 8, T // 4, T // 2, 3 * T // 4, T - 1})
 
+
+class Trainer:
     def __init__(self, config: Dict, logdir: str, seed: int = 123,
                  max_steps: Optional[int] = None,
                  device: Optional[torch.device] = None):
@@ -78,18 +93,10 @@ class Trainer:
         self.lightning_cfg = config.get("lightning", {})
         self.max_steps = max_steps
 
-        mp = self.model_cfg.get("params", {})
-        fs_cfg = mp.get("first_stage_config")
-        fs_p = fs_cfg.get("params", {}) if isinstance(fs_cfg, dict) else {}
-        for what, path in (("model.params.ckpt_path", mp.get("ckpt_path")),
-                           ("first_stage_config.params.ckpt_path",
-                            fs_p.get("ckpt_path"))):
-            if path:
-                raise NotImplementedError(
-                    f"{what}={path!r}: warm start from a checkpoint is not "
-                    "ported")
         torch.manual_seed(seed)
-        self.ldm = build_model(self.model_cfg).to(self.device)
+        self.ldm = build_model(self.model_cfg)
+        self._warm_ema = self._warm_start()
+        self.ldm = self.ldm.to(self.device)
         self.loss_module = self.ldm
 
         from ..data import DataLoader
@@ -129,10 +136,6 @@ class Trainer:
             "image_logger", {}).get("params", {})
         self.image_every = il.get("batch_frequency")
         self.log_max_images = int(il.get("max_images", 4))
-        if self.image_every and not self.logs_images:
-            raise NotImplementedError(
-                "lightning.callbacks.image_logger: periodic image logging "
-                "(log_images) is not ported")
 
         self._state: Optional[TrainState] = None
         self._train_step = None
@@ -147,15 +150,55 @@ class Trainer:
 
     # ---------- setup ----------
 
+    def _warm_start(self) -> Optional[Dict[str, torch.Tensor]]:
+        """Load the config's checkpoints into the built model (on the CPU):
+        ``first_stage_config.params.ckpt_path`` into the frozen first stage
+        (``convert.load_first_stage_checkpoint``), then
+        ``model.params.ckpt_path``'s raw weights into the whole model
+        (``utils_io.load_raw_and_ema``: the groups the file holds). Returns
+        that file's EMA shadows (the raw weights where it has none) for
+        ``init_state``, or None."""
+        from ..convert import load_first_stage_checkpoint
+        from ..utils_io import load_raw_and_ema
+
+        mp = self.model_cfg.get("params", {})
+        fs_cfg = mp.get("first_stage_config")
+        fs_p = fs_cfg.get("params", {}) if isinstance(fs_cfg, dict) else {}
+        if fs_p.get("ckpt_path"):
+            self.ldm.first_stage.load_state_dict(load_first_stage_checkpoint(
+                fs_p["ckpt_path"], dict(fs_p["ddconfig"])))
+            print(f"loaded first-stage weights from {fs_p['ckpt_path']}")
+        path = mp.get("ckpt_path")
+        if not path:
+            return None
+        if not os.path.exists(path):
+            # refused before any loader reads it
+            raise FileNotFoundError(
+                f"model.params.ckpt_path does not exist: {path!r}")
+        raw, ema = load_raw_and_ema(path, self.ldm, self.model_cfg)
+        self.ldm.load_state_dict(raw)
+        print(f"warm-started model from {path}")
+        return ema
+
     def init_state(self) -> TrainState:
         """Build optimizer, EMA shadows and the step functions (the model was
-        built, and seeded, by the constructor)."""
+        built, seeded and warm-started by the constructor). A warm start's
+        shadows replace the EMA's copy of the parameters; the step and the
+        optimizer start afresh. Unlike LitEma, whose ``num_updates`` rides
+        the checkpoint, the EMA's warm-up decay follows the step, so early
+        shadows track the raw weights more closely than a resumed LitEma
+        would."""
         optimizer = make_optimizer(self.ldm, base_lr=self.lr)
         self._state = create_train_state(
             self.ldm, optimizer, base_lr=self.lr,
             scheduler_config=self.model_cfg.get("params", {}).get(
                 "scheduler_config"),
             grad_accum=self.grad_accum)
+        if self._warm_ema is not None:
+            with torch.no_grad():
+                for name, e in zip(self._state.names, self._state.ema_params):
+                    e.copy_(self._warm_ema[name])
+            self._warm_ema = None
         self._train_step = make_train_step(self.loss_module)
         self._eval_step = make_eval_step(self.loss_module)
         return self._state
@@ -240,8 +283,106 @@ class Trainer:
         if self._ext_logger is not None:
             self._ext_logger.log_metrics(values, step, split)
 
-    def log_images(self, *_a, **_kw):
-        raise NotImplementedError("log_images is not ported")
+    def log_image_noise(self, step: int, shape) -> Dict[str, torch.Tensor]:
+        """The draws of ``log_images`` at ``step``, from a generator of
+        their own seeded from the step (never the training stream, so that
+        logging changes no loss bit): ``x_T`` of the samples and the denoise
+        row, the ``diffusion_row``'s noise [len(diffusion_row_t), 1, ...],
+        and ``x_T_quantized`` of the quantized samples."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(step))
+        draw = lambda *s: torch.randn(s, generator=gen, device=self.device)
+        return {"x_T": draw(*shape),
+                "diffusion_noise": draw(
+                    len(diffusion_row_t(self.ldm.schedule.num_timesteps)), 1,
+                    *shape[1:]),
+                "x_T_quantized": draw(*shape)}
+
+    @torch.no_grad()
+    def image_rows(self, batch: Dict[str, torch.Tensor], noise: Dict,
+                   ddim_steps: int = 20) -> Dict[str, torch.Tensor]:
+        """The image logger's rows of a batch on the device, under the
+        current weights and eval-mode routes: ``inputs``,
+        ``reconstruction``, ``samples`` (DDIM-``ddim_steps`` from
+        ``noise["x_T"]``), ``denoise_row`` (the first sample's pred-x0
+        trajectory every ``ddim_steps // 4`` steps, from the same start),
+        ``diffusion_row`` (``q_sample`` of the first latent at
+        ``diffusion_row_t``) and, for a VQ first stage,
+        ``samples_x0_quantized`` (each step's pred-x0 through the codebook).
+        Images [n, H, W, 3], not clipped."""
+        from ..diffusion import (ddim_sample, ddim_sample_with_intermediates,
+                                 make_ddim_schedule, q_sample)
+        from ..models.autoencoder import VQModel
+
+        ldm = self.ldm
+        if ldm.first_stage_key == "latent":
+            raise NotImplementedError(
+                "log_images of cached latents (first_stage_key: latent) is "
+                "not ported")
+        x = batch[ldm.first_stage_key]
+        z = ldm.encode_first_stage(x)
+        cond = ldm.encode_conditioning(batch)
+        ddim = make_ddim_schedule(ldm.schedule, ddim_steps)
+        eps_fn = ldm.make_eps_fn(cond)
+        rows = {"inputs": x, "reconstruction": ldm.decode_first_stage(z),
+                "samples": ldm.decode_first_stage(ldm.sample_ddim(
+                    cond, z.shape, steps=ddim_steps, x_T=noise["x_T"]))}
+        _, traj = ddim_sample_with_intermediates(
+            ddim, ldm.schedule, eps_fn, z.shape, x_T=noise["x_T"],
+            log_every=max(1, ddim.num_steps // 4))
+        rows["denoise_row"] = ldm.decode_first_stage(traj[:, 0])
+        z0 = z[:1]
+        rows["diffusion_row"] = torch.cat([ldm.decode_first_stage(q_sample(
+            ldm.schedule, z0, torch.full((1,), t, dtype=torch.long,
+                                         device=z.device), e))
+            for t, e in zip(diffusion_row_t(ldm.schedule.num_timesteps),
+                            noise["diffusion_noise"])])
+        if isinstance(ldm.first_stage, VQModel):
+            sf = ldm.scale_factor
+            quantize = lambda p0: ldm.first_stage.quantize(p0 / sf)[0] * sf
+            rows["samples_x0_quantized"] = ldm.decode_first_stage(ddim_sample(
+                ddim, ldm.schedule, eps_fn, z.shape,
+                x_T=noise["x_T_quantized"], eta_noise=False,
+                x0_postprocess=quantize))
+        return rows
+
+    def log_images(self, batch: Dict, step: int, n: int = 4,
+                   ddim_steps: int = 20) -> None:
+        """The image logger: the rows of ``image_rows`` for the first ``n``
+        examples of ``batch`` under the EMA weights, clipped to [-1, 1], as
+        ``images/<row>_step<step>.npy`` (and ``.png`` where Pillow imports),
+        beside the conditioning grids. The model is back in its mode, on its
+        raw weights, when the call returns."""
+        nb = {k: v[:n] for k, v in self._to_device(batch).items()}
+        z_shape = (next(iter(nb.values())).shape[0], self.ldm.image_size,
+                   self.ldm.image_size, self.ldm.channels)
+        noise = self.log_image_noise(step, z_shape)
+        was_training = self.ldm.training
+        self.ldm.eval()
+        try:
+            with self._state.ema_scope():
+                rows = self.image_rows(nb, noise, ddim_steps)
+        finally:
+            self.ldm.train(was_training)
+        outdir = os.path.join(self.logdir, "images")
+        os.makedirs(outdir, exist_ok=True)
+        grids = {k: torch.clamp(v, -1.0, 1.0).float().cpu().numpy()
+                 for k, v in rows.items()}
+        for key in ("shape_image", "masked_image", "identity"):
+            if key in batch:
+                grids[f"conditioning_{key}"] = np.asarray(batch[key][:n],
+                                                          np.float32)
+        for k, arr in grids.items():
+            np.save(os.path.join(outdir, f"{k}_step{step:08d}.npy"), arr)
+        try:
+            from PIL import Image
+        except ImportError:   # the card's machine has no Pillow
+            return
+        for k, arr in grids.items():
+            row = np.concatenate(list((np.clip(arr, -1, 1) + 1) * 127.5),
+                                 axis=1).astype(np.uint8)
+            Image.fromarray(row).save(
+                os.path.join(outdir, f"{k}_step{step:08d}.png"))
 
     def close(self) -> None:
         """Close the metrics file and the logger backend."""
@@ -316,13 +457,9 @@ class Trainer:
             profile_at_step: Optional[int] = None) -> TrainState:
         if self.train_data is None:
             raise ValueError("fit: the config has no data.params.train")
-        if image_every and not self.logs_images:
-            raise NotImplementedError("image_every: log_images is not ported")
         image_every = image_every or self.image_every
-        if profile_at_step is not None:
-            raise NotImplementedError(
-                "profile_at_step: the step profiler is not ported (see "
-                "tools/measure.py --train)")
+        profiler = StepProfiler(os.path.join(self.logdir, "profile"),
+                                profile_at_step)
         if epochs is None:
             # max_epochs = 0 trains nothing; max_steps with max_epochs unset
             # trains until the step limit, not one epoch
@@ -334,12 +471,15 @@ class Trainer:
                 epochs = 1
         self._install_signal_handlers()
         try:
-            self._fit_epochs(epochs, log_every, val_max_batches, image_every)
+            self._fit_epochs(epochs, log_every, val_max_batches, image_every,
+                             profiler)
         except BaseException:
             if self._state is not None:
                 print("Summoning checkpoint (exception).")
                 self.save_checkpoint("last")
             raise
+        finally:
+            profiler.ensure_stopped()
         return self._state
 
     def _hit_max_steps(self, step: int) -> bool:
@@ -349,8 +489,8 @@ class Trainer:
             return False
         return step // max(1, self.grad_accum) >= self.max_steps
 
-    def _fit_epochs(self, epochs, log_every, val_max_batches,
-                    image_every=None):
+    def _fit_epochs(self, epochs, log_every, val_max_batches, image_every,
+                    profiler):
         if self._state is None:
             self.init_state()
         state = self._state
@@ -363,8 +503,11 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             t_epoch = time.time()
             for batch in self.train_data:
-                metrics = self._train_step(state, self._to_device(batch),
-                                           self.seed)
+                profiler.maybe_start(state.step + 1)
+                with profiler.step_range(state.step + 1):
+                    metrics = self._train_step(state, self._to_device(batch),
+                                               self.seed)
+                profiler.maybe_stop(state.step)
                 if state.step % log_every == 0:
                     self.log_metrics(metrics, state.step)
                 if image_every and state.step % image_every == 0:
@@ -381,9 +524,7 @@ class Trainer:
                                     max_batches=val_max_batches)
                 score = val.get(monitor, val.get("val_loss"))
                 val["epoch_seconds"] = epoch_s
-                if self.device.type == "cuda":
-                    val["peak_bytes_in_use"] = float(
-                        torch.cuda.max_memory_allocated(self.device))
+                val.update(device_memory_stats())
                 self.log_metrics(val, state.step, split="val")
                 if score is not None:  # val split smaller than one batch
                     self.save_topk_checkpoint(float(score), monitor,

@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import torch
 
-from dsml_thesis_tpu_torch.cli import device_of
+from dsml_thesis_tpu_torch.cli import CKPT_HELP, device_of
 from dsml_thesis_tpu_torch.config import build_model, load_config
 from dsml_thesis_tpu_torch.data.datasets import load_images
 from dsml_thesis_tpu_torch.reenactment import (compute_latent_cache,
@@ -49,7 +49,7 @@ def main(argv=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None, help=CKPT_HELP)
     ap.add_argument("--list", required=True, help="image path list file")
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--steps", type=int, default=40)
@@ -70,7 +70,7 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     ldm = build_model(cfg["model"])
     if args.ckpt:
-        load_weights(ldm, args.ckpt, use_ema=not args.no_ema)
+        load_weights(ldm, args.ckpt, cfg["model"], use_ema=not args.no_ema)
     ldm = ldm.to(device).eval()
 
     with open(args.list) as f:

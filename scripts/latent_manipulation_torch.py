@@ -30,7 +30,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import torch
 
-from dsml_thesis_tpu_torch.cli import device_of, save_png_row
+from dsml_thesis_tpu_torch.cli import CKPT_HELP, device_of, save_png_row
 from dsml_thesis_tpu_torch.config import build_model, load_config
 from dsml_thesis_tpu_torch.data.datasets import load_images
 from dsml_thesis_tpu_torch.reenactment import (inversion_schedule,
@@ -43,7 +43,7 @@ def main(argv=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None, help=CKPT_HELP)
     ap.add_argument("--images", nargs="*", default=[])
     ap.add_argument("--from-latents", default=None,
                     help="npy of DDIM-inverted latents: reverse chains only")
@@ -67,7 +67,7 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     ldm = build_model(cfg["model"])
     if args.ckpt:
-        load_weights(ldm, args.ckpt, use_ema=not args.no_ema)
+        load_weights(ldm, args.ckpt, cfg["model"], use_ema=not args.no_ema)
     ldm = cast_sampling_params(ldm).to(device).eval()
     ddim = inversion_schedule(ldm, args.steps, args.strength)
 

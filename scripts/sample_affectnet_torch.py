@@ -12,11 +12,12 @@ For each class: ``--n-samples`` images through the sampler's chain, the
 unconditional branch of the guidance being the class embedder's null
 embedding, decoded by the VQ first stage and clamped to [-1, 1]; saved as
 ``class_<c>.npy`` ([n, 128, 128, 3]) and, where Pillow is installed, a PNG
-row. ``--ckpt`` is a ``torch.save``d state_dict of the port's
+row. ``--ckpt`` is a reference PyTorch Lightning ``.ckpt`` (the thesis's
+published weights, converted on load), a checkpoint of
+``scripts/train_torch.py`` or a ``torch.save``d state_dict of the port's
 LatentDiffusion (``dsml_thesis_tpu_torch.convert.from_jax_params`` makes
-one from a JAX parameter tree) or a checkpoint of ``scripts/train_torch.py``
-(its EMA weights unless ``--no-ema``); without it the weights are random,
-from ``--seed``. Sampling runs on the card; ``--cpu`` runs the kernels'
+one from a JAX parameter tree): its EMA weights where it has them, unless
+``--no-ema``; without it the weights are random, from ``--seed``. Sampling runs on the card; ``--cpu`` runs the kernels'
 plain PyTorch versions on the CPU, for debugging only.
 """
 import argparse
@@ -28,7 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import torch
 
-from dsml_thesis_tpu_torch.cli import device_of, save_png_row
+from dsml_thesis_tpu_torch.cli import CKPT_HELP, device_of, save_png_row
 from dsml_thesis_tpu_torch.config import build_model, load_config
 from dsml_thesis_tpu_torch.reenactment import (SAMPLERS, load_weights,
                                                sample_class)
@@ -40,7 +41,7 @@ def main(argv=None):
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None, help=CKPT_HELP)
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--n-samples", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
@@ -62,7 +63,7 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     ldm = build_model(cfg["model"])
     if args.ckpt:
-        load_weights(ldm, args.ckpt, use_ema=not args.no_ema)
+        load_weights(ldm, args.ckpt, cfg["model"], use_ema=not args.no_ema)
     ldm = cast_sampling_params(ldm).to(device).eval()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     os.makedirs(args.outdir, exist_ok=True)

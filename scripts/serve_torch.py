@@ -8,7 +8,7 @@ one batched pipeline call on the GPU (dsml_thesis_tpu_torch/server.py).
 Usage:
   python scripts/serve_torch.py
       --config configs/latent-diffusion/mead-256-ldm-f4.yaml
-      [--ckpt weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0]
+      [--ckpt last.ckpt | state.pt | weights.pt] [--batch 8 --frames 8 --steps 50 --scale 2.0]
       [--sampler dpm --sampler-steps 20 --sampler-order 2]
       [--size N] [--port 8000 --max-wait-ms 50] [--device cuda]
 
@@ -29,9 +29,12 @@ Environment flags, the JAX package's own (dsml_thesis_tpu_torch/flags.py):
   DSML_PALLAS_GN=1|stats     GroupNorm through the whole-row kernel, or
                              through the statistics kernel + plain apply
 
-``--ckpt`` is a ``torch.save``d state_dict of the port's LatentDiffusion
+``--ckpt`` is a reference PyTorch Lightning ``.ckpt`` (the thesis's published
+weights, converted on load), a checkpoint of ``scripts/train_torch.py`` or a
+``torch.save``d state_dict of the port's LatentDiffusion
 (``dsml_thesis_tpu_torch.convert.from_jax_params`` makes one from a JAX
-parameter tree); without it the weights are random, from ``--seed``.
+parameter tree), its EMA weights where it has them; without it the weights
+are random, from ``--seed``.
 The device is the GPU; ``--device cpu`` runs the kernels' plain PyTorch
 versions and is for debugging only.
 
@@ -56,7 +59,7 @@ from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
                                              make_video_pipeline)
 from dsml_thesis_tpu_torch.server import (MicroBatcher, PipelineServer,
                                           make_pipeline_runner)
-from dsml_thesis_tpu_torch.utils_io import cast_sampling_params
+from dsml_thesis_tpu_torch.utils_io import cast_sampling_params, load_params
 
 
 def main():
@@ -64,7 +67,7 @@ def main():
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None, help=cli.CKPT_HELP)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
@@ -94,7 +97,7 @@ def main():
     torch.manual_seed(args.seed)
     ldm = build_model(cfg["model"])
     if args.ckpt:
-        ldm.load_state_dict(torch.load(args.ckpt, map_location="cpu"))
+        ldm.load_state_dict(load_params(args.ckpt, ldm, cfg["model"]))
     ldm = cast_sampling_params(ldm).to(device).eval()
     c2 = cfg["model"]["params"]["cond_stage_config_2"]["params"]
     size = args.size or cfg["model"]["params"]["first_stage_config"][

@@ -4,7 +4,7 @@
     python3 scripts/train_torch.py --base configs/latent-diffusion/<cfg>.yaml \
         -t [--logdir logs] [--seed 123] [--max-steps N] [--epochs N] \
         [--resume <logdir | logdir/checkpoints/<name>>] [--scale_lr true] \
-        [--no-test] [--cpu] [nested.key=value ...]
+        [--no-test] [--profile-at-step K] [--cpu] [nested.key=value ...]
 
 Builds the port's ``Trainer`` from the merged config, trains (``-t``),
 validates with raw and EMA weights, writes ``metrics.jsonl`` and a ``last``
@@ -34,8 +34,13 @@ L2 term alone). The AffectNet LDM config
 ``data.params.train.params.training_images_list_file=<list>`` (one path a
 line, ``<label>_*.jpg``) and ``...validation.params.test_images_list_file``,
 or takes a synthetic node with ``spec: {image: [[128, 128, 3], float32],
-class_label: [[], int32]}``; its image logger (every 5,000 steps) is not
-ported for the LDM: ``lightning.callbacks.image_logger.params.batch_frequency=0``.
+class_label: [[], int32]}``. The image logger of the LDM configs
+(``lightning.callbacks.image_logger.params``: ``batch_frequency`` 5,000,
+``max_images`` 8 as shipped) writes the EMA weights' inputs,
+reconstructions, DDIM-20 samples, denoise and diffusion rows (and, for a VQ
+first stage, the quantized samples) as ``images/<row>_step<N>.npy`` every
+``batch_frequency`` steps.
+
 The DiffusionCLIP finetune
 (``affectnet-128-clip-ldm-vq-f4.yaml``, target ``LatentDiffusionCLIP``) goes
 to ``FinetuneTrainer``: its data are latent caches of
@@ -51,6 +56,17 @@ float32]}``; their ``perceptual_weight: 1.0`` needs the LPIPS files,
 ``model.params.lossconfig.params.vgg_ckpt=<torchvision vgg16 features
 state_dict>`` and ``model.params.lossconfig.params.lpips_lin_ckpt=<taming
 lin heads>``.
+
+Warm start: ``model.params.ckpt_path=<file>`` starts the model (raw weights,
+and the EMA from its shadows) from a reference Lightning ``.ckpt``, a
+checkpoint of this script (``<logdir>/checkpoints/last/state.pt``) or a
+state_dict of the port's model, at step 0 with a fresh optimizer; the
+lip-reading tune starts so from a trained ``mead-128-ldm-f4`` run.
+``model.params.first_stage_config.params.ckpt_path=<file>`` loads a
+pretrained VQGAN (a taming ``.ckpt``, an LDM checkpoint's
+``first_stage_model.*`` or a ``VQGANTrainer`` ``state.pt``).
+``--profile-at-step K`` writes a ``torch.profiler`` Chrome trace of five
+steps from step K to ``<logdir>/profile/``.
 """
 from __future__ import annotations
 
@@ -79,6 +95,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale_lr", type=str, default="true")
     p.add_argument("--no-test", action="store_true", default=False)
     p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--profile-at-step", type=int, default=None,
+                   help="trace five steps from this one with torch.profiler "
+                        "(a Chrome trace under <logdir>/profile/)")
     p.add_argument("--cpu", action="store_true",
                    help="train on the CPU (the default is the card, and no "
                         "card is an error)")
@@ -151,8 +170,10 @@ def main(argv=None):
         if opt.train:
             if resume_ckpt is not None:
                 trainer.restore_checkpoint(resume_ckpt)
+            fit_kw = ({} if opt.profile_at_step is None
+                      else {"profile_at_step": opt.profile_at_step})
             state = trainer.fit(epochs=opt.epochs or None,
-                                log_every=opt.log_every)
+                                log_every=opt.log_every, **fit_kw)
             print("training done; final step:", state.step)
             if not (opt.no_test or first_stage):
                 test_metrics = trainer.test()
