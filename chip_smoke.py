@@ -89,6 +89,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
            decode (9 patches of 16 x 16 latents, also against the plain
            path) and ddpm_p_sample_loop on a schedule cut to T = 20; each
            checked for shape, finiteness and launch counts
+  video    the talking-face generate-and-score path (video-eval) on
+           mead-128-ldm-f4.yaml at full width, random weights from seed 0:
+           scripts/streaming_pipeline_torch.py's own main() on 4 synthetic
+           clips (--synthetic 4 --batch 2 --frames 4 --steps 10, guidance
+           2.0: two batches; the first stage's weights as a --ckpt file),
+           its launches against those counted from the model's blocks,
+           batch 0's written clips bit for bit against a direct
+           make_video_pipeline call on the same inputs and generator, that
+           batch's wall and device-busy ms and the steady frames/s; one
+           clip through progressive_sampling_torch.sample_clip and one frame
+           through sample_mead_frame_torch.sample_frame with their launches;
+           then the metrics layer on the generated frames: PSNR / SSIM on
+           the card against the CPU (1e-5), the FID InceptionV3 (a random
+           pt_inception-layout state_dict) on the card without TF32 against
+           the CPU (1e-4 of the maximum; the deviation at TF32 printed
+           beside it), FID / KID / PRC / IS between the two batches, and
+           the edit-distance library built on this machine against the
+           pure-Python distances
   train    scripts/train_torch.py's own main() on SyntheticDataset at the
            real shapes (the config's frame size, audio [17, 768]) and the
            YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
@@ -205,6 +223,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1943,6 +1962,297 @@ def phase_samplers(cfg, ldm, smi):
         fail(f"samplers: a sampler through the UNet failed: {results}")
 
 
+# ------------------------------------------------ talking-face video eval
+
+# the video-eval phase: the streaming script's run (clips, speakers a batch,
+# frames a clip, DDIM steps), and its name in the kernels line
+VIDEO_RUN = "video-eval"
+VIDEO_CLIPS, VIDEO_BATCH, VIDEO_FRAMES, VIDEO_STEPS = 4, 2, 4, 10
+# PSNR / SSIM on the card against the CPU: the same fp32 operations (SSIM's
+# Gaussian filter a cuDNN convolution without TF32), sums in another order
+METRIC_REL_TOL = 1e-5
+# The FID InceptionV3's features on the card (cuDNN without TF32) against
+# the CPU: fp32 convolutions through 48 layers, each summing up to 2,048 x 9
+# products in another order; a wrong weight or pool moves them by their own
+# scale
+INCEPTION_REL_TOL = 1e-4
+
+
+def random_inception_state_dict(inception, seed):
+    """A pt_inception-layout state_dict of random weights from ``seed``
+    whose features depend on the image, as a trained network's do: He
+    normal convolutions, each BatchNorm's running statistics those of its
+    convolution's output over random images (then its scale and shift moved
+    off 1 and 0)."""
+    torch.manual_seed(seed)
+    model = inception.FIDInceptionV3()
+    g = torch.Generator().manual_seed(seed)
+    blocks = [m for m in model.modules()
+              if isinstance(m, inception.BasicConv2d)]
+
+    def calibrate(bn):
+        def hook(module, args, out):
+            bn.running_mean.copy_(out.mean(dim=(0, 2, 3)))
+            bn.running_var.copy_(out.var(dim=(0, 2, 3)))
+        return hook
+
+    with torch.no_grad():
+        for m in blocks:
+            torch.nn.init.kaiming_normal_(m.conv.weight, generator=g,
+                                          nonlinearity="relu")
+        hooks = [m.conv.register_forward_hook(calibrate(m.bn))
+                 for m in blocks]
+        model(torch.rand(4, 299, 299, 3, generator=g) * 2 - 1)
+        for h in hooks:
+            h.remove()
+        for m in blocks:
+            m.bn.weight.add_(0.2 * torch.randn(m.bn.weight.shape,
+                                               generator=g))
+            m.bn.bias.add_(0.1 * torch.randn(m.bn.bias.shape, generator=g))
+    return model.state_dict()
+
+
+def phase_video_eval(smi, cfg, ldm, tmp, seed=0):
+    """The talking-face generate-and-score path on mead-128-ldm-f4 at full
+    width: ``scripts/streaming_pipeline_torch.py``'s ``main()`` on
+    ``VIDEO_CLIPS`` synthetic clips (``VIDEO_BATCH`` a batch, two batches,
+    ``VIDEO_FRAMES`` frames, DDIM-``VIDEO_STEPS``, guidance 2.0) with the
+    weights of ``ldm`` (its first stage written as a ``--ckpt`` file, the
+    rest rebuilt from the same seed), its launches against
+    ``expected_launches``, batch 0's written clips against a direct
+    ``make_video_pipeline`` call on the same inputs and generator (equal
+    bits), the wall and device-busy ms of that batch; then
+    ``progressive_sampling_torch.sample_clip`` on one clip and
+    ``sample_mead_frame_torch.sample_frame`` on one frame; then the metrics
+    on the generated frames: PSNR / SSIM and the FID InceptionV3's features
+    (a random pt_inception-layout state_dict) on the card against the CPU,
+    the features' deviation at TF32, FID / KID / PRC / IS between the two
+    batches, and the edit-distance library built on this machine against
+    the pure-Python distances. Returns the streaming run's launches."""
+    from dsml_thesis_tpu_torch.diffusion import (make_ddim_schedule,
+                                                 make_video_pipeline)
+    from dsml_thesis_tpu_torch.metrics import (fid, inception, lipread,
+                                               native, psnr, ssim,
+                                               to_unit_range)
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.server import batch_seed
+
+    B, F, S, w, guidance = VIDEO_BATCH, VIDEO_FRAMES, VIDEO_STEPS, 8, 2.0
+    size = image_size(cfg)
+    adim = cfg["model"]["params"]["cond_stage_config_2"]["params"][
+        "subspace_dim"]
+    stream = _script("streaming_pipeline_torch")
+    checks, out = {}, {}
+
+    # the first stage as a --ckpt file: the script rebuilds the UNet and the
+    # cond stages from the seed, as build_ldm built them, and loads this
+    ckpt = os.path.join(tmp, "first_stage.pt")
+    torch.save({k: v.cpu() for k, v in ldm.state_dict().items()
+                if k.startswith("first_stage.")}, ckpt)
+    outdir = os.path.join(tmp, "stream")
+    n_batches = VIDEO_CLIPS // B
+    with flags():
+        A.reset_launches()
+        t0 = time.monotonic()
+        summary = stream.main([
+            "--config", cfg["path"], "--ckpt", ckpt, "--synthetic",
+            str(VIDEO_CLIPS), "--batch", str(B), "--frames", str(F),
+            "--steps", str(S), "--size", str(size), "--audio-window", str(w),
+            "--scale", str(guidance), "--seed", str(seed),
+            "--outdir", outdir])
+        torch.cuda.synchronize()
+        main_wall = time.monotonic() - t0
+        launched = dict(A.LAUNCHES)
+    expect = expected_launches(ldm, {}, unet_calls=n_batches * F * S,
+                               encodes=2 * n_batches, decodes=n_batches * F)
+    checks["stream_launches"] = launched == expect
+    checks["stream_frames"] = summary["frames"] == VIDEO_CLIPS * F
+    written = sorted(os.listdir(outdir))
+    vids = [np.load(os.path.join(outdir, n)) for n in written]
+    checks["stream_shapes"] = (len(vids) == VIDEO_CLIPS and all(
+        v.shape == (F, size, size, 3) and v.dtype == np.float32
+        for v in vids))
+    checks["stream_finite"] = all(bool(np.isfinite(v).all())
+                                  and float(np.abs(v).max()) <= 1.0
+                                  for v in vids)
+
+    # batch 0 again, outside the script: the same inputs and generator
+    ds = stream._SyntheticClips(VIDEO_CLIPS, size, F, w, adim)
+    masked, feats, ids, labels, names, _ = stream.prepare(ds, range(B), F, w)
+    pipeline = make_video_pipeline(
+        ldm, make_ddim_schedule(ldm.schedule, S, eta=0.0), w,
+        guidance_scale=guidance)
+    to = lambda a: torch.from_numpy(a).to("cuda")
+
+    def batch0():
+        gen = torch.Generator(device="cuda").manual_seed(batch_seed(seed, 0))
+        return pipeline(to(masked), to(feats), to(ids), to(labels), gen)
+
+    with flags():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        direct = batch0()
+        torch.cuda.synchronize()
+        batch_wall = time.monotonic() - t0
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = batch0()
+            torch.cuda.synchronize()
+        busy = _device_us(prof) / 1e3
+    direct = direct.float().cpu().numpy()
+    checks["batch0_equal_bits"] = all(
+        np.array_equal(np.load(os.path.join(outdir, f"{n}.npy")), direct[i])
+        for i, n in enumerate(names))
+    checks["batch0_traced_equal_bits"] = bool(np.array_equal(
+        traced.float().cpu().numpy(), direct))
+    out["stream"] = {
+        "clips": VIDEO_CLIPS, "batch": B, "frames": F, "ddim_steps": S,
+        "guidance": guidance, "main_wall_seconds": round(main_wall, 3),
+        "seconds": round(summary["seconds"], 3),
+        "cumulative_frames_per_s": round(summary["cumulative_frames_per_s"],
+                                         4),
+        "steady_frames_per_s": summary["steady_frames_per_s"],
+        "lines": summary["lines"], "launches": launched,
+        "launches_expected": expect,
+        "batch_wall_ms": round(1e3 * batch_wall, 1),
+        "batch_busy_ms": round(busy, 1),
+        "batch_idle_share": round(1 - busy / (1e3 * batch_wall), 3)}
+
+    # one clip through progressive_sampling_torch, one frame through
+    # sample_mead_frame_torch
+    clip_mod = _script("progressive_sampling_torch")
+    frame_mod = _script("sample_mead_frame_torch")
+    example = stream._SyntheticClips(1, size, F, w, adim)[0]
+    with flags():
+        A.reset_launches()
+        t0 = time.monotonic()
+        clip = clip_mod.sample_clip(
+            pipeline, example, F, w,
+            torch.Generator(device="cuda").manual_seed(batch_seed(seed, 0)))
+        clip_s = time.monotonic() - t0
+        clip_launched = dict(A.LAUNCHES)
+        A.reset_launches()
+        t0 = time.monotonic()
+        frame = frame_mod.sample_frame(
+            ldm, example["masked_image"][0], example["identity"],
+            example["audio"], 2, example["class_label"], w,
+            ldm.image_size, S, guidance,
+            torch.Generator(device="cuda").manual_seed(seed))
+        frame_s = time.monotonic() - t0
+        frame_launched = dict(A.LAUNCHES)
+    clip_expect = expected_launches(ldm, {}, unet_calls=F * S, encodes=2,
+                                    decodes=F)
+    # a frame: the masked and identity encodes of its conditioning, again
+    # for the null branch's (its channel-concat streams are the same)
+    frame_expect = expected_launches(ldm, {}, unet_calls=S, encodes=4,
+                                     decodes=1)
+    checks["clip"] = (clip.shape == (F, size, size, 3)
+                      and bool(np.isfinite(clip).all())
+                      and float(np.abs(clip).max()) <= 1.0)
+    checks["clip_launches"] = clip_launched == clip_expect
+    checks["frame"] = (frame.shape == (size, size, 3)
+                       and bool(np.isfinite(frame).all())
+                       and float(np.abs(frame).max()) <= 1.0)
+    checks["frame_launches"] = frame_launched == frame_expect
+    out["clip"] = {"shape": list(clip.shape), "seconds": round(clip_s, 3),
+                   "launches": clip_launched,
+                   "launches_expected": clip_expect}
+    out["frame"] = {"shape": list(frame.shape), "seconds": round(frame_s, 3),
+                    "launches": frame_launched,
+                    "launches_expected": frame_expect}
+
+    # the metrics on the generated frames: batch 0's clips against batch 1's
+    gen_a = np.concatenate(vids[:B])
+    gen_b = np.concatenate(vids[B:2 * B])
+    scores = {}
+    for where in ("cuda", "cpu"):
+        a = to_unit_range(torch.from_numpy(gen_a).to(where))
+        b = to_unit_range(torch.from_numpy(gen_b).to(where))
+        scores[where] = (psnr(a, b).cpu(), ssim(a, b).cpu())
+    errs = {m: _compare(scores["cuda"][i], scores["cpu"][i])[1]
+            for i, m in enumerate(("psnr", "ssim"))}
+    checks["psnr_ssim_match_cpu"] = all(e <= METRIC_REL_TOL
+                                        for e in errs.values())
+    out["psnr_ssim"] = {
+        "frames": len(gen_a), "rel_err_vs_cpu": errs,
+        "psnr_mean": float(scores["cuda"][0].mean()),
+        "ssim_mean": float(scores["cuda"][1].mean())}
+
+    sd = random_inception_state_dict(inception, seed)
+    cpu_model = inception.convert_fid_inception(sd)
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    card_fn = inception.make_feature_fn(card_model)
+    cpu_fn = inception.make_feature_fn(cpu_model)
+    feats = {}
+    for tag, imgs in (("a", gen_a), ("b", gen_b)):
+        feats[tag] = [t.cpu() for t in card_fn(imgs)]
+    want = cpu_fn(gen_a)
+    inc_errs = {part: _compare(feats["a"][i], want[i])[1]
+                for i, part in enumerate(("pool", "logits"))}
+    with cudnn_tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                tf32 = card_model(inception.preprocess(
+                    torch.from_numpy(gen_a).to("cuda")))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_errs = {part: _compare(tf32[i].cpu(), want[i])[1]
+                 for i, part in enumerate(("pool", "logits"))}
+    x = torch.from_numpy(gen_a).to("cuda")
+    inc_ms = time_ms(lambda: card_fn(x), 3, 1)
+    checks["inception_matches_cpu"] = all(e <= INCEPTION_REL_TOL
+                                          for e in inc_errs.values())
+    # features that tell the frames apart (a random network whose signal
+    # died would give every image the same features and FID nothing)
+    spread = {tag: float(f[0].std(dim=0).mean() / f[0].abs().max())
+              for tag, f in feats.items()}
+    checks["inception_features_vary"] = min(spread.values()) > 1e-4
+    pa, pb = feats["a"][0].double().numpy(), feats["b"][0].double().numpy()
+    logits = feats["b"][1].double().numpy()
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    dist = {"fid": fid.fid_from_features(pa, pb),
+            "kid": fid.kid_from_features(pa, pb),
+            "prc": fid.precision_recall(pa, pb),
+            "is": fid.inception_score(e / e.sum(axis=1, keepdims=True))}
+    checks["fid_kid_prc_is_finite"] = bool(np.isfinite(
+        [dist["fid"], *dist["kid"], *dist["prc"], *dist["is"]]).all())
+    out["inception"] = {
+        "images": [len(gen_a), len(gen_b)], "resized_to": 299,
+        "rel_err_vs_cpu_tf32_off": inc_errs, "rel_tol": INCEPTION_REL_TOL,
+        "rel_err_vs_cpu_tf32_on": tf32_errs, "pool_spread": spread,
+        "feature_ms_a_batch": round(inc_ms, 3), **dist}
+    del card_model, cpu_model
+
+    # the edit-distance library, built on this machine into _build/
+    t0 = time.monotonic()
+    lib = native.load()
+    build_s = time.monotonic() - t0
+    rng = np.random.default_rng(seed)
+    refs = [list(rng.integers(0, 6, rng.integers(0, 40))) for _ in range(64)]
+    hyps = [list(rng.integers(0, 6, rng.integers(0, 40))) for _ in range(64)]
+    dists = native.edit_distance_batch(refs, hyps)
+    checks["edit_distance_native"] = (
+        lib is not None and dists is not None
+        and [int(d) for d in dists]
+        == [lipread.edit_distance(r, h) for r, h in zip(refs, hyps)])
+    out["edit_distance"] = {"library": os.path.relpath(
+        native.library_path(), HERE), "build_seconds": round(build_s, 3),
+        "pairs": len(refs)}
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.remove(ckpt)
+    emit({"phase": "video-eval", "run": VIDEO_RUN, "card": smi,
+          "config": os.path.relpath(cfg["path"], HERE),
+          "scripts": ["scripts/streaming_pipeline_torch.py",
+                      "scripts/progressive_sampling_torch.py",
+                      "scripts/sample_mead_frame_torch.py"],
+          "checks": checks, **out})
+    if not all(checks.values()):
+        fail(f"video-eval: checks failed: {checks}")
+    return launched
+
+
 def image_size(cfg):
     """The frame size of a latent-diffusion config: its first stage's."""
     return cfg["model"]["params"]["first_stage_config"]["params"][
@@ -3589,8 +3899,8 @@ AE_RUNS = (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,samplers,train,"
-                            "audio,tune")
+                    default="device,build,kernels,model,serve,samplers,video,"
+                            "train,audio,tune")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -3625,7 +3935,7 @@ def main():
         phase_build()
     cases = phase_kernels() if "kernels" in phases else None
     launches = {}
-    if {"model", "serve", "samplers"} & set(phases):
+    if {"model", "serve", "samplers", "video"} & set(phases):
         models = {}
 
         def model(config):
@@ -3635,6 +3945,8 @@ def main():
             return models[config]
 
         for name, config, env, n_requests in RUNS:
+            if not {"model", "serve"} & set(phases):
+                break
             cfg, ldm = model(config)
             if "model" in phases:
                 phase_model(name, ldm, env)
@@ -3643,6 +3955,8 @@ def main():
                     name, cfg, ldm, env, n_requests, args.frames, smi,
                     ddim_steps=SERVE_DDIM_STEPS[name])
         for name, config, env, n_requests, dpm in DPM_RUNS:
+            if not {"serve", "samplers"} & set(phases):
+                break
             cfg, ldm = model(config)
             if "serve" in phases:
                 launches[name] = phase_serve(name, cfg, ldm, env, n_requests,
@@ -3651,14 +3965,18 @@ def main():
                 phase_dpm_latents(name, cfg, ldm, env, args.frames, dpm)
         if "samplers" in phases:
             phase_samplers(*model(CONFIG_128), smi)
+        if "video" in phases:
+            with tempfile.TemporaryDirectory(
+                    prefix="chip_smoke_video_") as tmp:
+                launches[VIDEO_RUN] = phase_video_eval(
+                    smi, *model(CONFIG_128), tmp)
         if "serve" in phases:
             launches[AFFECTNET_RUN] = phase_affectnet(
                 AFFECTNET_RUN, model(CONFIG_AFFECTNET)[1], smi)
-        del models, ldm   # free the card for the train runs
+        models.clear()   # free the card for the train runs
+        ldm = None
         torch.cuda.empty_cache()
     if {"train", "audio", "tune"} & set(phases):
-        import tempfile
-
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             if "train" in phases:
                 for name, config, env, steps in TRAIN_RUNS:
@@ -3678,7 +3996,7 @@ def main():
     runs = [r[0] for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS]
     if cases is None or "samplers" not in phases or "audio" not in phases \
             or not all(r in launches for r in runs + [AFFECTNET_RUN, EDIT_RUN,
-                                                      TUNE_RUN]):
+                                                      TUNE_RUN, VIDEO_RUN]):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

@@ -8,7 +8,8 @@ prefix), the MEAD talking-face clips (``MEADTalkingFace``, the reference's
 ``MEADBase3`` / ``MEADBase5``: frames, landmark pickles and the per-frame
 audio features of ``scripts/mead_audio_features_torch.py``), the latent
 caches that ``scripts/compute_latents_torch.py`` writes
-(``LatentDataset``), ``collate`` and ``DataLoader`` for one process. Batches
+(``LatentDataset``), ``collate`` and ``DataLoader`` for one process, and
+``pad_clip``, a sampled clip brought to a fixed frame count. Batches
 are dicts of numpy arrays; the trainer moves them to the device. Images are
 float32 NHWC in [-1, 1].
 
@@ -317,6 +318,26 @@ class MEADTalkingFace:
         if self.include_landmarks:
             ex["landmarks"] = np.stack(lms)
         return ex
+
+
+def pad_clip(example: Dict, frames: Optional[int],
+             audio_window: int):
+    """(masked frames [F, H, W, 3], audio [F + w, D]) of a ``sample``-mode
+    ``MEADTalkingFace`` example, cut to F = ``frames`` (the clip's own
+    length when None) or padded by repeating the last row: the last frames'
+    audio windows reach w rows past the clip, where repeating its last row
+    is the reference's clamp at the clip's end."""
+    F = int(example["num_frames"]) if frames is None else frames
+    masked = np.asarray(example["masked_image"], np.float32)[:F]
+    if masked.shape[0] < F:
+        masked = np.concatenate(
+            [masked, np.repeat(masked[-1:], F - masked.shape[0], 0)])
+    n = F + audio_window
+    audio = np.asarray(example["audio"], np.float32)[:n]
+    if audio.shape[0] < n:
+        audio = np.concatenate(
+            [audio, np.repeat(audio[-1:], n - audio.shape[0], 0)])
+    return masked, audio
 
 
 def _mead_base(include_landmarks, audio_window, size=128, tuples_path=None,

@@ -82,6 +82,12 @@
            memory, launches a step, then one step under torch.profiler as
            --train's (wall, busy, idle share, kernels, device time by
            family)
+--video    one batch of the streaming pipeline's shape in chip_smoke.py's
+           video-eval phase (mead-128-ldm-f4: 2 clips x 4 frames, DDIM-10,
+           guidance 2.0, random weights cast for sampling) with cuDNN's
+           TF32 off (the smoke script's setting) and on (PyTorch's
+           default): ms a batch by CUDA events and frames/s, then one batch
+           untraced and one under torch.profiler as --train's
 
 Prints one JSON line per measurement, each with the card's name and power
 limit. Needs a CUDA device; there is no CPU mode.
@@ -118,6 +124,8 @@ CONFIG_AFFECTNET_CLIP = os.path.join(ROOT, "configs", "latent-diffusion",
                                      "affectnet-128-clip-ldm-vq-f4.yaml")
 CONFIG_TUNE = os.path.join(ROOT, "configs", "latent-diffusion",
                            "mead-128-ldm-f4-tune.yaml")
+CONFIG_128 = os.path.join(ROOT, "configs", "latent-diffusion",
+                          "mead-128-ldm-f4.yaml")
 
 
 def card() -> str:
@@ -280,6 +288,11 @@ _FAMILIES = (
     ("gn_partial_kernel", "GroupNorm kernels: statistics"),
     ("gn_finish_kernel", "GroupNorm kernels: statistics"),
     ("gn_apply_kernel", "GroupNorm kernels: apply"),
+    # cuDNN's convolutions whose names say GEMM: implicit-GEMM passes and
+    # the complex (cf32) GEMMs of its FFT algorithm (the port multiplies
+    # no complex matrices itself)
+    ("fprop", "convolution"), ("dgrad", "convolution"),
+    ("fft", "convolution (FFT)"), ("gemm_cf32", "convolution (FFT)"),
     ("cudnn", "convolution"), ("conv", "convolution"), ("wgrad", "convolution"),
     ("nchwToNhwc", "convolution"), ("nhwcToNchw", "convolution"),
     ("gemm", "linear (cuBLAS)"), ("cutlass", "linear (cuBLAS)"),
@@ -693,6 +706,52 @@ def _profile_step(step, measure: str, run: dict):
                         for k, v in top]}), flush=True)
 
 
+def video(smi: str, batch: int = 2, frames: int = 4, steps: int = 10):
+    device = torch.device("cuda")
+    window = 8
+    cfg = load_config([CONFIG_128])
+    size = _frame_size(cfg)
+    adim = cfg["model"]["params"]["cond_stage_config_2"]["params"][
+        "subspace_dim"]
+    torch.manual_seed(0)
+    ldm = build_model(cfg["model"])
+    torch.nn.init.normal_(ldm.first_stage.quantize.embedding.weight)
+    ldm = cast_sampling_params(ldm).to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    inputs = (r(batch, frames, size, size, 3).clamp(-1, 1),
+              r(batch, frames + window, adim),
+              r(batch, size, size, 3).clamp(-1, 1),
+              torch.arange(batch, device=device) % 8)
+    pipe = make_video_pipeline(ldm, make_ddim_schedule(ldm.schedule, steps),
+                               window, guidance_scale=2.0)
+
+    def run_batch():
+        gen.manual_seed(0)
+        pipe(*inputs, gen)
+
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            run_batch()   # warm-up: kernel build, cuDNN algorithm choice
+            run = {"card": smi, "config": os.path.relpath(CONFIG_128, ROOT),
+                   "batch": batch, "frames": frames, "ddim_steps": steps,
+                   "guidance": 2.0, "cudnn_allow_tf32": tf32,
+                   "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+            A.reset_launches()
+            ms = event_ms(run_batch, 2)
+            print(json.dumps({
+                "measure": "video_batch", **run, "batch_ms": ms,
+                "frames_per_s": batch * frames / (ms / 1e3),
+                "launches_per_batch": {k: v / 2 for k, v in
+                                       A.LAUNCHES.items() if v}}),
+                flush=True)
+            _profile_step(run_batch, "video_batch_profile", run)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def affectnet(smi: str, n: int = 8, steps: int = 50, scale: float = 3.0):
     from ..reenactment import sample_class
 
@@ -910,6 +969,8 @@ def main():
                     help="DiffusionCLIP finetune steps, timed and profiled")
     ap.add_argument("--lipread", action="store_true",
                     help="lip-reading finetune steps, timed and profiled")
+    ap.add_argument("--video", action="store_true",
+                    help="a video-eval streaming batch, timed and profiled")
     cli.add_sampler_args(ap, note="the chain --profile times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -933,6 +994,8 @@ def main():
         finetune(smi)
     if args.lipread:
         lipread(smi)
+    if args.video:
+        video(smi)
 
 
 if __name__ == "__main__":

@@ -40,7 +40,9 @@ def _python_sources():
     out += [os.path.join(ROOT, "scripts", f"{name}_torch.py")
             for name in ("serve", "train", "sample_affectnet",
                          "compute_latents", "latent_manipulation",
-                         "mead_audio_features")]
+                         "mead_audio_features", "progressive_sampling",
+                         "sample_mead_frame", "streaming_pipeline",
+                         "image_metrics", "fid_metrics")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)  # one order for every test worker
@@ -63,7 +65,9 @@ def test_package_has_the_expected_modules():
                  "data.clip_tokenizer", "losses.guidance", "models.clip",
                  "models.insight_face", "models.diffclip",
                  "training.finetune_trainer", "models.wav2vec2",
-                 "models.lipreader", "models.lipread_tune"):
+                 "models.lipreader", "models.lipread_tune",
+                 "metrics.image", "metrics.native", "metrics.lipread",
+                 "metrics.inception", "metrics.fid"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 

@@ -89,3 +89,26 @@ def test_variants_device_kernels_ms(monkeypatch):
     assert len(out) == 2 and not any("#" in k and "lambda" not in k
                                      for k in out)
     assert sum(out.values()) == pytest.approx(KERNEL_US / 1e3)
+
+
+@pytest.mark.parametrize("name,family", [
+    # cuDNN's FFT convolution (fp32 without TF32): complex GEMMs and FFTs
+    ("sm80_xmma_gemm_cf32cf32_f32f32_cf32_tn_n_tilesize32x32x8_stage3_"
+     "warpsize2x2x1_ffma_aligna8", "convolution (FFT)"),
+    ("void DSE::vector_fft<0, 1, 256, 16, 16, 1, float, float, float2>"
+     "(float2*, float2*, int, int3, int3, int2, int2)", "convolution (FFT)"),
+    # cuDNN's implicit-GEMM convolution passes
+    ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw_"
+     "tilesize32x32x8_stage3_warpsize1x2x1", "convolution"),
+    ("sm80_xmma_dgrad_implicit_gemm_f32f32_tf32f32_f32", "convolution"),
+    # cuBLAS's real GEMMs stay linears
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize64x64x8_stage3_"
+     "warpsize1x4x1_ffma_aligna4", "linear (cuBLAS)"),
+    ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_tn_align1>"
+     "(cutlass_80_simt_sgemm_128x64_8x5_tn_align1::Params)",
+     "linear (cuBLAS)"),
+])
+def test_kernel_families_of_a_video_batch(name, family):
+    """Kernel names of a mead-128 video batch's trace (``tools/measure.py
+    --video``): the convolutions whose names say GEMM are convolutions."""
+    assert measure._family(name) == family
