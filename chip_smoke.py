@@ -111,10 +111,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
            real shapes (the config's frame size, audio [17, 768]) and the
            YAML's batch size (8 at 256 px, fp32 parameters with bf16 compute;
            32 at 128 px in fp32 for mead-128), full width and depth, in
-           fourteen runs:
+           seventeen runs:
              train           headline config, no flag, 6 optimizer steps, one
                              validation batch, `last` written, then resumed
-                             with --resume for one more step
+                             with --resume for one more step; its `last`
+                             kept for the fidelity phase
              train-fullattn  -fullattn, no flag, 2 steps
              train-split     headline, DSML_ATTN_PACKED=0, 2 steps
              train-gn        headline, DSML_PALLAS_GN=1, 2 steps
@@ -140,8 +141,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
                              24 (image, class_label; rows 3 + 8 in fp32,
                              row 2 at D = 512 in the encode), 2 steps, an
                              image log at step 2
-           each checks: finite losses, parameters that moved, launch counts
-           against those counted from the model's own blocks, the backward
+           and, right after `train`, three runs of the headline config's
+           training options, 2 steps each, against `train` (seed 0, the
+           same batches):
+             train-remat     use_checkpoint=true (a YAML override),
+                             DSML_REMAT=full: every ResBlock and
+                             SpatialTransformer recomputed in the backward
+             train-remat-dots  the same, DSML_REMAT=dots (the linears' outputs
+                             kept)
+             train-bf16m     DSML_OPT_BF16_M=1: the first Adam moment in bf16
+           each checks: the first step's loss equal in bits to train's, the
+           update of the first two steps against train's (equal bits, or the
+           relative L2 difference within its tolerance: 1e-3 for remat,
+           5e-2 for the bf16 moment), the peak memory beside train's (remat
+           below it), the first moment's bytes (half of train's under
+           DSML_OPT_BF16_M), launch counts with the recompute rule (a
+           checkpointed block launches its forward kernels again in the
+           backward);
+           every other run checks: finite losses, parameters that moved,
+           launch counts against those counted from the model's own blocks,
+           the backward
            kernel's calls by head width against the model's self-attentions,
            equal loss bits from a second run with the same seed, and loss and
            a handful of gradients on the kernel path against the plain path
@@ -180,6 +199,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
            backward at [4, 1, 1024, 512]), the towers and the first stage
            unchanged, parameters moved, the first step's loss and gradients
            kernel path against plain path, the peak memory
+  fidelity scripts/fidelity_gate_torch.py's main() on mead-256-ldm-f4.yaml
+           with `train`'s last checkpoint (--ckpt; needs the train phase),
+           DDIM-10, F = 2, batch 2, --csim (a random iresnet18): run A with
+           every kernel's plain version in fp32, run B in bf16 through the
+           kernels; checks: PSNR and the identity cosine finite, B's launch
+           counts against those counted from the model's blocks, A none
   audio    scripts/mead_audio_features_torch.py's main() at full width on two
            synthetic 48 kHz clips of about 3 s (random weights from seed 0):
            wav2vec2-base (base: 7 x 512 convs, 12 layers of 768) and
@@ -209,7 +234,9 @@ the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 
 `--phases device,build,kernels` runs a subset (no final ok line then); a
-list with tune must hold train.
+list with tune or fidelity must hold train. The native image decoder has no
+phase: the card's machine has neither libjpeg nor libpng (nor their
+headers) to build it.
 """
 from __future__ import annotations
 
@@ -283,20 +310,13 @@ LSE_TF32_REL_TOL = 5e-4
 TIME_LIMIT_S = 1150
 
 
-@contextlib.contextmanager
 def flags(**values):
     """The port's kernel flags set to ``values`` (every other one unset)
-    inside the block, and restored after it."""
-    from dsml_thesis_tpu_torch.flags import KERNEL_FLAGS
+    inside the block, and restored after it; ``values`` may also name other
+    flags (``DSML_REMAT``, ``DSML_OPT_BF16_M``), restored likewise."""
+    from dsml_thesis_tpu_torch.tools.plain import kernel_flags
 
-    saved = {k: os.environ.pop(k, None) for k in KERNEL_FLAGS}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k in KERNEL_FLAGS:
-            os.environ.pop(k, None)
-        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    return kernel_flags(values)
 
 
 T0 = time.monotonic()
@@ -1476,33 +1496,13 @@ def expected_launches(ldm, env, unet_calls, encodes, decodes, latent=None):
     }
 
 
-@contextlib.contextmanager
 def plain_path(env):
-    """Every kernel's plain version put in its place in the models (for a
-    comparison on the card only): the attention ops by name, the conv op by
-    name, GroupNorm by leaving its flag unset. The flags that route stay."""
-    from unittest import mock
+    """Every kernel's plain version put in its place in the models, under
+    the routing flags of ``env`` (for a comparison on the card only;
+    ``dsml_thesis_tpu_torch/tools/plain.py`` says what it replaces)."""
+    from dsml_thesis_tpu_torch.tools.plain import plain_path as plain
 
-    from dsml_thesis_tpu_torch.models import autoencoder, unet
-    from dsml_thesis_tpu_torch.ops import attention as A
-    from dsml_thesis_tpu_torch.ops import conv_gn as C
-
-    def plain_qout(h, k, v, wq, wo, bo, heads, scale=None):
-        wq, wo, bo = (w.to(h.dtype) for w in (wq, wo, bo))
-        return A.qout_reference(h, k, v, wq, wo, bo, heads, scale=scale)
-
-    split_head = (A.streaming_attention_reference
-                  if env.get("DSML_FLASH_STREAMING") == "1"
-                  else A.attention_reference)
-    with flags(**{k: v for k, v in env.items() if k != "DSML_PALLAS_GN"}), \
-            mock.patch.object(unet, "flash_attention_fproj", A.fproj_reference), \
-            mock.patch.object(unet, "packed_multi_head_attention",
-                              A.packed_reference), \
-            mock.patch.object(unet, "fused_qout_self_attention", plain_qout), \
-            mock.patch.object(unet, "multi_head_attention", split_head), \
-            mock.patch.object(autoencoder, "multi_head_attention", split_head), \
-            mock.patch.object(unet, "conv_stats", C.conv_stats_reference):
-        yield
+    return plain(env)
 
 
 def phase_model(name, ldm, env):
@@ -2293,7 +2293,9 @@ def expected_train_launches(ldm, env, steps, eval_batches):
     model, one for the AffectNet one), and every UNet self-attention once
     forward and once backward through the packed kernels (or the split-head
     ones under DSML_ATTN_PACKED=0). The GroupNorm kernel runs forward only:
-    its backward differentiates the plain version, as in the JAX package."""
+    its backward differentiates the plain version, as in the JAX package.
+    Where the UNet checkpoints its blocks (``remats``), a step adds
+    ``block_launches``: the blocks' forward kernels again in the backward."""
     short, long = count_attentions(ldm.unet, ldm.image_size)
     encodes = 1 + sum(s.route == "concat_first_stage" for s in ldm.cond_specs)
     step = expected_launches(ldm, env, unet_calls=1, encodes=encodes,
@@ -2313,9 +2315,57 @@ def expected_train_launches(ldm, env, steps, eval_batches):
         auto = count_auto_streams(ldm.unet, ldm.image_size)
         step[bwd] -= auto
         step["flash_attention_streaming_bwd"] = auto
+    if remats(ldm.unet, env):
+        for k, n in block_launches(ldm, env, step).items():
+            step[k] += n
     evals = expected_launches(ldm, env, unet_calls=1, encodes=encodes,
                               decodes=0)
     return {k: steps * step[k] + 2 * eval_batches * evals[k] for k in step}, step
+
+
+def remats(unet, env):
+    """Whether a training step of ``unet`` checkpoints its blocks: the
+    config's ``use_checkpoint`` (a YAML override) and ``DSML_REMAT`` not
+    ``none``."""
+    return unet.use_checkpoint and env.get("DSML_REMAT", "full") != "none"
+
+
+def block_launches(ldm, env, step):
+    """The recompute rule: the forward launches of a training step that lie
+    inside the UNet's ResBlocks and SpatialTransformers, which a
+    checkpointed step launches again in its backward under either
+    ``DSML_REMAT`` mode (a kernel is a ``ctypes`` call that no policy can
+    keep): every self-attention's forward kernel, the GroupNorm kernel of
+    every norm inside a block (not the UNet's final norm), both 3x3 convs of
+    every ResBlock under ``DSML_GN_EPILOGUE`` (under ``1`` also the
+    projections around the attention; not the stem or the head)."""
+    from dsml_thesis_tpu_torch.models.unet import ResBlock, SpatialTransformer
+    from dsml_thesis_tpu_torch.ops.conv_gn import CONV_MIN_COUT
+
+    unet = ldm.unet
+    short, long = count_attentions(unet, ldm.image_size)
+    out = dict.fromkeys(step, 0)
+    if env.get("DSML_ATTN_PACKED", "1") == "1":
+        out["flash_attention_packed"] = short + long
+    else:
+        auto = (count_auto_streams(unet, ldm.image_size)
+                if env.get("DSML_FLASH_STREAMING", "auto") == "auto" else 0)
+        streaming = env.get("DSML_FLASH_STREAMING") == "1"
+        out["flash_attention_streaming"] = (short + long if streaming
+                                            else auto)
+        out["flash_attention"] = 0 if streaming else short + long - auto
+    norms = sum(count_norms(m) for m in unet.modules()
+                if isinstance(m, (ResBlock, SpatialTransformer)))
+    gn_mode = env.get("DSML_PALLAS_GN", "0")
+    out["group_norm_silu"] = norms if gn_mode == "1" else 0
+    out["gn_channel_stats"] = norms if gn_mode == "stats" else 0
+    epilogue = env.get("DSML_GN_EPILOGUE", "0")
+    convs = count_fused_convs(unet, epilogue)
+    if epilogue == "1":
+        convs -= sum(c.out_channels >= CONV_MIN_COUT
+                     for c in (unet.conv_in, unet.conv_out))
+    out["conv_stats"] = convs
+    return out
 
 
 def backward_kernel(env):
@@ -2557,10 +2607,15 @@ def check_image_log(logdir, step, ldm, n, size, spec):
     return ok, shapes
 
 
-def phase_train(name, config, env, steps, smi, tmp, resume=False):
+def phase_train(name, config, env, steps, smi, tmp, resume=False,
+                reference=None, keep_last=False):
     """One train run through scripts/train_torch.py's main() at the YAML's
     own batch size. Returns the launch counts of the run (steps + one
-    validation batch, and one image log in IMAGE_LOG_RUNS)."""
+    validation batch, and one image log in IMAGE_LOG_RUNS). ``reference``
+    (a dict) receives what the option runs are held to: the losses, the
+    trainable parameters before the first step and after the second, the
+    peak memory and the first Adam moment's bytes; with ``keep_last`` the
+    run's `last` checkpoint stays at ``reference_last_file(tmp)``."""
     from dsml_thesis_tpu_torch.config import load_config
     from dsml_thesis_tpu_torch.ops import attention as A
     from dsml_thesis_tpu_torch.training.trainer import Trainer
@@ -2596,6 +2651,10 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         torch.cuda.synchronize()
         return trainer, time.monotonic() - t0
 
+    snapshots = {}
+    capture = (params_at_steps(snapshots, (0, 2)) if reference is not None
+               else contextlib.nullcontext())
+
     # an fp32 UNet (mead-128-ldm-f4) runs cuDNN's fp32 convolutions, whose
     # default weight-gradient algorithms sum in no fixed order, as in
     # first-stage training: two runs from one seed part after the first
@@ -2606,7 +2665,7 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
                         else contextlib.nullcontext()):
         A.reset_launches()   # counts below are of this run alone
         with backward_head_widths() as bwd_widths, \
-                timed_calls(Trainer, "log_images") as log_seconds:
+                timed_calls(Trainer, "log_images") as log_seconds, capture:
             trainer, wall = run(f"{name}-a", steps, top_k=resume,
                                 extra=image_log)
         launches = dict(A.LAUNCHES)
@@ -2618,6 +2677,9 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         losses, vals = _train_losses(trainer.logdir)
         moved = sum(not torch.equal(p, e)
                     for p, e in zip(state.params, state.ema_params))
+        if reference is not None:
+            reference.update(losses=losses, params=snapshots, peak=peak,
+                             moment_bytes=moment_bytes(state))
         # warm steps, timed on the trained model: CUDA events around whole steps
         xb = trainer._to_device(next(iter(trainer.train_data)))
         step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 4, 1)
@@ -2642,6 +2704,8 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
         # start keeps WARM_START_RUN's until it has read it
         if name == WARM_START_RUN and ckpt_bytes:
             os.replace(ckpt, warm_start_file(tmp))
+        if keep_last and ckpt_bytes:
+            os.replace(ckpt, reference_last_file(tmp))
         shutil.rmtree(os.path.join(tmp, f"{name}-a"))
         del trainer, state, xb
         torch.cuda.empty_cache()
@@ -2694,6 +2758,232 @@ def phase_train(name, config, env, steps, smi, tmp, resume=False):
     if not all(checks.values()):
         fail(f"train {name}: checks failed: {checks}")
     return launches
+
+
+# the run the option runs and the fidelity phase read
+REFERENCE_RUN = "train"
+# flags of the training options (not kernel flags): a run that sets one is
+# an option run of the headline config, held to REFERENCE_RUN
+OPTION_FLAGS = ("DSML_REMAT", "DSML_OPT_BF16_M")
+# the relative difference (L2 over every trainable parameter) of an option
+# run's update of its first two steps from REFERENCE_RUN's where the bits
+# differ: remat recomputes the same ops (only an algorithm cuDNN picks anew
+# for the recomputed tensors moves a bit); the bf16 moment rounds m to 8
+# bits and the 0.9 of its decay to 0.8984375 (about 0.4% of the second
+# step's update, more in a weight whose two gradients cancel)
+OPTION_UPDATE_REL_TOL = {"DSML_REMAT": 1e-3, "DSML_OPT_BF16_M": 5e-2}
+
+
+def is_option_run(env):
+    return any(k in env for k in OPTION_FLAGS)
+
+
+def option_overrides(env):
+    """The YAML overrides an option run adds: ``use_checkpoint`` for the
+    remat runs (no shipped YAML sets it)."""
+    if "DSML_REMAT" in env:
+        return ["model.params.unet_config.params.use_checkpoint=true"]
+    return []
+
+
+def reference_last_file(tmp):
+    """Where phase_train keeps REFERENCE_RUN's last/state.pt until the
+    fidelity phase has read it."""
+    return os.path.join(tmp, f"{REFERENCE_RUN}-last-state.pt")
+
+
+@contextlib.contextmanager
+def params_at_steps(out, steps):
+    """Inside the block, every Trainer's trainable parameters after each
+    optimizer step in ``steps`` (0: before the first) land in ``out`` as
+    CPU fp32 copies, {step: [tensor]}."""
+    from unittest import mock
+
+    from dsml_thesis_tpu_torch.training.trainer import Trainer
+
+    real = Trainer.init_state
+
+    def take(state):
+        if state.step in steps and state.step not in out:
+            out[state.step] = [p.detach().float().cpu().clone()
+                               for p in state.params]
+
+    def init_state(self):
+        state = real(self)
+        step = self._train_step
+        take(state)
+
+        def counted(st, batch, seed):
+            metrics = step(st, batch, seed)
+            take(st)
+            return metrics
+        self._train_step = counted
+        return state
+
+    with mock.patch.object(Trainer, "init_state", init_state):
+        yield out
+
+
+def moment_bytes(state):
+    """Bytes of the first Adam moment of every trainable parameter."""
+    return sum(st["exp_avg"].numel() * st["exp_avg"].element_size()
+               for st in state.optimizer.state.values())
+
+
+def update_difference(before, after, ref_before, ref_after):
+    """(equal bits, relative L2 difference, worst tensor's): the update of
+    each parameter (after - before) against the reference run's; the L2
+    norm of the difference over all parameters against the reference
+    update's, and the worst over the tensors of max |difference| over max
+    |reference update|."""
+    equal, worst, diff2, ref2 = True, 0.0, 0.0, 0.0
+    for b, a, rb, ra in zip(before, after, ref_before, ref_after):
+        equal &= torch.equal(a, ra) and torch.equal(b, rb)
+        du, ru = (a - b).double(), (ra - rb).double()
+        diff2 += float(((du - ru) ** 2).sum())
+        ref2 += float((ru ** 2).sum())
+        top = float(ru.abs().max())
+        if top > 0:
+            worst = max(worst, float((du - ru).abs().max()) / top)
+    return equal, (diff2 / ref2) ** 0.5 if ref2 else 0.0, worst
+
+
+def phase_train_option(name, config, env, steps, smi, tmp, reference):
+    """One option run (``OPTION_FLAGS``) of the headline config through
+    scripts/train_torch.py's main(), ``steps`` steps from seed 0 as
+    REFERENCE_RUN (whose numbers are in ``reference``), held to it. Returns
+    the launch counts of the run (steps + one validation batch)."""
+    from dsml_thesis_tpu_torch.config import load_config
+    from dsml_thesis_tpu_torch.ops import attention as A
+    from dsml_thesis_tpu_torch.training.train_state import AdamWBf16M
+
+    if not reference:
+        fail(f"train {name}: {REFERENCE_RUN} has not run before it")
+    train_torch = _train_torch()
+    cfg = load_config([config])
+    batch = cfg["data"]["params"]["batch_size"]
+    spec = synthetic_spec(cfg)
+    node = {"target": "dsml_thesis_tpu_torch.data.SyntheticDataset",
+            "params": {"spec": spec, "length": 64}}
+    val = {"target": node["target"],
+           "params": {"spec": spec, "length": batch, "seed": 1000}}
+    argv = ["--base", config, "-t", "--max-steps", str(steps),
+            "--logdir", os.path.join(tmp, name), "--name", name,
+            "--seed", "0", "--no-test", "--log-every", "1",
+            f"data.params.train={json.dumps(node)}",
+            f"data.params.validation={json.dumps(val)}", NO_TOP_K,
+            *option_overrides(env)]
+    snapshots = {}
+    with flags(**env), no_checkpoint_files(), \
+            params_at_steps(snapshots, (0, steps)):
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        trainer = train_torch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        state = trainer._state
+        losses, vals = _train_losses(trainer.logdir)
+        xb = trainer._to_device(next(iter(trainer.train_data)))
+        step_ms = time_ms(lambda: trainer._train_step(state, xb, 0), 4, 1)
+        expect, per_step = expected_train_launches(trainer.ldm, env, steps, 1)
+        remat = remats(trainer.ldm.unet, env)
+        bf16m = isinstance(state.optimizer, AdamWBf16M)
+        mbytes = moment_bytes(state)
+        moment_types = sorted({str(st["exp_avg"].dtype)
+                               for st in state.optimizer.state.values()})
+        shutil.rmtree(os.path.join(tmp, name))
+        del trainer, state, xb
+        torch.cuda.empty_cache()
+    ref = reference["params"]
+    bits, rel, worst = update_difference(snapshots[0], snapshots[steps],
+                                         ref[0], ref[steps])
+    tol = OPTION_UPDATE_REL_TOL[next(k for k in OPTION_FLAGS if k in env)]
+    checks = {
+        "steps": len(losses) == steps,
+        "finite": all(np.isfinite(losses)) and len(vals) == 1,
+        "first_loss_bits_equal_reference": losses[0] == reference["losses"][0],
+        "update_matches_reference": bits or rel <= tol,
+        "launches": launches == expect,
+    }
+    if "DSML_REMAT" in env:
+        checks["rematerialised"] = remat
+        checks["peak_below_reference"] = peak < reference["peak"]
+    if "DSML_OPT_BF16_M" in env:
+        checks["bf16_moment"] = bf16m and moment_types == ["torch.bfloat16"]
+        checks["moment_bytes_half"] = 2 * mbytes == reference["moment_bytes"]
+    emit({"phase": "train", "run": name,
+          "config": os.path.relpath(config, HERE), "flags": env, "card": smi,
+          "batch": batch, "optimizer_steps": steps, "checks": checks,
+          "losses": losses, "reference_losses": reference["losses"][:steps],
+          "update_equal_bits": bits, "update_rel_diff": rel,
+          "update_rel_tol": tol, "update_worst_tensor_rel_diff": worst,
+          "launches": launches,
+          "launches_expected": expect, "launches_per_step": per_step,
+          "peak_memory_bytes": peak,
+          "reference_peak_memory_bytes": reference["peak"],
+          "moment_bytes": mbytes,
+          "reference_moment_bytes": reference["moment_bytes"],
+          "warm_step_ms": step_ms, "img_per_s": batch * 1e3 / step_ms,
+          "run_wall_seconds": round(wall, 3)})
+    if not all(checks.values()):
+        fail(f"train {name}: checks failed: {checks}")
+    return launches
+
+
+FIDELITY_DDIM_STEPS, FIDELITY_FRAMES, FIDELITY_BATCH = 10, 2, 2
+
+
+def fidelity_launches(ldm, frames, steps):
+    """Launches of one progressive pipeline call of ``frames`` frames at
+    DDIM-``steps`` with guidance (the pair shares one UNet call a step):
+    two encodes (the masked frames as one batch, the identity), a UNet call
+    a step a frame, a decode a frame."""
+    return expected_launches(ldm, {}, unet_calls=frames * steps, encodes=2,
+                             decodes=frames)
+
+
+def phase_fidelity(smi, tmp):
+    """scripts/fidelity_gate_torch.py's main() on the headline config with
+    REFERENCE_RUN's `last` checkpoint. Returns the flagship run's launch
+    counts."""
+    from dsml_thesis_tpu_torch.config import build_model, load_config
+
+    path = reference_last_file(tmp)
+    if not os.path.exists(path):
+        fail(f"fidelity: no {REFERENCE_RUN} checkpoint at {path}")
+    gate = _script("fidelity_gate_torch")
+    argv = ["--config", CONFIG, "--ckpt", path, "--res", "256",
+            "--steps", str(FIDELITY_DDIM_STEPS),
+            "--frames", str(FIDELITY_FRAMES),
+            "--batch", str(FIDELITY_BATCH), "--csim"]
+    t0 = time.monotonic()
+    with flags():
+        result = gate.main(argv)
+    wall = time.monotonic() - t0
+    os.remove(path)
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        meta = build_model(load_config([CONFIG])["model"])
+    expect = fidelity_launches(meta, FIDELITY_FRAMES, FIDELITY_DDIM_STEPS)
+    got = result["launches"]
+    checks = {
+        "psnr_finite": bool(np.isfinite(result["value"])),
+        "csim_finite": bool(np.isfinite(result["csim_flag_vs_ref"])),
+        "flagship_launches": got["flagship"] == {
+            k: v for k, v in expect.items() if v},
+        "reference_launches_none": not got["reference"],
+    }
+    emit({"phase": "fidelity", "run": FIDELITY_RUN,
+          "config": os.path.relpath(CONFIG, HERE), "card": smi,
+          "checks": checks, "gate": result,
+          "launches_expected": expect, "phase_wall_seconds": round(wall, 3)})
+    if not all(checks.values()):
+        fail(f"fidelity: checks failed: {checks}")
+    return {k: got["flagship"].get(k, 0) for k in expect}
 
 
 AE_SPEC = {"image": [[128, 128, 3], "float32"]}
@@ -3863,6 +4153,9 @@ DPM_LATENT_RUN = "mead128-dpm10"
 # train runs: (name, config, flags, optimizer steps)
 TRAIN_RUNS = (
     ("train", CONFIG, {}, 6),
+    ("train-remat", CONFIG, {"DSML_REMAT": "full"}, 2),
+    ("train-remat-dots", CONFIG, {"DSML_REMAT": "dots"}, 2),
+    ("train-bf16m", CONFIG, {"DSML_OPT_BF16_M": "1"}, 2),
     ("train-fullattn", CONFIG_FULLATTN, {}, 2),
     ("train-split", CONFIG, {"DSML_ATTN_PACKED": "0"}, 2),
     ("train-gn", CONFIG, {"DSML_PALLAS_GN": "1"}, 2),
@@ -3884,6 +4177,8 @@ TRAIN_RUNS = (
 AFFECTNET_RUN, EDIT_RUN = "affectnet", "affectnet-edit"
 # the lip-reading finetune's run (a name in the kernels line)
 TUNE_RUN = "train-mead128-tune"
+# the fidelity gate's flagship run (a name in the kernels line)
+FIDELITY_RUN = "fidelity"
 # first-stage train runs: (name, config, flags, optimizer steps)
 AE_RUNS = (
     ("ae-vq", CONFIG_VQ, {}, 4),
@@ -3900,7 +4195,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,samplers,video,"
-                            "train,audio,tune")
+                            "train,fidelity,audio,tune")
     ap.add_argument("--frames", type=int, default=2,
                     help="frames a clip in the serve phase")
     args = ap.parse_args()
@@ -3908,6 +4203,11 @@ def main():
     if "tune" in phases and "train" not in phases:
         print(f"chip_smoke: --phases: the tune phase warm-starts from the "
               f"train phase's {WARM_START_RUN} checkpoint: add train",
+              file=sys.stderr)
+        sys.exit(2)
+    if "fidelity" in phases and "train" not in phases:
+        print(f"chip_smoke: --phases: the fidelity phase reads the train "
+              f"phase's {REFERENCE_RUN} checkpoint: add train",
               file=sys.stderr)
         sys.exit(2)
 
@@ -3979,10 +4279,22 @@ def main():
     if {"train", "audio", "tune"} & set(phases):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             if "train" in phases:
+                reference = {}
                 for name, config, env, steps in TRAIN_RUNS:
-                    launches[name] = phase_train(name, config, env, steps,
-                                                 smi, tmp,
-                                                 resume=(name == "train"))
+                    if is_option_run(env):
+                        launches[name] = phase_train_option(
+                            name, config, env, steps, smi, tmp, reference)
+                        continue
+                    launches[name] = phase_train(
+                        name, config, env, steps, smi, tmp,
+                        resume=(name == REFERENCE_RUN),
+                        reference=(reference if name == REFERENCE_RUN
+                                   else None),
+                        keep_last=("fidelity" in phases
+                                   and name == REFERENCE_RUN))
+                    if name == REFERENCE_RUN and "fidelity" in phases:
+                        launches[FIDELITY_RUN] = phase_fidelity(smi, tmp)
+                reference.clear()
                 lpips_files = write_lpips_files(tmp)
                 for name, config, env, steps in AE_RUNS:
                     launches[name] = phase_ae_train(
@@ -3995,8 +4307,8 @@ def main():
                 launches[TUNE_RUN] = phase_lipread_tune(TUNE_RUN, smi, tmp)
     runs = [r[0] for r in RUNS + DPM_RUNS + TRAIN_RUNS + AE_RUNS]
     if cases is None or "samplers" not in phases or "audio" not in phases \
-            or not all(r in launches for r in runs + [AFFECTNET_RUN, EDIT_RUN,
-                                                      TUNE_RUN, VIDEO_RUN]):
+            or not all(r in launches for r in runs + [
+                AFFECTNET_RUN, EDIT_RUN, TUNE_RUN, VIDEO_RUN, FIDELITY_RUN]):
         return
     emit(kernels_line(cases, launches))
     print(smi, flush=True)

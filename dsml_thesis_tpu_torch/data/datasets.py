@@ -16,8 +16,15 @@ float32 NHWC in [-1, 1].
 Pillow decodes and resizes images; it is imported where an image is opened
 or resized, never when this module is imported. Where ``LatentDataset``
 must resize and Pillow is missing, it raises (the JAX package skips the
-resize then). Not ported: the native image decoder (``DSML_NATIVE_IMAGE=1``
-raises ``NotImplementedError``).
+resize then). ``DSML_NATIVE_IMAGE=1`` decodes through the native library
+instead (``data/native_image.py``: the same resize, crop and scale within
+1-2 / 255, the GIL released): ``load_image`` draws its random crop offsets
+from the library's header probe with the same ``rng`` calls as Pillow's
+path, so both backends crop alike, and ``load_images`` decodes a stack in
+one call on ``DSML_NATIVE_IMAGE_THREADS`` threads (default the CPU count,
+at most 16). A file the library rejects is decoded by Pillow, with the
+offsets already drawn; where Pillow is missing too, that raises and names
+the file. A library that cannot be built raises.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..flags import env_flag
+from . import native_image
 
 EMOTION2LABEL = {
     "angry": 6, "contempt": 7, "disgusted": 5, "fear": 4,
@@ -48,18 +55,39 @@ def _pil_image():
     return Image
 
 
-def _refuse_native_decoder():
-    if env_flag("DSML_NATIVE_IMAGE", False):
-        raise NotImplementedError(
-            "DSML_NATIVE_IMAGE=1: the native image decoder is not ported; "
-            "unset it to decode with Pillow")
-
-
 def load_image(path: str, size: Optional[int], random_crop: bool = False,
                rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """Resize the smallest side to ``size`` (bicubic), center or random crop
-    (offsets from ``rng``), scale to [-1, 1]: float32 [size, size, 3]."""
-    _refuse_native_decoder()
+    (offsets from ``rng``), scale to [-1, 1]: float32 [size, size, 3].
+    Through the native decoder under ``DSML_NATIVE_IMAGE=1``."""
+    crop = None   # (x0, y0) in resized coordinates, shared by both backends
+    if size is not None and size > 0 and native_image.enabled():
+        if random_crop and rng is not None:
+            wh = native_image.probe_resized(path, size)
+            if wh is not None:
+                w, h = wh
+                crop = (rng.randint(0, w - size + 1),
+                        rng.randint(0, h - size + 1))
+        arr = native_image.load_image_native(path, size, crop)
+        if arr is not None:
+            return arr
+        return _refill(path, size, random_crop, rng, crop)
+    return _load_image_pil(path, size, random_crop, rng)
+
+
+def _refill(path, size, random_crop=False, rng=None, crop=None):
+    """Pillow's decode of a file the native library rejected."""
+    try:
+        _pil_image()
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: the native image decoder rejected this file, and "
+            "Pillow, which would decode it, is not installed") from e
+    return _load_image_pil(path, size, random_crop, rng, crop)
+
+
+def _load_image_pil(path, size, random_crop=False, rng=None, crop=None):
+    """Pillow's backend; ``crop`` takes offsets the caller already drew."""
     Image = _pil_image()
     img = Image.open(path)
     if img.mode != "RGB":
@@ -70,7 +98,9 @@ def load_image(path: str, size: Optional[int], random_crop: bool = False,
         img = img.resize((max(size, round(w * scale)),
                           max(size, round(h * scale))), Image.BICUBIC)
         w, h = img.size
-        if random_crop and rng is not None:
+        if crop is not None:
+            x0, y0 = crop
+        elif random_crop and rng is not None:
             x0 = rng.randint(0, w - size + 1)
             y0 = rng.randint(0, h - size + 1)
         else:
@@ -81,7 +111,18 @@ def load_image(path: str, size: Optional[int], random_crop: bool = False,
 
 
 def load_images(paths, size: Optional[int]) -> np.ndarray:
-    """Stack of center-cropped images [N, size, size, 3] in [-1, 1]."""
+    """Stack of center-cropped images [N, size, size, 3] in [-1, 1]; under
+    ``DSML_NATIVE_IMAGE=1`` one batch call of the native library, a file it
+    rejects decoded by Pillow."""
+    paths = list(paths)
+    if size is not None and size > 0 and paths and native_image.enabled():
+        threads = int(os.environ.get("DSML_NATIVE_IMAGE_THREADS",
+                                     str(min(16, os.cpu_count() or 8))))
+        imgs, status = native_image.load_image_batch(paths, size,
+                                                     threads=threads)
+        for i in np.nonzero(status != 0)[0]:
+            imgs[i] = _refill(paths[i], size)
+        return imgs
     return np.stack([load_image(p, size) for p in paths])
 
 

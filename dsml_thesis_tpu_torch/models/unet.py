@@ -23,15 +23,30 @@ those instead of reducing the tensor again. Ported is what the talking-face
 configs use: the spatial-transformer UNet with conv resampling. Dropout,
 ``use_scale_shift_norm``, ``resblock_updown``, class labels and the
 transformer-less attention block raise ``NotImplementedError``.
+
+``use_checkpoint`` (the configs' rematerialisation switch) recomputes every
+``ResBlock`` and ``SpatialTransformer`` in the backward instead of keeping
+their activations (``torch.utils.checkpoint``, non-reentrant), as the JAX
+package remats them; ``DSML_REMAT`` tunes it as there: ``full`` (default)
+recomputes the whole block, ``dots`` keeps the outputs of the matrix
+products without batch dimensions (the linears' ``mm`` / ``addmm``, the
+counterpart of ``dots_with_no_batch_dims_saveable``) and recomputes the
+rest, ``none`` keeps every activation. The kernels are ``ctypes`` calls that
+no policy can see, so both modes launch a checkpointed block's kernels again
+in the backward, as a Pallas call is recomputed under the JAX policy. A
+forward without gradients (serving) is never checkpointed.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..flags import env_flag, env_mode, refuse_unported
 from ..ops.attention import (flash_attention_fproj, fproj_kernel_takes,
@@ -211,6 +226,36 @@ def _no_dropout(dropout: float):
         raise NotImplementedError(
             "dropout is not ported (no shipped config sets it): set dropout "
             "to 0")
+
+
+# --------------------------------------------------------------------------
+# rematerialisation
+# --------------------------------------------------------------------------
+
+# the matrix products without batch dimensions: what ``dots`` keeps
+SAVED_UNDER_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_UNDER_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode() -> str:
+    """``DSML_REMAT``: full | dots | none (default full)."""
+    return env_mode("DSML_REMAT", "full", ("full", "dots", "none"))
+
+
+def run_block(mode: str, block: nn.Module, *args):
+    """``block(*args)``, checkpointed under ``mode`` (``none``: plainly). No
+    random op runs inside a block (dropout is refused), so no RNG state is
+    kept for the recompute."""
+    if mode == "none":
+        return block(*args)
+    kw = {} if mode == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+    return checkpoint(block, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -468,9 +513,8 @@ class UNetModel(nn.Module):
             raise ValueError("set one of num_heads / num_head_channels")
         if num_classes is not None:
             raise NotImplementedError("class-conditional UNet is not ported")
-        # use_checkpoint (rematerialisation) changes memory, not numbers: not
-        # ported, so every activation is kept for the backward
-        del use_checkpoint, image_size
+        del image_size
+        self.use_checkpoint = bool(use_checkpoint)
         dtype = resolve_dtype(dtype)
         self.dtype = dtype
         self.model_channels = model_channels
@@ -555,11 +599,21 @@ class UNetModel(nn.Module):
         t_emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_2(F.silu(self.time_embed_0(t_emb.to(self.dtype))))
 
+        # every ResBlock / SpatialTransformer checkpointed where the config
+        # asks and a backward will follow (the flag is parsed either way)
+        mode = remat_mode()
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            mode = "none"
+
+        def res(name, h, st):
+            return run_block(mode, getattr(self, name), h, emb, st)
+
         # ``st`` rides beside ``h``: the channel (sum, sum of squares) of h
         # from the fused conv that produced it, or None (the next norm then
         # reduces h itself); a resampler ends the thread
         def attn(name, h, st, tile_pairs=False):
-            return getattr(self, name)(h, context, tile_pairs, st)
+            return run_block(mode, getattr(self, name), h, context, tile_pairs,
+                             st)
 
         tile = lambda a: torch.cat([a, a], dim=0)
 
@@ -576,7 +630,7 @@ class UNetModel(nn.Module):
         ds = 1
         for level in range(len(self.channel_mult)):
             for i in range(self.num_res_blocks):
-                h, st = getattr(self, f"down_{level}_{i}_res")(h, emb, st)
+                h, st = res(f"down_{level}_{i}_res", h, st)
                 if ds in self.attention_resolutions:
                     first_pair = not diverged
                     h, st = attn(f"down_{level}_{i}_attn", h, st, first_pair)
@@ -589,20 +643,20 @@ class UNetModel(nn.Module):
                 hs.append((h, st))
                 ds *= 2
 
-        h, st = self.mid_res1(h, emb, st)
+        h, st = res("mid_res1", h, st)
         first_pair = not diverged  # no attention in the input blocks
         h, st = attn("mid_attn", h, st, first_pair)
         if first_pair:
             emb, hs = diverge_rest(emb, hs)
             diverged = True
-        h, st = self.mid_res2(h, emb, st)
+        h, st = res("mid_res2", h, st)
 
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h_skip, st_skip = hs.pop()
                 st = concat_stats(st, st_skip)
                 h = torch.cat([h, h_skip], dim=1)
-                h, st = getattr(self, f"up_{level}_{i}_res")(h, emb, st)
+                h, st = res(f"up_{level}_{i}_res", h, st)
                 if ds in self.attention_resolutions:
                     h, st = attn(f"up_{level}_{i}_attn", h, st)
                 if level and i == self.num_res_blocks:

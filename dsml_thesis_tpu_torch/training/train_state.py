@@ -13,12 +13,16 @@ Counterpart of ``dsml_thesis_tpu/training/train_state.py``:
   - validation evaluates the loss twice, with the raw and the EMA weights
     (``val_loss`` / ``val_loss_ema``), in the validation form of the loss.
 
+``DSML_OPT_BF16_M=1`` keeps the first Adam moment in bf16 (``AdamWBf16M``,
+optax's ``mu_dtype``); the second moment stays fp32. The flag is read where
+the LDM trainer (and the finetune trainer built on it) makes its optimizer,
+as in the JAX package; the first-stage trainers' Adam does not read it.
+
 Differences from the JAX package, all deliberate: the state is mutated in
 place (parameters, moments and shadows are updated where they lie, nothing is
 donated or copied); random draws come from a ``torch.Generator`` reseeded
 from (seed, step) each step, the counterpart of ``fold_in(rng, step)``, so a
-resumed run continues the same stream; ``DSML_OPT_BF16_M`` (bf16 first
-moment) is not ported.
+resumed run continues the same stream.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..flags import env_flag
 from .ema import ema_update
 from .lr_scheduler import build_lr_multiplier
 
@@ -94,12 +99,108 @@ class TrainState:
                 e.copy_(sd["ema"][name])
 
 
+class AdamWBf16M(torch.optim.Optimizer):
+    """AdamW with its first moment stored in bf16, step for step what the
+    JAX package's jitted step computes with ``optax.adamw(...,
+    mu_dtype="bfloat16")``: ``b1 * mu`` with the Python ``b1`` rounded to
+    bf16 (0.8984375, as JAX casts a Python scalar to the array's type) and
+    the product kept in fp32 (exact: XLA drops the bf16 rounding of the
+    product inside its fused kernel), plus ``(1 - b1) * g`` in fp32; the
+    bias-corrected update from that fp32 moment, which alone is rounded back
+    to bf16 to be kept; the second moment, the bias corrections and the
+    update in fp32; decoupled weight decay added to the update before the
+    learning rate scales it. ``torch.optim.AdamW`` on a bf16 ``exp_avg``
+    would form the moment by a bf16 ``lerp_``, a different result. The
+    update runs as ``torch._foreach_*`` ops over chunks of at most
+    ``CHUNK`` elements, so that its fp32 temporaries stay that size."""
+
+    CHUNK = 1 << 25
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.01):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    def _chunks(self, group):
+        """The group's parameters with a gradient, their state made and
+        stepped, in chunks of one step count and at most CHUNK elements."""
+        chunks, cur, size, step = [], [], 0, None
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            st = self.state[p]
+            if not st:
+                st["step"] = 0
+                st["exp_avg"] = torch.zeros_like(
+                    p, dtype=torch.bfloat16,
+                    memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            st["step"] += 1
+            if cur and (size + p.numel() > self.CHUNK or st["step"] != step):
+                chunks.append((step, cur))
+                cur, size = [], 0
+            cur.append(p)
+            size += p.numel()
+            step = st["step"]
+        if cur:
+            chunks.append((step, cur))
+        return chunks
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamWBf16M takes no closure")
+        f32 = torch.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            for t, ps in self._chunks(group):
+                # the bias corrections in fp32, as optax forms them
+                bc1 = float(1 - torch.tensor(b1, dtype=f32) ** t)
+                bc2 = float(1 - torch.tensor(b2, dtype=f32) ** t)
+                g = [p.grad for p in ps]
+                mu = [self.state[p]["exp_avg"] for p in ps]
+                nu = [self.state[p]["exp_avg_sq"] for p in ps]
+                m = torch._foreach_mul(g, 1 - b1)
+                # + b1 * mu: the product of two 8-bit significands is exact
+                # in fp32, so a fused multiply-add rounds as two ops do
+                torch._foreach_add_(m, mu, alpha=b1_bf16)
+                gg = torch._foreach_mul(g, g)
+                torch._foreach_mul_(gg, 1 - b2)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_add_(nu, gg)
+                torch._foreach_copy_(mu, m)
+                d = torch._foreach_div(nu, bc2)
+                torch._foreach_sqrt_(d)
+                torch._foreach_add_(d, eps)
+                torch._foreach_div_(m, bc1)
+                torch._foreach_div_(m, d)
+                torch._foreach_add_(m, torch._foreach_mul(ps, wd))
+                torch._foreach_mul_(m, -lr)
+                torch._foreach_add_(ps, m)
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        """As the base class's, which casts every floating state tensor to
+        its parameter's type; the first moment goes back to bf16 (exact:
+        its fp32 copy holds bf16 values)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
 def make_optimizer(ldm, base_lr: float, weight_decay: float = 0.01
-                   ) -> torch.optim.AdamW:
+                   ) -> torch.optim.Optimizer:
     """AdamW over ``ldm.named_trainable_parameters()`` (and sets
-    ``requires_grad`` to match). The step sets the LR before each update."""
+    ``requires_grad`` to match); ``AdamWBf16M`` under
+    ``DSML_OPT_BF16_M=1``. The step sets the LR before each update."""
     ldm.configure_trainable()
     params = [p for _, _, p in ldm.named_trainable_parameters()]
+    if env_flag("DSML_OPT_BF16_M", False):
+        return AdamWBf16M(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                          weight_decay=weight_decay)
     return torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
 

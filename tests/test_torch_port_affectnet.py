@@ -18,7 +18,7 @@ package, on the CPU in fp32.
   pipeline's).
 * ``AffectnetDataset`` / ``LatentDataset`` on files the test writes, item for
   item against the JAX datasets; the refusals (no Pillow where a resize is
-  needed, ``DSML_NATIVE_IMAGE=1``).
+  needed, ``DSML_NATIVE_IMAGE=1`` without a decoder that builds).
 * The three new scripts and ``scripts/train_torch.py`` with ``--cpu`` on the
   tiny config, and ``chip_smoke.py``'s launch arithmetic of the AffectNet
   runs against spies on the wrappers.
@@ -681,9 +681,16 @@ def test_latent_dataset_raises_where_it_must_resize_without_pillow(
 
 
 def test_native_image_flag_raises(tmp_path, monkeypatch):
+    """``DSML_NATIVE_IMAGE=1`` where the native decoder cannot be built (no
+    compiler, a fresh build directory) raises rather than decode with
+    Pillow (the decoder itself: ``test_torch_port_native_image.py``)."""
+    from dsml_thesis_tpu_torch import native_lib
+
     paths = _write_faces(str(tmp_path), [(2, 16, 16, "png")])
     monkeypatch.setenv("DSML_NATIVE_IMAGE", "1")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="imagepipe"):
         tds.load_image(paths[0], 16)
 
 

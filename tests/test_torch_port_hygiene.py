@@ -42,7 +42,8 @@ def _python_sources():
                          "compute_latents", "latent_manipulation",
                          "mead_audio_features", "progressive_sampling",
                          "sample_mead_frame", "streaming_pipeline",
-                         "image_metrics", "fid_metrics")]
+                         "image_metrics", "fid_metrics", "csim",
+                         "dh_convergence", "fidelity_gate")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)  # one order for every test worker
@@ -67,7 +68,9 @@ def test_package_has_the_expected_modules():
                  "training.finetune_trainer", "models.wav2vec2",
                  "models.lipreader", "models.lipread_tune",
                  "metrics.image", "metrics.native", "metrics.lipread",
-                 "metrics.inception", "metrics.fid"):
+                 "metrics.inception", "metrics.fid", "native_lib",
+                 "data.native_image", "models.arcface", "tools.plain",
+                 "tools.gate_runs"):
         assert f"dsml_thesis_tpu_torch.{want}" in names
 
 
@@ -284,8 +287,9 @@ def test_kernel_flags_are_the_flags_the_code_reads():
     for path in _python_sources():
         read |= set(re.findall(r'env_(?:flag|mode)\(\s*"(DSML_\w+)"',
                                open(path).read()))
-    # a formula, a batch, an image decoder the data path refuses
-    not_kernels = {"DSML_GELU_EXACT", "DSML_CFG_DEDUP", "DSML_NATIVE_IMAGE"}
+    # a formula, a batch, the image decoder, the training options
+    not_kernels = {"DSML_GELU_EXACT", "DSML_CFG_DEDUP", "DSML_NATIVE_IMAGE",
+                   "DSML_REMAT", "DSML_OPT_BF16_M"}
     assert set(KERNEL_FLAGS) == read - not_kernels
     assert {"DSML_FLASH_STREAMING", "DSML_GN_EPILOGUE"} <= set(KERNEL_FLAGS)
     doc = open(os.path.join(PKG, "flags.py")).read()
@@ -301,6 +305,19 @@ def test_kernel_flags_are_the_flags_the_code_reads():
                                             open(os.path.join(base, f)).read()))
     assert len(jax_names) >= 32
     assert not [n for n in sorted(jax_names) if n not in read and n not in doc]
+
+
+def test_only_the_measurement_tools_take_the_plain_path():
+    """``tools/plain.py`` puts the plain versions in the kernels' place; only
+    ``chip_smoke.py`` and ``scripts/fidelity_gate_torch.py`` may call it: no
+    serve, train or sample entry point, and no other module."""
+    users = set()
+    for path in _python_sources():
+        if re.search(r"\bplain_path\b|tools\.plain\b|from \.plain ",
+                     open(path).read()):
+            users.add(os.path.relpath(path, ROOT))
+    assert users == {"chip_smoke.py", "scripts/fidelity_gate_torch.py",
+                     "dsml_thesis_tpu_torch/tools/plain.py"}
 
 
 @pytest.mark.parametrize("name", ["DSML_FLASH_ATTN", "DSML_XATTN_1TOK"])

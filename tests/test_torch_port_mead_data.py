@@ -12,7 +12,8 @@ pickles, one of them empty, per-frame audio-feature pickles) with
   ``mean_landmarks.pkl``), a missing pickle raises, an empty audio pickle
   and a frame count that disagrees with the audio rows raise;
 * the config's ``taming.data.custom.MEADBase3`` / ``MEADBase5`` targets and
-  the loader's batches; ``DSML_NATIVE_IMAGE=1`` raises.
+  the loader's batches; ``DSML_NATIVE_IMAGE=1`` raises where the native
+  decoder cannot be built.
 """
 from __future__ import annotations
 
@@ -189,7 +190,7 @@ def test_audio_rows_must_match_the_frames(tmp_path):
             ds[0]
 
 
-def test_config_targets_and_the_loader(tree, monkeypatch):
+def test_config_targets_and_the_loader(tree, monkeypatch, tmp_path):
     """``taming.data.custom.MEADBase3`` / ``MEADBase5`` through
     ``instantiate_from_config`` (landmarks only in the latter), the
     loader's batches of every array field, and the refusal of the native
@@ -212,8 +213,13 @@ def test_config_targets_and_the_loader(tree, monkeypatch):
     assert batch["landmarks"].shape == (2, 68, 2)
     assert batch["class_label"].dtype == np.int32
     assert batch["masked_landmarks"].shape == (2, 96)
+    # the native decoder asked for where it cannot be built raises
+    from dsml_thesis_tpu_torch import native_lib
+
     monkeypatch.setenv("DSML_NATIVE_IMAGE", "1")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("CXX", "false")
+    monkeypatch.setattr(native_lib, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="imagepipe"):
         b3[0]
     with pytest.raises(ValueError):
         TD.MEADTalkingFace(tuples, root, audio, mode="eval")
